@@ -1,0 +1,43 @@
+"""tpu3dlm_torch stands alone: it imports neither jax/flax nor anything of
+the JAX package, so it runs on a GPU host that has none of them."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parent.parent
+
+_PROBE = """
+import importlib, pkgutil, sys
+for name in ("jax", "jaxlib", "flax", "tpu3dlm"):
+    sys.modules[name] = None  # any import of them now raises ImportError
+import tpu3dlm_torch
+mods = [m.name for m in pkgutil.walk_packages(tpu3dlm_torch.__path__, "tpu3dlm_torch.")]
+for m in mods:
+    importlib.import_module(m)
+bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "flax", "tpu3dlm") and sys.modules[k] is not None)
+assert not bad, bad
+print(len(mods))
+"""
+
+
+def test_port_imports_without_jax_or_tpu3dlm():
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE], cwd=REPO, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 15  # every module of the slice was imported
+
+
+@pytest.mark.parametrize("path", ["tpu3dlm_torch", "chip_smoke.py"])
+def test_no_jax_or_tpu3dlm_import_statements(path):
+    """Static check, lazy imports included."""
+    files = [REPO / path] if path.endswith(".py") else sorted((REPO / path).rglob("*.py"))
+    for f in files:
+        for line in f.read_text().splitlines():
+            words = line.split()
+            if words[:1] in (["import"], ["from"]) and len(words) > 1:
+                root = words[1].split(".")[0]
+                assert root not in ("jax", "jaxlib", "flax", "tpu3dlm"), f"{f}: {line}"

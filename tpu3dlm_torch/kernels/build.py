@@ -1,0 +1,98 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
+into its own shared library, loaded with ctypes:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -o _build/<name>-<hash>.so csrc/<name>.cu
+
+Libraries land in ``tpu3dlm_torch/_build/`` (git-ignored), keyed by a hash
+of the source and the flags, so an edited source rebuilds and an unchanged
+one loads at once. ``build_all`` starts one ``nvcc`` per source, all
+together, and waits for them. A missing ``nvcc`` or a failed build raises:
+there is no fallback to the plain PyTorch versions.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+PKG = Path(__file__).resolve().parent.parent
+CSRC = PKG / "csrc"
+BUILD_DIR = PKG / "_build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+]
+
+_libs: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def sources() -> list[str]:
+    """Names of every kernel source in ``csrc/``."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if home and Path(home, "bin", "nvcc").is_file():
+            return str(Path(home, "bin", "nvcc"))
+    raise RuntimeError("tpu3dlm_torch: nvcc not found; the CUDA kernels cannot be built")
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def _start(name: str) -> tuple[subprocess.Popen, Path, Path] | None:
+    out = library_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish(name: str, started) -> None:
+    if started is None:
+        return
+    proc, tmp, out = started
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+    os.replace(tmp, out)
+
+
+def build_all(names: list[str] | None = None) -> dict[str, Path]:
+    """Compile every listed source (default: all of ``csrc/``) in parallel;
+    returns the library path of each."""
+    names = sources() if names is None else names
+    started = {n: _start(n) for n in names}
+    for n in names:
+        _finish(n, started[n])
+    return {n: library_path(n) for n in names}
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, building it if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build_all([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            _libs[name] = lib
+        return lib

@@ -1,0 +1,124 @@
+"""Geometry core for projection and 3D NMS (port of the parts of
+``tpu3dlm/ops/geometry.py`` that those stages use).
+
+Every function is batched over leading axes: where the JAX package vmaps a
+per-box function, these take the frame and box axes as leading dimensions.
+
+Conventions: pose row ``[tx, ty, tz, qx, qy, qz, qw]``; ``pose_to_matrix``
+is camera→world; 2D boxes are ``[x1, y1, x2, y2]`` pixels; depth is mm.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
+    """(..., 4) (qx, qy, qz, qw) → (..., 3, 3); normalises the quaternion."""
+    q = q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+    x, y, z, w = q.unbind(-1)
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    rows = [
+        torch.stack([1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy)], -1),
+        torch.stack([2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx)], -1),
+        torch.stack([2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy)], -1),
+    ]
+    return torch.stack(rows, -2)
+
+
+def pose_to_matrix(pose: torch.Tensor) -> torch.Tensor:
+    """(..., 7) [tx,ty,tz,qx,qy,qz,qw] → (..., 4, 4) camera→world SE(3)."""
+    T = torch.zeros(pose.shape[:-1] + (4, 4), dtype=pose.dtype, device=pose.device)
+    T[..., :3, :3] = quat_to_rotmat(pose[..., 3:7])
+    T[..., :3, 3] = pose[..., :3]
+    T[..., 3, 3] = 1.0
+    return T
+
+
+def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Apply (..., 4, 4) transforms to (..., P, 3) points (full f32: the
+    device module switches TF32 off)."""
+    return pts @ T[..., :3, :3].transpose(-1, -2) + T[..., None, :3, 3]
+
+
+def scale_bbox(bbox: torch.Tensor, from_wh: torch.Tensor, to_wh: torch.Tensor) -> torch.Tensor:
+    """Rescale (..., 4) [x1,y1,x2,y2] between resolutions; ``from_wh`` and
+    ``to_wh`` are (..., 2) width/height broadcastable against the boxes."""
+    sx = to_wh[..., 0] / from_wh[..., 0]
+    sy = to_wh[..., 1] / from_wh[..., 1]
+    return bbox * torch.stack([sx, sy, sx, sy], -1)
+
+
+def bbox_corners_2d(bbox: torch.Tensor) -> torch.Tensor:
+    """(..., 4) [x1,y1,x2,y2] → (..., 4, 2) corners TL, BL, BR, TR."""
+    x1, y1, x2, y2 = bbox.unbind(-1)
+    return torch.stack(
+        [
+            torch.stack([x1, y1], -1),
+            torch.stack([x1, y2], -1),
+            torch.stack([x2, y2], -1),
+            torch.stack([x2, y1], -1),
+        ],
+        -2,
+    )
+
+
+def scale_intrinsics(fx, fy, cx, cy, rgb_width, depth_width):
+    """Scale RGB-resolution intrinsics to depth resolution."""
+    s = rgb_width / depth_width
+    return fx / s, fy / s, cx / s, cy / s
+
+
+def masked_median(values: torch.Tensor, mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Median over the last axis where ``mask``, with numpy semantics (mean
+    of the two middle elements for even counts). Returns (median, valid);
+    an empty mask gives (0, False)."""
+    n = mask.sum(-1)
+    inf = torch.tensor(float("inf"), dtype=values.dtype, device=values.device)
+    s = torch.sort(torch.where(mask, values, inf), dim=-1).values
+    lo = torch.clamp((n - 1) // 2, min=0)
+    hi = torch.clamp(n // 2, min=0)
+    med = (
+        torch.gather(s, -1, lo[..., None])[..., 0]
+        + torch.gather(s, -1, hi[..., None])[..., 0]
+    ) * 0.5
+    valid = n > 0
+    return torch.where(valid, med, torch.zeros_like(med)), valid
+
+
+def bbox_sampled_median_depth(
+    depth: torch.Tensor,  # (F, Hd, Wd) mm
+    bbox: torch.Tensor,  # (F, B, 4) in depth pixels
+    samples: int = 32,
+    min_depth: float = 1e-6,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Median depth over a cell-centred samples×samples grid inside each box
+    → ((F, B) median, (F, B) valid).
+
+    The JAX package selects the grid with one-hot matmuls (``geometry.py``
+    345-350), a device for the TPU's matrix unit; here the same rounded
+    coordinates index the depth map directly. The selected values are the
+    same numbers, so the median is bit-identical.
+    """
+    F, hd, wd = depth.shape
+    x1 = torch.minimum(bbox[..., 0], bbox[..., 2])
+    x2 = torch.maximum(bbox[..., 0], bbox[..., 2])
+    y1 = torch.minimum(bbox[..., 1], bbox[..., 3])
+    y2 = torch.maximum(bbox[..., 1], bbox[..., 3])
+    frac = (torch.arange(samples, dtype=torch.float32, device=depth.device) + 0.5) / samples
+    xs = torch.clamp(torch.round(x1[..., None] + frac * (x2 - x1)[..., None]), 0.0, wd - 1.0)
+    ys = torch.clamp(torch.round(y1[..., None] + frac * (y2 - y1)[..., None]), 0.0, hd - 1.0)
+    xs, ys = xs.long(), ys.long()  # (F, B, S)
+    f = torch.arange(F, device=depth.device)[:, None, None, None]
+    vals = depth[f, ys[..., :, None], xs[..., None, :]]  # (F, B, S, S)
+    vals = vals.reshape(vals.shape[:2] + (samples * samples,))
+    return masked_median(vals, vals > min_depth)
+
+
+def unproject(px, py, z, fx, fy, cx, cy) -> torch.Tensor:
+    """Pixel (px, py) at depth z → camera-frame (..., 3) points."""
+    X = (px - cx) * z / fx
+    Y = (py - cy) * z / fy
+    return torch.stack([X, Y, z.expand_as(X)], -1)
