@@ -1,5 +1,5 @@
 """Tests that need an NVIDIA GPU: the port's CUDA kernels against their
-plain PyTorch twins on the card. They skip without one (the kernels have no
+plain PyTorch twins on the card, and each slice on the card against the CPU. They skip without one (the kernels have no
 CPU or interpret mode). This file imports neither jax nor tpu3dlm, so it
 runs on a GPU host without them:
 
@@ -13,6 +13,7 @@ from tpu3dlm_torch.ops.kernels.attention import (
     beit_attention_packed,
     beit_attention_packed_reference,
 )
+from tpu3dlm_torch.ops.kernels.pairwise import nearest_neighbors, nearest_neighbors_reference
 
 pytestmark = pytest.mark.cuda
 
@@ -56,3 +57,39 @@ def test_fused_runner_on_card_matches_cpu(cuda_device):
     import chip_smoke
 
     chip_smoke.phase_slice_parity(cuda_device)
+
+
+@pytest.mark.parametrize("n,m,dup", [
+    (1000, 3001, False),  # odd sizes: a ragged query block and target tile
+    (4096, 70000, False),
+    (777, 3000, True),  # every target three times: ties go to the lowest index
+    (1, 1, False),
+])
+def test_b2_kernel_matches_twin(cuda_device, n, m, dup):
+    """≥ 99.9% identical indices, d² within 1e-4 m², and where the indices
+    differ the two d² within 1e-5 m² (genuine near-ties)."""
+    g = torch.Generator().manual_seed(n + m)
+    a = (torch.rand(n, 3, generator=g) * 5 - 2).to(cuda_device)
+    b = torch.rand(m // 3 if dup else m, 3, generator=g) * 5 - 2
+    b = (torch.cat([b, b, b]) if dup else b).to(cuda_device)
+    before = nearest_neighbors.launches
+    idx, d2 = nearest_neighbors(a, b)
+    torch.cuda.synchronize()
+    assert nearest_neighbors.launches == before + 1
+    assert idx.dtype == torch.int64 and d2.dtype == torch.float32
+    ri, rd2 = nearest_neighbors_reference(a, b)
+    assert (idx == ri).float().mean() >= 0.999
+    assert (d2 - rd2).abs().max() <= 1e-4
+    diff = idx != ri
+    if diff.any():
+        assert (d2[diff] - rd2[diff]).abs().max() <= 1e-5
+    if dup:
+        assert (idx < m // 3).all()
+
+
+def test_compare_on_card_matches_cpu(cuda_device, tmp_path):
+    """The two-scan compare on the card (kernel B2) and on the CPU (twin):
+    chip_smoke.py's compare_parity phase."""
+    import chip_smoke
+
+    chip_smoke.phase_compare_parity(cuda_device, str(tmp_path))

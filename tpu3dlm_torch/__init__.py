@@ -11,8 +11,10 @@ at first use by ``kernels/build.py`` and are called through wrappers in
 runs its plain PyTorch twin only for CPU tensors.
 
 Entry points (``pipeline.fused.FusedScanRunner``, ``parallel.inference.
-full_scan_step``, ``mapper.nms3d.suppress_bboxes``) run on ``device="cuda"``
-unless the caller asks for ``device="cpu"``; see ``device.resolve_device``.
+full_scan_step``, ``mapper.nms3d.suppress_bboxes``, ``alignment.align.
+Alignment``, ``alignment.comparison.BBoxComparison``) run on
+``device="cuda"`` unless the caller asks for ``device="cpu"``; see
+``device.resolve_device``.
 """
 
 from tpu3dlm_torch.device import resolve_device

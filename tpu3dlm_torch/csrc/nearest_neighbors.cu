@@ -1,0 +1,165 @@
+// Brute-force nearest neighbour in 3D, for Hopper (sm_90a).
+//
+// Replaces tpu3dlm/ops/pallas/pairwise.py::nearest_neighbors_pallas (TPU
+// kernel _nn_kernel). Same semantics: for every query a_i of a (N, 3) and
+// the targets b_j of b (M, 3)
+//     m_i   = min_j ( |b_j|^2 - 2 a_i . b_j )      (f32)
+//     idx_i = the lowest j that attains m_i
+//     d2_i  = max(m_i + |a_i|^2, 0)
+// |a_i|^2 is constant per query, so it leaves the argmin unchanged and is
+// added once at the end. Targets past M never win (they are never read).
+//
+// The TPU kernel splits each coordinate into three bf16 limbs so that its
+// matrix unit gives an exact f32 cross term. With K = 3 the cross term here
+// is three f32 FMAs on the CUDA cores, exact to f32 rounding, so no limbs and
+// no tensor cores: a TF32 product would flip most picks on scan geometry,
+// the fault the reference measured (pairwise.py:91-95).
+//
+// Bound on an H100 SXM: every pair costs three FMAs (-2a is pre-scaled and
+// |b|^2 is the addend of the first) = 6 flops, so 16384 x 1,048,576 queries
+// by targets are 103 GFLOP = 1.54 ms at 67 TFLOP/s of f32. The inputs are
+// 12.6 MB (4 us at 3.35 TB/s), so it is bound by operations; the compare and
+// select that keep the running minimum are instruction slots on top of that bound.
+//
+// Two kernels:
+//  * nn_partial_kernel: a block of 128 threads owns 1024 queries (eight per
+//    thread, held in registers as -2a) and one contiguous range ("split") of
+//    the targets. It streams that range through shared memory in tiles of
+//    1024 targets stored as float4 (x, y, z, |b|^2); every thread reads the
+//    same target at once (a broadcast), and keeps its eight running
+//    (min, argmin) pairs in registers. Targets are visited in increasing
+//    index with a strict <, so ties go to the lowest index of the split.
+//    Splitting the target axis gives enough blocks to fill the card when
+//    the queries alone would not (16384 queries are only 16 blocks).
+//  * nn_fold_kernel: one thread per query folds the per-split minima in
+//    split order with a strict <, so ties go to the lowest split and so to
+//    the lowest index overall, then adds |a|^2 and clamps at 0.
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int kQueriesPerThread = 8;
+constexpr int kQueriesPerBlock = kThreads * kQueriesPerThread;
+constexpr int kTile = 1024;   // targets per shared-memory tile (16 KB)
+constexpr float kBig = 1e30f;  // initial minimum, as the reference's _BIG
+
+__global__ void __launch_bounds__(kThreads)
+nn_partial_kernel(const float* __restrict__ a, const float* __restrict__ b, int n, int m,
+                  int targets_per_split, float* __restrict__ part_d,
+                  int* __restrict__ part_i) {
+  __shared__ float4 tile[kTile];
+
+  const int q0 = blockIdx.x * kQueriesPerBlock + threadIdx.x;
+  float ax[kQueriesPerThread], ay[kQueriesPerThread], az[kQueriesPerThread];
+  float best[kQueriesPerThread];
+  int best_j[kQueriesPerThread];
+#pragma unroll
+  for (int k = 0; k < kQueriesPerThread; ++k) {
+    const int q = q0 + k * kThreads;
+    float x = 0.f, y = 0.f, z = 0.f;
+    if (q < n) {
+      x = a[3 * (size_t)q];
+      y = a[3 * (size_t)q + 1];
+      z = a[3 * (size_t)q + 2];
+    }
+    ax[k] = -2.f * x;  // exact: a power-of-two scale
+    ay[k] = -2.f * y;
+    az[k] = -2.f * z;
+    best[k] = kBig;
+    best_j[k] = 0;
+  }
+
+  const int j_begin = blockIdx.y * targets_per_split;
+  const int j_end = min(m, j_begin + targets_per_split);
+  for (int t0 = j_begin; t0 < j_end; t0 += kTile) {
+    __syncthreads();  // the previous tile is consumed
+    for (int s = threadIdx.x; s < kTile; s += kThreads) {
+      const int j = t0 + s;
+      float4 v = make_float4(0.f, 0.f, 0.f, INFINITY);  // past the split: never wins
+      if (j < j_end) {
+        const float x = b[3 * (size_t)j], y = b[3 * (size_t)j + 1], z = b[3 * (size_t)j + 2];
+        v = make_float4(x, y, z, fmaf(z, z, fmaf(y, y, x * x)));
+      }
+      tile[s] = v;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int s = 0; s < kTile; ++s) {
+      const float4 v = tile[s];
+      const int j = t0 + s;
+#pragma unroll
+      for (int k = 0; k < kQueriesPerThread; ++k) {
+        const float d = fmaf(ax[k], v.x, fmaf(ay[k], v.y, fmaf(az[k], v.z, v.w)));
+        if (d < best[k]) {
+          best[k] = d;
+          best_j[k] = j;
+        }
+      }
+    }
+  }
+
+  const size_t row = (size_t)blockIdx.y * n;
+#pragma unroll
+  for (int k = 0; k < kQueriesPerThread; ++k) {
+    const int q = q0 + k * kThreads;
+    if (q < n) {
+      part_d[row + q] = best[k];
+      part_i[row + q] = best_j[k];
+    }
+  }
+}
+
+__global__ void nn_fold_kernel(const float* __restrict__ a, int n, int splits,
+                               const float* __restrict__ part_d,
+                               const int* __restrict__ part_i, int64_t* __restrict__ idx,
+                               float* __restrict__ d2) {
+  const int q = blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= n) return;
+  float best = part_d[q];
+  int best_j = part_i[q];
+  for (int s = 1; s < splits; ++s) {
+    const float d = part_d[(size_t)s * n + q];
+    if (d < best) {
+      best = d;
+      best_j = part_i[(size_t)s * n + q];
+    }
+  }
+  const float x = a[3 * (size_t)q], y = a[3 * (size_t)q + 1], z = a[3 * (size_t)q + 2];
+  // (x*x + y*y) + z*z without contraction, the reference's sum order
+  const float a2 = __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z));
+  idx[q] = best_j;
+  d2[q] = fmaxf(best + a2, 0.f);
+}
+
+}  // namespace
+
+extern "C" {
+
+int nn_queries_per_block() { return kQueriesPerBlock; }
+
+int nn_tile() { return kTile; }
+
+// a (n, 3) and b (m, 3) f32 row-major on the device; part_d / part_i hold
+// splits * n scratch values each; idx (n,) int64 and d2 (n,) f32 are the
+// results. Each split covers targets_per_split targets. Returns the CUDA
+// error of the launches (0 on success).
+int nn_launch(const float* a, const float* b, int n, int m, int splits, int targets_per_split,
+              float* part_d, int* part_i, int64_t* idx, float* d2, void* stream) {
+  if (n <= 0) return 0;
+  if (m <= 0 || splits <= 0 || splits > 65535 || targets_per_split <= 0 ||
+      (long long)splits * targets_per_split < m)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid((n + kQueriesPerBlock - 1) / kQueriesPerBlock, splits);
+  nn_partial_kernel<<<grid, kThreads, 0, s>>>(a, b, n, m, targets_per_split, part_d, part_i);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  nn_fold_kernel<<<(n + 255) / 256, 256, 0, s>>>(a, n, splits, part_d, part_i, idx, d2);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,4 +1,4 @@
-"""Geometry core for projection and 3D NMS (port of the parts of
+"""Geometry core for projection, 3D NMS and ICP (port of the parts of
 ``tpu3dlm/ops/geometry.py`` that those stages use).
 
 Every function is batched over leading axes: where the JAX package vmaps a
@@ -115,6 +115,26 @@ def bbox_sampled_median_depth(
     vals = depth[f, ys[..., :, None], xs[..., None, :]]  # (F, B, S, S)
     vals = vals.reshape(vals.shape[:2] + (samples * samples,))
     return masked_median(vals, vals > min_depth)
+
+
+def skew(k: torch.Tensor) -> torch.Tensor:
+    """Cross-product matrix [k]× of a 3-vector."""
+    z = torch.zeros((), dtype=k.dtype, device=k.device)
+    return torch.stack([
+        torch.stack([z, -k[2], k[1]]),
+        torch.stack([k[2], z, -k[0]]),
+        torch.stack([-k[1], k[0], z]),
+    ])
+
+
+def so3_exp(omega: torch.Tensor) -> torch.Tensor:
+    """Axis-angle 3-vector → 3×3 rotation (Rodrigues); identity below
+    1e-8 rad, where the axis is undefined."""
+    theta = torch.linalg.vector_norm(omega)
+    K = skew(omega / torch.clamp(theta, min=1e-12))
+    eye = torch.eye(3, dtype=omega.dtype, device=omega.device)
+    R = eye + torch.sin(theta) * K + (1 - torch.cos(theta)) * (K @ K)
+    return torch.where(theta < 1e-8, eye, R)
 
 
 def unproject(px, py, z, fx, fy, cx, cy) -> torch.Tensor:
