@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Builds every CUDA kernel of the port from ``tpu3dlm_torch/csrc`` (into
-``tpu3dlm_torch/_build``), then runs seven phases, each printing one JSON
-line; any failure raises and the script exits non-zero without a result:
+``tpu3dlm_torch/_build``, one ``nvcc`` per source, all at once), then runs
+twelve phases, each printing one JSON line; any failure raises and the
+script exits non-zero without a result:
 
 1. ``kernel_b1``: kernel B1 (BEiT attention) against its plain PyTorch twin
    at the production shape in bf16 (tolerance 1e-2 abs and rel: one bf16
@@ -40,8 +41,36 @@ line; any failure raises and the script exits non-zero without a result:
    ``global_init="auto"``, point-to-plane, fused matching — once with the
    launch counts at 0 and a cold gold cache, then 5 warm captures, with the
    split into gold-side host work, NN sweeps and the rest.
-7. ``kernels``: one line listing every ported kernel with its launches on
-   the main path, error, times and bound.
+7. ``kernel_b3``: kernel B3 (head-major attention) against its twin at
+   (h, B, N, d) = (12, 384, 197, 64) bf16 (1e-2) and small f32 shapes
+   (1e-5; N = 33, B = 5), and against B1 through the layouts on every
+   input; B3's path — the public op ``beit_attention`` forward and backward
+   at the production shape — once with the count at 0; times of the
+   kernel, the twin and ``F.scaled_dot_product_attention`` beside the
+   bound.
+8. ``attention_grad``: B1's and B3's outputs carry gradients on the card,
+   and their q, k, v and bias gradients equal plain autograd through the
+   twins at f32 within 1e-5; a BEiT-base attention layer's q/k/v weights
+   and relative-position table get non-zero gradients.
+9. ``finetune_parity``: three finetune steps of a small BEiT (32 px,
+   hidden 64, 2 layers, 4 heads, 3 labels) at f32 on the card and on the
+   CPU: losses within 1e-5, the first step's gradients within 1e-5.
+10. ``finetune_full_width``: the finetune main path — ``init_finetune`` and
+    ``make_beit_train_step`` on BEiT-base at 224, f32, batch 64 — one
+    warm-up step with the counts at 0 (12 B1 launches, each one's output
+    held against the twin on that layer's own q, k, v and bias within
+    1e-5), 5 timed steps (the loss must fall), peak memory and a profiled
+    step.
+11. ``kernel_b4``: kernel B4's variants against their bf16 twin and f64
+    (and bit-equal to each other) at small shapes; then the probe's path
+    (``tpu3dlm_torch/scripts/bench_nn_variants.py``: verify, then time at
+    16384 × 1,048,576 beside B2) with the counts of both CUDA kernels at 0,
+    its JSON lines, and each variant's output of that timing run held
+    against the twin on the same inputs by the small shapes' bars (f64 on
+    every 64th query); the twin's time and the bound.
+12. ``kernels``: one line listing every ported kernel (B1, B2, B3, B4 v1
+    and v2) with its launches, the path they were counted on
+    (``launches_on``), error, times and bound.
 
 The card's name and power limit (nvidia-smi) are printed before the last
 line; the last line is ``{"ok": true, "device": {...}}``. Inputs and
@@ -63,6 +92,9 @@ import torch
 SEED = 0
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
+# the __global__ functions of tpu3dlm_torch/csrc, as the profiler names them
+PORT_KERNELS = ("attention_bf16_tc", "attention_f32", "nn_partial_kernel", "nn_fold_kernel",
+                "nn_variant_kernel")
 
 
 def emit(obj: dict) -> None:
@@ -551,9 +583,12 @@ def phase_compare_parity(dev, tmp) -> dict:
 
 def profile_capture(capture) -> dict:
     """One warm capture under ``torch.profiler``: the device's busy time
-    (kernel time summed) against the wall time, the kernel count, and the
-    host ops with the most self time. The profiler's own host cost is in
-    ``wall_ms``."""
+    (the time of the device's own events — kernels, copies — summed;
+    an aten op's device time repeats its kernels' and is left out) against
+    the wall time, the device events counted and split by kind (GEMMs, the
+    port's kernels, the rest), the largest ones, and the host ops with the
+    most self time. The profiler's own host cost is in ``wall_ms``."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -563,16 +598,21 @@ def profile_capture(capture) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
     dev_us = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))  # noqa: E731
-    busy_ms = sum(dev_us(e) for e in events) / 1e3
-    kernels = sum(e.count for e in events if dev_us(e) > 0)
+    on_device = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(dev_us(e) for e in on_device) / 1e3
     top = sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)[:10]
+    by_kind = {"gemm": 0.0, "port_kernels": 0.0, "other": 0.0}
+    for e in on_device:
+        port = any(f"(anonymous namespace)::{k}" in e.key for k in PORT_KERNELS)
+        kind = "port_kernels" if port else "gemm" if "gemm" in e.key.lower() else "other"
+        by_kind[kind] += dev_us(e) / 1e3
     return {
         "wall_ms": wall_ms, "device_busy_ms": busy_ms if busy_ms > 0 else None,
         "device_idle_share": 1 - busy_ms / wall_ms if busy_ms > 0 else None,
-        "ops_with_device_time": kernels,
+        "device_events": sum(e.count for e in on_device), "device_ms_by_kind": by_kind,
         "top_host_self_ms": {e.key: e.self_cpu_time_total / 1e3 for e in top},
-        "top_device_self_ms": {
-            e.key: dev_us(e) / 1e3 for e in sorted(events, key=dev_us, reverse=True)[:6]
+        "top_device_ms": {
+            e.key[:120]: dev_us(e) / 1e3 for e in sorted(on_device, key=dev_us, reverse=True)[:8]
         },
     }
 
@@ -663,6 +703,388 @@ def phase_compare_full_width(dev, tmp, scene) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# Slice 3: kernel B3, gradients through the attention kernels, the BEiT
+# finetune step, kernel B4 (the NN-variant probe)
+# ---------------------------------------------------------------------------
+
+
+def phase_kernel_b3(dev, mem_rate) -> dict:
+    """B3 (head-major attention) against its twin and against B1 through
+    the layouts, with times beside the bound and SDPA; B3's path, the
+    public op ``beit_attention`` forward and backward at the production
+    shape, once with the count at 0."""
+    import torch.nn.functional as F
+
+    from tpu3dlm_torch.ops.kernels.attention import (
+        beit_attention,
+        beit_attention_packed,
+        beit_attention_reference,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    prod_shape = (12, 384, 197, 64)  # (h, B, N, d)
+    checks = []
+    for dtype, (h, B, N, d), tol in [
+        (torch.bfloat16, prod_shape, 1e-2),
+        (torch.bfloat16, (2, 5, 9, 64), 1e-2),
+        (torch.float32, (3, 5, 33, 16), 1e-5),  # N = 33, B = 5 fills no tile
+        (torch.float32, (12, 16, 197, 64), 1e-5),
+        (torch.float32, (2, 7, 256, 32), 1e-5),  # N at the kernel's limit
+    ]:
+        q, k, v = (torch.randn(h, B, N, d, generator=g, device=dev).to(dtype) for _ in range(3))
+        bias = torch.randn(h, N, N, generator=g, device=dev)
+        out = beit_attention(q, k, v, bias)
+        torch.cuda.synchronize()
+        ref = beit_attention_reference(q, k, v, bias)
+        max_err = float((out.float() - ref.float()).abs().max())
+        torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+        # B3 against B1 through the layouts, on the same input
+        packed = lambda t: t.permute(1, 2, 0, 3).reshape(B, N, h * d)  # noqa: E731
+        b1 = beit_attention_packed(packed(q), packed(k), packed(v), bias, h)
+        layout_err = float((packed(out).float() - b1.float()).abs().max())
+        check(layout_err <= tol, ("B3 vs B1", (h, B, N, d), layout_err))
+        checks.append({"dtype": str(dtype).split(".")[-1], "shape": [h, B, N, d], "tol": tol,
+                       "max_abs_err": max_err, "max_abs_err_vs_b1": layout_err})
+        if (h, B, N, d) == prod_shape:
+            prod = dict(q=q, k=k, v=v, bias=bias, max_err=max_err)
+
+    q, k, v, bias = prod["q"], prod["k"], prod["v"], prod["bias"]
+    h, B, N, d = prod_shape
+    # the path: the public op under autograd, once, with the count at 0
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    beit_attention.launches = 0
+    out = beit_attention(qg, kg, vg, bias)
+    out.float().square().mean().backward()
+    torch.cuda.synchronize()
+    path_launches = beit_attention.launches
+    check(path_launches == 1 and all(torch.isfinite(t.grad).all() for t in (qg, kg, vg)), path_launches)
+
+    kernel_ms = cuda_ms(lambda: beit_attention(q, k, v, bias))
+    plain_ms = cuda_ms(lambda: beit_attention_reference(q, k, v, bias))
+    mask = bias.to(q.dtype)[:, None]
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
+    bound_ms, bound_by = attention_bound_ms(B, N, h, d, q.dtype, mem_rate)
+    result = {
+        "phase": "kernel_b3", "checks": checks, "shape": list(prod_shape), "dtype": "bfloat16",
+        "launches_on_path": path_launches, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+        "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "max_abs_err": prod["max_err"],
+    }
+    emit(result)
+    return result
+
+
+def _grads(fn, inputs, weight):
+    """Gradients of (fn(*inputs)·weight).sum() with respect to the inputs,
+    and whether the output carried a gradient."""
+    ts = [t.detach().requires_grad_() for t in inputs]
+    out = fn(*ts)
+    (out.float() * weight).sum().backward()
+    return out.requires_grad, [t.grad for t in ts]
+
+
+def phase_attention_grad(dev) -> dict:
+    """On the card, B1's and B3's outputs carry gradients, and their q, k,
+    v and bias gradients equal plain autograd through the twins at f32
+    within 1e-5 (summation order only); through a BEiT-base attention
+    layer the query, key and value weights and the relative-position-bias
+    table get non-zero gradients."""
+    from tpu3dlm_torch.models import beit as beit_mod
+    from tpu3dlm_torch.models.beit import BeitAttention, BeitConfig
+    from tpu3dlm_torch.ops.kernels.attention import (
+        beit_attention,
+        beit_attention_packed,
+        beit_attention_packed_reference,
+        beit_attention_reference,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    rows = []
+    cases = [("b1", (3, 33, 4, 16)), ("b1", (2, 197, 12, 64)),
+             ("b3", (4, 3, 33, 16)), ("b3", (12, 2, 197, 64))]
+    for op, shape in cases:
+        if op == "b1":
+            B, N, h, d = shape
+            qkv_shape = (B, N, h * d)
+            kernel = lambda q, k, v, b, h=h: beit_attention_packed(q, k, v, b, h)  # noqa: E731
+            twin = lambda q, k, v, b, h=h: beit_attention_packed_reference(q, k, v, b, h)  # noqa: E731
+        else:
+            h, B, N, d = shape
+            qkv_shape = shape
+            kernel, twin = beit_attention, beit_attention_reference
+        inputs = [torch.randn(qkv_shape, generator=g, device=dev) for _ in range(3)]
+        inputs.append(torch.randn(h, N, N, generator=g, device=dev))
+        w = torch.randn(qkv_shape, generator=g, device=dev)
+        carried, got = _grads(kernel, inputs, w)
+        _, want = _grads(twin, inputs, w)
+        check(carried, (op, shape, "the kernel's output carries no gradient"))
+        errs = []
+        for name, a, b in zip("qkvb", got, want):
+            torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5, msg=f"{op} {shape} d{name}")
+            errs.append(float((a - b).abs().max()))
+        rows.append({"op": op, "shape": list(shape), "max_abs_err_dq_dk_dv_dbias": errs})
+
+    cfg = BeitConfig()
+    torch.manual_seed(SEED)
+    layer = BeitAttention(cfg).to(dev)
+    with torch.no_grad():
+        layer.relative_position_bias_table.normal_(0, 0.02, generator=g)
+    x = torch.randn(2, cfg.num_patches + 1, cfg.hidden_size, generator=g, device=dev)
+    names = ("query.weight", "key.weight", "value.weight", "relative_position_bias_table")
+
+    def layer_grads():
+        layer.zero_grad(set_to_none=True)
+        layer(x).square().mean().backward()
+        params = dict(layer.named_parameters())
+        return [params[n].grad.clone() for n in names]
+
+    got = layer_grads()
+    real = beit_mod.beit_attention_packed
+    beit_mod.beit_attention_packed = beit_attention_packed_reference  # plain autograd
+    try:
+        want = layer_grads()
+    finally:
+        beit_mod.beit_attention_packed = real
+    layer_rows = {}
+    for n, a, b in zip(names, got, want):
+        check(bool(a.abs().max() > 0), f"zero gradient for {n}")
+        rel = float((a - b).abs().max() / b.abs().max())
+        check(rel <= 1e-4, (n, rel))
+        layer_rows[n] = {"max_abs": float(a.abs().max()), "max_rel_err_vs_twin": rel}
+    result = {"phase": "attention_grad", "ops": rows, "beit_base_layer": layer_rows}
+    emit(result)
+    return result
+
+
+def bright_dark_crops(n: int, size: int, labels: int, seed: int):
+    """Seeded uint8 crops whose class is their brightness band (the
+    learnable task of tests/test_parallel.py's finetune test)."""
+    rng = np.random.default_rng(seed)
+    y = np.tile(np.arange(labels, dtype=np.int64), -(-n // labels))[:n]
+    lo = np.linspace(0, 180, labels).astype(np.int64)[y][:, None, None, None]
+    crops = np.clip(lo + rng.integers(0, 70, (n, size, size, 3)), 0, 255).astype(np.uint8)
+    return crops, y
+
+
+def seeded_beit(cfg, seed: int):
+    """A port BEiT with torch's seeded init and the cls token and
+    relative-position tables drawn from N(0, 0.02²), so that no LayerNorm
+    sees an all-zero row."""
+    from tpu3dlm_torch.models.beit import BeitClassifier
+
+    torch.manual_seed(seed)
+    model = BeitClassifier(cfg)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name == "cls_token" or name.endswith("relative_position_bias_table"):
+                p.normal_(0, 0.02)
+    return model
+
+
+def phase_finetune_parity(dev) -> dict:
+    """Three finetune steps of a small BEiT at f32 on the card (kernel B1,
+    backward by recompute) and on the CPU (twin), same weights and crops:
+    losses within 1e-5; the first step's gradients within 1e-5 abs and
+    rel (summation order only)."""
+    import copy
+
+    from tpu3dlm_torch.models.beit import BeitConfig
+    from tpu3dlm_torch.ops.kernels.attention import beit_attention_packed
+    from tpu3dlm_torch.parallel.finetune import init_finetune, make_beit_train_step
+
+    cfg = BeitConfig(image_size=32, patch_size=16, hidden_size=64, num_layers=2, num_heads=4,
+                     intermediate_size=128, num_labels=3)
+    cpu = seeded_beit(cfg, SEED + 7)
+    gpu = copy.deepcopy(cpu)
+    steps = {}
+    for name, model, device in (("cpu", cpu, "cpu"), ("gpu", gpu, dev)):
+        opt = init_finetune(model, lr=1e-4, device=device)
+        steps[name] = make_beit_train_step(model, opt, device=device)
+    crops, labels = bright_dark_crops(12, 32, 3, SEED + 8)
+    losses = {"cpu": [], "gpu": []}
+    grad_err = {}
+    before = beit_attention_packed.launches
+    for i in range(3):
+        for name, step in steps.items():
+            losses[name].append(float(step(crops, labels)))
+        if i == 0:
+            for (n, pc), pg in zip(cpu.named_parameters(), gpu.parameters()):
+                gc, gg = pc.grad, pg.grad.cpu()
+                torch.testing.assert_close(gg, gc, atol=1e-5, rtol=1e-5, msg=f"d{n}")
+                grad_err[n] = float((gg - gc).abs().max())
+    launches = beit_attention_packed.launches - before
+    check(launches == 3 * cfg.num_layers, launches)
+    loss_err = max(abs(a - b) for a, b in zip(losses["cpu"], losses["gpu"]))
+    check(loss_err <= 1e-5 and all(np.isfinite(losses["gpu"])), (losses, loss_err))
+    result = {"phase": "finetune_parity", "losses": losses, "max_loss_err": loss_err,
+              "max_grad_err_step1": max(grad_err.values()), "b1_launches": launches,
+              "params": len(grad_err)}
+    emit(result)
+    return result
+
+
+def phase_finetune_full_width(dev) -> dict:
+    """The finetune main path at BEiT-base width: f32 (the classifier's
+    default type, as in the JAX step), 2 labels, batch 64 seeded crops of
+    the bright/dark task, lr 1e-4. One warm-up step with the counts at 0,
+    in which every layer's B1 output is held against the twin on that
+    layer's own q, k, v and bias (1e-5); then 5 timed steps and one
+    profiled step."""
+    from tpu3dlm_torch.models.beit import BeitAttention, BeitConfig
+    from tpu3dlm_torch.ops.kernels.attention import beit_attention_packed, beit_attention_packed_reference
+    from tpu3dlm_torch.parallel.finetune import init_finetune, make_beit_train_step
+
+    cfg = BeitConfig()  # BEiT-base: 12 layers, 768 wide, 12 heads, 224 px, N = 197
+    batch = 64
+    model = seeded_beit(cfg, SEED + 9)
+    step = make_beit_train_step(model, init_finetune(model, lr=1e-4, device=dev), device=dev)
+    crops, labels = bright_dark_crops(batch, cfg.image_size, cfg.num_labels, SEED + 10)
+    crops, labels = torch.as_tensor(crops, device=dev), torch.as_tensor(labels, device=dev)
+
+    # hooks: B1's output is the input of each attention's output Dense
+    b1_out, b1_err = {}, []
+
+    def keep_b1_output(dense, args):
+        b1_out[dense] = args[0].detach()
+
+    def hold_b1(attn, args, _out):
+        (x,) = args
+        with torch.no_grad():
+            bias = attn.relative_position_bias_table[attn.rel_index]
+            bias = bias.reshape(x.shape[1], x.shape[1], attn.num_heads).permute(2, 0, 1).contiguous()
+            want = beit_attention_packed_reference(attn.query(x), attn.key(x), attn.value(x), bias,
+                                                   attn.num_heads)
+        got = b1_out.pop(attn.output)
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5, msg=f"B1 at {tuple(x.shape)}")
+        b1_err.append(float((got - want).abs().max()))
+
+    attns = [m for m in model.modules() if isinstance(m, BeitAttention)]
+    hooks = [a.output.register_forward_pre_hook(keep_b1_output) for a in attns]
+    hooks += [a.register_forward_hook(hold_b1) for a in attns]
+    torch.cuda.reset_peak_memory_stats()
+    beit_attention_packed.launches = 0
+    losses = [float(step(crops, labels))]
+    launches = beit_attention_packed.launches
+    for hook in hooks:
+        hook.remove()
+    check(launches == cfg.num_layers and len(b1_err) == cfg.num_layers, (launches, len(b1_err)))
+    step_ms, samples = host_ms(lambda: losses.append(float(step(crops, labels))), runs=5)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(beit_attention_packed.launches == 6 * cfg.num_layers, beit_attention_packed.launches)
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0], losses)
+    profile = profile_capture(lambda: step(crops, labels))
+    result = {
+        "phase": "finetune_full_width", "batch": batch, "image_size": cfg.image_size,
+        "layers": cfg.num_layers, "hidden": cfg.hidden_size, "dtype": "float32", "lr": 1e-4,
+        "b1_launches_per_step": launches, "b1_max_abs_err_vs_twin": max(b1_err), "losses": losses,
+        "step_ms": step_ms, "step_ms_samples": samples, "crops_per_s": batch / (step_ms / 1e3),
+        "peak_mem_gb": peak_gb, "profile": profile,
+    }
+    emit(result)
+    return result
+
+
+def nn_variant_bound_ms(n: int, m: int, mem_rate: float) -> tuple[float, str]:
+    """Least time for the probe's function: one compare per pair at the
+    f32 instruction rate (67 TFLOP/s of FMA counted as 2 flops, so 33.5 T
+    instructions/s), against the cross term's 6 flops per pair (K = 3) at
+    the bf16 tensor-core rate and the inputs and outputs moved once; the
+    larger."""
+    t_cmp = n * m / (PEAK_F32_FLOPS / 2)
+    t_mma = 6.0 * n * m / PEAK_BF16_FLOPS
+    t_bytes = ((n + m) * 12 + n * 12) / mem_rate
+    t_ops = max(t_cmp, t_mma)
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def hold_b4(case, variant, a, b, idx, d2, twin, true_d2, sub=None) -> dict:
+    """One B4 variant's (idx, d2) against the bf16 twin's on the same
+    inputs: ≥ 99.9% identical picks, d² within 1e-4 and within 1e-5 where
+    the picks differ (a near-tie of the twin's f32 sums); and every pick of
+    the queries ``sub`` (all where None) inside the reference's bf16 band
+    above the f64 minimum ``true_d2`` of those queries."""
+    ri, rd2 = twin
+    same = float((idx == ri).float().mean())
+    err = float((d2 - rd2).abs().max())
+    diff = idx != ri
+    tie_err = float((d2[diff] - rd2[diff]).abs().max()) if bool(diff.any()) else 0.0
+    check(err <= 1e-4 and tie_err <= 1e-5 and same >= 0.999, (case, variant, same, err, tie_err))
+    a_s, i_s = (a, idx) if sub is None else (a[sub], idx[sub])
+    band = 2.0 ** -7 * a_s.double().norm(dim=1) * b.double().norm(dim=1).max() + 1e-6
+    excess = ((a_s.double() - b[i_s].double()) ** 2).sum(1) - true_d2
+    check(bool((excess <= band).all()), (case, variant, "f64 band", float(excess.max())))
+    return {"case": case, "variant": variant, "shape": [a.shape[0], b.shape[0]],
+            "same_index_frac": same, "max_abs_err": err, "max_err_where_index_differs": tie_err,
+            "f64_queries": a_s.shape[0], "f64_max_excess_of_pick": float(excess.max())}
+
+
+def phase_kernel_b4(dev, mem_rate) -> dict:
+    """B4 (the NN-variant probe's kernels): every variant against the bf16
+    twin and against f64 at small shapes (not counted); then the probe's
+    own path — verify on the seeded 512 × 4096 instance, time at
+    16384 × 1,048,576 beside B2 — with the counts at 0, and each variant's
+    output of that timing run held against the twin on the same inputs
+    (f64 on every 64th query)."""
+    from tpu3dlm_torch.ops.kernels.nn_variants import VARIANTS, nn_variant, nn_variant_reference
+    from tpu3dlm_torch.scripts import bench_nn_variants as probe
+
+    a_s, b_s, a_np, b_np = probe.probe_inputs(SEED)
+    rng = np.random.default_rng(SEED + 11)
+    up = lambda x: torch.as_tensor(np.ascontiguousarray(x, np.float32), device=dev)  # noqa: E731
+    dup = rng.uniform(-2, 3, (1000, 3))
+    cases = [("probe_verify", a_s, b_s), ("odd", rng.uniform(-2, 3, (1000, 3)), rng.uniform(-2, 3, (3001, 3))),
+             ("ties", rng.uniform(-2, 3, (777, 3)), np.concatenate([dup, dup, dup])),
+             ("one", rng.uniform(-2, 3, (1, 3)), rng.uniform(-2, 3, (1, 3)))]
+    checks = []
+    for name, a_c, b_c in cases:
+        a, b = up(a_c), up(b_c)
+        twin = nn_variant_reference(a, b, "bf16")
+        true_d2, _ = f64_nearest(a, b)
+        first = None
+        for variant in VARIANTS:
+            idx, d2 = nn_variant(a, b, variant)
+            torch.cuda.synchronize()
+            checks.append(hold_b4(name, variant, a, b, idx, d2, twin, true_d2))
+            if name == "ties":
+                check(bool((idx < 1000).all()), (variant, "ties must go to the lowest index"))
+            # every variant computes the same dp with the same MMA: picks and d² equal
+            if first is None:
+                first = (idx, d2)
+            check(torch.equal(idx, first[0]) and torch.equal(d2, first[1]), (name, variant, "vs v1"))
+
+    # the probe's path, once, with the counts at 0
+    nn_variant.launches = dict.fromkeys(nn_variant.launches, 0)
+    verified = probe.verify(a_s, b_s, dev)
+    ms, outs = probe.time_variants(a_np, b_np, dev)
+    launches = dict(nn_variant.launches)
+    per_variant = 1 + 1 + probe.ITERS  # verify, warm-up, timed
+    for kernel, count in launches.items():
+        check(count == per_variant * sum(k == kernel for k, _, _ in VARIANTS.values()), (kernel, count))
+    # the timing run's outputs against the twin on the same inputs
+    a, b = up(a_np), up(b_np)
+    n, m = a.shape[0], b.shape[0]
+    twin = nn_variant_reference(a, b, "bf16")
+    plain_ms = cuda_ms(lambda: nn_variant_reference(a, b, "bf16"), iters=2, warmup=0)
+    sub = torch.arange(0, n, 64, device=dev)
+    true_d2, _ = f64_nearest(a[sub], b)
+    for variant in VARIANTS:
+        idx, d2 = outs[variant]
+        checks.append(hold_b4("probe_time", variant, a, b, idx, d2, twin, true_d2, sub))
+        check(torch.equal(idx, outs["v1"][0]) and torch.equal(d2, outs["v1"][1]),
+              ("probe_time", variant, "vs v1"))
+    bound_ms, bound_by = nn_variant_bound_ms(n, m, mem_rate)
+    lines = probe.result_lines(ms, torch.cuda.get_device_name(0))
+    for line in lines:
+        emit(line)
+    result = {"phase": "kernel_b4", "checks": checks, "verify": verified, "shape": [n, m],
+              "ms": ms, "launches_on_probe": launches, "plain_ms": plain_ms,
+              "bound_ms": bound_ms, "bound_by": bound_by,
+              "max_abs_err": {v: max(c["max_abs_err"] for c in checks if c["variant"] == v)
+                              for v in VARIANTS}}
+    emit(result)
+    return result
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -691,12 +1113,38 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         phase_compare_parity(dev, tmp)
         compare = phase_compare_full_width(dev, tmp, scene)
+    b3 = phase_kernel_b3(dev, mem_rate)
+    phase_attention_grad(dev)
+    phase_finetune_parity(dev)
+    finetune = phase_finetune_full_width(dev)
+    b4 = phase_kernel_b4(dev, mem_rate)
+    from tpu3dlm_torch.ops.kernels.nn_variants import VARIANTS
+
+    b4_rows = []
+    for kernel, line in (("nn_v1", 51), ("nn_v2", 86)):
+        variants = [v for v, (k, _, _) in VARIANTS.items() if k == kernel]
+        v = variants[0]  # the reference's variant of that kernel (v1, v2)
+        b4_rows.append({
+            "name": f"nn_variant_{v}", "route": "cuda", "source": "tpu3dlm_torch/csrc/nn_variants.cu",
+            "replaces": f"scripts/bench_nn_variants.py:{line}",
+            "launches": b4["launches_on_probe"][kernel],
+            "launches_on": "the probe (tpu3dlm_torch/scripts/bench_nn_variants.py): verify and "
+                           f"time of the variants {variants}, which launch the kernel {kernel}",
+            "max_abs_err": max(b4["max_abs_err"][x] for x in variants),
+            "ms": b4["ms"][v], "kernel_ms": b4["ms"][v],
+            "variant_ms": {x: b4["ms"][x] for x in variants},
+            "plain_ms": b4["plain_ms"], "bound_ms": b4["bound_ms"], "bound_by": b4["bound_by"],
+            # no single PyTorch call computes this function; kernel B2 is the yardstick
+            "library_ms": None, "b2_yardstick_ms": b4["ms"]["v0_production"],
+        })
     emit({"kernels": [
         {
             "name": "beit_attention_packed", "route": "cuda",
             "source": "tpu3dlm_torch/csrc/beit_attention.cu",
             "replaces": "tpu3dlm/ops/pallas/attention.py:159",
             "launches": full["b1_launches_main_path"],
+            "launches_on": "fused_full_width: one scan step (BEiT-base classify); also "
+                           f"{finetune['b1_launches_per_step']} per finetune step",
             "max_abs_err": b1["max_abs_err"], "ms": b1["kernel_ms"], "kernel_ms": b1["kernel_ms"],
             "plain_ms": b1["plain_ms"], "bound_ms": b1["bound_ms"], "bound_by": b1["bound_by"],
             "library_ms": b1["library_ms"],
@@ -706,12 +1154,25 @@ def main() -> int:
             "source": "tpu3dlm_torch/csrc/nearest_neighbors.cu",
             "replaces": "tpu3dlm/ops/pallas/pairwise.py:148",
             "launches": compare["b2_launches_main_path"],
+            "launches_on": "compare_full_width: one two-scan compare",
             "max_abs_err": b2["max_abs_err"], "ms": b2["kernel_ms"], "kernel_ms": b2["kernel_ms"],
             "plain_ms": b2["plain_ms"], "bound_ms": b2["bound_ms"], "bound_by": b2["bound_by"],
             # no single PyTorch call computes this function: the chunked
             # cdist + min is a yardstick, not a library version
             "library_ms": None, "cdist_yardstick_ms": b2["cdist_yardstick_ms"],
         },
+        {
+            "name": "beit_attention", "route": "cuda",
+            "source": "tpu3dlm_torch/csrc/beit_attention.cu",
+            "replaces": "tpu3dlm/ops/pallas/attention.py:77",
+            "launches": b3["launches_on_path"],
+            "launches_on": "kernel_b3: the public op beit_attention, forward and backward, "
+                           f"at {tuple(b3['shape'])} bf16",
+            "max_abs_err": b3["max_abs_err"], "ms": b3["kernel_ms"], "kernel_ms": b3["kernel_ms"],
+            "plain_ms": b3["plain_ms"], "bound_ms": b3["bound_ms"], "bound_by": b3["bound_by"],
+            "library_ms": b3["library_ms"],
+        },
+        *b4_rows,
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,9 +10,12 @@ import pytest
 import torch
 
 from tpu3dlm_torch.ops.kernels.attention import (
+    beit_attention,
     beit_attention_packed,
     beit_attention_packed_reference,
+    beit_attention_reference,
 )
+from tpu3dlm_torch.ops.kernels.nn_variants import VARIANTS, nn_variant, nn_variant_reference
 from tpu3dlm_torch.ops.kernels.pairwise import nearest_neighbors, nearest_neighbors_reference
 
 pytestmark = pytest.mark.cuda
@@ -93,3 +96,71 @@ def test_compare_on_card_matches_cpu(cuda_device, tmp_path):
     import chip_smoke
 
     chip_smoke.phase_compare_parity(cuda_device, str(tmp_path))
+
+
+@pytest.mark.parametrize(
+    "dtype,shape,tol",
+    [
+        (torch.float32, (3, 5, 33, 16), 1e-5),  # (h, B, N, d); summation order only
+        (torch.float32, (12, 3, 197, 64), 1e-5),
+        (torch.float32, (2, 2, 256, 32), 1e-5),  # N at the kernel's limit
+        (torch.bfloat16, (12, 8, 197, 64), 1e-2),  # one bf16 ulp of p / output
+        (torch.bfloat16, (2, 5, 9, 64), 1e-2),
+    ],
+)
+def test_b3_kernel_matches_twin(cuda_device, dtype, shape, tol):
+    h, B, N, d = shape
+    g = torch.Generator().manual_seed(1)
+    q, k, v = (torch.randn(*shape, generator=g).to(cuda_device, dtype) for _ in range(3))
+    bias = torch.randn(h, N, N, generator=g).to(cuda_device)
+    before = beit_attention.launches
+    got = beit_attention(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert beit_attention.launches == before + 1
+    want = beit_attention_reference(q, k, v, bias)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_attention_gradients_on_card_match_twins(cuda_device):
+    """The repaired fault: on the card B1's and B3's outputs carry
+    gradients, equal to plain autograd through the twins within 1e-5 at
+    f32, and a BEiT-base layer's q/k/v weights and relative-position table
+    get them: chip_smoke.py's attention_grad phase."""
+    import chip_smoke
+
+    chip_smoke.phase_attention_grad(cuda_device)
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_b4_variant_passes_the_bf16_gate(cuda_device, variant):
+    """Each variant against the bf16 twin (d² within 1e-4, ≥ 99.9%
+    identical picks on sparse points, differing picks within 1e-5) and
+    against f64 (every pick inside the reference's bf16 band); ties to the
+    lowest index."""
+    g = torch.Generator().manual_seed(2)
+    a = (torch.rand(1000, 3, generator=g) * 4 - 2).to(cuda_device)
+    b = torch.rand(1500, 3, generator=g) * 4 - 2
+    b = torch.cat([b, b]).to(cuda_device)
+    kernel = VARIANTS[variant][0]
+    before = dict(nn_variant.launches)
+    idx, d2 = nn_variant(a, b, variant)
+    torch.cuda.synchronize()
+    assert nn_variant.launches == {**before, kernel: before[kernel] + 1}
+    ri, rd2 = nn_variant_reference(a, b, "bf16")
+    assert (idx == ri).float().mean() >= 0.999
+    assert (d2 - rd2).abs().max() <= 1e-4
+    assert (idx < 1500).all()
+    a64, b64 = a.double().cpu(), b.double().cpu()
+    true = ((a64[:, None] - b64[None]) ** 2).sum(-1).min(1).values
+    picked = ((a64 - b64[idx.cpu()]) ** 2).sum(1)
+    band = 2.0 ** -7 * a64.norm(dim=1) * b64.norm(dim=1).max() + 1e-6
+    assert (picked - true <= band).all()
+
+
+def test_finetune_step_on_card_matches_cpu(cuda_device):
+    """Three finetune steps of a small BEiT on the card and on the CPU:
+    losses within 1e-5 and the first step's gradients within 1e-5:
+    chip_smoke.py's finetune_parity phase."""
+    import chip_smoke
+
+    chip_smoke.phase_finetune_parity(cuda_device)

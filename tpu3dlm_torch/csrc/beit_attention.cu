@@ -1,22 +1,34 @@
-// BEiT self-attention on packed projections, for Hopper (sm_90a).
+// BEiT self-attention, for Hopper (sm_90a), in two layouts.
 //
-// Replaces tpu3dlm/ops/pallas/attention.py::beit_attention_packed_pallas
-// (TPU kernel _attn_kernel_packed). Same semantics: q, k, v are the raw
-// (B, N, h*d) Dense outputs; for every batch row b and head h
+// Replaces two TPU kernels of tpu3dlm/ops/pallas/attention.py with one
+// kernel body that takes the layout as strides:
+//  * B1, beit_attention_packed_pallas (TPU kernel _attn_kernel_packed):
+//    q, k, v are the raw (B, N, h*d) Dense outputs; entry
+//    beit_attention_packed_launch.
+//  * B3, beit_attention_pallas (TPU kernel _attn_kernel): q, k, v are
+//    head-major (h, B, N, d); entry beit_attention_headmajor_launch.
+// Same semantics for both: for every batch row b and head h
 //     s = q_h k_h^T * (1/sqrt(d)) + bias[h]      (f32)
 //     p = softmax(s) in f32, then cast to the input type
-//     o_h = p v_h, accumulated in f32, written back packed in the input type.
-// Heads are read and written by column offset h*d in the packed layout, so
-// no transposed copy of q, k, v or o ever exists, and the (B, h, N, N)
-// score tensor never leaves the SM.
+//     o_h = p v_h, accumulated in f32, written back in the input type.
+// Row r of head h of batch row b starts at element b*sb + h*sh + r*sn:
+//     packed      sb = N*h*d   sh = d        sn = h*d
+//     head-major  sb = N*d     sh = B*N*d    sn = d
+// so either layout is read and written in place: no transposed copy of q,
+// k, v or o ever exists (on the TPU the head-major kernel's transposes cost
+// 78% of its time, attention.py:170-178), and the (B, h, N, N) score
+// tensor never leaves the SM.
 //
 // Bound on an H100 SXM at the production shape (bf16, B=384, N=197, h=12,
-// d=64): the function must move q, k, v, o (4*384*197*768*2 B = 464.8 MB)
-// plus the f32 bias (1.9 MB), 139 us at 3.35 TB/s, while its 45.8 GFLOP
-// take 46 us at the bf16 tensor-core rate: memory-bound.
+// d=64), the same in both layouts: the function must move q, k, v, o
+// (4*384*197*768*2 B = 464.8 MB) plus the f32 bias (1.9 MB), 139 us at
+// 3.35 TB/s, while its 45.8 GFLOP take 46 us at the bf16 tensor-core rate:
+// memory-bound.
 //
 // Two kernels, both one block per (query-row tile, head, batch row) with
-// the head's K and V staged once per block in dynamic shared memory:
+// the head's K and V staged once per block in dynamic shared memory. The
+// blocks of one batch row run next to each other, so in the head-major
+// layout too each head's (N, N) bias stays in L2 across the sweep:
 //
 // * bf16 (the serving path): four warps, 16 query rows each, on the tensor
 //   cores with mma.sync m16n8k16 (bf16 in, f32 accumulate). A warp keeps
@@ -94,7 +106,8 @@ template <int D, int NT>
 __global__ void __launch_bounds__(kTcWarps * 32, 3)
 attention_bf16_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
-                  __nv_bfloat16* __restrict__ o, int N, int H, float scale) {
+                  __nv_bfloat16* __restrict__ o, int N, int64_t sb, int64_t sh, int sn,
+                  float scale) {
   constexpr int NP = NT * 8;
   constexpr int RS = D + kPad;  // row stride: a fragment's 8 rows fall in distinct banks
   extern __shared__ __align__(16) unsigned char smem[];
@@ -103,7 +116,7 @@ attention_bf16_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
 
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const size_t base = size_t(b) * N * H + size_t(h) * D;
+  const int64_t base = b * sb + h * sh;
   constexpr int kRowVecs = D / kVec;
 
 #pragma unroll  // every load of the staging in flight at once
@@ -111,7 +124,7 @@ attention_bf16_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
     const int j = idx / kRowVecs, c = (idx % kRowVecs) * kVec;
     uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
     if (j < N) {
-      const size_t gi = base + size_t(j) * H + c;
+      const int64_t gi = base + int64_t(j) * sn + c;
       kv = *reinterpret_cast<const uint4*>(k + gi);
       vv = *reinterpret_cast<const uint4*>(v + gi);
     }
@@ -135,7 +148,7 @@ attention_bf16_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int r = half ? r_hi : r_lo;
-      const uint32_t* src = reinterpret_cast<const uint32_t*>(q + base + size_t(r) * H + c);
+      const uint32_t* src = reinterpret_cast<const uint32_t*>(q + base + int64_t(r) * sn + c);
       qa[kk][half] = r < N ? src[0] : 0u;
       qa[kk][2 + half] = r < N ? src[4] : 0u;  // columns c + 8, c + 9
     }
@@ -221,40 +234,48 @@ attention_bf16_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
   for (int n = 0; n < D / 8; ++n) {
     const int c = n * 8 + 2 * tq;
     if (r_lo < N)
-      *reinterpret_cast<uint32_t*>(o + base + size_t(r_lo) * H + c) = pack_bf16(acc[n][0], acc[n][1]);
+      *reinterpret_cast<uint32_t*>(o + base + int64_t(r_lo) * sn + c) = pack_bf16(acc[n][0], acc[n][1]);
     if (r_hi < N)
-      *reinterpret_cast<uint32_t*>(o + base + size_t(r_hi) * H + c) = pack_bf16(acc[n][2], acc[n][3]);
+      *reinterpret_cast<uint32_t*>(o + base + int64_t(r_hi) * sn + c) = pack_bf16(acc[n][2], acc[n][3]);
   }
 }
 
+// Where the rows live: B batch rows of `heads` heads of N rows each, row r
+// of head h of batch row b at element b*sb + h*sh + r*sn.
+struct Layout {
+  int B, heads, N;
+  int64_t sb, sh;
+  int sn;
+};
+
 template <int D, int NT>
 cudaError_t launch_bf16_t(const void* q, const void* k, const void* v, const void* bias, void* o,
-                          int B, int N, int H, float scale, cudaStream_t stream) {
+                          const Layout& L, float scale, cudaStream_t stream) {
   const size_t smem = size_t(2) * NT * 8 * (D + kPad) * sizeof(__nv_bfloat16);
   auto kernel = attention_bf16_tc<D, NT>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((N + kTcRows - 1) / kTcRows, H / D, B);
+  const dim3 grid((L.N + kTcRows - 1) / kTcRows, L.heads, L.B);
   kernel<<<grid, kTcWarps * 32, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(bias),
-      static_cast<__nv_bfloat16*>(o), N, H, scale);
+      static_cast<__nv_bfloat16*>(o), L.N, L.sb, L.sh, L.sn, scale);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void* bias, void* o,
-                        int B, int N, int H, float scale, cudaStream_t s) {
-  switch ((N + 31) / 32) {  // keys padded to a multiple of 32
-    case 1: return launch_bf16_t<D, 4>(q, k, v, bias, o, B, N, H, scale, s);
-    case 2: return launch_bf16_t<D, 8>(q, k, v, bias, o, B, N, H, scale, s);
-    case 3: return launch_bf16_t<D, 12>(q, k, v, bias, o, B, N, H, scale, s);
-    case 4: return launch_bf16_t<D, 16>(q, k, v, bias, o, B, N, H, scale, s);
-    case 5: return launch_bf16_t<D, 20>(q, k, v, bias, o, B, N, H, scale, s);
-    case 6: return launch_bf16_t<D, 24>(q, k, v, bias, o, B, N, H, scale, s);
-    case 7: return launch_bf16_t<D, 28>(q, k, v, bias, o, B, N, H, scale, s);
-    case 8: return launch_bf16_t<D, 32>(q, k, v, bias, o, B, N, H, scale, s);
+                        const Layout& L, float scale, cudaStream_t s) {
+  switch ((L.N + 31) / 32) {  // keys padded to a multiple of 32
+    case 1: return launch_bf16_t<D, 4>(q, k, v, bias, o, L, scale, s);
+    case 2: return launch_bf16_t<D, 8>(q, k, v, bias, o, L, scale, s);
+    case 3: return launch_bf16_t<D, 12>(q, k, v, bias, o, L, scale, s);
+    case 4: return launch_bf16_t<D, 16>(q, k, v, bias, o, L, scale, s);
+    case 5: return launch_bf16_t<D, 20>(q, k, v, bias, o, L, scale, s);
+    case 6: return launch_bf16_t<D, 24>(q, k, v, bias, o, L, scale, s);
+    case 7: return launch_bf16_t<D, 28>(q, k, v, bias, o, L, scale, s);
+    case 8: return launch_bf16_t<D, 32>(q, k, v, bias, o, L, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -277,7 +298,7 @@ template <int D, int JT>
 __global__ void __launch_bounds__(kThreads)
 attention_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ bias,
-              float* __restrict__ o, int N, int H, float scale) {
+              float* __restrict__ o, int N, int64_t sb, int64_t sh, int sn, float scale) {
   constexpr int NP = 32 * JT;  // key rows padded to whole warps
   constexpr int KS = D + 1;    // odd stride: lane j reading K[j][c] is conflict-free
   extern __shared__ float smem_f[];
@@ -288,13 +309,13 @@ attention_f32(const float* __restrict__ q, const float* __restrict__ k,
 
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const size_t base = size_t(b) * N * H + size_t(h) * D;
+  const int64_t base = b * sb + h * sh;
 
   for (int idx = threadIdx.x; idx < NP * D; idx += kThreads) {
     const int j = idx / D, c = idx % D;
     float kv = 0.f, vv = 0.f;
     if (j < N) {
-      const size_t g = base + size_t(j) * H + c;
+      const int64_t g = base + int64_t(j) * sn + c;
       kv = k[g];
       vv = v[g];
     }
@@ -309,7 +330,7 @@ attention_f32(const float* __restrict__ q, const float* __restrict__ k,
   float* Q = Qs + warp * D;
   const int row_end = min(int(blockIdx.x + 1) * kRowsPerBlock, N);
   for (int i = int(blockIdx.x) * kRowsPerBlock + warp; i < row_end; i += kWarps) {
-    const size_t row = base + size_t(i) * H;
+    const int64_t row = base + int64_t(i) * sn;
     for (int c = lane; c < D; c += 32) Q[c] = q[row + c];
     __syncwarp();
 
@@ -354,61 +375,77 @@ attention_f32(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int D, int JT>
 cudaError_t launch_f32_t(const void* q, const void* k, const void* v, const void* bias, void* o,
-                         int B, int N, int H, float scale, cudaStream_t stream) {
+                         const Layout& L, float scale, cudaStream_t stream) {
   const size_t smem = sizeof(float) * f32_smem_floats<D, JT>();
   auto kernel = attention_f32<D, JT>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((N + kRowsPerBlock - 1) / kRowsPerBlock, H / D, B);
+  const dim3 grid((L.N + kRowsPerBlock - 1) / kRowsPerBlock, L.heads, L.B);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(bias), static_cast<float*>(o), N, H, scale);
+      static_cast<const float*>(bias), static_cast<float*>(o), L.N, L.sb, L.sh, L.sn, scale);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* bias, void* o,
-                       int B, int N, int H, float scale, cudaStream_t s) {
-  switch ((N + 31) / 32) {
-    case 1: return launch_f32_t<D, 1>(q, k, v, bias, o, B, N, H, scale, s);
-    case 2: return launch_f32_t<D, 2>(q, k, v, bias, o, B, N, H, scale, s);
-    case 3: return launch_f32_t<D, 3>(q, k, v, bias, o, B, N, H, scale, s);
-    case 4: return launch_f32_t<D, 4>(q, k, v, bias, o, B, N, H, scale, s);
-    case 5: return launch_f32_t<D, 5>(q, k, v, bias, o, B, N, H, scale, s);
-    case 6: return launch_f32_t<D, 6>(q, k, v, bias, o, B, N, H, scale, s);
-    case 7: return launch_f32_t<D, 7>(q, k, v, bias, o, B, N, H, scale, s);
-    case 8: return launch_f32_t<D, 8>(q, k, v, bias, o, B, N, H, scale, s);
+                       const Layout& L, float scale, cudaStream_t s) {
+  switch ((L.N + 31) / 32) {
+    case 1: return launch_f32_t<D, 1>(q, k, v, bias, o, L, scale, s);
+    case 2: return launch_f32_t<D, 2>(q, k, v, bias, o, L, scale, s);
+    case 3: return launch_f32_t<D, 3>(q, k, v, bias, o, L, scale, s);
+    case 4: return launch_f32_t<D, 4>(q, k, v, bias, o, L, scale, s);
+    case 5: return launch_f32_t<D, 5>(q, k, v, bias, o, L, scale, s);
+    case 6: return launch_f32_t<D, 6>(q, k, v, bias, o, L, scale, s);
+    case 7: return launch_f32_t<D, 7>(q, k, v, bias, o, L, scale, s);
+    case 8: return launch_f32_t<D, 8>(q, k, v, bias, o, L, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 template <int D>
 cudaError_t launch(int is_bf16, const void* q, const void* k, const void* v, const void* bias,
-                   void* o, int B, int N, int H, float scale, cudaStream_t s) {
-  return is_bf16 ? launch_bf16<D>(q, k, v, bias, o, B, N, H, scale, s)
-                 : launch_f32<D>(q, k, v, bias, o, B, N, H, scale, s);
+                   void* o, const Layout& L, float scale, cudaStream_t s) {
+  return is_bf16 ? launch_bf16<D>(q, k, v, bias, o, L, scale, s)
+                 : launch_f32<D>(q, k, v, bias, o, L, scale, s);
+}
+
+int run(int is_bf16, int d, const void* q, const void* k, const void* v, const void* bias,
+        void* o, const Layout& L, void* stream) {
+  if (L.B <= 0 || L.B > 65535 || L.heads <= 0 || L.heads > 65535 || L.N <= 0 || L.N > kMaxKeys)
+    return int(cudaErrorInvalidValue);
+  const float scale = 1.0f / sqrtf(float(d));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 16: return int(launch<16>(is_bf16, q, k, v, bias, o, L, scale, s));
+    case 32: return int(launch<32>(is_bf16, q, k, v, bias, o, L, scale, s));
+    case 64: return int(launch<64>(is_bf16, q, k, v, bias, o, L, scale, s));
+    default: return int(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
-// q, k, v, o: (B, N, H) contiguous and 16-byte aligned, f32 (is_bf16 = 0)
-// or bf16 (is_bf16 = 1); bias: (num_heads, N, N) f32 contiguous;
-// H = num_heads * d with d in {16, 32, 64}; 1 <= N <= 256. Launches on
-// `stream` and returns cudaGetLastError() (cudaErrorInvalidValue for a
-// shape it does not take).
+// Both entries: bias is (num_heads, N, N) f32 contiguous; q, k, v, o are
+// contiguous and 16-byte aligned, f32 (is_bf16 = 0) or bf16 (is_bf16 = 1);
+// d in {16, 32, 64}; 1 <= N <= 256. They launch on `stream` and return
+// cudaGetLastError() (cudaErrorInvalidValue for a shape they do not take).
+
+// B1: q, k, v, o are (B, N, H) with H = num_heads * d.
 extern "C" int beit_attention_packed_launch(const void* q, const void* k, const void* v,
                                             const void* bias, void* o, int B, int N, int H,
                                             int num_heads, int is_bf16, void* stream) {
-  if (B <= 0 || N <= 0 || N > kMaxKeys || num_heads <= 0 || H % num_heads != 0)
-    return int(cudaErrorInvalidValue);
+  if (num_heads <= 0 || H % num_heads != 0) return int(cudaErrorInvalidValue);
   const int d = H / num_heads;
-  const float scale = 1.0f / sqrtf(float(d));
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 16: return int(launch<16>(is_bf16, q, k, v, bias, o, B, N, H, scale, s));
-    case 32: return int(launch<32>(is_bf16, q, k, v, bias, o, B, N, H, scale, s));
-    case 64: return int(launch<64>(is_bf16, q, k, v, bias, o, B, N, H, scale, s));
-    default: return int(cudaErrorInvalidValue);
-  }
+  const Layout L{B, num_heads, N, int64_t(N) * H, d, H};
+  return run(is_bf16, d, q, k, v, bias, o, L, stream);
+}
+
+// B3: q, k, v, o are (num_heads, B, N, d), head-major.
+extern "C" int beit_attention_headmajor_launch(const void* q, const void* k, const void* v,
+                                               const void* bias, void* o, int num_heads, int B,
+                                               int N, int d, int is_bf16, void* stream) {
+  const Layout L{B, num_heads, N, int64_t(N) * d, int64_t(B) * N * d, d};
+  return run(is_bf16, d, q, k, v, bias, o, L, stream);
 }

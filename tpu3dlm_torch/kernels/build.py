@@ -7,8 +7,8 @@ into its own shared library, loaded with ctypes:
          -Xcompiler -fPIC -o _build/<name>-<hash>.so csrc/<name>.cu
 
 Libraries land in ``tpu3dlm_torch/_build/`` (git-ignored), keyed by a hash
-of the source and the flags, so an edited source rebuilds and an unchanged
-one loads at once. ``build_all`` starts one ``nvcc`` per source, all
+of the source, the shared headers ``csrc/*.cuh`` and the flags, so an
+edited source rebuilds and an unchanged one loads at once. ``build_all`` starts one ``nvcc`` per source, all
 together, and waits for them. A missing ``nvcc`` or a failed build raises:
 there is no fallback to the plain PyTorch versions.
 """
@@ -51,8 +51,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """Where ``csrc/<name>.cu`` is built to: keyed by the source, the
+    shared headers (``csrc/*.cuh``) and the flags."""
+    parts = [(CSRC / f"{name}.cu").read_bytes(), *(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))]
+    digest = hashlib.sha256(b"".join(parts) + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

@@ -1,25 +1,40 @@
-"""Fused BEiT attention on packed projections — kernel B1.
+"""Fused BEiT attention — kernels B1 (packed layout) and B3 (head-major).
 
-Replaces ``tpu3dlm/ops/pallas/attention.py::beit_attention_packed_pallas``
-(TPU kernel ``_attn_kernel_packed``) with the hand-written CUDA kernel in
-``csrc/beit_attention.cu``.
+Replaces two TPU kernels of ``tpu3dlm/ops/pallas/attention.py`` with one
+hand-written CUDA kernel body in ``csrc/beit_attention.cu`` that takes the
+layout as strides:
 
-``beit_attention_packed(q, k, v, bias, num_heads)`` takes the raw q/k/v
-Dense outputs (B, N, h·d) and the per-layer (h, N, N) f32 relative-position
-bias and returns the packed (B, N, h·d) attention output:
-``softmax(q_h k_hᵀ/√d + bias[h])`` in f32, probabilities cast to the input
-type, ``p·v_h`` accumulated in f32. CUDA tensors launch the kernel (there is
-no fallback: a refused launch raises); CPU tensors run the plain PyTorch
-twin ``beit_attention_packed_reference``, which the CPU tests hold against
-the JAX package and ``chip_smoke.py`` holds the kernel against on the card.
+* B1, ``beit_attention_packed_pallas`` (TPU kernel ``_attn_kernel_packed``):
+  ``beit_attention_packed(q, k, v, bias, num_heads)`` takes the raw q/k/v
+  Dense outputs (B, N, h·d) and returns the packed (B, N, h·d) output. It
+  is what ``models/beit.py`` calls.
+* B3, ``beit_attention_pallas`` (TPU kernel ``_attn_kernel``):
+  ``beit_attention(q, k, v, bias)`` takes head-major (h, B, N, d) q/k/v and
+  returns (h, B, N, d), read and written in place (no transpose).
+
+Both compute ``softmax(q_h k_hᵀ/√d + bias[h])`` in f32 with the per-layer
+(h, N, N) f32 relative-position bias, cast the probabilities to the input
+type, and accumulate ``p·v_h`` in f32. CUDA tensors launch the kernel
+(there is no fallback: a refused launch raises); CPU tensors run the plain
+PyTorch twins ``beit_attention_packed_reference`` and
+``beit_attention_reference``, which the CPU tests hold against the JAX
+package and ``chip_smoke.py`` holds the kernel against on the card.
+
+Both ops are ``torch.autograd.Function``s, as the reference's are
+``jax.custom_vjp``s (attention.py:260-336): the backward recomputes the
+reference's VJP from the saved inputs in plain PyTorch
+(``beit_attention_packed_backward``, ``beit_attention_backward``), because
+the JAX package too computes it outside any Pallas kernel. So finetuning
+differentiates through the kernel's forward.
 
 Bound on an H100 SXM at the production shape (bf16, B=384, N=197, h=12,
-d=64): 466.7 MB moved = 139 µs at 3.35 TB/s against 46 µs of bf16
-tensor-core work, so memory-bound. The kernel stages each head's K and V
-once per block in shared memory, keeps each warp's score tile in registers
-(bf16: tensor-core ``mma.sync``), and never materialises the score tensor
-or a transposed copy, so its traffic is near that bound; what it loses to
-the bound is latency (see the source and PERF.md).
+d=64), the same in both layouts: 466.7 MB moved = 139 µs at 3.35 TB/s
+against 46 µs of bf16 tensor-core work, so memory-bound. The kernel stages
+each head's K and V once per block in shared memory, keeps each warp's
+score tile in registers (bf16: tensor-core ``mma.sync``), and never
+materialises the score tensor or a transposed copy, so its traffic is near
+that bound; what it loses to the bound is latency (see the source and
+PERF.md).
 """
 
 from __future__ import annotations
@@ -34,83 +49,222 @@ from tpu3dlm_torch.kernels.build import load_library
 HEAD_DIMS = (16, 32, 64)  # head widths the kernel is instantiated for
 MAX_TOKENS = 256  # a warp's 16 × N score tile lives in registers
 
-_lib = None
+_fns: dict = {}  # C entry name → its ctypes function
 
 
-def _kernel():
-    global _lib
-    if _lib is None:
-        lib = load_library("beit_attention")
-        fn = lib.beit_attention_packed_launch
+def _kernel(entry: str):
+    """The C entry ``beit_attention_{packed,headmajor}_launch``."""
+    if entry not in _fns:
+        fn = getattr(load_library("beit_attention"), entry)
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _lib = fn
-    return _lib
+        _fns[entry] = fn
+    return _fns[entry]
 
 
-def _check(q, k, v, bias, num_heads: int) -> None:
-    if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"q, k, v must share one (B, N, H) shape: {q.shape}, {k.shape}, {v.shape}")
-    B, N, H = q.shape
+def _check_common(q, k, v, bias, h: int, d: int, N: int) -> None:
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q, k, v must share one shape: {q.shape}, {k.shape}, {v.shape}")
     if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q, k, v must all be float32 or all bfloat16: {q.dtype}, {k.dtype}, {v.dtype}")
-    if num_heads <= 0 or H % num_heads:
-        raise ValueError(f"hidden width {H} is not a multiple of num_heads={num_heads}")
-    if H // num_heads not in HEAD_DIMS:
-        raise ValueError(f"head width {H // num_heads} not in {HEAD_DIMS}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head width {d} not in {HEAD_DIMS}")
     if not 0 < N <= MAX_TOKENS:
         raise ValueError(f"N={N} outside 1..{MAX_TOKENS}")
-    if bias.shape != (num_heads, N, N) or bias.dtype != torch.float32:
-        raise ValueError(f"bias must be ({num_heads}, {N}, {N}) float32, got {tuple(bias.shape)} {bias.dtype}")
+    if bias.shape != (h, N, N) or bias.dtype != torch.float32:
+        raise ValueError(f"bias must be ({h}, {N}, {N}) float32, got {tuple(bias.shape)} {bias.dtype}")
     if len({t.device for t in (q, k, v, bias)}) != 1:
         raise ValueError("q, k, v and bias must be on one device")
     if not all(t.is_contiguous() for t in (q, k, v, bias)):
         raise ValueError("q, k, v and bias must be contiguous")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("q, k and v must start on a 16-byte boundary")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {q.device}")
+
+
+def _check(q, k, v, bias, num_heads: int) -> None:
+    if q.dim() != 3:
+        raise ValueError(f"q, k, v must be (B, N, H), got {tuple(q.shape)}")
+    B, N, H = q.shape
+    if num_heads <= 0 or H % num_heads:
+        raise ValueError(f"hidden width {H} is not a multiple of num_heads={num_heads}")
+    _check_common(q, k, v, bias, num_heads, H // num_heads, N)
+
+
+def _check_headmajor(q, k, v, bias) -> None:
+    if q.dim() != 4:
+        raise ValueError(f"q, k, v must be (h, B, N, d), got {tuple(q.shape)}")
+    h, B, N, d = q.shape
+    if B == 0:
+        raise ValueError("B must be at least 1")
+    _check_common(q, k, v, bias, h, d, N)
+
+
+def _launch(entry: str, q, k, v, bias, dims: tuple[int, int, int, int]) -> torch.Tensor:
+    """Run the CUDA kernel through ``entry`` with its four int arguments;
+    returns the output. A refused launch raises."""
+    o = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = _kernel(entry)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), o.data_ptr(),
+            *dims, int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{entry} failed: cudaError {err}")
+    return o
+
+
+def _heads(t: torch.Tensor, h: int) -> torch.Tensor:
+    """(B, N, h·d) → a (h, B, N, d) view."""
+    B, N, H = t.shape
+    return t.view(B, N, h, H // h).permute(2, 0, 1, 3)
+
+
+def _packed(t: torch.Tensor) -> torch.Tensor:
+    """(h, B, N, d) → (B, N, h·d)."""
+    h, B, N, d = t.shape
+    return t.permute(1, 2, 0, 3).reshape(B, N, h * d)
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch twins and their VJPs (head-major math; the packed ones are
+# views of the same arithmetic)
+# ---------------------------------------------------------------------------
+
+
+def beit_attention_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor
+) -> torch.Tensor:
+    """Plain PyTorch twin of B3 (``attention.py:289-304``): (h, B, N, d)
+    inputs, f32 scores and softmax, probabilities cast to the input type
+    for the AV product, f32 accumulation, output in the input type."""
+    d = q.shape[-1]
+    s = q.float() @ k.float().transpose(-1, -2)
+    s = s / math.sqrt(d) + bias.float()[:, None]
+    p = torch.softmax(s, dim=-1)
+    return (p.to(v.dtype).float() @ v.float()).to(q.dtype)
+
+
+def beit_attention_backward(q, k, v, bias, grad_out):
+    """(dq, dk, dv, dbias) of ``beit_attention_reference`` at (q, k, v,
+    bias) for the cotangent ``grad_out``: the reference's custom-VJP
+    backward (``attention.py:327-333``, ``jax.vjp`` of the einsum twin)
+    written out. Scores and softmax are recomputed in f32; the cotangent of
+    the cast probabilities is rounded to the input type as JAX's transpose
+    of the AV product gives it; dq, dk, dv come back in the input type and
+    dbias in f32.
+
+    This is plain PyTorch on purpose and is no stand-in for the forward
+    kernel: the JAX package has no backward Pallas kernel either."""
+    d = q.shape[-1]
+    qf, kf, vf, g = q.float(), k.float(), v.float(), grad_out.float()
+    s = qf @ kf.transpose(-1, -2) / math.sqrt(d) + bias.float()[:, None]
+    p = torch.softmax(s, dim=-1)
+    pc = p.to(v.dtype).float()
+    dv = pc.transpose(-1, -2) @ g
+    dp = (g @ vf.transpose(-1, -2)).to(v.dtype).float()
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    dbias = ds.sum(1)
+    ds = ds / math.sqrt(d)
+    dq = ds @ kf
+    dk = ds.transpose(-1, -2) @ qf
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias.to(bias.dtype)
 
 
 def beit_attention_packed_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor, num_heads: int
 ) -> torch.Tensor:
-    """Plain PyTorch twin with the kernel's numerics: f32 scores and
-    softmax, probabilities cast to the input type for the AV product, f32
-    accumulation, output in the input type."""
-    B, N, H = q.shape
+    """Plain PyTorch twin of B1 (``attention.py:225-247``) with the
+    kernel's numerics: f32 scores and softmax, probabilities cast to the
+    input type for the AV product, f32 accumulation, output in the input
+    type."""
     h = num_heads
-    d = H // h
-    split = lambda t: t.reshape(B, N, h, d).transpose(1, 2)  # noqa: E731 — (B, h, N, d)
-    s = split(q).float() @ split(k).float().transpose(-1, -2)
-    s = s / math.sqrt(d) + bias.float()[None]
-    p = torch.softmax(s, dim=-1)
-    o = p.to(v.dtype).float() @ split(v).float()
-    return o.to(q.dtype).transpose(1, 2).reshape(B, N, H)
+    return _packed(beit_attention_reference(_heads(q, h), _heads(k, h), _heads(v, h), bias))
+
+
+def beit_attention_packed_backward(q, k, v, bias, num_heads: int, grad_out):
+    """(dq, dk, dv, dbias) of ``beit_attention_packed_reference``: the
+    reference's packed custom-VJP backward (``attention.py:273-281``), the
+    head-major VJP of ``beit_attention_backward`` through the layouts.
+
+    Plain PyTorch on purpose, no stand-in for the forward kernel (the JAX
+    package computes this backward outside any Pallas kernel)."""
+    h = num_heads
+    dq, dk, dv, dbias = beit_attention_backward(
+        _heads(q, h), _heads(k, h), _heads(v, h), bias, _heads(grad_out, h)
+    )
+    return _packed(dq), _packed(dk), _packed(dv), dbias
+
+
+# ---------------------------------------------------------------------------
+# The ops
+# ---------------------------------------------------------------------------
+
+
+class BeitAttentionPackedFn(torch.autograd.Function):
+    """B1 under autograd: forward = the kernel (CUDA) or the twin (CPU),
+    backward = ``beit_attention_packed_backward`` from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, num_heads: int):
+        ctx.num_heads = num_heads
+        ctx.save_for_backward(q, k, v, bias)
+        if q.device.type == "cpu":
+            with torch.no_grad():
+                return beit_attention_packed_reference(q, k, v, bias, num_heads)
+        B, N, H = q.shape
+        o = _launch("beit_attention_packed_launch", q, k, v, bias, (B, N, H, num_heads))
+        beit_attention_packed.launches += 1
+        return o
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v, bias = ctx.saved_tensors
+        return (*beit_attention_packed_backward(q, k, v, bias, ctx.num_heads, grad_out), None)
+
+
+class BeitAttentionFn(torch.autograd.Function):
+    """B3 under autograd: forward = the kernel (CUDA) or the twin (CPU),
+    backward = ``beit_attention_backward`` from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias):
+        ctx.save_for_backward(q, k, v, bias)
+        if q.device.type == "cpu":
+            with torch.no_grad():
+                return beit_attention_reference(q, k, v, bias)
+        h, B, N, d = q.shape
+        o = _launch("beit_attention_headmajor_launch", q, k, v, bias, (h, B, N, d))
+        beit_attention.launches += 1
+        return o
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return beit_attention_backward(*ctx.saved_tensors, grad_out)
 
 
 def beit_attention_packed(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor, num_heads: int
 ) -> torch.Tensor:
-    """(B, N, h·d) packed fused attention: the CUDA kernel for CUDA tensors,
-    the plain twin for CPU tensors. ``beit_attention_packed.launches``
-    counts kernel launches."""
+    """(B, N, h·d) packed fused attention (B1), differentiable in q, k, v
+    and bias: the CUDA kernel for CUDA tensors, the plain twin for CPU
+    tensors. ``beit_attention_packed.launches`` counts forward kernel
+    launches (the backward launches none)."""
     _check(q, k, v, bias, num_heads)
-    if q.device.type == "cpu":
-        return beit_attention_packed_reference(q, k, v, bias, num_heads)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-    fn = _kernel()
-    B, N, H = q.shape
-    o = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        err = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), o.data_ptr(),
-            B, N, H, num_heads, int(q.dtype == torch.bfloat16),
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"beit_attention_packed launch failed: cudaError {err}")
-    beit_attention_packed.launches += 1
-    return o
+    return BeitAttentionPackedFn.apply(q, k, v, bias, num_heads)
+
+
+def beit_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor
+) -> torch.Tensor:
+    """(h, B, N, d) head-major fused attention (B3), differentiable in q,
+    k, v and bias: the CUDA kernel for CUDA tensors, the plain twin for CPU
+    tensors. ``beit_attention.launches`` counts forward kernel launches."""
+    _check_headmajor(q, k, v, bias)
+    return BeitAttentionFn.apply(q, k, v, bias)
 
 
 beit_attention_packed.launches = 0
+beit_attention.launches = 0

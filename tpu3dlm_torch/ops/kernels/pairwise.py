@@ -78,6 +78,15 @@ def split_plan(n: int, m: int, sm_count: int, queries_per_block: int, tile: int)
     return -(-tiles // tiles_per_split), tiles_per_split * tile
 
 
+def device_split_plan(device: torch.device, n: int, m: int, queries_per_block: int,
+                      tile: int) -> tuple[int, int]:
+    """``split_plan`` for the SM count of ``device``."""
+    dev = device.index if device.index is not None else torch.cuda.current_device()
+    if dev not in _sm_count:
+        _sm_count[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return split_plan(n, m, _sm_count[dev], queries_per_block, tile)
+
+
 def nearest_neighbors_reference(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch twin: ``nearest_neighbors_xla`` chunk for chunk.
 
@@ -124,10 +133,7 @@ def nearest_neighbors(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, t
     d2 = torch.empty(n, dtype=torch.float32, device=a.device)
     if n == 0:
         return idx, d2
-    dev = a.device.index if a.device.index is not None else torch.cuda.current_device()
-    if dev not in _sm_count:
-        _sm_count[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits, per_split = split_plan(n, m, _sm_count[dev], queries_per_block, tile)
+    splits, per_split = device_split_plan(a.device, n, m, queries_per_block, tile)
     part_d = torch.empty(splits * n, dtype=torch.float32, device=a.device)
     part_i = torch.empty(splits * n, dtype=torch.int32, device=a.device)
     with torch.cuda.device(a.device):
