@@ -10,10 +10,12 @@ script exits non-zero without a result:
 
 1. ``kernel_b1``: kernel B1 (BEiT attention) against its plain PyTorch twin
    at the production shape in bf16 (tolerance 1e-2 abs and rel: one bf16
-   ulp of p and of the output) and at small shapes in f32 (1e-5: summation
-   order only), with CUDA-event times of the kernel, the twin and
-   ``F.scaled_dot_product_attention`` (the library yardstick; the port never
-   calls it) beside the kernel's bound.
+   ulp of p and of the output) and in f32 (1e-5: summation order only) at
+   small shapes and the finetune shape, with CUDA-event times of the
+   kernel, the twin and ``F.scaled_dot_product_attention`` (the library
+   yardstick; the port never calls it) beside the kernel's bound, for the
+   bf16 path at (384, 197, 12, 64) and the f32 path at the finetune's
+   (64, 197, 12, 64) (SDPA in f32 with TF32 off).
 2. ``slice_parity``: the fused runner in f32 on the card (kernel, cuDNN,
    TF32 off) against the same runner on the CPU (twin) on a small scan:
    masks, labels and damage equal, boxes within 1e-2 px, corners within
@@ -40,7 +42,8 @@ script exits non-zero without a result:
    point clouds, a 16384-point query, three ICP stages of 30 iterations,
    ``global_init="auto"``, point-to-plane, fused matching — once with the
    launch counts at 0 and a cold gold cache, then 5 warm captures, with the
-   split into gold-side host work, NN sweeps and the rest.
+   split into gold-side host work, NN sweeps and the rest, and B2's calls
+   of one capture by shape (count and CUDA-event ms per (n, m)).
 7. ``kernel_b3``: kernel B3 (head-major attention) against its twin at
    (h, B, N, d) = (12, 384, 197, 64) bf16 (1e-2) and small f32 shapes
    (1e-5; N = 33, B = 5), and against B1 through the layouts on every
@@ -70,7 +73,8 @@ script exits non-zero without a result:
     every 64th query); the twin's time and the bound.
 12. ``kernels``: one line listing every ported kernel (B1, B2, B3, B4 v1
     and v2) with its launches, the path they were counted on
-    (``launches_on``), error, times and bound.
+    (``launches_on``), error, times and bound; B1's f32-path numbers and
+    B2's main-path launches and times by shape.
 
 The card's name and power limit (nvidia-smi) are printed before the last
 line; the last line is ``{"ok": true, "device": {...}}``. Inputs and
@@ -93,7 +97,7 @@ SEED = 0
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 # the __global__ functions of tpu3dlm_torch/csrc, as the profiler names them
-PORT_KERNELS = ("attention_bf16_tc", "attention_f32", "nn_partial_kernel", "nn_fold_kernel",
+PORT_KERNELS = ("attention_bf16_tma", "attention_f32", "nn_partial_kernel", "nn_fold_kernel",
                 "nn_variant_kernel")
 
 
@@ -161,40 +165,43 @@ def phase_kernel_b1(dev, mem_rate) -> dict:
 
     g = torch.Generator(device=dev).manual_seed(SEED)
     checks = []
+    inputs = {}
     for dtype, (B, N, h, d), tol in [
         (torch.bfloat16, (384, 197, 12, 64), 1e-2),
         (torch.bfloat16, (5, 9, 2, 64), 1e-2),
         (torch.float32, (5, 33, 3, 16), 1e-5),
         (torch.float32, (16, 197, 12, 64), 1e-5),
+        (torch.float32, (64, 197, 12, 64), 1e-5),  # the finetune step's shape
     ]:
         q, k, v = (torch.randn(B, N, h * d, generator=g, device=dev).to(dtype) for _ in range(3))
         bias = torch.randn(h, N, N, generator=g, device=dev)
         out = beit_attention_packed(q, k, v, bias, h)
         torch.cuda.synchronize()
         ref = beit_attention_packed_reference(q, k, v, bias, h)
-        err = (out.float() - ref.float()).abs()
-        max_err = float(err.max())
+        max_err = float((out.float() - ref.float()).abs().max())
         torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
         checks.append({"dtype": str(dtype).split(".")[-1], "shape": [B, N, h, d],
                        "max_abs_err": max_err, "tol": tol})
-        if (B, N, h, d) == (384, 197, 12, 64):
-            prod = dict(q=q, k=k, v=v, bias=bias, B=B, N=N, h=h, d=d, max_err=max_err)
+        inputs[dtype, B] = dict(q=q, k=k, v=v, bias=bias, shape=(B, N, h, d), max_err=max_err)
 
-    q, k, v, bias = prod["q"], prod["k"], prod["v"], prod["bias"]
-    B, N, h, d = prod["B"], prod["N"], prod["h"], prod["d"]
-    kernel_ms = cuda_ms(lambda: beit_attention_packed(q, k, v, bias, h))
-    plain_ms = cuda_ms(lambda: beit_attention_packed_reference(q, k, v, bias, h))
-    heads = lambda t: t.view(B, N, h, d).transpose(1, 2)  # noqa: E731
-    mask = bias.to(q.dtype)[None]
-    library_ms = cuda_ms(
-        lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v), attn_mask=mask)
-    )
-    bound_ms, bound_by = attention_bound_ms(B, N, h, d, q.dtype, mem_rate)
-    result = {
-        "phase": "kernel_b1", "checks": checks, "shape": [B, N, h, d], "dtype": "bfloat16",
-        "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": prod["max_err"],
-    }
+    def timed(case) -> dict:
+        q, k, v, bias = case["q"], case["k"], case["v"], case["bias"]
+        B, N, h, d = case["shape"]
+        heads = lambda t: t.view(B, N, h, d).transpose(1, 2)  # noqa: E731
+        mask = bias.to(q.dtype)[None]
+        bound_ms, bound_by = attention_bound_ms(B, N, h, d, q.dtype, mem_rate)
+        return {
+            "shape": [B, N, h, d], "dtype": str(q.dtype).split(".")[-1],
+            "kernel_ms": cuda_ms(lambda: beit_attention_packed(q, k, v, bias, h)),
+            "plain_ms": cuda_ms(lambda: beit_attention_packed_reference(q, k, v, bias, h)),
+            "library_ms": cuda_ms(
+                lambda: F.scaled_dot_product_attention(heads(q), heads(k), heads(v), attn_mask=mask)),
+            "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": case["max_err"],
+        }
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 must be off for the f32 yardstick")
+    result = {"phase": "kernel_b1", "checks": checks, **timed(inputs[torch.bfloat16, 384]),
+              "f32_path": timed(inputs[torch.float32, 64])}
     emit(result)
     return result
 
@@ -455,6 +462,27 @@ def f64_nearest(a, b, chunk: int = 65536):
     return best.clamp(min=0), best_i
 
 
+def kernel_b2_cases(scene) -> list:
+    """Kernel B2's cases, (name, queries, targets, sparse): the compare's
+    three shapes on the scene (the final stage's 1,048,576 targets padded
+    with sentinels), an odd sparse shape and every target three times."""
+    from tpu3dlm_torch.ops.icp import pad_target_bucket
+
+    base, comp = scene[0], scene[1]
+    rng = np.random.default_rng(SEED + 3)
+    pick = lambda x, k: x[rng.choice(x.shape[0], k, replace=False)]  # noqa: E731
+    q16 = pick(comp, 16384)
+    init_q = np.concatenate([q16[:2048] + np.float32(0.05 * k) for k in range(5)])
+    dup = rng.uniform(-2, 3, (1000, 3)).astype(np.float32)
+    return [
+        ("final_stage", q16, pad_target_bucket(base)[0], False),  # 1,048,576 with 1e6 sentinels
+        ("init_scoring", init_q, pick(base, 65536), False),
+        ("coarse_stage", q16[:4096], pick(base, 262144), False),
+        ("odd", rng.uniform(-2, 3, (1000, 3)), rng.uniform(-2, 3, (3001, 3)), True),
+        ("ties", rng.uniform(-2, 3, (777, 3)), np.concatenate([dup, dup, dup]), True),
+    ]
+
+
 def phase_kernel_b2(dev, mem_rate, scene) -> dict:
     """B2 against its twin, and against f64, at the compare's shapes.
 
@@ -468,23 +496,10 @@ def phase_kernel_b2(dev, mem_rate, scene) -> dict:
     minimum. The share of identical picks (≥ 99.9% against the twin, ≥ 99%
     against f64) binds on the sparse uniform shapes, where near-ties are
     rare; on the scene shapes it is recorded."""
-    from tpu3dlm_torch.ops.icp import pad_target_bucket
     from tpu3dlm_torch.ops.kernels.pairwise import nearest_neighbors, nearest_neighbors_reference
 
-    base, comp = scene[0], scene[1]
-    rng = np.random.default_rng(SEED + 3)
     up = lambda x: torch.as_tensor(np.ascontiguousarray(x, np.float32), device=dev)  # noqa: E731
-    pick = lambda x, k: x[rng.choice(x.shape[0], k, replace=False)]  # noqa: E731
-    q16 = pick(comp, 16384)
-    init_q = np.concatenate([q16[:2048] + np.float32(0.05 * k) for k in range(5)])
-    dup = rng.uniform(-2, 3, (1000, 3)).astype(np.float32)
-    cases = [  # (name, queries, targets, sparse)
-        ("final_stage", q16, pad_target_bucket(base)[0], False),  # 1,048,576 with 1e6 sentinels
-        ("init_scoring", init_q, pick(base, 65536), False),
-        ("coarse_stage", q16[:4096], pick(base, 262144), False),
-        ("odd", rng.uniform(-2, 3, (1000, 3)), rng.uniform(-2, 3, (3001, 3)), True),
-        ("ties", rng.uniform(-2, 3, (777, 3)), np.concatenate([dup, dup, dup]), True),
-    ]
+    cases = kernel_b2_cases(scene)
     checks = []
     timing = None
     for name, a_np, b_np, sparse in cases:
@@ -633,13 +648,16 @@ def phase_compare_full_width(dev, tmp, scene) -> dict:
     align_mod._GOLD_CACHE.clear()
     torch.cuda.reset_peak_memory_stats()
     nearest_neighbors.launches = 0
+    nearest_neighbors.launches_by_shape.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     align, _, rows = capture()
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     main_launches = nearest_neighbors.launches
+    main_by_shape = {f"{n}x{m}": c for (n, m), c in sorted(nearest_neighbors.launches_by_shape.items())}
     check(1 + 3 <= main_launches <= 1 + 3 * 31, main_launches)
+    check(sum(main_by_shape.values()) == main_launches, main_by_shape)
     err = float(np.abs(align.final_transform @ Tw - np.eye(4)).max())
     n_missing = sum(r["status"] == "missing" for r in rows)
     check(err <= 0.15 and n_missing == 1, (err, n_missing))
@@ -660,7 +678,7 @@ def phase_compare_full_width(dev, tmp, scene) -> dict:
         s.record()
         out = real_nn(a, b)
         e.record()
-        spans.append((s, e))
+        spans.append((s, e, (int(a.shape[0]), int(b.shape[0]))))
         return out
 
     icp_mod.nearest_neighbors = timed_nn
@@ -668,7 +686,12 @@ def phase_compare_full_width(dev, tmp, scene) -> dict:
         split_ms, _ = host_ms(capture, runs=1)
     finally:
         icp_mod.nearest_neighbors = real_nn
-    nn_ms = sum(s.elapsed_time(e) for s, e in spans)
+    nn_ms = sum(s.elapsed_time(e) for s, e, _ in spans)
+    by_shape: dict = {}
+    for s, e, shape in spans:
+        row = by_shape.setdefault(f"{shape[0]}x{shape[1]}", {"n": shape[0], "m": shape[1], "calls": 0, "ms": 0.0})
+        row["calls"] += 1
+        row["ms"] += s.elapsed_time(e)
     host_part = lambda fn: host_ms(fn, runs=3)[0]  # noqa: E731
     fingerprint_ms = host_part(lambda: align_mod._target_fingerprint(base))
     normals_ms = host_part(lambda: estimate_normals_grid(base))
@@ -685,13 +708,14 @@ def phase_compare_full_width(dev, tmp, scene) -> dict:
         "phase": "compare_full_width", "points": [int(base.shape[0]), int(comp.shape[0])],
         "query": align.max_points, "stages": list(align.max_correspondence_dist),
         "iterations": align.icp_iterations, "global_init": align.global_init, "ann": "off",
-        "b2_launches_main_path": main_launches, "transform_err": err, "missing": n_missing,
+        "b2_launches_main_path": main_launches, "b2_launches_by_shape_main_path": main_by_shape,
+        "transform_err": err, "missing": n_missing,
         "rmse": align.last_verdict.rmse, "inlier_frac": align.last_verdict.inlier_frac,
         "verdict_ok": align.last_verdict.ok,
         "first_capture_cold_gold_ms": first_s * 1e3,
         "warm_capture_ms": warm_ms, "warm_capture_ms_samples": warm_samples,
         "split_capture_ms": split_ms,
-        "split_ms": {"nn_sweeps": nn_ms, "nn_calls": len(spans),
+        "split_ms": {"nn_sweeps": nn_ms, "nn_calls": len(spans), "nn_by_shape": by_shape,
                      "gold_fingerprint_host": fingerprint_ms,
                      "rest": split_ms - nn_ms - fingerprint_ms},
         "rest_parts_ms": {"query_draw_host": query_draw_ms, "auction_16x16": auction_ms},
@@ -1148,6 +1172,8 @@ def main() -> int:
             "max_abs_err": b1["max_abs_err"], "ms": b1["kernel_ms"], "kernel_ms": b1["kernel_ms"],
             "plain_ms": b1["plain_ms"], "bound_ms": b1["bound_ms"], "bound_by": b1["bound_by"],
             "library_ms": b1["library_ms"],
+            # the CUDA-core f32 path the finetune step runs, beside SDPA in f32 (TF32 off)
+            "f32_path": b1["f32_path"],
         },
         {
             "name": "nearest_neighbors", "route": "cuda",
@@ -1160,6 +1186,9 @@ def main() -> int:
             # no single PyTorch call computes this function: the chunked
             # cdist + min is a yardstick, not a library version
             "library_ms": None, "cdist_yardstick_ms": b2["cdist_yardstick_ms"],
+            "launches_by_shape": compare["b2_launches_by_shape_main_path"],
+            "ms_by_shape": {f"{c['shape'][0]}x{c['shape'][1]}": {k: c[k] for k in ("kernel_ms", "bound_ms")}
+                            for c in b2["checks"] if "kernel_ms" in c},
         },
         {
             "name": "beit_attention", "route": "cuda",

@@ -90,7 +90,9 @@ def test_wrapper_runs_twin_on_cpu_without_counting():
 
 @pytest.mark.parametrize(
     "case",
-    ["float16", "head_dim_8", "bias_shape", "bias_bf16", "non_contiguous", "too_many_tokens"],
+    ["float16", "head_dim_8", "bias_shape", "bias_bf16", "non_contiguous", "too_many_tokens",
+     "no_tokens", "misaligned", "mixed_types", "heads_not_dividing", "no_heads", "rank",
+     "bias_float64", "bias_elsewhere", "unsupported_device"],
 )
 def test_wrapper_rejects_what_the_kernel_does_not_take(case):
     B, N, h, d = 2, 9, 2, 16
@@ -110,6 +112,26 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case):
         N = 257
         q = k = v = torch.zeros(B, N, h * d)
         bias = torch.zeros(h, N, N)
+    elif case == "no_tokens":
+        q = k = v = torch.zeros(B, 0, h * d)
+        bias = torch.zeros(h, 0, 0)
+    elif case == "misaligned":  # contiguous, but one element past a 16-byte boundary
+        q = torch.zeros(B * N * h * d + 1)[1:].view(B, N, h * d)
+    elif case == "mixed_types":
+        k = k.bfloat16()
+    elif case == "heads_not_dividing":
+        h = 3
+        bias = torch.zeros(h, N, N)
+    elif case == "no_heads":
+        h = 0
+    elif case == "rank":
+        q, k, v = q[None], k[None], v[None]
+    elif case == "bias_float64":
+        bias = bias.double()
+    elif case == "bias_elsewhere":
+        bias = bias.to("meta")
+    elif case == "unsupported_device":
+        q, k, v, bias = (t.to("meta") for t in (q, k, v, bias))
     with pytest.raises(ValueError):
         beit_attention_packed(q, k, v, bias, h)
 
@@ -273,7 +295,11 @@ def test_b1_gradient_reaches_beit_weights():
         torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5)
 
 
-@pytest.mark.parametrize("case", ["head_dim_8", "bias_shape", "rank", "non_contiguous", "empty_batch"])
+@pytest.mark.parametrize(
+    "case",
+    ["head_dim_8", "bias_shape", "rank", "non_contiguous", "empty_batch", "misaligned", "mixed_types",
+     "too_many_tokens", "bias_elsewhere"],
+)
 def test_b3_rejects_what_the_kernel_does_not_take(case):
     h, B, N, d = 2, 3, 9, 16
     q, k, v, bias = (torch.from_numpy(a) for a in hm_qkvb(12, h, B, N, d))
@@ -287,5 +313,15 @@ def test_b3_rejects_what_the_kernel_does_not_take(case):
         q = torch.randn(h, B, d, N).transpose(-1, -2)
     elif case == "empty_batch":
         q = k = v = torch.zeros(h, 0, N, d)
+    elif case == "misaligned":  # contiguous, but one element past a 16-byte boundary
+        q = torch.zeros(h * B * N * d + 1)[1:].view(h, B, N, d)
+    elif case == "mixed_types":
+        v = v.bfloat16()
+    elif case == "too_many_tokens":
+        N = 257
+        q = k = v = torch.zeros(h, B, N, d)
+        bias = torch.zeros(h, N, N)
+    elif case == "bias_elsewhere":
+        bias = bias.to("meta")
     with pytest.raises(ValueError):
         beit_attention(q, k, v, bias)

@@ -8,6 +8,8 @@ runs on a GPU host without them:
 
 import pytest
 import torch
+from hypothesis import HealthCheck, given, settings
+from hypothesis import strategies as st
 
 from tpu3dlm_torch.ops.kernels.attention import (
     beit_attention,
@@ -164,3 +166,100 @@ def test_finetune_step_on_card_matches_cpu(cuda_device):
     import chip_smoke
 
     chip_smoke.phase_finetune_parity(cuda_device)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("N", [1, 8, 63, 64, 65, 197, 256])
+@pytest.mark.parametrize("B", [1, 3])
+def test_b1_b3_bf16_tma_shapes(cuda_device, B, N, d):
+    """The bf16 kernel in both layouts against the twins, and B3 against B1
+    through the layouts, at token counts around the 8-, 16-, 64- and
+    128-row edges (1e-2: one bf16 ulp of p and of the output). With B = 3
+    the middle batch row's keys are large: a K box that read past N of row
+    0 would take them in as keys and dominate its softmax."""
+    h = 2
+    g = torch.Generator().manual_seed(1000 * B + 10 * N + d)
+    q, k, v = (torch.randn(B, N, h * d, generator=g) for _ in range(3))
+    if B == 3:
+        k[1] += 6.0
+    q, k, v = (t.to(cuda_device, torch.bfloat16) for t in (q, k, v))
+    bias = torch.randn(h, N, N, generator=g).to(cuda_device)
+    got = beit_attention_packed(q, k, v, bias, h)
+    torch.cuda.synchronize()
+    want = beit_attention_packed_reference(q, k, v, bias, h)
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-2, rtol=1e-2)
+    split = lambda t: t.view(B, N, h, d).permute(2, 0, 1, 3).contiguous()  # noqa: E731
+    hm = beit_attention(split(q), split(k), split(v), bias)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(hm.float(), beit_attention_reference(split(q), split(k), split(v), bias).float(),
+                               atol=1e-2, rtol=1e-2)
+    assert torch.equal(hm, split(got))  # one kernel body: the layouts change nothing
+
+
+@settings(max_examples=24, deadline=None, suppress_health_check=[HealthCheck.function_scoped_fixture])
+@given(B=st.integers(1, 300), heads=st.integers(1, 16), N=st.integers(1, 256),
+       d=st.sampled_from([16, 32, 64]), layout=st.sampled_from(["packed", "headmajor"]))
+def test_b1_b3_bf16_schedule_covers_every_row(cuda_device, B, heads, N, d, layout):
+    """Random shapes, most of them with more (head, batch row) items than
+    the clusters that fit on the card, so a cluster walks a run of items
+    across head changes. Every output row matches the twin (1e-2). The
+    block the kernel's output is likely to reuse is filled with NaN first,
+    so a row that no CTA writes fails."""
+    g = torch.Generator().manual_seed(B * 100003 + heads * 1009 + N * 7 + d)
+    shape = (B, N, heads * d) if layout == "packed" else (heads, B, N, d)
+    q, k, v = (torch.randn(*shape, generator=g).to(cuda_device, torch.bfloat16) for _ in range(3))
+    bias = torch.randn(heads, N, N, generator=g).to(cuda_device)
+    torch.full_like(q, float("nan"))  # freed at once: a NaN-filled block in the allocator's cache
+    if layout == "packed":
+        got = beit_attention_packed(q, k, v, bias, heads)
+        want = beit_attention_packed_reference(q, k, v, bias, heads)
+    else:
+        got = beit_attention(q, k, v, bias)
+        want = beit_attention_reference(q, k, v, bias)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-2, rtol=1e-2)
+
+
+def test_b2_ties_across_chunk_tile_and_split_edges(cuda_device):
+    """Exact copies of targets placed just across a 32-target chunk edge, a
+    1024-target tile edge and a split edge of the kernel's plan: every query
+    (a copy of the first target of a pair) picks the lower index, as the
+    twin does."""
+    from tpu3dlm_torch.ops.kernels.pairwise import device_split_plan
+
+    n, m = 2048, 1 << 20
+    g = torch.Generator().manual_seed(7)
+    b = torch.rand(m, 3, generator=g) * 5 - 2
+    splits, per_split = device_split_plan(cuda_device, n, m, 1024, 1024)
+    assert splits > 1 and per_split > 1024, (splits, per_split)
+    pairs = [(31, 32), (1023, 1024), (per_split - 1, per_split), (per_split - 40, per_split + 3),
+             (2 * per_split - 1, 2 * per_split)]
+    for lo, hi in pairs:
+        b[hi] = b[lo]
+    a = torch.rand(n, 3, generator=g) * 5 - 2
+    a[: len(pairs)] = b[[lo for lo, _ in pairs]]
+    a, b = a.to(cuda_device), b.to(cuda_device)
+    idx, d2 = nearest_neighbors(a, b)
+    torch.cuda.synchronize()
+    assert idx[: len(pairs)].tolist() == [lo for lo, _ in pairs]
+    ri, rd2 = nearest_neighbors_reference(a, b)
+    assert torch.equal(idx[: len(pairs)], ri[: len(pairs)])
+    assert (idx == ri).float().mean() >= 0.999
+    assert (d2 - rd2).abs().max() <= 1e-4
+
+
+def test_b2_sentinel_padded_targets_never_win(cuda_device):
+    """Targets padded to the compare's power-of-two bucket with sentinel
+    rows: no pick lands in the padding, and picks and d² equal those on the
+    unpadded targets."""
+    from tpu3dlm_torch.ops.icp import pad_target_bucket
+
+    g = torch.Generator().manual_seed(8)
+    b_np = (torch.rand(70001, 3, generator=g) * 5 - 2).numpy()
+    padded, _ = pad_target_bucket(b_np)
+    a = (torch.rand(3000, 3, generator=g) * 5 - 2).to(cuda_device)
+    idx, d2 = nearest_neighbors(a, torch.as_tensor(padded, device=cuda_device))
+    ui, ud2 = nearest_neighbors(a, torch.as_tensor(b_np, device=cuda_device))
+    torch.cuda.synchronize()
+    assert padded.shape[0] == 1 << 17 and (idx < 70001).all()
+    assert torch.equal(idx, ui) and torch.equal(d2, ud2)

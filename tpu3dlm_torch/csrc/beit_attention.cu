@@ -22,30 +22,52 @@
 // Bound on an H100 SXM at the production shape (bf16, B=384, N=197, h=12,
 // d=64), the same in both layouts: the function must move q, k, v, o
 // (4*384*197*768*2 B = 464.8 MB) plus the f32 bias (1.9 MB), 139 us at
-// 3.35 TB/s, while its 45.8 GFLOP take 46 us at the bf16 tensor-core rate:
-// memory-bound.
+// 3.35 TB/s, while its 45.8 GFLOP take 46 us at the bf16 tensor-core rate
+// and its 179 M exps about as long at the special-function rate:
+// memory-bound, but only if the loads, the MMAs and the exps overlap.
 //
-// Two kernels, both one block per (query-row tile, head, batch row) with
-// the head's K and V staged once per block in dynamic shared memory. The
-// blocks of one batch row run next to each other, so in the head-major
-// layout too each head's (N, N) bias stays in L2 across the sweep:
+// bf16 (the serving path), attention_bf16_tma. What the design does:
+//  * Each byte as few times as the bias allows. A CTA owns 128 query rows
+//    (two consumer warpgroups of 64) of one head and walks a run of
+//    (head, batch row) items; the ceil(N/128) CTAs that own the row tiles
+//    of the same items form one thread-block cluster. K and V of an item
+//    come from L2 once per cluster: the cluster's CTAs load them by TMA in
+//    8- and 16-row boxes, spread over the CTAs, each box multicast into
+//    every CTA. Each CTA keeps its f32 bias rows (128 x N, pre-scaled by
+//    log2 e) in shared memory for as long as its items stay on one head,
+//    and the items of a cluster are consecutive batch rows of one head (a
+//    head change reloads them), so the bias is read about once per CTA, not
+//    once per (b, h). Every CTA still receives all of K and V: 128-row CTAs
+//    halve that fill against 64-row ones, and 128 bias rows are as many as
+//    fit beside the K/V ring.
+//  * Loads by TMA with mbarriers. 4-D tensor maps (d, N, heads, B) over the
+//    layout's strides: a box past a batch row's N tokens is zero-filled by
+//    the hardware and never reads the next row. A producer warpgroup (its
+//    registers given to the consumers by setmaxnreg) keeps a ring of K/V
+//    stages in flight from one thread and the CTA's Q tile from another;
+//    the Q tile refills as soon as both warpgroups' scores are done.
+//  * Persistent grid: as many clusters as fit on the card at once
+//    (cudaOccupancyMaxActiveClusters), each with an equal share of the
+//    heads*B items, so there is no tail wave.
+//  * MMAs on wgmma, operands straight from the TMA's swizzled tiles:
+//    S = Q K^T as m64nNk16 with N = keys padded to 32 (both operands
+//    K-major in shared memory), the f32 score tile in registers; scale,
+//    bias and the softmax in f32 (base 2, quad shuffles, four partial
+//    maxima and sums per row); the probabilities rounded to bf16 become the
+//    register A operand of O = P V (m64ndk16, V MN-major in shared memory,
+//    its rows past the box zeroed once). An mma.sync form of this kernel,
+//    fed by ldmatrix, spent two thirds of its time on the MMAs (PERF.md).
+//  * O leaves the accumulator by a transpose inside each quad of lanes, so
+//    every lane writes 16 contiguous bytes of a row.
 //
-// * bf16 (the serving path): four warps, 16 query rows each, on the tensor
-//   cores with mma.sync m16n8k16 (bf16 in, f32 accumulate). A warp keeps
-//   its whole 16 x N f32 score tile in registers (fragment layout of the
-//   PTX ISA), adds scale and bias, does the softmax in f32 with quad
-//   shuffles, rounds the probabilities to bf16 and feeds them back as the
-//   A operand of O = P V without leaving registers (the accumulator layout
-//   of two adjacent 8-key tiles is the A layout of one 16-key step). K and
-//   V rows are padded by 8 bf16 so each fragment load hits 32 banks. The
-//   inputs are read about once from device memory (the row tiles of one
-//   head re-read K/V and the bias rows mostly from L2).
-// * f32 (the parity path): CUDA cores, exact f32. One warp per query row;
-//   each lane owns keys lane, lane+32, ...; K is stored with an odd row
-//   stride so the 32 lanes hit 32 banks; p.V accumulates with each lane
-//   owning output channels. Bound by the shared-memory load behind every
-//   FMA, far from the memory bound; it serves correctness, not speed.
+// f32 (the parity and finetune path), attention_f32: CUDA cores, exact f32.
+// One warp per query row; each lane owns keys lane, lane+32, ...; K is
+// stored with an odd row stride so the 32 lanes hit 32 banks; p.V
+// accumulates with each lane owning output channels. Bound by the
+// shared-memory load behind every FMA, far from the memory bound; it serves
+// correctness, not speed.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -68,25 +90,364 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores (mma.sync m16n8k16, fragments kept in registers)
+// bf16: TMA + mbarrier ring, cluster multicast, wgmma from swizzled tiles
 // ---------------------------------------------------------------------------
 
-constexpr int kTcWarps = 4;
-constexpr int kTcRows = 16 * kTcWarps;  // query rows per block
-constexpr int kVec = 8;                 // bf16 per 16-byte load
-constexpr int kPad = 8;                 // bf16 of padding per staged K/V row
+constexpr int kTileRows = 64;                      // query rows per consumer warpgroup
+constexpr int kConsumerGroups = 2;                 // warpgroups, the rows of one CTA
+constexpr int kCtaRows = kTileRows * kConsumerGroups;  // query rows per CTA
+constexpr int kConsumerThreads = 128 * kConsumerGroups;
+constexpr int kTmaThreads = kConsumerThreads + 128;  // + the producer warpgroup (one thread works)
+constexpr int kMaxStages = 3;
+constexpr int kKBox = 8;   // K rows per TMA box (k_rows is a multiple)
+constexpr int kVBox = 16;  // V rows per TMA box (v_rows is a multiple)
+constexpr int kSmemLimit = 232448;  // bytes of shared memory a block may use on an H100
+constexpr int kAlign = 1024;        // a swizzle pattern repeats every 1024 bytes
+constexpr int kBarrierBytes = (2 * kMaxStages + 2) * 8;
 
-// D += A(16x16, row) * B(16x8, col), bf16 in, f32 accumulate. Fragment
-// layout (PTX ISA, mma.m16n8k16): with g = lane / 4 and q = lane % 4,
-// a[0] = A[g][2q..2q+1], a[1] = A[g+8][2q..], a[2] = A[g][2q+8..],
-// a[3] = A[g+8][2q+8..]; b[0] = B[2q..2q+1][g], b[1] = B[2q+8..][g];
-// c[0..1] = C[g][2q..2q+1], c[2..3] = C[g+8][2q..2q+1].
-__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a, const uint32_t* b) {
+__host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+// Shared-memory geometry of one launch; the same on the host and the card:
+// a ring of stages, each the K and V of one item; the CTA's Q tile; the
+// resident bias rows (pre-scaled by log2 e); the mbarriers.
+struct TmaPlan {
+  int k_rows;      // K box rows: N rounded up to 8 (the score wgmma's N covers them)
+  int v_rows;      // V box rows: N rounded up to 16; the tile holds keys_pad rows
+  int keys_pad;    // N rounded up to 32: the score wgmma's N and the P V wgmmas' K
+  int k_bytes;     // K tile, rounded up to the swizzle period; V follows it
+  int stage_bytes;
+  int q_bytes;     // the CTA's Q tile (kCtaRows rows)
+  int bias_pitch;  // floats per bias row, = 8 (mod 32): conflict-free float2 reads
+  int bias_bytes;
+  int stages;
+  int smem;        // dynamic shared memory requested, with the alignment slack
+};
+
+__host__ __device__ inline TmaPlan tma_plan(int D, int N) {
+  TmaPlan p;
+  p.k_rows = round_up(N, 8);
+  p.v_rows = round_up(N, 16);
+  p.keys_pad = round_up(N, 32);
+  p.q_bytes = round_up(kCtaRows * D * 2, kAlign);
+  p.k_bytes = round_up(p.k_rows * D * 2, kAlign);
+  p.stage_bytes = p.k_bytes + round_up(p.keys_pad * D * 2, kAlign);
+  p.bias_pitch = p.k_rows + ((8 - p.k_rows % 32) + 32) % 32;
+  p.bias_bytes = round_up(kCtaRows * p.bias_pitch * 4, kAlign);
+  const int room = kSmemLimit - kAlign - kBarrierBytes - p.bias_bytes - p.q_bytes;
+  p.stages = room / p.stage_bytes < kMaxStages ? room / p.stage_bytes : kMaxStages;
+  p.smem = kAlign + p.stages * p.stage_bytes + p.q_bytes + p.bias_bytes +
+           kBarrierBytes;
+  return p;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      "{\n\t.reg .pred P1;\n"
+      "LAB_WAIT:\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n\t"
+      "@P1 bra DONE;\n\t"
+      "bra LAB_WAIT;\n"
+      "DONE:\n\t}" ::"r"(bar), "r"(parity) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// arrive on the barrier at the same offset in CTA `cta` of the cluster
+// (the default .release.cta: what the arrive orders is this thread's
+// shared-memory reads, not its global stores)
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t cta) {
+  asm volatile(
+      "{\n\t.reg .b32 remote;\n\t"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n\t"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n\t}" ::"r"(bar), "r"(cta)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
+                                         int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// the same box into the same offset of every CTA in `mask`, each CTA's
+// barrier at `bar` counting the bytes
+__device__ __forceinline__ void tma_load_multicast(uint32_t dst, const CUtensorMap* map,
+                                                   uint32_t bar, uint16_t mask, int c0, int c1,
+                                                   int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%4, %5, %6, %7}], [%2], %3;" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "h"(mask), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void cluster_sync_all() {
+  asm volatile("barrier.cluster.arrive.release;\n\tbarrier.cluster.wait.acquire;" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wgmma_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory"); }
+
+// Shared-memory matrix descriptor of a tile of 2D-byte rows in the TMA's
+// swizzle for that width (layout 1 / 2 / 3 = 128B / 64B / 32B): 8-row
+// groups 8*2D bytes apart (SBO). The tile is one swizzle atom wide, so the
+// leading offset is unused (1). K-major operands step 16 elements along a
+// row by adding 32 bytes (2 in the address field); the MN-major V steps 16
+// keys by adding 16 rows.
+template <int D>
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  constexpr uint64_t layout = D == 64 ? 1 : D == 32 ? 2 : 3;
+  constexpr uint64_t sbo = 8 * D * 2;
+  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) | ((sbo >> 4) << 32) | (layout << 62);
+}
+
+// wgmma.mma_async m64nNk16, bf16 in, f32 accumulate, d[N/2] per thread in
+// the accumulator layout of the PTX ISA. wgmma_ss: A and B from shared
+// memory by descriptor, both K-major. wgmma_rs: A from registers (the
+// m16n8k16 A fragment of each warp's 16 rows), B by descriptor,
+// transposed (MN-major). `accumulate` = 0 overwrites d.
+template <int N>
+__device__ void wgmma_ss(float* d, uint64_t da, uint64_t db, int accumulate);
+template <int N>
+__device__ void wgmma_rs(float* d, const uint32_t* a, uint64_t db, int accumulate);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float* d, uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %18, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15}, %16, %17, p, 1, 1, 0, 0;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float* d, uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %34, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, %32, %33, p, 1, 1, 0, 0;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<96>(float* d, uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %50, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
+      "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47}, %48, %49, p, 1, 1, 0, 0;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float* d, uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %66, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
+      "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
+      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63}, %64, %65, p, 1, 1, 0, 0;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<160>(float* d, uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %82, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
+      "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
+      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63,"
+      "%64,%65,%66,%67,%68,%69,%70,%71,%72,%73,%74,%75,%76,%77,%78,%79}, %80, %81, p, 1, 1, 0, 0;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<192>(float* d, uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %98, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
+      "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
+      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63,"
+      "%64,%65,%66,%67,%68,%69,%70,%71,%72,%73,%74,%75,%76,%77,%78,%79,"
+      "%80,%81,%82,%83,%84,%85,%86,%87,%88,%89,%90,%91,%92,%93,%94,%95}, %96, %97, p, 1, 1, 0, 0;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<224>(float* d, uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %114, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n224k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
+      "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
+      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63,"
+      "%64,%65,%66,%67,%68,%69,%70,%71,%72,%73,%74,%75,%76,%77,%78,%79,"
+      "%80,%81,%82,%83,%84,%85,%86,%87,%88,%89,%90,%91,%92,%93,%94,%95,"
+      "%96,%97,%98,%99,%100,%101,%102,%103,%104,%105,%106,%107,%108,%109,%110,%111}, %112, %113, p, 1, 1, 0, 0;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<256>(float* d, uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %130, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
+      "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
+      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63,"
+      "%64,%65,%66,%67,%68,%69,%70,%71,%72,%73,%74,%75,%76,%77,%78,%79,"
+      "%80,%81,%82,%83,%84,%85,%86,%87,%88,%89,%90,%91,%92,%93,%94,%95,"
+      "%96,%97,%98,%99,%100,%101,%102,%103,%104,%105,%106,%107,%108,%109,%110,%111,"
+      "%112,%113,%114,%115,%116,%117,%118,%119,%120,%121,%122,%123,%124,%125,%126,%127}, %128, %129, p, 1, 1, 0, 0;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float* d, const uint32_t* a, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %13, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float* d, const uint32_t* a, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %21, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float* d, const uint32_t* a, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %37, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -94,149 +455,285 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
+// In each quad of lanes (tq = lane % 4), lane tq holds w_i = its 2 columns
+// of 8-column tile i, i = 0..3. Returns the 8 columns of tile tq: word k
+// from lane k. Round r takes from lane tq + r the word it holds for lane tq.
+__device__ __forceinline__ uint4 quad_transpose(uint32_t w0, uint32_t w1, uint32_t w2, uint32_t w3,
+                                                int tq, int lane) {
+  uint32_t out[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int give = (tq - r) & 3;  // the lane this one's word goes to
+    const uint32_t send = give == 0 ? w0 : give == 1 ? w1 : give == 2 ? w2 : w3;
+    const uint32_t got = r == 0 ? send : __shfl_sync(0xffffffffu, send, (lane & ~3) | ((tq + r) & 3));
+    const int k = (tq + r) & 3;  // the lane it came from
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (k == i) out[i] = got;
+  }
+  return make_uint4(out[0], out[1], out[2], out[3]);
 }
 
-// NT = number of 8-key column tiles (keys padded to NT * 8, a multiple of 32)
+// The items of cluster c of `clusters`: [lo, hi) of the heads*B (head-major,
+// batch-minor) sequence, runs that differ in length by at most one.
+__device__ __forceinline__ void cluster_items(int c, int clusters, int items, int& lo, int& hi) {
+  lo = int(int64_t(c) * items / clusters);
+  hi = int(int64_t(c + 1) * items / clusters);
+}
+
+// NT = number of 8-key column tiles: keys padded to a multiple of 32, the
+// N of the score wgmma and the rows of the K/V boxes.
 template <int D, int NT>
-__global__ void __launch_bounds__(kTcWarps * 32, 3)
-attention_bf16_tc(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
-                  __nv_bfloat16* __restrict__ o, int N, int64_t sb, int64_t sh, int sn,
-                  float scale) {
-  constexpr int NP = NT * 8;
-  constexpr int RS = D + kPad;  // row stride: a fragment's 8 rows fall in distinct banks
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);  // NP x RS, rows >= N zero
-  __nv_bfloat16* Vs = Ks + NP * RS;                             // NP x RS, rows >= N zero
+__global__ void __launch_bounds__(kTmaThreads, 1)
+attention_bf16_tma(const __grid_constant__ CUtensorMap map_q,
+                   const __grid_constant__ CUtensorMap map_k,
+                   const __grid_constant__ CUtensorMap map_v, const float* __restrict__ bias,
+                   __nv_bfloat16* __restrict__ o, int N, int B, int heads, int64_t sb,
+                   int64_t sh, int sn, float scale, int clusters) {
+  constexpr int kRowBytes = D * 2;
+  const TmaPlan plan = tma_plan(D, N);
+  const int T = int(gridDim.x) / clusters;  // CTAs per cluster = row tiles
+  const int rank = int(cluster_rank());
+  const int cluster = int(blockIdx.x) / T;
 
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int64_t base = b * sb + h * sh;
-  constexpr int kRowVecs = D / kVec;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + kAlign - 1) & ~uintptr_t(kAlign - 1));
+  // [stages: K | V] [the CTA's Q tile] [bias rows] [barriers]
+  const uint32_t stage0 = smem_u32(smem);
+  const uint32_t q0 = stage0 + plan.stages * plan.stage_bytes;
+  float* bias_s = reinterpret_cast<float*>(smem + plan.stages * plan.stage_bytes +
+                                           plan.q_bytes);
+  const uint32_t full0 = smem_u32(bias_s) + plan.bias_bytes;  // K and V of a stage landed
+  const uint32_t empty0 = full0 + kMaxStages * 8;              // a stage released by the cluster
+  const uint32_t qfull0 = empty0 + kMaxStages * 8;             // the CTA's Q landed
+  const uint32_t qempty0 = qfull0 + 8;                         // the CTA's Q consumed
 
-#pragma unroll  // every load of the staging in flight at once
-  for (int idx = threadIdx.x; idx < NP * kRowVecs; idx += kTcWarps * 32) {
-    const int j = idx / kRowVecs, c = (idx % kRowVecs) * kVec;
-    uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-    if (j < N) {
-      const int64_t gi = base + int64_t(j) * sn + c;
-      kv = *reinterpret_cast<const uint4*>(k + gi);
-      vv = *reinterpret_cast<const uint4*>(v + gi);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < plan.stages; ++s) {
+      mbar_init(full0 + 8 * s, 1);       // the producer's expect_tx
+      mbar_init(empty0 + 8 * s, kConsumerThreads / 32 * T);  // every consumer warp of the cluster
     }
-    *reinterpret_cast<uint4*>(Ks + j * RS + c) = kv;
-    *reinterpret_cast<uint4*>(Vs + j * RS + c) = vv;
+    mbar_init(qfull0, 1);
+    mbar_init(qempty0, kConsumerThreads / 32);  // the CTA's consumer warps
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
+  cluster_sync_all();  // every CTA's barriers exist before any multicast or remote arrive
 
+  int lo, hi;
+  cluster_items(cluster, clusters, heads * B, lo, hi);
+  const int n_items = hi - lo;
+  const int row0 = rank * kCtaRows;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, tq = lane & 3;
-  const int row0 = blockIdx.x * kTcRows + warp * 16;
-  if (row0 >= N) return;  // no block-wide barrier follows
-  const int r_lo = row0 + g, r_hi = row0 + g + 8;  // the two query rows this lane holds
 
-  // Q fragments straight from device memory (rows >= N read as zero)
-  uint32_t qa[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = kk * 16 + 2 * tq;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = half ? r_hi : r_lo;
-      const uint32_t* src = reinterpret_cast<const uint32_t*>(q + base + int64_t(r) * sn + c);
-      qa[kk][half] = r < N ? src[0] : 0u;
-      qa[kk][2 + half] = r < N ? src[4] : 0u;  // columns c + 8, c + 9
+  if (warp >= kConsumerThreads / 32) {
+    // ---- producer warpgroup: one thread keeps the K/V ring full, another
+    // the CTA's Q tile, so neither waits behind the other ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    const int pw = warp - kConsumerThreads / 32;
+    if (pw == 0 && lane == 0) {
+      const uint32_t kv_tx = uint32_t((plan.k_rows + plan.v_rows) * kRowBytes);
+      const uint16_t everyone = uint16_t((1u << T) - 1);
+      for (int j = 0; j < n_items; ++j) {
+        const int s = j % plan.stages, use = j / plan.stages;
+        const int h = (lo + j) / B, b = (lo + j) % B;
+        const uint32_t st = stage0 + s * plan.stage_bytes;
+        mbar_wait(empty0 + 8 * s, (use & 1) ^ 1);  // released by all CTAs of the cluster
+        mbar_expect_tx(full0 + 8 * s, kv_tx);
+        // K and V in boxes of kKBox / kVBox rows, spread over the CTAs of
+        // the cluster, each multicast to all of them
+        for (int r = kKBox * rank; r < plan.k_rows; r += kKBox * T) {
+          if (T > 1)
+            tma_load_multicast(st + r * kRowBytes, &map_k, full0 + 8 * s, everyone, 0, r, h, b);
+          else
+            tma_load(st + r * kRowBytes, &map_k, full0 + 8 * s, 0, r, h, b);
+        }
+        for (int r = kVBox * rank; r < plan.v_rows; r += kVBox * T) {
+          const uint32_t dst = st + plan.k_bytes + r * kRowBytes;
+          if (T > 1)
+            tma_load_multicast(dst, &map_v, full0 + 8 * s, everyone, 0, r, h, b);
+          else
+            tma_load(dst, &map_v, full0 + 8 * s, 0, r, h, b);
+        }
+      }
+      // tail: every stage released by every CTA, so no peer arrives on this
+      // CTA's barriers after it exits
+      for (int j = n_items; j < n_items + plan.stages; ++j)
+        mbar_wait(empty0 + 8 * (j % plan.stages), ((j / plan.stages) & 1) ^ 1);
+    } else if (pw == 1 && lane == 0) {
+      for (int j = 0; j < n_items; ++j) {
+        const int h = (lo + j) / B, b = (lo + j) % B;
+        mbar_wait(qempty0, (j & 1) ^ 1);  // the last item's scores are done
+        mbar_expect_tx(qfull0, uint32_t(kCtaRows * kRowBytes));
+        tma_load(q0, &map_q, qfull0, 0, row0, h, b);
+      }
     }
-  }
+  } else {
+    // ---- consumers: warpgroup wg takes rows 64wg..64wg+63 of every item ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+    const int wg = warp >> 2, wq = warp & 3;  // wq: this warp's 16 rows of its warpgroup's 64
+    const int g = lane >> 2, tq = lane & 3;
+    const int rl_lo = wg * kTileRows + wq * 16 + g, rl_hi = rl_lo + 8;  // this lane's two CTA rows
+    const float* bl = bias_s + rl_lo * plan.bias_pitch;
+    const float* bh = bias_s + rl_hi * plan.bias_pitch;
+    const uint32_t qt = q0 + wg * kTileRows * kRowBytes;
+    const int live_t = (N + 7) >> 3;  // 8-key tiles with a key < N
+    constexpr float kLog2e = 1.4426950408889634f;
+    const float sl = scale * kLog2e;  // softmax in base 2: the bias is pre-scaled too
 
-  // S = Q K^T: NT tiles of 16 x 8, f32, in registers
-  float s[NT][4];
-#pragma unroll
-  for (int t = 0; t < NT; ++t) {
-    s[t][0] = s[t][1] = s[t][2] = s[t][3] = 0.f;
-    const __nv_bfloat16* krow = Ks + (t * 8 + g) * RS + 2 * tq;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t kb[2];
-      kb[0] = *reinterpret_cast<const uint32_t*>(krow + kk * 16);
-      kb[1] = *reinterpret_cast<const uint32_t*>(krow + kk * 16 + 8);
-      mma_16816(s[t], qa[kk], kb);
+    // V rows past the box never load: zero them once, so that the P V
+    // wgmmas over all keys_pad keys multiply P's zeros by zeros
+    const int tail = (plan.keys_pad - plan.v_rows) * kRowBytes / 16;
+    for (int idx = threadIdx.x; idx < plan.stages * tail; idx += kConsumerThreads) {
+      const int st = idx / tail, i = idx % tail;
+      const uint32_t at = stage0 + st * plan.stage_bytes + plan.k_bytes + plan.v_rows * kRowBytes + 16 * i;
+      asm volatile("st.shared.v4.b32 [%0], {%1, %1, %1, %1};" ::"r"(at), "r"(0) : "memory");
     }
-  }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // seen by the wgmmas
 
-  // softmax over keys, f32, per row; a row's values are spread over the 4
-  // lanes of a quad, so the reductions are two xor-shuffles
-  const float* b_lo = bias + (size_t(h) * N + min(r_lo, N - 1)) * N;
-  const float* b_hi = bias + (size_t(h) * N + min(r_hi, N - 1)) * N;
-  float mx_lo = -INFINITY, mx_hi = -INFINITY;
-#pragma unroll
-  for (int t = 0; t < NT; ++t) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int c = t * 8 + 2 * tq + e;
-      s[t][e] = c < N ? s[t][e] * scale + b_lo[c] : -INFINITY;
-      s[t][2 + e] = c < N ? s[t][2 + e] * scale + b_hi[c] : -INFINITY;
-      mx_lo = fmaxf(mx_lo, s[t][e]);
-      mx_hi = fmaxf(mx_hi, s[t][2 + e]);
-    }
-  }
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
-    mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
-  }
-  float sum_lo = 0.f, sum_hi = 0.f;
-#pragma unroll
-  for (int t = 0; t < NT; ++t) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      s[t][e] = expf(s[t][e] - mx_lo);  // padded keys: exp(-inf) = 0
-      s[t][2 + e] = expf(s[t][2 + e] - mx_hi);
-      sum_lo += s[t][e];
-      sum_hi += s[t][2 + e];
-    }
-  }
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    sum_lo += __shfl_xor_sync(0xffffffffu, sum_lo, off);
-    sum_hi += __shfl_xor_sync(0xffffffffu, sum_hi, off);
-  }
+    for (int seg = 0; seg < n_items;) {
+      // one head at a time: its bias rows stay resident for all its items
+      const int h = (lo + seg) / B;
+      const int seg_end = min(n_items, (h + 1) * B - lo);
+      asm volatile("bar.sync 1, %0;" ::"n"(kConsumerThreads) : "memory");  // the last head is done
+      const int rows = min(kCtaRows, N - row0);
+      const float* src = bias + (size_t(h) * N + row0) * N;
+      const int c = threadIdx.x;  // one column per thread: k_rows <= 256 = kConsumerThreads
+      if (c < plan.k_rows) {
+#pragma unroll 8
+        for (int r = 0; r < rows; ++r)
+          bias_s[r * plan.bias_pitch + c] = c < N ? src[size_t(r) * N + c] * kLog2e : -INFINITY;
+      }
+      asm volatile("bar.sync 1, %0;" ::"n"(kConsumerThreads) : "memory");
 
-  // O = P V; P's A fragments are the bf16 score tiles 2kk and 2kk+1
-  const float inv_lo = 1.f / sum_lo, inv_hi = 1.f / sum_hi;
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < NT / 2; ++kk) {
-    uint32_t pa[4];
-    pa[0] = pack_bf16(s[2 * kk][0] * inv_lo, s[2 * kk][1] * inv_lo);
-    pa[1] = pack_bf16(s[2 * kk][2] * inv_hi, s[2 * kk][3] * inv_hi);
-    pa[2] = pack_bf16(s[2 * kk + 1][0] * inv_lo, s[2 * kk + 1][1] * inv_lo);
-    pa[3] = pack_bf16(s[2 * kk + 1][2] * inv_hi, s[2 * kk + 1][3] * inv_hi);
-    const __nv_bfloat16* v0 = Vs + (kk * 16 + 2 * tq) * RS + g;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const __nv_bfloat16* vp = v0 + n * 8;
-      uint32_t vb[2];
-      vb[0] = pack_bf16(vp[0], vp[RS]);
-      vb[1] = pack_bf16(vp[8 * RS], vp[9 * RS]);
-      mma_16816(acc[n], pa, vb);
-    }
-  }
+      for (int j = seg; j < seg_end; ++j) {
+        const int s = j % plan.stages, use = j / plan.stages;
+        const int b = (lo + j) % B;
+        const uint32_t kt = stage0 + s * plan.stage_bytes, vt = kt + plan.k_bytes;
 
+        // S = Q K^T over 8*NT keys (rows past the K box are never used):
+        // D/16 wgmmas, both operands from the tiles
+        float sc[NT * 4];
+        mbar_wait(qfull0, j & 1);
+        mbar_wait(full0 + 8 * s, use & 1);
+        wgmma_fence();
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int c = n * 8 + 2 * tq;
-    if (r_lo < N)
-      *reinterpret_cast<uint32_t*>(o + base + int64_t(r_lo) * sn + c) = pack_bf16(acc[n][0], acc[n][1]);
-    if (r_hi < N)
-      *reinterpret_cast<uint32_t*>(o + base + int64_t(r_hi) * sn + c) = pack_bf16(acc[n][2], acc[n][3]);
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss<8 * NT>(sc, smem_desc<D>(qt) + 2 * kk, smem_desc<D>(kt) + 2 * kk, kk > 0);
+        wgmma_commit();
+        wgmma_wait_all();
+        __syncwarp();
+        if (lane == 0) mbar_arrive(qempty0);  // Q may refill
+
+        // softmax over keys in base 2, f32, per row; lane holds sc[4t..4t+3]
+        // = S[rl_lo][8t+2tq..+1], S[rl_hi][8t+2tq..+1], so a row's values
+        // are spread over the 4 lanes of a quad: two xor-shuffles reduce it.
+        // Keys in [N, k_rows) meet a bias of -inf (their K rows are zeros);
+        // tiles past live_t are never read. Four partial maxima and sums
+        // per row keep the dependent chains short.
+        float mlo[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+        float mhi[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+#pragma unroll
+        for (int t = 0; t < NT; ++t) {
+          if (t < live_t) {
+            const int c = t * 8 + 2 * tq;
+            const float2 blo = *reinterpret_cast<const float2*>(bl + c);
+            const float2 bhi = *reinterpret_cast<const float2*>(bh + c);
+            sc[4 * t] = fmaf(sc[4 * t], sl, blo.x);
+            sc[4 * t + 1] = fmaf(sc[4 * t + 1], sl, blo.y);
+            sc[4 * t + 2] = fmaf(sc[4 * t + 2], sl, bhi.x);
+            sc[4 * t + 3] = fmaf(sc[4 * t + 3], sl, bhi.y);
+            mlo[t & 3] = fmaxf(mlo[t & 3], fmaxf(sc[4 * t], sc[4 * t + 1]));
+            mhi[t & 3] = fmaxf(mhi[t & 3], fmaxf(sc[4 * t + 2], sc[4 * t + 3]));
+          }
+        }
+        float mx_lo = fmaxf(fmaxf(mlo[0], mlo[1]), fmaxf(mlo[2], mlo[3]));
+        float mx_hi = fmaxf(fmaxf(mhi[0], mhi[1]), fmaxf(mhi[2], mhi[3]));
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {
+          mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
+          mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
+        }
+        float slo[4] = {0.f, 0.f, 0.f, 0.f}, shi[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int t = 0; t < NT; ++t) {
+          if (t < live_t) {  // masked keys: ex2(-inf) = 0
+            sc[4 * t] = ex2(sc[4 * t] - mx_lo);
+            sc[4 * t + 1] = ex2(sc[4 * t + 1] - mx_lo);
+            sc[4 * t + 2] = ex2(sc[4 * t + 2] - mx_hi);
+            sc[4 * t + 3] = ex2(sc[4 * t + 3] - mx_hi);
+            slo[t & 3] += sc[4 * t] + sc[4 * t + 1];
+            shi[t & 3] += sc[4 * t + 2] + sc[4 * t + 3];
+          } else {  // keys past the last live tile weigh nothing
+            sc[4 * t] = sc[4 * t + 1] = sc[4 * t + 2] = sc[4 * t + 3] = 0.f;
+          }
+        }
+        float sum_lo = (slo[0] + slo[1]) + (slo[2] + slo[3]);
+        float sum_hi = (shi[0] + shi[1]) + (shi[2] + shi[3]);
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {
+          sum_lo += __shfl_xor_sync(0xffffffffu, sum_lo, off);
+          sum_hi += __shfl_xor_sync(0xffffffffu, sum_hi, off);
+        }
+        const float inv_lo = 1.f / sum_lo, inv_hi = 1.f / sum_hi;
+
+        // O = P V: P rounded to bf16 is the register A operand (the
+        // accumulator layout of two adjacent 8-key tiles is the A layout of
+        // one 16-key step); V, MN-major, by descriptor, 16 keys per wgmma
+        uint32_t pa[NT / 2][4];
+#pragma unroll
+        for (int kk = 0; kk < NT / 2; ++kk) {
+          const float* s0 = sc + 8 * kk;
+          pa[kk][0] = pack_bf16(s0[0] * inv_lo, s0[1] * inv_lo);
+          pa[kk][1] = pack_bf16(s0[2] * inv_hi, s0[3] * inv_hi);
+          pa[kk][2] = pack_bf16(s0[4] * inv_lo, s0[5] * inv_lo);
+          pa[kk][3] = pack_bf16(s0[6] * inv_hi, s0[7] * inv_hi);
+        }
+        float acc[D / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < NT / 2; ++kk)
+          wgmma_rs<D>(acc, pa[kk], smem_desc<D>(vt + kk * 16 * kRowBytes), kk > 0);
+        wgmma_commit();
+        wgmma_wait_all();
+
+        // the stage is consumed (both wgmmas have completed): release it
+        // before the stores, so the release waits for none of them
+        __syncwarp();
+        if (lane == 0)
+          for (int cta = 0; cta < T; ++cta) mbar_arrive_cluster(empty0 + 8 * s, uint32_t(cta));
+
+        // O straight from the accumulator with 16-byte stores: in each quad
+        // the 4 lanes hold 2 columns each of 8-column tiles; a transpose
+        // over 4 tiles gives lane tq the 8 columns of tile 4m + tq
+        const int64_t base = int64_t(b) * sb + int64_t(h) * sh;
+        const int r_lo = row0 + rl_lo, r_hi = row0 + rl_hi;
+        __nv_bfloat16* o_lo = o + base + int64_t(r_lo) * sn;
+        __nv_bfloat16* o_hi = o + base + int64_t(r_hi) * sn;
+        if constexpr (D >= 32) {
+#pragma unroll
+          for (int m = 0; m < D / 32; ++m) {
+            const float* a4 = acc + 16 * m;  // tiles 4m..4m+3
+            const uint4 lo = quad_transpose(pack_bf16(a4[0], a4[1]), pack_bf16(a4[4], a4[5]),
+                                            pack_bf16(a4[8], a4[9]), pack_bf16(a4[12], a4[13]), tq, lane);
+            const uint4 hi = quad_transpose(pack_bf16(a4[2], a4[3]), pack_bf16(a4[6], a4[7]),
+                                            pack_bf16(a4[10], a4[11]), pack_bf16(a4[14], a4[15]), tq, lane);
+            const int col = 8 * (4 * m + tq);
+            if (r_lo < N) *reinterpret_cast<uint4*>(o_lo + col) = lo;
+            if (r_hi < N) *reinterpret_cast<uint4*>(o_hi + col) = hi;
+          }
+        } else {  // d = 16: 4-byte stores
+#pragma unroll
+          for (int n = 0; n < D / 8; ++n) {
+            if (r_lo < N) *reinterpret_cast<uint32_t*>(o_lo + 8 * n + 2 * tq) = pack_bf16(acc[4 * n], acc[4 * n + 1]);
+            if (r_hi < N) *reinterpret_cast<uint32_t*>(o_hi + 8 * n + 2 * tq) = pack_bf16(acc[4 * n + 2], acc[4 * n + 3]);
+          }
+        }
+      }
+      seg = seg_end;
+    }
   }
 }
 
@@ -248,26 +745,125 @@ struct Layout {
   int sn;
 };
 
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver through the runtime, so the
+// library needs no link against libcuda
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(ptr);
+  }
+  return fn;
+}
+
+// 4-D map (d, N, heads, B) of bf16 over the layout's strides, box
+// (d, rows, 1, 1), the swizzle of a 2d-byte row; reads past N fill zeros
+cudaError_t encode_map(CUtensorMap* map, const void* ptr, const Layout& L, int d, int rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {cuuint64_t(d), cuuint64_t(L.N), cuuint64_t(L.heads), cuuint64_t(L.B)};
+  const cuuint64_t strides[3] = {cuuint64_t(L.sn) * 2, cuuint64_t(L.sh) * 2, cuuint64_t(L.sb) * 2};
+  const cuuint32_t box[4] = {cuuint32_t(d), cuuint32_t(rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle = d == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : d == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                               : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// launch configuration of the bf16 kernel: ceil(N/128) CTAs per cluster
+template <int D, int NT>
+cudaError_t bf16_config(int N, int clusters, cudaStream_t stream, cudaLaunchConfig_t& cfg,
+                        cudaLaunchAttribute* attr) {
+  const TmaPlan plan = tma_plan(D, N);
+  if (plan.stages < 1) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(attention_bf16_tma<D, NT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, plan.smem);
+  if (err != cudaSuccess) return err;
+  const int T = (N + kCtaRows - 1) / kCtaRows;
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3(T * clusters);
+  cfg.blockDim = dim3(kTmaThreads);
+  cfg.dynamicSmemBytes = plan.smem;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = T;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaSuccess;
+}
+
+// How many clusters of the bf16 kernel fit on the current device at once
+// (cudaOccupancyMaxActiveClusters). Asked once per device and N, since a
+// CTA's shared memory depends on N: an instance serves 32 token counts.
+template <int D, int NT>
+cudaError_t resident_clusters(int N, int& n) {
+  constexpr int kDevices = 16;
+  static int fit[kDevices][32];  // 0 until asked
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  int* slot = dev < kDevices ? &fit[dev][(N - 1) % 32] : nullptr;
+  if (slot != nullptr && *slot > 0) {
+    n = *slot;
+    return cudaSuccess;
+  }
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  err = bf16_config<D, NT>(N, 1, nullptr, cfg, attr);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(&n, attention_bf16_tma<D, NT>, &cfg);
+  if (err != cudaSuccess) return err;
+  if (n < 1) return cudaErrorInvalidConfiguration;
+  if (slot != nullptr) *slot = n;
+  return cudaSuccess;
+}
+
+// Runs the persistent grid: as many clusters as fit at once, but no more
+// than there are (head, batch row) items.
 template <int D, int NT>
 cudaError_t launch_bf16_t(const void* q, const void* k, const void* v, const void* bias, void* o,
                           const Layout& L, float scale, cudaStream_t stream) {
-  const size_t smem = size_t(2) * NT * 8 * (D + kPad) * sizeof(__nv_bfloat16);
-  auto kernel = attention_bf16_tc<D, NT>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  int clusters = 0;
+  cudaError_t err = resident_clusters<D, NT>(L.N, clusters);
   if (err != cudaSuccess) return err;
-  const dim3 grid((L.N + kTcRows - 1) / kTcRows, L.heads, L.B);
-  kernel<<<grid, kTcWarps * 32, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const float*>(bias),
-      static_cast<__nv_bfloat16*>(o), L.N, L.sb, L.sh, L.sn, scale);
+  if (clusters > L.B * L.heads) clusters = L.B * L.heads;
+  CUtensorMap mq, mk, mv;
+  err = encode_map(&mq, q, L, D, kCtaRows);
+  if (err == cudaSuccess) err = encode_map(&mk, k, L, D, kKBox);
+  if (err == cudaSuccess) err = encode_map(&mv, v, L, D, kVBox);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  err = bf16_config<D, NT>(L.N, clusters, stream, cfg, attr);
+  if (err != cudaSuccess) return err;
+  err = cudaLaunchKernelEx(&cfg, attention_bf16_tma<D, NT>, mq, mk, mv,
+                           static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(o), L.N,
+                           L.B, L.heads, L.sb, L.sh, L.sn, scale, clusters);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void* bias, void* o,
                         const Layout& L, float scale, cudaStream_t s) {
-  switch ((L.N + 31) / 32) {  // keys padded to a multiple of 32
+  switch ((L.N + 31) / 32) {  // keys padded to a multiple of 32: NT = 4 * ceil(N / 32)
     case 1: return launch_bf16_t<D, 4>(q, k, v, bias, o, L, scale, s);
     case 2: return launch_bf16_t<D, 8>(q, k, v, bias, o, L, scale, s);
     case 3: return launch_bf16_t<D, 12>(q, k, v, bias, o, L, scale, s);
@@ -404,13 +1000,6 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* 
   }
 }
 
-template <int D>
-cudaError_t launch(int is_bf16, const void* q, const void* k, const void* v, const void* bias,
-                   void* o, const Layout& L, float scale, cudaStream_t s) {
-  return is_bf16 ? launch_bf16<D>(q, k, v, bias, o, L, scale, s)
-                 : launch_f32<D>(q, k, v, bias, o, L, scale, s);
-}
-
 int run(int is_bf16, int d, const void* q, const void* k, const void* v, const void* bias,
         void* o, const Layout& L, void* stream) {
   if (L.B <= 0 || L.B > 65535 || L.heads <= 0 || L.heads > 65535 || L.N <= 0 || L.N > kMaxKeys)
@@ -418,9 +1007,12 @@ int run(int is_bf16, int d, const void* q, const void* k, const void* v, const v
   const float scale = 1.0f / sqrtf(float(d));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 16: return int(launch<16>(is_bf16, q, k, v, bias, o, L, scale, s));
-    case 32: return int(launch<32>(is_bf16, q, k, v, bias, o, L, scale, s));
-    case 64: return int(launch<64>(is_bf16, q, k, v, bias, o, L, scale, s));
+    case 16: return int(is_bf16 ? launch_bf16<16>(q, k, v, bias, o, L, scale, s)
+                                : launch_f32<16>(q, k, v, bias, o, L, scale, s));
+    case 32: return int(is_bf16 ? launch_bf16<32>(q, k, v, bias, o, L, scale, s)
+                                : launch_f32<32>(q, k, v, bias, o, L, scale, s));
+    case 64: return int(is_bf16 ? launch_bf16<64>(q, k, v, bias, o, L, scale, s)
+                                : launch_f32<64>(q, k, v, bias, o, L, scale, s));
     default: return int(cudaErrorInvalidValue);
   }
 }
@@ -429,8 +1021,9 @@ int run(int is_bf16, int d, const void* q, const void* k, const void* v, const v
 
 // Both entries: bias is (num_heads, N, N) f32 contiguous; q, k, v, o are
 // contiguous and 16-byte aligned, f32 (is_bf16 = 0) or bf16 (is_bf16 = 1);
-// d in {16, 32, 64}; 1 <= N <= 256. They launch on `stream` and return
-// cudaGetLastError() (cudaErrorInvalidValue for a shape they do not take).
+// d in {16, 32, 64}; 1 <= N <= 256. They launch on `stream` (on the current
+// device) and return cudaGetLastError() (cudaErrorInvalidValue for a shape
+// they do not take).
 
 // B1: q, k, v, o are (B, N, H) with H = num_heads * d.
 extern "C" int beit_attention_packed_launch(const void* q, const void* k, const void* v,

@@ -29,12 +29,13 @@ differentiates through the kernel's forward.
 
 Bound on an H100 SXM at the production shape (bf16, B=384, N=197, h=12,
 d=64), the same in both layouts: 466.7 MB moved = 139 µs at 3.35 TB/s
-against 46 µs of bf16 tensor-core work, so memory-bound. The kernel stages
-each head's K and V once per block in shared memory, keeps each warp's
-score tile in registers (bf16: tensor-core ``mma.sync``), and never
-materialises the score tensor or a transposed copy, so its traffic is near
-that bound; what it loses to the bound is latency (see the source and
-PERF.md).
+against 46 µs of bf16 tensor-core work, so memory-bound. The bf16 kernel
+runs a persistent grid of thread-block clusters (one cluster = the
+ceil(N/128) query-row tiles of one head, as many as fit on the card at
+once, each walking an equal run of (head, batch row) items); K and V reach
+each cluster once by TMA multicast, the bias rows stay in shared memory
+per head, and the score tile never leaves registers (see the source and
+PERF.md). The f32 path is the CUDA-core kernel.
 """
 
 from __future__ import annotations

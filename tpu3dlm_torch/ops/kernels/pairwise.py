@@ -24,6 +24,7 @@ operations bind (see the source for the design).
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 
 import torch
 
@@ -121,7 +122,8 @@ def nearest_neighbors_reference(a: torch.Tensor, b: torch.Tensor) -> tuple[torch
 def nearest_neighbors(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(idx (N,) int64, d2 (N,) f32) of each query's nearest target: the
     CUDA kernel for CUDA tensors, the plain twin for CPU tensors.
-    ``nearest_neighbors.launches`` counts kernel launches."""
+    ``nearest_neighbors.launches`` counts kernel launches and
+    ``nearest_neighbors.launches_by_shape`` counts them by (N, M)."""
     _check(a, b)
     if a.device.type == "cpu":
         return nearest_neighbors_reference(a, b)
@@ -145,7 +147,9 @@ def nearest_neighbors(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, t
     if err != 0:
         raise RuntimeError(f"nearest_neighbors launch failed: cudaError {err}")
     nearest_neighbors.launches += 1
+    nearest_neighbors.launches_by_shape[n, m] += 1
     return idx, d2
 
 
 nearest_neighbors.launches = 0
+nearest_neighbors.launches_by_shape = Counter()
