@@ -5,26 +5,31 @@
 
 Builds every CUDA kernel of the port from ``tpu3dlm_torch/csrc`` (into
 ``tpu3dlm_torch/_build``, one ``nvcc`` per source, all at once), then runs
-twelve phases, each printing one JSON line; any failure raises and the
+thirteen phases, each printing one JSON line; any failure raises and the
 script exits non-zero without a result:
 
 1. ``kernel_b1``: kernel B1 (BEiT attention) against its plain PyTorch twin
    at the production shape in bf16 (tolerance 1e-2 abs and rel: one bf16
    ulp of p and of the output) and in f32 (1e-5: summation order only) at
-   small shapes and the finetune shape, with CUDA-event times of the
+   small shapes, N = 257 with d = 128, and the finetune shape, each case
+   with the kernel the C entry routed it to (``attention_bf16_tma`` or
+   ``attention_simt``, whose count must move); CUDA-event times of the
    kernel, the twin and ``F.scaled_dot_product_attention`` (the library
    yardstick; the port never calls it) beside the kernel's bound, for the
    bf16 path at (384, 197, 12, 64) and the f32 path at the finetune's
    (64, 197, 12, 64) (SDPA in f32 with TF32 off).
-2. ``slice_parity``: the fused runner in f32 on the card (kernel, cuDNN,
+2. ``beit_past_old_limits``: the BEiT shapes of ROADMAP C1 (256 px, so
+   N = 257; head width 128) at f32 on the card against the CPU, logits
+   within 1e-5, one ``attention_simt`` launch per layer.
+3. ``slice_parity``: the fused runner in f32 on the card (kernel, cuDNN,
    TF32 off) against the same runner on the CPU (twin) on a small scan:
    masks, labels and damage equal, boxes within 1e-2 px, corners within
    1e-4 m.
-3. ``fused_full_width``: the scan-step main path — ``FusedScanRunner``
+4. ``fused_full_width``: the scan-step main path — ``FusedScanRunner``
    (YOLOv10-n at 640², BEiT-base at 224, bf16, 128 frames, crop budget 384)
    and ``suppress_bboxes`` — once with the launch counts set to 0, then
    timed over warm runs, with a per-stage split.
-4. ``kernel_b2``: kernel B2 (nearest neighbour) against its twin at the
+5. ``kernel_b2``: kernel B2 (nearest neighbour) against its twin at the
    compare's shapes (16384 × 1,048,576 with sentinel padding, 10240 ×
    65,536, 4096 × 262,144), an odd small shape and a tie case: every d²
    within 1e-4 m², and where the indices differ the two d² within 1e-5 m²
@@ -34,47 +39,50 @@ script exits non-zero without a result:
    shapes (``phase_kernel_b2`` says why not on the dense ones). Times of the
    kernel, the twin and a chunked ``torch.cdist(...).min(1)`` (a yardstick:
    no single PyTorch call computes this function) beside the bound.
-5. ``compare_parity``: ``Alignment.compare`` + ``BBoxComparison`` on the
+6. ``compare_parity``: ``Alignment.compare`` + ``BBoxComparison`` on the
    card against the same on the CPU (twin) on a ~20k-point two-scan scene:
    final transform and every recorded step within 1e-4, rmse and inlier
    fraction within 1e-5, the same verdict reasons, assignment and CSV rows.
-6. ``compare_full_width``: the two-scan main path at full width — two ~1M
+7. ``compare_full_width``: the two-scan main path at full width — two ~1M
    point clouds, a 16384-point query, three ICP stages of 30 iterations,
    ``global_init="auto"``, point-to-plane, fused matching — once with the
    launch counts at 0 and a cold gold cache, then 5 warm captures, with the
    split into gold-side host work, NN sweeps and the rest, and B2's calls
    of one capture by shape (count and CUDA-event ms per (n, m)).
-7. ``kernel_b3``: kernel B3 (head-major attention) against its twin at
+8. ``kernel_b3``: kernel B3 (head-major attention) against its twin at
    (h, B, N, d) = (12, 384, 197, 64) bf16 (1e-2) and small f32 shapes
    (1e-5; N = 33, B = 5), and against B1 through the layouts on every
    input; B3's path — the public op ``beit_attention`` forward and backward
    at the production shape — once with the count at 0; times of the
    kernel, the twin and ``F.scaled_dot_product_attention`` beside the
    bound.
-8. ``attention_grad``: B1's and B3's outputs carry gradients on the card,
+9. ``attention_grad``: B1's and B3's outputs carry gradients on the card,
    and their q, k, v and bias gradients equal plain autograd through the
    twins at f32 within 1e-5; a BEiT-base attention layer's q/k/v weights
    and relative-position table get non-zero gradients.
-9. ``finetune_parity``: three finetune steps of a small BEiT (32 px,
+10. ``finetune_parity``: three finetune steps of a small BEiT (32 px,
    hidden 64, 2 layers, 4 heads, 3 labels) at f32 on the card and on the
    CPU: losses within 1e-5, the first step's gradients within 1e-5.
-10. ``finetune_full_width``: the finetune main path — ``init_finetune`` and
+11. ``finetune_full_width``: the finetune main path — ``init_finetune`` and
     ``make_beit_train_step`` on BEiT-base at 224, f32, batch 64 — one
-    warm-up step with the counts at 0 (12 B1 launches, each one's output
+    warm-up step with the counts at 0 (12 B1 launches, all on
+    ``attention_simt``, each one's output
     held against the twin on that layer's own q, k, v and bias within
     1e-5), 5 timed steps (the loss must fall), peak memory and a profiled
     step.
-11. ``kernel_b4``: kernel B4's variants against their bf16 twin and f64
+12. ``kernel_b4``: kernel B4's variants against their bf16 twin and f64
     (and bit-equal to each other) at small shapes; then the probe's path
     (``tpu3dlm_torch/scripts/bench_nn_variants.py``: verify, then time at
     16384 × 1,048,576 beside B2) with the counts of both CUDA kernels at 0,
     its JSON lines, and each variant's output of that timing run held
     against the twin on the same inputs by the small shapes' bars (f64 on
     every 64th query); the twin's time and the bound.
-12. ``kernels``: one line listing every ported kernel (B1, B2, B3, B4 v1
-    and v2) with its launches, the path they were counted on
-    (``launches_on``), error, times and bound; B1's f32-path numbers and
-    B2's main-path launches and times by shape.
+13. ``kernels``: one line listing every ported kernel (B1 on its two
+    routes — ``attention_bf16_tma`` counted on the scan step,
+    ``attention_simt`` on the finetune step — B2, B3, B4 v1 and v2) with
+    its launches, the path they were counted on (``launches_on``), error,
+    times and bound; every B1 case with its route, and B2's main-path
+    launches and times by shape.
 
 The card's name and power limit (nvidia-smi) are printed before the last
 line; the last line is ``{"ok": true, "device": {...}}``. Inputs and
@@ -97,7 +105,7 @@ SEED = 0
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 # the __global__ functions of tpu3dlm_torch/csrc, as the profiler names them
-PORT_KERNELS = ("attention_bf16_tma", "attention_f32", "nn_partial_kernel", "nn_fold_kernel",
+PORT_KERNELS = ("attention_bf16_tma", "attention_simt", "nn_partial_kernel", "nn_fold_kernel",
                 "nn_variant_kernel")
 
 
@@ -161,6 +169,7 @@ def phase_kernel_b1(dev, mem_rate) -> dict:
     from tpu3dlm_torch.ops.kernels.attention import (
         beit_attention_packed,
         beit_attention_packed_reference,
+        kernel_route,
     )
 
     g = torch.Generator(device=dev).manual_seed(SEED)
@@ -169,20 +178,26 @@ def phase_kernel_b1(dev, mem_rate) -> dict:
     for dtype, (B, N, h, d), tol in [
         (torch.bfloat16, (384, 197, 12, 64), 1e-2),
         (torch.bfloat16, (5, 9, 2, 64), 1e-2),
+        (torch.bfloat16, (3, 257, 2, 64), 1e-2),  # past the TMA kernel's 256 tokens
         (torch.float32, (5, 33, 3, 16), 1e-5),
         (torch.float32, (16, 197, 12, 64), 1e-5),
+        (torch.float32, (2, 257, 2, 128), 1e-5),  # the shapes of ROADMAP C1
         (torch.float32, (64, 197, 12, 64), 1e-5),  # the finetune step's shape
     ]:
         q, k, v = (torch.randn(B, N, h * d, generator=g, device=dev).to(dtype) for _ in range(3))
         bias = torch.randn(h, N, N, generator=g, device=dev)
+        kernel = kernel_route(dtype, N, d)
+        before = beit_attention_packed.launches_by_kernel[kernel]
         out = beit_attention_packed(q, k, v, bias, h)
         torch.cuda.synchronize()
+        check(beit_attention_packed.launches_by_kernel[kernel] == before + 1, (kernel, B, N, h, d))
         ref = beit_attention_packed_reference(q, k, v, bias, h)
         max_err = float((out.float() - ref.float()).abs().max())
         torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
-        checks.append({"dtype": str(dtype).split(".")[-1], "shape": [B, N, h, d],
+        checks.append({"dtype": str(dtype).split(".")[-1], "shape": [B, N, h, d], "kernel": kernel,
                        "max_abs_err": max_err, "tol": tol})
-        inputs[dtype, B] = dict(q=q, k=k, v=v, bias=bias, shape=(B, N, h, d), max_err=max_err)
+        inputs[dtype, B] = dict(q=q, k=k, v=v, bias=bias, shape=(B, N, h, d), max_err=max_err,
+                                kernel=kernel)
 
     def timed(case) -> dict:
         q, k, v, bias = case["q"], case["k"], case["v"], case["bias"]
@@ -191,7 +206,7 @@ def phase_kernel_b1(dev, mem_rate) -> dict:
         mask = bias.to(q.dtype)[None]
         bound_ms, bound_by = attention_bound_ms(B, N, h, d, q.dtype, mem_rate)
         return {
-            "shape": [B, N, h, d], "dtype": str(q.dtype).split(".")[-1],
+            "shape": [B, N, h, d], "dtype": str(q.dtype).split(".")[-1], "kernel": case["kernel"],
             "kernel_ms": cuda_ms(lambda: beit_attention_packed(q, k, v, bias, h)),
             "plain_ms": cuda_ms(lambda: beit_attention_packed_reference(q, k, v, bias, h)),
             "library_ms": cuda_ms(
@@ -297,11 +312,14 @@ def phase_fused_full_width(dev) -> dict:
 
     # the main path, once, with the counts at 0
     beit_attention_packed.launches = 0
+    beit_attention_packed.launches_by_kernel.clear()
     det, gboxes = runner(scan)
     kept = suppress_bboxes(gboxes, scan.poses, device=dev)
     main_launches = beit_attention_packed.launches
+    by_kernel = dict(beit_attention_packed.launches_by_kernel)
     check(crops_seen == [crop_budget], crops_seen)
-    check(main_launches == cfg.num_layers, main_launches)
+    check(main_launches == cfg.num_layers and by_kernel == {"attention_bf16_tma": main_launches},
+          (main_launches, by_kernel))
     check(det.boxes.shape == (F, 64, 4) and gboxes.corners.shape == (F, 64, 4, 3),
           (det.boxes.shape, gboxes.corners.shape))
     m = det.mask
@@ -337,6 +355,7 @@ def phase_fused_full_width(dev) -> dict:
         "phase": "fused_full_width", "frames": F, "img_size": 640, "crop_budget": crop_budget,
         "dtype": "bfloat16", "detections": int(m.sum()), "kept_after_nms": int(kept.mask.sum()),
         "crops_classified": crops_seen[0], "b1_launches_main_path": main_launches,
+        "b1_launches_by_kernel_main_path": by_kernel,
         "step_ms": step_ms, "step_ms_samples": step_samples,
         "frames_per_s": F / (step_ms / 1e3),
         "nms_ms": nms_ms, "nms_ms_samples": nms_samples,
@@ -754,7 +773,7 @@ def phase_kernel_b3(dev, mem_rate) -> dict:
         (torch.bfloat16, (2, 5, 9, 64), 1e-2),
         (torch.float32, (3, 5, 33, 16), 1e-5),  # N = 33, B = 5 fills no tile
         (torch.float32, (12, 16, 197, 64), 1e-5),
-        (torch.float32, (2, 7, 256, 32), 1e-5),  # N at the kernel's limit
+        (torch.float32, (2, 7, 257, 32), 1e-5),  # N past the bf16 TMA kernel's 256
     ]:
         q, k, v = (torch.randn(h, B, N, d, generator=g, device=dev).to(dtype) for _ in range(3))
         bias = torch.randn(h, N, N, generator=g, device=dev)
@@ -906,6 +925,40 @@ def seeded_beit(cfg, seed: int):
     return model
 
 
+def phase_beit_past_old_limits(dev) -> dict:
+    """ROADMAP C1 on the card: a BEiT at 256 px (N = 257 tokens) and one
+    with head width 128 (hidden 256 over 2 heads), f32, on the card (kernel
+    ``attention_simt``, one launch per layer) against the same weights on
+    the CPU (twin): logits within 1e-5 abs and rel (summation order only)."""
+    import copy
+
+    from tpu3dlm_torch.models.beit import BeitConfig
+    from tpu3dlm_torch.ops.kernels.attention import beit_attention_packed
+
+    rows = []
+    for image_size, hidden in ((256, 32), (32, 256)):
+        cfg = BeitConfig(image_size=image_size, patch_size=16, hidden_size=hidden, num_layers=1,
+                         num_heads=2, intermediate_size=64, num_labels=2)
+        cpu = seeded_beit(cfg, SEED + 12).eval()
+        gpu = copy.deepcopy(cpu).to(dev)
+        gen = torch.Generator().manual_seed(SEED + 13)
+        x = torch.rand(2, image_size, image_size, 3, generator=gen) * 2 - 1
+        before = beit_attention_packed.launches_by_kernel["attention_simt"]
+        with torch.no_grad():
+            want = cpu(x)
+            got = gpu(x.to(dev)).cpu()
+        launches = beit_attention_packed.launches_by_kernel["attention_simt"] - before
+        check(launches == cfg.num_layers, launches)
+        check(got.shape == (2, 2) and bool(torch.isfinite(got).all()), got)
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+        rows.append({"image_size": image_size, "tokens": cfg.num_patches + 1,
+                     "head_width": hidden // cfg.num_heads, "simt_launches": launches,
+                     "max_abs_logit_err": float((got - want).abs().max())})
+    result = {"phase": "beit_past_old_limits", "dtype": "float32", "configs": rows}
+    emit(result)
+    return result
+
+
 def phase_finetune_parity(dev) -> dict:
     """Three finetune steps of a small BEiT at f32 on the card (kernel B1,
     backward by recompute) and on the CPU (twin), same weights and crops:
@@ -988,11 +1041,14 @@ def phase_finetune_full_width(dev) -> dict:
     hooks += [a.register_forward_hook(hold_b1) for a in attns]
     torch.cuda.reset_peak_memory_stats()
     beit_attention_packed.launches = 0
+    beit_attention_packed.launches_by_kernel.clear()
     losses = [float(step(crops, labels))]
     launches = beit_attention_packed.launches
+    by_kernel = dict(beit_attention_packed.launches_by_kernel)
     for hook in hooks:
         hook.remove()
     check(launches == cfg.num_layers and len(b1_err) == cfg.num_layers, (launches, len(b1_err)))
+    check(by_kernel == {"attention_simt": launches}, by_kernel)
     step_ms, samples = host_ms(lambda: losses.append(float(step(crops, labels))), runs=5)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(beit_attention_packed.launches == 6 * cfg.num_layers, beit_attention_packed.launches)
@@ -1001,7 +1057,8 @@ def phase_finetune_full_width(dev) -> dict:
     result = {
         "phase": "finetune_full_width", "batch": batch, "image_size": cfg.image_size,
         "layers": cfg.num_layers, "hidden": cfg.hidden_size, "dtype": "float32", "lr": 1e-4,
-        "b1_launches_per_step": launches, "b1_max_abs_err_vs_twin": max(b1_err), "losses": losses,
+        "b1_launches_per_step": launches, "b1_launches_by_kernel": by_kernel,
+        "b1_max_abs_err_vs_twin": max(b1_err), "losses": losses,
         "step_ms": step_ms, "step_ms_samples": samples, "crops_per_s": batch / (step_ms / 1e3),
         "peak_mem_gb": peak_gb, "profile": profile,
     }
@@ -1130,6 +1187,7 @@ def main() -> int:
           "libraries": sorted(str(p.name) for p in libs.values())})
 
     b1 = phase_kernel_b1(dev, mem_rate)
+    phase_beit_past_old_limits(dev)
     phase_slice_parity(dev)
     full = phase_fused_full_width(dev)
     scene = two_scan_scene(1_000_000, SEED)
@@ -1163,17 +1221,30 @@ def main() -> int:
         })
     emit({"kernels": [
         {
-            "name": "beit_attention_packed", "route": "cuda",
+            "name": "beit_attention_packed", "route": "cuda", "kernel": "attention_bf16_tma",
             "source": "tpu3dlm_torch/csrc/beit_attention.cu",
             "replaces": "tpu3dlm/ops/pallas/attention.py:159",
-            "launches": full["b1_launches_main_path"],
-            "launches_on": "fused_full_width: one scan step (BEiT-base classify); also "
-                           f"{finetune['b1_launches_per_step']} per finetune step",
+            "launches": full["b1_launches_by_kernel_main_path"]["attention_bf16_tma"],
+            "launches_on": "fused_full_width: one scan step (BEiT-base classify, bf16)",
             "max_abs_err": b1["max_abs_err"], "ms": b1["kernel_ms"], "kernel_ms": b1["kernel_ms"],
             "plain_ms": b1["plain_ms"], "bound_ms": b1["bound_ms"], "bound_by": b1["bound_by"],
             "library_ms": b1["library_ms"],
-            # the CUDA-core f32 path the finetune step runs, beside SDPA in f32 (TF32 off)
-            "f32_path": b1["f32_path"],
+            # every kernel_b1 case with the kernel the C entry routed it to
+            "cases": b1["checks"],
+        },
+        {
+            # B1's other route: every f32 shape and the bf16 shapes past the
+            # TMA kernel, timed at the finetune step's shape beside SDPA in
+            # f32 (TF32 off)
+            "name": "beit_attention_packed_simt", "route": "cuda", "kernel": "attention_simt",
+            "source": "tpu3dlm_torch/csrc/beit_attention.cu",
+            "replaces": "tpu3dlm/ops/pallas/attention.py:159",
+            "launches": finetune["b1_launches_by_kernel"]["attention_simt"],
+            "launches_on": "finetune_full_width: one finetune step (BEiT-base, f32, batch 64)",
+            "max_abs_err": b1["f32_path"]["max_abs_err"], "ms": b1["f32_path"]["kernel_ms"],
+            "kernel_ms": b1["f32_path"]["kernel_ms"], "plain_ms": b1["f32_path"]["plain_ms"],
+            "bound_ms": b1["f32_path"]["bound_ms"], "bound_by": b1["f32_path"]["bound_by"],
+            "library_ms": b1["f32_path"]["library_ms"], "shape": b1["f32_path"]["shape"],
         },
         {
             "name": "nearest_neighbors", "route": "cuda",
@@ -1191,7 +1262,7 @@ def main() -> int:
                             for c in b2["checks"] if "kernel_ms" in c},
         },
         {
-            "name": "beit_attention", "route": "cuda",
+            "name": "beit_attention", "route": "cuda", "kernel": "attention_bf16_tma",
             "source": "tpu3dlm_torch/csrc/beit_attention.cu",
             "replaces": "tpu3dlm/ops/pallas/attention.py:77",
             "launches": b3["launches_on_path"],

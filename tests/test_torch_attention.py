@@ -1,8 +1,9 @@
 """Kernels B1 and B3 (tpu3dlm_torch/ops/kernels/attention.py): their plain
 twins held against the JAX package's references and its Pallas kernels
-(interpret mode, as the package's own CPU tests run them), both ops'
-gradients against ``jax.grad`` through the JAX package's custom VJPs, the
-wrappers' dispatch and input checks. The CUDA kernels themselves are held
+(interpret mode, as the package's own CPU tests run them), also at the token counts and head
+widths past the wrappers' old limits (ROADMAP C1), both ops' gradients
+against ``jax.grad`` through the JAX package's custom VJPs, the wrappers'
+dispatch and input checks. The CUDA kernels themselves are held
 against the twins on the card by tests/test_torch_cuda.py and
 chip_smoke.py.
 """
@@ -90,28 +91,21 @@ def test_wrapper_runs_twin_on_cpu_without_counting():
 
 @pytest.mark.parametrize(
     "case",
-    ["float16", "head_dim_8", "bias_shape", "bias_bf16", "non_contiguous", "too_many_tokens",
-     "no_tokens", "misaligned", "mixed_types", "heads_not_dividing", "no_heads", "rank",
-     "bias_float64", "bias_elsewhere", "unsupported_device"],
+    ["float16", "bias_shape", "bias_bf16", "non_contiguous", "no_tokens", "misaligned",
+     "mixed_types", "heads_not_dividing", "no_heads", "rank", "bias_float64", "bias_elsewhere",
+     "unsupported_device"],
 )
 def test_wrapper_rejects_what_the_kernel_does_not_take(case):
     B, N, h, d = 2, 9, 2, 16
     q, k, v, bias = (torch.from_numpy(a) for a in qkvb(4, B, N, h, d))
     if case == "float16":
         q, k, v = q.half(), k.half(), v.half()
-    elif case == "head_dim_8":
-        h = 4
-        bias = torch.zeros(h, N, N)
     elif case == "bias_shape":
         bias = bias[:, :, :-1]
     elif case == "bias_bf16":
         bias = bias.bfloat16()
     elif case == "non_contiguous":
         q = torch.randn(B, h * d, N).transpose(1, 2)
-    elif case == "too_many_tokens":
-        N = 257
-        q = k = v = torch.zeros(B, N, h * d)
-        bias = torch.zeros(h, N, N)
     elif case == "no_tokens":
         q = k = v = torch.zeros(B, 0, h * d)
         bias = torch.zeros(h, 0, 0)
@@ -297,15 +291,13 @@ def test_b1_gradient_reaches_beit_weights():
 
 @pytest.mark.parametrize(
     "case",
-    ["head_dim_8", "bias_shape", "rank", "non_contiguous", "empty_batch", "misaligned", "mixed_types",
-     "too_many_tokens", "bias_elsewhere"],
+    ["bias_shape", "rank", "non_contiguous", "empty_batch", "misaligned", "mixed_types",
+     "bias_elsewhere"],
 )
 def test_b3_rejects_what_the_kernel_does_not_take(case):
     h, B, N, d = 2, 3, 9, 16
     q, k, v, bias = (torch.from_numpy(a) for a in hm_qkvb(12, h, B, N, d))
-    if case == "head_dim_8":
-        q = k = v = torch.zeros(h, B, N, 8)
-    elif case == "bias_shape":
+    if case == "bias_shape":
         bias = bias[:1]
     elif case == "rank":
         q, k, v = q[0], k[0], v[0]
@@ -317,11 +309,45 @@ def test_b3_rejects_what_the_kernel_does_not_take(case):
         q = torch.zeros(h * B * N * d + 1)[1:].view(h, B, N, d)
     elif case == "mixed_types":
         v = v.bfloat16()
-    elif case == "too_many_tokens":
-        N = 257
-        q = k = v = torch.zeros(h, B, N, d)
-        bias = torch.zeros(h, N, N)
     elif case == "bias_elsewhere":
         bias = bias.to("meta")
     with pytest.raises(ValueError):
         beit_attention(q, k, v, bias)
+
+
+# (B, N, h, d) past the limits the wrappers once had (ROADMAP C1): N = 257
+# and head widths 8 and 128, which the JAX package's einsum path and Pallas
+# kernel take. The CPU twins take every N >= 1 and every d; on the card the
+# CUDA kernels take N = 257 and d = 128, and d = 8 raises there.
+PAST_OLD_LIMITS = {"too_many_tokens": (2, 257, 2, 16), "head_dim_8": (2, 9, 4, 8),
+                   "head_dim_128": (3, 9, 2, 128)}
+
+
+@pytest.mark.parametrize("case", sorted(PAST_OLD_LIMITS))
+@pytest.mark.parametrize("layout", ["b1", "b3"])
+def test_op_takes_shapes_past_the_old_limits(layout, case):
+    """The public ops on CPU tensors (their twins) at shapes the wrappers
+    once refused, against the JAX einsum reference and the TPU kernel in
+    interpret mode: f32 atol/rtol 1e-5 (summation order only); no kernel
+    launch counted."""
+    B, N, h, d = PAST_OLD_LIMITS[case]
+    q, k, v, bias = qkvb(13, B, N, h, d)
+    if layout == "b1":
+        jq = [jnp.asarray(a) for a in (q, k, v, bias)]
+        kernel = beit_attention_packed_pallas(*jq, h, block_b=2, interpret=True)
+        ref = jax_reference(*jq, h)
+        op, got = beit_attention_packed, lambda: port(q, k, v, bias, h, fn=beit_attention_packed)
+        shape = (B, N, h * d)
+    else:
+        q, k, v = (a.reshape(B, N, h, d).transpose(2, 0, 1, 3).copy() for a in (q, k, v))
+        jq = [jnp.asarray(a) for a in (q, k, v, bias)]
+        with pltpu.force_tpu_interpret_mode():
+            kernel = JA.beit_attention_pallas(*jq, block_b=2)
+        ref = JA.beit_attention_reference(*jq)
+        op, got = beit_attention, lambda: hm_port(q, k, v, bias, fn=beit_attention)
+        shape = (h, B, N, d)
+    before = op.launches
+    out = got()
+    assert out.shape == shape and op.launches == before
+    np.testing.assert_allclose(out, np.asarray(kernel), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(out, np.asarray(ref), atol=1e-5, rtol=1e-5)

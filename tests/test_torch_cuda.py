@@ -16,6 +16,7 @@ from tpu3dlm_torch.ops.kernels.attention import (
     beit_attention_packed,
     beit_attention_packed_reference,
     beit_attention_reference,
+    kernel_route,
 )
 from tpu3dlm_torch.ops.kernels.nn_variants import VARIANTS, nn_variant, nn_variant_reference
 from tpu3dlm_torch.ops.kernels.pairwise import nearest_neighbors, nearest_neighbors_reference
@@ -35,7 +36,7 @@ def cuda_device():
     [
         (torch.float32, (5, 33, 3, 16), 1e-5),  # summation order only
         (torch.float32, (3, 197, 12, 64), 1e-5),
-        (torch.float32, (2, 256, 2, 32), 1e-5),  # N at the kernel's limit
+        (torch.float32, (2, 257, 2, 32), 1e-5),  # N past the bf16 TMA kernel's 256
         (torch.bfloat16, (8, 197, 12, 64), 1e-2),  # one bf16 ulp of p / output
         (torch.bfloat16, (5, 9, 2, 64), 1e-2),  # fewer keys than the head width
         (torch.bfloat16, (3, 33, 3, 16), 1e-2),
@@ -105,7 +106,7 @@ def test_compare_on_card_matches_cpu(cuda_device, tmp_path):
     [
         (torch.float32, (3, 5, 33, 16), 1e-5),  # (h, B, N, d); summation order only
         (torch.float32, (12, 3, 197, 64), 1e-5),
-        (torch.float32, (2, 2, 256, 32), 1e-5),  # N at the kernel's limit
+        (torch.float32, (2, 2, 257, 32), 1e-5),  # N past the bf16 TMA kernel's 256
         (torch.bfloat16, (12, 8, 197, 64), 1e-2),  # one bf16 ulp of p / output
         (torch.bfloat16, (2, 5, 9, 64), 1e-2),
     ],
@@ -263,3 +264,104 @@ def test_b2_sentinel_padded_targets_never_win(cuda_device):
     torch.cuda.synchronize()
     assert padded.shape[0] == 1 << 17 and (idx < 70001).all()
     assert torch.equal(idx, ui) and torch.equal(d2, ud2)
+
+
+def _simt_case(cuda_device, dtype, B, N, d, h=2, seed=0):
+    """Kernel attention_simt in both layouts against the twins, and B3
+    against B1 through the layouts (one kernel body: bit-equal). The output
+    block is NaN-poisoned first (a block of the output's size is filled
+    with NaN and freed, so the allocator hands it to the kernel's output):
+    a row that no CTA writes fails. Each launch is counted on the CUDA-core
+    route."""
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(B, N, h * d, generator=g) for _ in range(3))
+    if B == 3:
+        k[1] += 6.0  # large keys in the middle batch row: a read past N would dominate row 0
+    q, k, v = (t.to(cuda_device, dtype) for t in (q, k, v))
+    bias = torch.randn(h, N, N, generator=g).to(cuda_device)
+    assert kernel_route(dtype, N, d) == "attention_simt"
+    split = lambda t: t.view(B, N, h, d).permute(2, 0, 1, 3).contiguous()  # noqa: E731
+    qs, ks, vs = split(q), split(k), split(v)
+    before = (beit_attention_packed.launches_by_kernel["attention_simt"],
+              beit_attention.launches_by_kernel["attention_simt"])
+    torch.full_like(q, float("nan"))
+    got = beit_attention_packed(q, k, v, bias, h)
+    torch.full_like(qs, float("nan"))
+    hm = beit_attention(qs, ks, vs, bias)
+    torch.cuda.synchronize()
+    assert (beit_attention_packed.launches_by_kernel["attention_simt"],
+            beit_attention.launches_by_kernel["attention_simt"]) == (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(got.float(), beit_attention_packed_reference(q, k, v, bias, h).float(),
+                               atol=tol, rtol=tol)
+    torch.testing.assert_close(hm.float(), beit_attention_reference(qs, ks, vs, bias).float(),
+                               atol=tol, rtol=tol)
+    assert torch.equal(hm, split(got))
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("N", [1, 31, 33, 64, 65, 197, 257, 577])
+@pytest.mark.parametrize("B", [1, 3])
+def test_b1_b3_simt_f32_shapes(cuda_device, B, N, d):
+    """f32 on the CUDA-core kernel at token counts around its 32-key block
+    and 64-row tile edges and past 256, every head width it is built for
+    (1e-5: summation order only)."""
+    _simt_case(cuda_device, torch.float32, B, N, d, seed=1000 * B + 10 * N + d)
+
+
+@pytest.mark.parametrize("N,d", [(N, d) for N in (257, 577) for d in (16, 32, 64, 128)]
+                         + [(1, 128), (33, 128), (197, 128)])
+@pytest.mark.parametrize("B", [1, 3])
+def test_b1_b3_simt_bf16_routed_shapes(cuda_device, B, N, d):
+    """bf16 shapes the TMA kernel does not take (N > 256, or d = 128) run
+    the CUDA-core kernel (1e-2: one bf16 ulp of p and of the output)."""
+    _simt_case(cuda_device, torch.bfloat16, B, N, d, seed=1000 * B + 10 * N + d + 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [48, 80, 96, 112])
+def test_b1_b3_simt_other_head_widths(cuda_device, dtype, d):
+    """The multiples of 16 between the usual head widths, whose O columns
+    are read in pairs."""
+    _simt_case(cuda_device, dtype, 3, 65, d, seed=d)
+
+
+def test_simt_batch_past_a_grid_dimension(cuda_device):
+    """70,000 batch rows: more than a grid's y or z dimension could hold."""
+    g = torch.Generator().manual_seed(3)
+    B, N, h, d = 70_000, 2, 1, 16
+    q, k, v = (torch.randn(B, N, h * d, generator=g).to(cuda_device) for _ in range(3))
+    bias = torch.randn(h, N, N, generator=g).to(cuda_device)
+    torch.full_like(q, float("nan"))
+    got = beit_attention_packed(q, k, v, bias, h)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, beit_attention_packed_reference(q, k, v, bias, h), atol=1e-5, rtol=1e-5)
+
+
+def test_route_by_shape(cuda_device):
+    """bf16 with N <= 256 and d in {16, 32, 64} runs the TMA kernel; every
+    f32 shape and the other bf16 shapes the CUDA-core kernel."""
+    assert kernel_route(torch.bfloat16, 197, 64) == "attention_bf16_tma"
+    assert kernel_route(torch.bfloat16, 256, 16) == "attention_bf16_tma"
+    assert kernel_route(torch.bfloat16, 257, 64) == "attention_simt"
+    assert kernel_route(torch.bfloat16, 197, 128) == "attention_simt"
+    assert kernel_route(torch.bfloat16, 197, 48) == "attention_simt"
+    assert kernel_route(torch.float32, 197, 64) == "attention_simt"
+    with pytest.raises(ValueError):
+        kernel_route(torch.float32, 197, 8)
+
+
+@pytest.mark.parametrize("d", [8, 24, 144])
+def test_cuda_refuses_head_widths_no_kernel_takes(cuda_device, d):
+    """On the card a head width that is not a multiple of 16 up to 128
+    raises before any launch, in both layouts (the CPU twins take it)."""
+    B, N, h = 2, 9, 2
+    q = torch.zeros(B, N, h * d, device=cuda_device)
+    bias = torch.zeros(h, N, N, device=cuda_device)
+    before = (beit_attention_packed.launches, beit_attention.launches)
+    with pytest.raises(ValueError, match="multiple of 16 up to 128"):
+        beit_attention_packed(q, q, q, bias, h)
+    hm = torch.zeros(h, B, N, d, device=cuda_device)
+    with pytest.raises(ValueError, match="multiple of 16 up to 128"):
+        beit_attention(hm, hm, hm, bias)
+    assert (beit_attention_packed.launches, beit_attention.launches) == before

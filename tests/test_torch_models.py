@@ -129,6 +129,25 @@ def test_beit_logits_match_flax():
     np.testing.assert_allclose(got, want, atol=1e-4)
 
 
+@pytest.mark.parametrize("image_size,hidden", [(256, 32), (32, 256)], ids=["n257", "d128"])
+def test_beit_logits_match_flax_past_the_old_attention_limits(image_size, hidden):
+    """ROADMAP C1's two configurations, which the port once refused: 256 px
+    (N = 257 tokens) and hidden 256 over 2 heads (head width 128). Logits
+    within 1e-4 of the Flax einsum path (f32), as test_beit_logits_match_flax."""
+    cfg = JaxBeitConfig(image_size=image_size, patch_size=16, hidden_size=hidden, num_layers=1,
+                        num_heads=2, intermediate_size=64, num_labels=2)
+    model = JaxBeit(cfg)
+    variables = random_variables(model, jnp.zeros((1, image_size, image_size, 3)), 5)
+    x = np.random.default_rng(6).uniform(-1, 1, (2, image_size, image_size, 3)).astype(np.float32)
+    want = np.asarray(model.apply(variables, jnp.asarray(x)))
+    port = beit_from_flax(variables)
+    assert port.cfg.num_patches + 1 == (image_size // 16) ** 2 + 1 and port.cfg.num_heads == 2
+    with torch.no_grad():
+        got = port(t(x)).numpy()
+    assert got.shape == (2, 2)
+    np.testing.assert_allclose(got, want, atol=1e-4)
+
+
 def test_relative_position_index_equal():
     for grid in (2, 7, 14):
         np.testing.assert_array_equal(relative_position_index(grid), jax_rel_index(grid))

@@ -60,12 +60,29 @@
 //  * O leaves the accumulator by a transpose inside each quad of lanes, so
 //    every lane writes 16 contiguous bytes of a row.
 //
-// f32 (the parity and finetune path), attention_f32: CUDA cores, exact f32.
-// One warp per query row; each lane owns keys lane, lane+32, ...; K is
-// stored with an odd row stride so the 32 lanes hit 32 banks; p.V
-// accumulates with each lane owning output channels. Bound by the
-// shared-memory load behind every FMA, far from the memory bound; it serves
-// correctness, not speed.
+// Every f32 shape (the parity and finetune path), and the bf16 shapes the
+// TMA kernel does not take (N > 256, or d not in {16, 32, 64}):
+// attention_simt, CUDA cores, templated on the input type and on d (every
+// multiple of 16 up to 128), any N. At the finetune shape (f32, B=64, N=197,
+// h=12, d=64) its 7.63 GFLOP take 114 us at the 67 TFLOP/s f32 rate, against
+// 47 us to move q, k, v, o and the bias at 3.35 TB/s: bound by operations. What the
+// design does about that:
+//  * Register tiles. A CTA of 4 warps takes 64 query rows of one (batch
+//    row, head) item; each thread holds a 4 x 4 tile of S and a 4 x d/8
+//    tile of O, so four channels of S take eight 16-byte loads (4 rows of
+//    q, 4 of k) for 64 FMAs, and one key of P V takes one 16-byte load of
+//    4 p values and d/32 of v for d/2 FMAs. Rows and keys are interleaved (rows rg + 16i,
+//    keys kg + 8i) and rows padded by 16 bytes, so those loads are
+//    conflict-free and broadcast within a warp.
+//  * Key blocks of 32 with an online softmax in f32: a running maximum per
+//    row (a shuffle over the 8 lanes of a row group), O rescaled once per
+//    block, the division by the row sum at the end; p rounded to the input
+//    type before P V, as the twin does. No bound on N, and no (N, N) tile.
+//  * The next block's K and V in flight by cp.async (two stages) while the
+//    current one is computed; keys and rows past N are zero-filled and the
+//    padded keys' scores are -inf. The bias is read from L2 per block.
+//  * A persistent flat grid (as many CTAs as fit at once, each walking
+//    tiles), so no grid dimension caps the batch.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -75,19 +92,7 @@
 
 namespace {
 
-constexpr int kMaxKeys = 256;  // N <= 256
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+constexpr int kMaxKeys = 256;  // the TMA kernel's N <= 256
 
 // ---------------------------------------------------------------------------
 // bf16: TMA + mbarrier ring, cluster multicast, wgmma from swizzled tiles
@@ -877,143 +882,346 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void*
 }
 
 // ---------------------------------------------------------------------------
-// f32: CUDA cores
+// CUDA cores: every f32 shape, and the bf16 shapes the TMA kernel does not take
 // ---------------------------------------------------------------------------
 
-constexpr int kWarps = 16;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRowsPerBlock = 64;
+constexpr int kSimtThreads = 128;  // 4 warps
+constexpr int kSimtRows = 64;      // query rows per tile: thread rows rg + 16i, i < 4
+constexpr int kSimtKeys = 32;      // keys per block: thread keys kg + 8i, i < 4
+constexpr int kPPitch = kSimtRows + 4;  // floats per key row of P^T: conflict-free float4 stores
 
-template <int D, int JT>
-constexpr size_t f32_smem_floats() {
-  return size_t(32 * JT) * (D + 1) + size_t(32 * JT) * D + size_t(kWarps) * 32 * JT +
-         size_t(kWarps) * D;
+// Shared memory of one CTA: the Q tile, two stages of a K and a V block, P^T.
+// Rows keep the input type and are padded by 16 bytes, so the 8 different
+// rows read by one 16-byte (f32) or 8-byte (bf16) load fall in 8 different
+// bank groups.
+template <typename T, int D>
+struct SimtPlan {
+  static constexpr int kPitch = D + 16 / int(sizeof(T));  // elements per staged row
+  static constexpr int kRowBytes = kPitch * int(sizeof(T));
+  static constexpr int kQBytes = kSimtRows * kRowBytes;
+  static constexpr int kBlockBytes = kSimtKeys * kRowBytes;  // one K or V block
+  static constexpr int kPBytes = kSimtKeys * kPPitch * 4;
+  static constexpr int kSmem = kQBytes + 4 * kBlockBytes + kPBytes;
+};
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  // src_bytes = 0 reads nothing and fills the 16 bytes with zeros
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(kPending) : "memory");
 }
 
-template <int D, int JT>
-__global__ void __launch_bounds__(kThreads)
-attention_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, const float* __restrict__ bias,
-              float* __restrict__ o, int N, int64_t sb, int64_t sh, int sn, float scale) {
-  constexpr int NP = 32 * JT;  // key rows padded to whole warps
-  constexpr int KS = D + 1;    // odd stride: lane j reading K[j][c] is conflict-free
-  extern __shared__ float smem_f[];
-  float* Ks = smem_f;           // NP * KS
-  float* Vs = Ks + NP * KS;     // NP * D
-  float* Ps = Vs + NP * D;      // kWarps * NP
-  float* Qs = Ps + kWarps * NP; // kWarps * D
+// 4 (or 2) consecutive elements of a staged row, as f32
+__device__ __forceinline__ float4 load4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+__device__ __forceinline__ float2 load2(const float* p) { return *reinterpret_cast<const float2*>(p); }
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  const uint32_t u = *reinterpret_cast<const uint32_t*>(p);
+  return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
+}
 
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int64_t base = b * sb + h * sh;
+// p rounded to the input type (the identity for f32)
+__device__ __forceinline__ float round_to(float x, const float*) { return x; }
+__device__ __forceinline__ float round_to(float x, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16(x));
+}
 
-  for (int idx = threadIdx.x; idx < NP * D; idx += kThreads) {
-    const int j = idx / D, c = idx % D;
-    float kv = 0.f, vv = 0.f;
-    if (j < N) {
-      const int64_t g = base + int64_t(j) * sn + c;
-      kv = k[g];
-      vv = v[g];
-    }
-    Ks[j * KS + c] = kv;
-    Vs[j * D + c] = vv;
-  }
-  __syncthreads();
+__device__ __forceinline__ void store_out(float* o, const float* x, int n) {
+  if (n == 4)
+    *reinterpret_cast<float4*>(o) = make_float4(x[0], x[1], x[2], x[3]);
+  else
+    *reinterpret_cast<float2*>(o) = make_float2(x[0], x[1]);
+}
+__device__ __forceinline__ void store_out(__nv_bfloat16* o, const float* x, int n) {
+  if (n == 4)
+    *reinterpret_cast<uint2*>(o) = make_uint2(pack_bf16(x[0], x[1]), pack_bf16(x[2], x[3]));
+  else
+    *reinterpret_cast<uint32_t*>(o) = pack_bf16(x[0], x[1]);
+}
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  float* P = Ps + warp * NP;
-  float* Q = Qs + warp * D;
-  const int row_end = min(int(blockIdx.x + 1) * kRowsPerBlock, N);
-  for (int i = int(blockIdx.x) * kRowsPerBlock + warp; i < row_end; i += kWarps) {
-    const int64_t row = base + int64_t(i) * sn;
-    for (int c = lane; c < D; c += 32) Q[c] = q[row + c];
-    __syncwarp();
-
-    float s[JT];
-#pragma unroll
-    for (int t = 0; t < JT; ++t) s[t] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < D; ++c) {
-      const float qc = Q[c];
-#pragma unroll
-      for (int t = 0; t < JT; ++t) s[t] = fmaf(qc, Ks[(lane + 32 * t) * KS + c], s[t]);
-    }
-
-    const float* brow = bias + (size_t(h) * N + i) * N;
-    float mx = -INFINITY;
-#pragma unroll
-    for (int t = 0; t < JT; ++t) {
-      const int j = lane + 32 * t;
-      s[t] = j < N ? s[t] * scale + brow[j] : -INFINITY;
-      mx = fmaxf(mx, s[t]);
-    }
-    mx = warp_max(mx);
-    float sum = 0.f;
-#pragma unroll
-    for (int t = 0; t < JT; ++t) {
-      s[t] = expf(s[t] - mx);  // padded keys: exp(-inf) = 0
-      sum += s[t];
-    }
-    sum = warp_sum(sum);
-#pragma unroll
-    for (int t = 0; t < JT; ++t) P[lane + 32 * t] = s[t] / sum;
-    __syncwarp();
-
-    for (int c = lane; c < D; c += 32) {
-      float acc = 0.f;
-      for (int j = 0; j < N; ++j) acc = fmaf(P[j], Vs[j * D + c], acc);
-      o[row + c] = acc;
-    }
-    __syncwarp();
+// Rows [r0, r0 + rows) of one (batch row, head) item into shared memory at
+// `dst` (row pitch kRowBytes), in 16-byte cp.async copies; rows past N are
+// zero-filled, so their scores are finite and their V rows weigh 0 * 0.
+template <typename T, int D>
+__device__ __forceinline__ void stage_rows(uint32_t dst, const T* __restrict__ src, int64_t base,
+                                           int r0, int rows, int N, int sn) {
+  constexpr int kChunks = D * int(sizeof(T)) / 16;
+  constexpr int kPer = 16 / int(sizeof(T));
+  for (int idx = threadIdx.x; idx < rows * kChunks; idx += kSimtThreads) {
+    const int r = idx / kChunks, c = idx - r * kChunks;
+    const bool live = r0 + r < N;
+    const T* g = src + base + int64_t(live ? r0 + r : 0) * sn + c * kPer;
+    cp_async16(dst + r * SimtPlan<T, D>::kRowBytes + c * 16, g, live ? 16 : 0);
   }
 }
 
-template <int D, int JT>
-cudaError_t launch_f32_t(const void* q, const void* k, const void* v, const void* bias, void* o,
-                         const Layout& L, float scale, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * f32_smem_floats<D, JT>();
-  auto kernel = attention_f32<D, JT>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+// One CTA walks tiles (item, 64-row tile), item = head * B + batch row, over
+// a persistent flat grid. Per tile: Q once, then key blocks of 32 with the
+// next block's K and V in flight (cp.async, two stages) while the current
+// one is computed. Each thread owns a 4 x 4 tile of S (rows rg + 16i, keys
+// kg + 8i') and a 4 x D/8 tile of O; the 8 threads of a row group are 8
+// lanes of one warp, so row maxima and sums are shuffles and P passes
+// through a per-warp slice of shared memory with a __syncwarp.
+template <typename T, int D>
+__global__ void __launch_bounds__(kSimtThreads)
+attention_simt(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+               const float* __restrict__ bias, T* __restrict__ o, int N, int B, int64_t sb,
+               int64_t sh, int sn, float scale, int tiles) {
+  using Plan = SimtPlan<T, D>;
+  constexpr int kPitch = Plan::kPitch;
+  constexpr int kVW = D % 32 == 0 ? 4 : 2;  // V and O columns per load
+  constexpr int kCols = D / 8;              // O columns per thread
+  constexpr int kChunks = kCols / kVW;      // column chunks m: columns 8*kVW*m + kVW*kg + [0, kVW)
+
+  extern __shared__ __align__(16) unsigned char smem_s[];
+  const T* Qs = reinterpret_cast<const T*>(smem_s);
+  float* Pt = reinterpret_cast<float*>(smem_s + Plan::kQBytes + 4 * Plan::kBlockBytes);
+  const uint32_t q_dst = smem_u32(smem_s);
+  const uint32_t kv_dst = q_dst + Plan::kQBytes;  // stage s: K at + 2s blocks, V one block later
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rg = warp * 4 + (lane >> 3);  // row group: this warp holds row groups 4warp..4warp+3
+  const int kg = lane & 7;                // key group within a row group
+  const int row_tiles = (N + kSimtRows - 1) / kSimtRows;
+  const int blocks = (N + kSimtKeys - 1) / kSimtKeys;
+
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int item = tile / row_tiles;
+    const int row0 = (tile - item * row_tiles) * kSimtRows;
+    const int h = item / B, b = item - h * B;
+    const int64_t base = int64_t(b) * sb + int64_t(h) * sh;
+
+    stage_rows<T, D>(q_dst, q, base, row0, kSimtRows, N, sn);
+    stage_rows<T, D>(kv_dst, k, base, 0, kSimtKeys, N, sn);
+    stage_rows<T, D>(kv_dst + Plan::kBlockBytes, v, base, 0, kSimtKeys, N, sn);
+    cp_async_commit();
+
+    float acc[4][kCols];
+    float m[4], l[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      m[i] = -INFINITY;
+      l[i] = 0.f;
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
+    }
+
+    for (int kb = 0; kb < blocks; ++kb) {
+      const int stage = kb & 1;
+      if (kb + 1 < blocks) {
+        const uint32_t nxt = kv_dst + (stage ^ 1) * 2 * Plan::kBlockBytes;
+        stage_rows<T, D>(nxt, k, base, (kb + 1) * kSimtKeys, kSimtKeys, N, sn);
+        stage_rows<T, D>(nxt + Plan::kBlockBytes, v, base, (kb + 1) * kSimtKeys, kSimtKeys, N, sn);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();  // block kb (and Q) landed for every thread
+      const T* Ks = reinterpret_cast<const T*>(smem_s + Plan::kQBytes + stage * 2 * Plan::kBlockBytes);
+      const T* Vs = Ks + kSimtKeys * kPitch;
+      const int j0 = kb * kSimtKeys;
+
+      // the bias of this thread's 16 scores, read from L2 while S is computed;
+      // keys past N get -inf (weight 0), rows past N a bias of 0 (never stored)
+      float s[4][4], bs[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = row0 + rg + 16 * i;
+        const float* brow = bias + (size_t(h) * N + (r < N ? r : 0)) * N;
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const int j = j0 + kg + 8 * t;
+          bs[i][t] = j < N ? (r < N ? __ldg(brow + j) : 0.f) : -INFINITY;
+          s[i][t] = 0.f;
+        }
+      }
+
+      // S = Q K^T: per 4 channels, 4 q and 4 k loads for 64 FMAs
+#pragma unroll
+      for (int c = 0; c < D; c += 4) {
+        float4 qa[4], ka[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) qa[i] = load4(Qs + (rg + 16 * i) * kPitch + c);
+#pragma unroll
+        for (int t = 0; t < 4; ++t) ka[t] = load4(Ks + (kg + 8 * t) * kPitch + c);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int t = 0; t < 4; ++t) {
+            s[i][t] = fmaf(qa[i].x, ka[t].x, s[i][t]);
+            s[i][t] = fmaf(qa[i].y, ka[t].y, s[i][t]);
+            s[i][t] = fmaf(qa[i].z, ka[t].z, s[i][t]);
+            s[i][t] = fmaf(qa[i].w, ka[t].w, s[i][t]);
+          }
+      }
+
+      // online softmax in f32: running maximum per row over the 8 lanes of
+      // its row group, O and this lane's partial sum rescaled once per block
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float bm = -INFINITY;
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          s[i][t] = fmaf(s[i][t], scale, bs[i][t]);
+          bm = fmaxf(bm, s[i][t]);
+        }
+        bm = fmaxf(bm, __shfl_xor_sync(0xffffffffu, bm, 1));
+        bm = fmaxf(bm, __shfl_xor_sync(0xffffffffu, bm, 2));
+        bm = fmaxf(bm, __shfl_xor_sync(0xffffffffu, bm, 4));
+        const float mn = fmaxf(m[i], bm);  // finite: every block has a key < N
+        const float alpha = expf(m[i] - mn);  // 0 on the first block
+        m[i] = mn;
+        l[i] *= alpha;
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) acc[i][c] *= alpha;
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const float p = expf(s[i][t] - mn);  // keys past N: exp(-inf) = 0
+          l[i] += p;
+          s[i][t] = round_to(p, q);
+        }
+      }
+
+      // P^T[key][4 rg + i] = p of row rg + 16i: this warp's rows only
+      __syncwarp();  // this warp's reads of the last block's P are done
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        *reinterpret_cast<float4*>(Pt + (kg + 8 * t) * kPPitch + 4 * rg) =
+            make_float4(s[0][t], s[1][t], s[2][t], s[3][t]);
+      __syncwarp();
+
+      // O += P V: per key, the 4 rows' p in one load, kCols columns of V
+#pragma unroll 8
+      for (int j = 0; j < kSimtKeys; ++j) {
+        const float4 p4 = *reinterpret_cast<const float4*>(Pt + j * kPPitch + 4 * rg);
+        const float pr[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+        for (int ch = 0; ch < kChunks; ++ch) {
+          const T* vp = Vs + j * kPitch + 8 * kVW * ch + kVW * kg;
+          float vv[4];
+          if constexpr (kVW == 4) {
+            const float4 x = load4(vp);
+            vv[0] = x.x, vv[1] = x.y, vv[2] = x.z, vv[3] = x.w;
+          } else {
+            const float2 x = load2(vp);
+            vv[0] = x.x, vv[1] = x.y;
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int e = 0; e < kVW; ++e) acc[i][kVW * ch + e] = fmaf(pr[i], vv[e], acc[i][kVW * ch + e]);
+        }
+      }
+      __syncthreads();  // every warp is done with this stage before it refills
+    }
+
+    // the row sums over the 8 lanes of each row group; O / sum in the input type
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 4);
+      const int r = row0 + rg + 16 * i;
+      if (r < N) {
+        T* orow = o + base + int64_t(r) * sn;
+#pragma unroll
+        for (int ch = 0; ch < kChunks; ++ch) {
+          float x[4];
+#pragma unroll
+          for (int e = 0; e < kVW; ++e) x[e] = acc[i][kVW * ch + e] / l[i];
+          store_out(orow + 8 * kVW * ch + kVW * kg, x, kVW);
+        }
+      }
+    }
+  }
+}
+
+// Runs the persistent grid: as many CTAs as fit on the card at once
+// (asked once per device), but no more than there are tiles.
+template <typename T, int D>
+cudaError_t launch_simt(const void* q, const void* k, const void* v, const void* bias, void* o,
+                        const Layout& L, float scale, cudaStream_t stream) {
+  constexpr int kDevices = 16;
+  static int resident[kDevices];  // 0 until asked
+  auto kernel = attention_simt<T, D>;
+  constexpr int smem = SimtPlan<T, D>::kSmem;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((L.N + kRowsPerBlock - 1) / kRowsPerBlock, L.heads, L.B);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(bias), static_cast<float*>(o), L.N, L.sb, L.sh, L.sn, scale);
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  int fit = dev < kDevices ? resident[dev] : 0;
+  if (fit == 0) {
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kSimtThreads, smem);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    fit = per_sm * sms;
+    if (dev < kDevices) resident[dev] = fit;
+  }
+  const int tiles = L.heads * L.B * ((L.N + kSimtRows - 1) / kSimtRows);
+  kernel<<<tiles < fit ? tiles : fit, kSimtThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const float*>(bias), static_cast<T*>(o), L.N, L.B, L.sb, L.sh, L.sn, scale, tiles);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* bias, void* o,
-                       const Layout& L, float scale, cudaStream_t s) {
-  switch ((L.N + 31) / 32) {
-    case 1: return launch_f32_t<D, 1>(q, k, v, bias, o, L, scale, s);
-    case 2: return launch_f32_t<D, 2>(q, k, v, bias, o, L, scale, s);
-    case 3: return launch_f32_t<D, 3>(q, k, v, bias, o, L, scale, s);
-    case 4: return launch_f32_t<D, 4>(q, k, v, bias, o, L, scale, s);
-    case 5: return launch_f32_t<D, 5>(q, k, v, bias, o, L, scale, s);
-    case 6: return launch_f32_t<D, 6>(q, k, v, bias, o, L, scale, s);
-    case 7: return launch_f32_t<D, 7>(q, k, v, bias, o, L, scale, s);
-    case 8: return launch_f32_t<D, 8>(q, k, v, bias, o, L, scale, s);
-    default: return cudaErrorInvalidValue;
-  }
+cudaError_t launch_simt_d(int is_bf16, const void* q, const void* k, const void* v,
+                          const void* bias, void* o, const Layout& L, float scale, cudaStream_t s) {
+  return is_bf16 ? launch_simt<__nv_bfloat16, D>(q, k, v, bias, o, L, scale, s)
+                 : launch_simt<float, D>(q, k, v, bias, o, L, scale, s);
+}
+
+enum Route { kNoKernel = 0, kTmaRoute = 1, kSimtRoute = 2 };
+
+// Which kernel takes a shape: bf16 with N <= 256 and d in {16, 32, 64} the
+// TMA kernel; every other shape with d a multiple of 16 up to 128 the
+// CUDA-core kernel; nothing else.
+Route route(int is_bf16, int N, int d) {
+  if (N <= 0 || d <= 0 || d % 16 != 0 || d > 128) return kNoKernel;
+  if (is_bf16 && N <= kMaxKeys && (d == 16 || d == 32 || d == 64)) return kTmaRoute;
+  return kSimtRoute;
 }
 
 int run(int is_bf16, int d, const void* q, const void* k, const void* v, const void* bias,
         void* o, const Layout& L, void* stream) {
-  if (L.B <= 0 || L.B > 65535 || L.heads <= 0 || L.heads > 65535 || L.N <= 0 || L.N > kMaxKeys)
+  if (L.B <= 0 || L.heads <= 0 || L.N <= 0) return int(cudaErrorInvalidValue);
+  // tile and item indices are ints
+  if (int64_t(L.B) * L.heads * ((L.N + kSimtRows - 1) / kSimtRows) > 0x7fffffff)
     return int(cudaErrorInvalidValue);
   const float scale = 1.0f / sqrtf(float(d));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 16: return int(is_bf16 ? launch_bf16<16>(q, k, v, bias, o, L, scale, s)
-                                : launch_f32<16>(q, k, v, bias, o, L, scale, s));
-    case 32: return int(is_bf16 ? launch_bf16<32>(q, k, v, bias, o, L, scale, s)
-                                : launch_f32<32>(q, k, v, bias, o, L, scale, s));
-    case 64: return int(is_bf16 ? launch_bf16<64>(q, k, v, bias, o, L, scale, s)
-                                : launch_f32<64>(q, k, v, bias, o, L, scale, s));
-    default: return int(cudaErrorInvalidValue);
+  switch (route(is_bf16, L.N, d)) {
+    case kTmaRoute:
+      switch (d) {
+        case 16: return int(launch_bf16<16>(q, k, v, bias, o, L, scale, s));
+        case 32: return int(launch_bf16<32>(q, k, v, bias, o, L, scale, s));
+        default: return int(launch_bf16<64>(q, k, v, bias, o, L, scale, s));
+      }
+    case kSimtRoute:
+      switch (d) {
+        case 16: return int(launch_simt_d<16>(is_bf16, q, k, v, bias, o, L, scale, s));
+        case 32: return int(launch_simt_d<32>(is_bf16, q, k, v, bias, o, L, scale, s));
+        case 48: return int(launch_simt_d<48>(is_bf16, q, k, v, bias, o, L, scale, s));
+        case 64: return int(launch_simt_d<64>(is_bf16, q, k, v, bias, o, L, scale, s));
+        case 80: return int(launch_simt_d<80>(is_bf16, q, k, v, bias, o, L, scale, s));
+        case 96: return int(launch_simt_d<96>(is_bf16, q, k, v, bias, o, L, scale, s));
+        case 112: return int(launch_simt_d<112>(is_bf16, q, k, v, bias, o, L, scale, s));
+        default: return int(launch_simt_d<128>(is_bf16, q, k, v, bias, o, L, scale, s));
+      }
+    default:
+      return int(cudaErrorInvalidValue);
   }
 }
 
@@ -1021,9 +1229,14 @@ int run(int is_bf16, int d, const void* q, const void* k, const void* v, const v
 
 // Both entries: bias is (num_heads, N, N) f32 contiguous; q, k, v, o are
 // contiguous and 16-byte aligned, f32 (is_bf16 = 0) or bf16 (is_bf16 = 1);
-// d in {16, 32, 64}; 1 <= N <= 256. They launch on `stream` (on the current
-// device) and return cudaGetLastError() (cudaErrorInvalidValue for a shape
-// they do not take).
+// N >= 1; d a multiple of 16 up to 128 (beit_attention_route says which
+// kernel runs the shape). They launch on `stream` (on the current device)
+// and return cudaGetLastError() (cudaErrorInvalidValue for a shape they do
+// not take).
+
+// The kernel that runs a shape: 1 attention_bf16_tma, 2 attention_simt,
+// 0 none (the launch would return cudaErrorInvalidValue).
+extern "C" int beit_attention_route(int is_bf16, int N, int d) { return int(route(is_bf16, N, d)); }
 
 // B1: q, k, v, o are (B, N, H) with H = num_heads * d.
 extern "C" int beit_attention_packed_launch(const void* q, const void* k, const void* v,

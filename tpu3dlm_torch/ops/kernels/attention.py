@@ -27,28 +27,42 @@ reference's VJP from the saved inputs in plain PyTorch
 the JAX package too computes it outside any Pallas kernel. So finetuning
 differentiates through the kernel's forward.
 
-Bound on an H100 SXM at the production shape (bf16, B=384, N=197, h=12,
-d=64), the same in both layouts: 466.7 MB moved = 139 µs at 3.35 TB/s
-against 46 µs of bf16 tensor-core work, so memory-bound. The bf16 kernel
-runs a persistent grid of thread-block clusters (one cluster = the
-ceil(N/128) query-row tiles of one head, as many as fit on the card at
-once, each walking an equal run of (head, batch row) items); K and V reach
-each cluster once by TMA multicast, the bias rows stay in shared memory
-per head, and the score tile never leaves registers (see the source and
-PERF.md). The f32 path is the CUDA-core kernel.
+On a CUDA tensor the C entry routes by shape between two hand-written
+kernels (``kernel_route`` asks it which):
+
+* ``attention_bf16_tma`` — bf16 with N ≤ 256 and d ∈ {16, 32, 64}, the
+  serving path. Bound at the production shape (bf16, B=384, N=197, h=12,
+  d=64), the same in both layouts: 466.7 MB moved = 139 µs at 3.35 TB/s
+  against 46 µs of bf16 tensor-core work, so memory-bound. It runs a
+  persistent grid of thread-block clusters (one cluster = the ceil(N/128)
+  query-row tiles of one head, as many as fit on the card at once, each
+  walking an equal run of (head, batch row) items); K and V reach each
+  cluster once by TMA multicast, the bias rows stay in shared memory per
+  head, and the score tile never leaves registers.
+* ``attention_simt`` — every f32 shape (the finetune and parity path) and
+  the bf16 shapes outside the TMA kernel (N > 256, or d ∉ {16, 32, 64}):
+  CUDA cores, register tiles of S and O, key blocks of 32 with an online
+  f32 softmax, so N is not limited. Bound by its f32 operations.
+
+Head widths the card takes are the multiples of 16 up to 128 (``d % 16`` and
+``d > 128`` raise ``ValueError`` before any launch); N is not limited. The
+CPU twins take every N ≥ 1 and every d, as the JAX package's einsum path
+does. See the source and PERF.md.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from collections import Counter
 
 import torch
 
 from tpu3dlm_torch.kernels.build import load_library
 
-HEAD_DIMS = (16, 32, 64)  # head widths the kernel is instantiated for
-MAX_TOKENS = 256  # a warp's 16 × N score tile lives in registers
+CUDA_HEAD_DIM_STEP = 16  # the CUDA kernels take head widths 16, 32, ..., 128
+CUDA_MAX_HEAD_DIM = 128
+KERNELS = {1: "attention_bf16_tma", 2: "attention_simt"}  # beit_attention_route's answers
 
 _fns: dict = {}  # C entry name → its ctypes function
 
@@ -63,15 +77,28 @@ def _kernel(entry: str):
     return _fns[entry]
 
 
+def kernel_route(dtype: torch.dtype, N: int, d: int) -> str:
+    """The name of the CUDA kernel that runs attention of this input type,
+    token count and head width, as the C entry routes it
+    (``beit_attention_route``); raises for a shape no kernel takes."""
+    if "route" not in _fns:
+        fn = load_library("beit_attention").beit_attention_route
+        fn.argtypes = [ctypes.c_int] * 3
+        fn.restype = ctypes.c_int
+        _fns["route"] = fn
+    name = KERNELS.get(_fns["route"](int(dtype == torch.bfloat16), N, d))
+    if name is None:
+        raise ValueError(f"no CUDA kernel takes {dtype} attention with N={N}, d={d}")
+    return name
+
+
 def _check_common(q, k, v, bias, h: int, d: int, N: int) -> None:
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v must share one shape: {q.shape}, {k.shape}, {v.shape}")
     if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"q, k, v must all be float32 or all bfloat16: {q.dtype}, {k.dtype}, {v.dtype}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head width {d} not in {HEAD_DIMS}")
-    if not 0 < N <= MAX_TOKENS:
-        raise ValueError(f"N={N} outside 1..{MAX_TOKENS}")
+    if d < 1 or N < 1:
+        raise ValueError(f"head width and token count must be at least 1, got d={d}, N={N}")
     if bias.shape != (h, N, N) or bias.dtype != torch.float32:
         raise ValueError(f"bias must be ({h}, {N}, {N}) float32, got {tuple(bias.shape)} {bias.dtype}")
     if len({t.device for t in (q, k, v, bias)}) != 1:
@@ -82,6 +109,11 @@ def _check_common(q, k, v, bias, h: int, d: int, N: int) -> None:
         raise ValueError("q, k and v must start on a 16-byte boundary")
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {q.device}")
+    if q.device.type == "cuda" and (d % CUDA_HEAD_DIM_STEP or d > CUDA_MAX_HEAD_DIM):
+        raise ValueError(
+            f"head width {d} is not taken by the CUDA kernels: it must be a multiple of "
+            f"{CUDA_HEAD_DIM_STEP} up to {CUDA_MAX_HEAD_DIM}"
+        )
 
 
 def _check(q, k, v, bias, num_heads: int) -> None:
@@ -104,7 +136,8 @@ def _check_headmajor(q, k, v, bias) -> None:
 
 def _launch(entry: str, q, k, v, bias, dims: tuple[int, int, int, int]) -> torch.Tensor:
     """Run the CUDA kernel through ``entry`` with its four int arguments;
-    returns the output. A refused launch raises."""
+    returns the output. A refused launch raises. The C entry picks the
+    kernel by shape (``kernel_route``)."""
     o = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = _kernel(entry)(
@@ -218,6 +251,7 @@ class BeitAttentionPackedFn(torch.autograd.Function):
         B, N, H = q.shape
         o = _launch("beit_attention_packed_launch", q, k, v, bias, (B, N, H, num_heads))
         beit_attention_packed.launches += 1
+        beit_attention_packed.launches_by_kernel[kernel_route(q.dtype, N, H // num_heads)] += 1
         return o
 
     @staticmethod
@@ -239,6 +273,7 @@ class BeitAttentionFn(torch.autograd.Function):
         h, B, N, d = q.shape
         o = _launch("beit_attention_headmajor_launch", q, k, v, bias, (h, B, N, d))
         beit_attention.launches += 1
+        beit_attention.launches_by_kernel[kernel_route(q.dtype, N, d)] += 1
         return o
 
     @staticmethod
@@ -252,7 +287,8 @@ def beit_attention_packed(
     """(B, N, h·d) packed fused attention (B1), differentiable in q, k, v
     and bias: the CUDA kernel for CUDA tensors, the plain twin for CPU
     tensors. ``beit_attention_packed.launches`` counts forward kernel
-    launches (the backward launches none)."""
+    launches (the backward launches none), ``launches_by_kernel`` the same
+    by the kernel the shape was routed to."""
     _check(q, k, v, bias, num_heads)
     return BeitAttentionPackedFn.apply(q, k, v, bias, num_heads)
 
@@ -262,10 +298,13 @@ def beit_attention(
 ) -> torch.Tensor:
     """(h, B, N, d) head-major fused attention (B3), differentiable in q,
     k, v and bias: the CUDA kernel for CUDA tensors, the plain twin for CPU
-    tensors. ``beit_attention.launches`` counts forward kernel launches."""
+    tensors. ``beit_attention.launches`` counts forward kernel launches,
+    ``launches_by_kernel`` the same by kernel."""
     _check_headmajor(q, k, v, bias)
     return BeitAttentionFn.apply(q, k, v, bias)
 
 
 beit_attention_packed.launches = 0
 beit_attention.launches = 0
+beit_attention_packed.launches_by_kernel = Counter()
+beit_attention.launches_by_kernel = Counter()
