@@ -4,9 +4,9 @@
     python3 chip_smoke.py
 
 Builds every CUDA kernel of the port from ``tpu3dlm_torch/csrc`` (into
-``tpu3dlm_torch/_build``, one ``nvcc`` per source, all at once), then runs
-thirteen phases, each printing one JSON line; any failure raises and the
-script exits non-zero without a result:
+``tpu3dlm_torch/_build``, one ``nvcc`` per source and one ``c++`` for the
+host codecs, all at once), then runs sixteen phases, each printing one JSON
+line; any failure raises and the script exits non-zero without a result:
 
 1. ``kernel_b1``: kernel B1 (BEiT attention) against its plain PyTorch twin
    at the production shape in bf16 (tolerance 1e-2 abs and rel: one bf16
@@ -77,12 +77,34 @@ script exits non-zero without a result:
     its JSON lines, and each variant's output of that timing run held
     against the twin on the same inputs by the small shapes' bars (f64 on
     every 64th query); the twin's time and the bound.
-13. ``kernels``: one line listing every ported kernel (B1 on its two
+13. ``ingest_parity``: the committed capture (``tests/fixtures/
+    torch_project``, two 5-frame scans written by the JAX package's
+    ``make_project``) through ``ImageExtractor.fetch_data`` and
+    ``load_scan`` at img_size 128 and 640 on this host, which has no cv2:
+    every array's sha256 equal to the JAX package's (``expected.json``);
+    host decode ms per frame (JPEG, depth PNG, resizes) and ``load_scan``
+    frames/s of a 128-frame scan with 0 and 8 decode workers.
+14. ``pipeline_parity``: ``bench_e2e.py``'s flow on that capture
+    (make_project's config, fused route, fixture checkpoints, f32): gold and
+    maintenance Pipelines on the card against the CPU — masks, labels and
+    damage equal, boxes within 1e-2 px, corners within 1e-4 m, the same
+    kept boxes, every ICP step within 1e-4, verdict reasons identical,
+    report rows and CSV identical but for the 0.1 mm-rounded box distance
+    (within 2e-4 m), exactly one missing sign; B1 and B2 launched.
+15. ``pipeline_full_width``: the user's path, ``tpu3dlm_torch.cli.main(
+    ["--data", "maintenance", ...])``, on the capture tiled to 128 frames a
+    scan at 640², crop budget 384, bf16, a seeded BEiT-base, once with the
+    counts at 0 (B1: 12 launches per scan on ``attention_bf16_tma``; B2 by
+    shape), then 5 warm maintenance runs: per-stage ms, frames/s of detect
+    + map, capture ms, peak memory. Sanity bars only.
+16. ``kernels``: one line listing every ported kernel (B1 on its two
     routes — ``attention_bf16_tma`` counted on the scan step,
     ``attention_simt`` on the finetune step — B2, B3, B4 v1 and v2) with
     its launches, the path they were counted on (``launches_on``), error,
     times and bound; every B1 case with its route, and B2's main-path
-    launches and times by shape.
+    launches and times by shape. B1's and B2's rows also carry their
+    launches on the Pipeline (``launches_on_pipeline``, from
+    ``pipeline_full_width``).
 
 The card's name and power limit (nvidia-smi) are printed before the last
 line; the last line is ``{"ok": true, "device": {...}}``. Inputs and
@@ -97,6 +119,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -1167,6 +1190,406 @@ def phase_kernel_b4(dev, mem_rate) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# Slice 4: ingestion, the Pipeline and the CLI on the committed capture
+# ---------------------------------------------------------------------------
+
+FIXTURES = Path(__file__).resolve().parent / "tests" / "fixtures"
+PROJECT = FIXTURES / "torch_project"
+# make_project's config patches (tpu3dlm/pipeline/evaluate.py::_cfg_patch at
+# its img_size 128 and compact BEiT), which bench_e2e.py runs with;
+# tests/test_torch_pipeline.py holds this list equal to the reference's
+PROJECT_PATCH = [
+    ("img_size = 640", "img_size = 128"),
+    ("batch_size = 64", "batch_size = 8"),
+    ("conf_thresh = 0.5", "conf_thresh = 0.5"),
+    ("max_det = 64", "max_det = 8"),
+    ("num_classes = 80", "num_classes = 2"),
+    ("min_points = 1000", "min_points = 50"),
+    ("beit_image_size = 224", "beit_image_size = 32"),
+    ("beit_hidden_size = 768", "beit_hidden_size = 32"),
+    ("beit_num_layers = 12", "beit_num_layers = 2"),
+    ("beit_num_heads = 12", "beit_num_heads = 2"),
+    ("beit_intermediate_size = 3072", "beit_intermediate_size = 64"),
+]
+FOLDERS = ("gold_std", "maintenance")
+
+
+def write_config(root: str, patches: list) -> str:
+    """``<root>/configs/variables.cfg``: the default config with ``patches``
+    (each a (text, replacement) pair that must occur) applied."""
+    from tpu3dlm_torch.utils.config import DEFAULT_CONFIG
+
+    text = DEFAULT_CONFIG
+    for old, new in patches:
+        check(old in text, f"config text {old!r} not found")
+        text = text.replace(old, new)
+    path = Path(root, "configs", "variables.cfg")
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(text)
+    return str(path)
+
+
+def copy_project(root: str, frames: int | None = None) -> str:
+    """The committed capture copied to ``<root>/configs/data`` (the layout
+    make_project writes), each scan tiled to ``frames`` frames when given:
+    frame k (1-based) is source frame (k − 1) mod 5 + 1, in the files, in
+    data.db (Data and Node rows k) and in poses.txt (row k, id k), so every
+    stem pairs with its own pose row."""
+    import shutil
+    import sqlite3
+
+    data = Path(root, "configs", "data")
+    shutil.copytree(PROJECT / "data", data)
+    if frames is None:
+        return str(data)
+    for folder in FOLDERS:
+        scan = data / folder
+        ext = scan / "rtabmap_extract"
+        src_n = len(list((ext / "data_rgb").glob("*.jpg")))
+        src = lambda k: (k - 1) % src_n + 1  # noqa: E731
+        for sub, suffix in (("data_rgb", "jpg"), ("data_depth", "png"), ("calibration", "yaml")):
+            for k in range(src_n + 1, frames + 1):
+                shutil.copyfile(ext / sub / f"{src(k)}.{suffix}", ext / sub / f"{k}.{suffix}")
+        lines = (scan / "poses.txt").read_text().splitlines()
+        rows = [ln.split() for ln in lines[1:]]
+        out = [lines[0]] + [" ".join(rows[src(k) - 1][:8] + [str(k)]) for k in range(1, frames + 1)]
+        (scan / "poses.txt").write_text("\n".join(out) + "\n")
+        db = scan / "data.db"
+        conn = sqlite3.connect(db)
+        blobs = dict((i, (im, dp)) for i, im, dp in conn.execute("SELECT id, image, depth FROM Data"))
+        conn.executemany("INSERT INTO Data (id, image, depth) VALUES (?, ?, ?)",
+                         [(k, *blobs[src(k)]) for k in range(src_n + 1, frames + 1)])
+        conn.executemany("INSERT INTO Node (id) VALUES (?)", [(k,) for k in range(src_n + 1, frames + 1)])
+        conn.commit()
+        conn.close()
+    return str(data)
+
+
+def sha256_of(a) -> str:
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def check_ingestion(root: str) -> tuple[int, dict, str]:
+    """The committed capture copied under ``root``, ``ImageExtractor.
+    fetch_data`` from each scan's data.db, then ``load_scan`` at img_size
+    128 and 640: every array's sha256, dtype and shape must equal the JAX
+    package's (``expected.json``). Returns (arrays checked, frames
+    extracted per scan, data directory)."""
+    import os
+
+    from tpu3dlm_torch.data.dataset import load_scan
+    from tpu3dlm_torch.data.rtabmap_db import ImageExtractor
+
+    expected = json.loads((PROJECT / "expected.json").read_text())
+    data = copy_project(root)
+    checked, extracted = 0, {}
+    for folder in FOLDERS:
+        scan_dir = os.path.join(data, folder)
+        ext = os.path.join(scan_dir, "rtabmap_extract")
+        extractor = ImageExtractor(os.path.join(scan_dir, "data.db"), os.path.join(ext, "data_depth"),
+                                   os.path.join(ext, "data_rgb"))
+        extracted[folder] = extractor.fetch_data()
+        extractor.close()
+        for size in (128, 640):
+            scan = load_scan(os.path.join(ext, "data_rgb"), os.path.join(ext, "data_depth"),
+                             os.path.join(ext, "calibration"), os.path.join(scan_dir, "poses.txt"),
+                             img_size=size)
+            for field, want in expected[f"{folder}/{size}"].items():
+                got = getattr(scan, field)
+                check(sha256_of(got) == want["sha256"] and list(np.shape(got)) == want["shape"]
+                      and str(np.asarray(got).dtype) == want["dtype"], (folder, size, field))
+                checked += 1
+    check(extracted == {"gold_std": 5, "maintenance": 5}, extracted)
+    return checked, extracted, data
+
+
+def phase_ingest_parity(tmp: str, tiled_root: str) -> dict:
+    """The port's ingestion on this host (no cv2 here): ``check_ingestion``.
+    Then host times: per-frame JPEG decode, depth PNG
+    decode and the 480×640 → 640² and → 128² resizes (median over the
+    capture's frames, 5 passes), and ``load_scan`` frames/s of a 128-frame
+    scan at 640 with ``decode_workers`` 0 and 8."""
+    import os
+
+    from tpu3dlm_torch.data import codecs
+    from tpu3dlm_torch.data.dataset import load_scan
+
+    checked, extracted, data = check_ingestion(os.path.join(tmp, "ingest"))
+    ext = os.path.join(data, "gold_std", "rtabmap_extract")
+    jpgs = sorted(Path(ext, "data_rgb").glob("*.jpg"))
+    pngs = sorted(Path(ext, "data_depth").glob("*.png"))
+    frame = codecs.read_jpeg(str(jpgs[0]))
+
+    def per_frame_ms(fn, items) -> float:
+        samples = []
+        for _ in range(5):
+            for it in items:
+                t0 = time.perf_counter()
+                fn(it)
+                samples.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(samples)
+
+    decode_ms = {
+        "jpeg_decode": per_frame_ms(lambda p: codecs.read_jpeg(str(p)), jpgs),
+        "png_decode_depth": per_frame_ms(lambda p: codecs.read_png(str(p)), pngs),
+        "resize_to_640": per_frame_ms(lambda f: codecs.resize_linear(f, (640, 640)), [frame] * 5),
+        "resize_to_128": per_frame_ms(lambda f: codecs.resize_linear(f, (128, 128)), [frame] * 5),
+    }
+    tiled = os.path.join(tiled_root, "configs", "data", "gold_std")
+    t_ext = os.path.join(tiled, "rtabmap_extract")
+    rates = {}
+    for workers in (0, 8):
+        samples = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            scan = load_scan(os.path.join(t_ext, "data_rgb"), os.path.join(t_ext, "data_depth"),
+                             os.path.join(t_ext, "calibration"), os.path.join(tiled, "poses.txt"),
+                             img_size=640, workers=workers)
+            samples.append(time.perf_counter() - t0)
+        check(scan.num_frames == 128, scan.num_frames)
+        rates[str(workers)] = {"frames_per_s": 128 / statistics.median(samples),
+                               "ms_samples": [x * 1e3 for x in samples]}
+    result = {"phase": "ingest_parity", "arrays_checked": checked, "frames_extracted": extracted,
+              "host_cpus": os.cpu_count(), "decode_ms_per_frame": decode_ms,
+              "frame_hw": list(frame.shape[:2]), "load_scan_640_128_frames_by_workers": rates}
+    emit(result)
+    return result
+
+
+def pipeline_config(root: str, extra: list) -> str:
+    return write_config(root, PROJECT_PATCH + [("fused_inference = false", "fused_inference = true")] + extra)
+
+
+def run_two_scans(cfg_path: str, device):
+    """Gold, then maintenance, through ``setup_pipeline`` as ``bench_e2e.py``
+    runs them. Returns (gold pipeline, maintenance pipeline)."""
+    from tpu3dlm_torch.pipeline.task import load_gold_std, setup_pipeline
+    from tpu3dlm_torch.utils.config import ConfigLoader
+
+    cfg_gold, cfg_maint = ConfigLoader(cfg_path, "gold_std"), ConfigLoader(cfg_path, "maintenance")
+    gold = setup_pipeline("gold_std", cfg_gold, None, device=device)
+    maint = setup_pipeline("maintenance", cfg_maint, cfg_gold, load_gold_std(cfg_gold.pickle_path),
+                           device=device)
+    return gold, maint
+
+
+def _records_err(a: dict, b: dict, n_coords: int) -> float:
+    """Largest coordinate difference of two reference-shaped record dicts
+    ({frame: [[coords..., damage, conf, label]]}) whose frames, record
+    counts, damage and labels must be equal."""
+    check(a.keys() == b.keys(), (sorted(a), sorted(b)))
+    err = 0.0
+    for f in a:
+        check(len(a[f]) == len(b[f]), (f, len(a[f]), len(b[f])))
+        for ra, rb in zip(a[f], b[f]):
+            check(ra[n_coords] == rb[n_coords] and ra[n_coords + 2] == rb[n_coords + 2],
+                  (f, "damage/label", ra[n_coords:], rb[n_coords:]))
+            ca = np.asarray(ra[:n_coords], np.float64)
+            cb = np.asarray(rb[:n_coords], np.float64)
+            err = max(err, float(np.abs(ca - cb).max()))
+    return err
+
+
+def _report_err(a: list, b: list) -> float:
+    """Report rows (dicts, as ``match_bboxes`` returns them or a CSV reads
+    back) must agree in every field; the box distance, which the report
+    rounds to 0.1 mm, is compared by value. Returns its largest
+    difference."""
+    check(len(a) == len(b), (a, b))
+    err = 0.0
+    for ra, rb in zip(a, b):
+        check({k: v for k, v in ra.items() if k != "distance"} == {k: v for k, v in rb.items() if k != "distance"},
+              (ra, rb))
+        err = max(err, abs(float(ra["distance"]) - float(rb["distance"])))
+    return err
+
+
+def _read_csv(path: str) -> tuple[list, list]:
+    """(header, rows as dicts) of a comparison CSV."""
+    import csv
+
+    with open(path, newline="") as f:
+        reader = csv.DictReader(f)
+        return reader.fieldnames, list(reader)
+
+
+def phase_pipeline_parity(dev, tmp: str) -> dict:
+    """``bench_e2e.py``'s flow on the committed capture (make_project's
+    config, fused route, fixture checkpoints, f32): gold and maintenance
+    Pipelines on the card and on the CPU. Masks, labels and damage equal;
+    boxes within 1e-2 px; corners of every projected and every kept box
+    within 1e-4 m (the NMS keep-mask identical: same records); transforms
+    and every ICP step within 1e-4; verdict reasons identical; report rows
+    and the CSV identical in every field but the box distance, which is
+    rounded to 0.1 mm and may move by that last digit (card and CPU
+    transforms differ by ~1e-5 over a ~3 m lever), so it is held within
+    2e-4 m; exactly one missing sign; B1 and B2 launched on the card run."""
+    import os
+
+    from tpu3dlm_torch.ops.kernels.attention import beit_attention_packed
+    from tpu3dlm_torch.ops.kernels.pairwise import nearest_neighbors
+
+    extra = [("infer_dtype = bf16", "infer_dtype = f32"),
+             ("yolo_weights =", f"yolo_weights = {FIXTURES / 'yolo_synthetic.msgpack'}"),
+             ("beit_weights =", f"beit_weights = {FIXTURES / 'beit_synthetic.msgpack'}")]
+    runs, launches = {}, {}
+    for name, device in (("cpu", "cpu"), ("gpu", dev)):
+        root = os.path.join(tmp, f"parity_{name}")
+        copy_project(root)
+        b1, b2 = beit_attention_packed.launches, nearest_neighbors.launches
+        t0 = time.perf_counter()
+        runs[name] = run_two_scans(pipeline_config(root, extra), device)
+        runs[name + "_s"] = time.perf_counter() - t0
+        launches[name] = {"b1": beit_attention_packed.launches - b1, "b2": nearest_neighbors.launches - b2}
+    check(launches["gpu"]["b1"] == 2 * 2 and launches["gpu"]["b2"] >= 5, launches)
+    errs = {"box_px": 0.0, "corner_m": 0.0, "kept_corner_m": 0.0}
+    for i, scan in enumerate(FOLDERS):
+        c, g = runs["cpu"][i].data_to_save, runs["gpu"][i].data_to_save
+        errs["box_px"] = max(errs["box_px"], _records_err(c["predictions"], g["predictions"], 4))
+        errs["corner_m"] = max(errs["corner_m"], _records_err(c["global_bboxes_data"], g["global_bboxes_data"], 4))
+        errs["kept_corner_m"] = max(errs["kept_corner_m"],
+                                    _records_err(c["optimised_bboxes"], g["optimised_bboxes"], 4))
+    check(errs["box_px"] <= 1e-2 and errs["corner_m"] <= 1e-4 and errs["kept_corner_m"] <= 1e-4, errs)
+    c, g = runs["cpu"][1].data_to_save, runs["gpu"][1].data_to_save
+    step_err = _steps_err(g["transformations"], c["transformations"])
+    check(step_err <= 1e-4, step_err)
+    check(g["alignment_verdict"]["reasons"] == c["alignment_verdict"]["reasons"],
+          (g["alignment_verdict"], c["alignment_verdict"]))
+    dist_err = _report_err(g["comparison_rows"], c["comparison_rows"])
+    csv_rows = {k: _read_csv(runs[k][1].cfg.csv_output) for k in ("cpu", "gpu")}
+    check(csv_rows["cpu"][0] == csv_rows["gpu"][0], "CSV headers differ")
+    dist_err = max(dist_err, _report_err(csv_rows["gpu"][1], csv_rows["cpu"][1]))
+    check(dist_err <= 2e-4, dist_err)
+    missing = sum(r["status"] == "missing" for r in g["comparison_rows"])
+    check(missing == 1, g["comparison_rows"])
+    kept = sum(len(v) for v in g["optimised_bboxes"].values())
+    result = {"phase": "pipeline_parity", "launches_gpu_run": launches["gpu"],
+              "detections": {s: sum(len(v) for v in runs["gpu"][i].data_to_save["predictions"].values())
+                             for i, s in enumerate(FOLDERS)},
+              "kept_boxes_maintenance": kept, "max_box_err_px": errs["box_px"],
+              "max_corner_err_m": errs["corner_m"], "max_kept_corner_err_m": errs["kept_corner_m"],
+              "max_step_err": step_err, "max_report_distance_err_m": dist_err,
+              "rows": len(g["comparison_rows"]), "missing": missing,
+              "verdict": g["alignment_verdict"],
+              "wall_s": {"cpu": runs["cpu_s"], "gpu": runs["gpu_s"]},
+              "stage_s_gpu": {s: runs["gpu"][i].stage_times for i, s in enumerate(FOLDERS)}}
+    emit(result)
+    return result
+
+
+FULL_WIDTH_PATCH = [
+    # make_project's detector settings with the serving image size, the
+    # scan step's crop budget and a host decode pool of 8 threads; the
+    # fixture YOLOv10-n (trained at 128 px) scores below 0.5 at 640², so
+    # the threshold is the ultralytics default 0.25 (as in fused_full_width)
+    ("batch_size = 64", "batch_size = 8"),
+    ("conf_thresh = 0.5", "conf_thresh = 0.25"),
+    ("max_det = 64", "max_det = 8"),
+    ("num_classes = 80", "num_classes = 2"),
+    ("min_points = 1000", "min_points = 50"),
+    ("crop_budget = 128", "crop_budget = 384"),
+    ("decode_workers = 0", "decode_workers = 8"),
+    ("fused_inference = false", "fused_inference = true"),
+    ("yolo_weights =", f"yolo_weights = {FIXTURES / 'yolo_synthetic.msgpack'}"),
+]
+
+
+def phase_pipeline_full_width(dev, tiled_root: str) -> dict:
+    """The user's path: ``tpu3dlm_torch.cli.main(["--data", "maintenance",
+    "--config", cfg])`` on the capture tiled to 128 frames a scan (it runs
+    gold, then maintenance), at 640², crop budget 384, bf16, the fixture
+    YOLOv10-n and a seeded BEiT-base at 224 (``beit_weights`` empty),
+    ``icp_ann`` at its default — once with the launch counts at 0, then 5
+    warm maintenance runs through ``setup_pipeline``. Sanity bars only
+    (the CSV parses, every row has a verdict, finite outputs): random
+    BEiT-base weights and a detector trained at 128 px make the missing
+    count meaningless here."""
+    import csv
+    import os
+
+    from tpu3dlm_torch import cli
+    from tpu3dlm_torch.ops.kernels.attention import beit_attention_packed
+    from tpu3dlm_torch.ops.kernels.pairwise import nearest_neighbors
+    from tpu3dlm_torch.pipeline import task
+    from tpu3dlm_torch.utils.config import ConfigLoader
+
+    cfg_path = write_config(tiled_root, FULL_WIDTH_PATCH)
+    seen = []
+    real_setup = task.setup_pipeline
+
+    def recording_setup(*args, **kwargs):
+        seen.append(real_setup(*args, **kwargs))
+        return seen[-1]
+
+    torch.cuda.reset_peak_memory_stats()
+    beit_attention_packed.launches = 0
+    beit_attention_packed.launches_by_kernel.clear()
+    nearest_neighbors.launches = 0
+    nearest_neighbors.launches_by_shape.clear()
+    task.setup_pipeline = recording_setup
+    try:
+        t0 = time.perf_counter()
+        cli.main(["--data", "maintenance", "--config", cfg_path, "--device", str(dev)])
+        cli_s = time.perf_counter() - t0
+    finally:
+        task.setup_pipeline = real_setup
+    b1_by_kernel = dict(beit_attention_packed.launches_by_kernel)
+    b2 = nearest_neighbors.launches
+    b2_by_shape = {f"{n}x{m}": c for (n, m), c in sorted(nearest_neighbors.launches_by_shape.items())}
+    check([p.data_folder for p in seen] == ["gold_std", "maintenance"], [p.data_folder for p in seen])
+    check(b1_by_kernel == {"attention_bf16_tma": 2 * 12}, b1_by_kernel)
+    check(b2 >= 4 and sum(nearest_neighbors.launches_by_shape.values()) == b2, b2_by_shape)
+    gold, maint = seen
+    out = maint.data_to_save
+    with open(maint.cfg.csv_output, newline="") as f:
+        rows = list(csv.DictReader(f))
+    check(len(rows) == len(out["comparison_rows"]) and all(r.get("alignment") for r in rows), rows)
+    check(all(np.isfinite(np.asarray(T, np.float64)).all() for T in out["transformations"]
+              if not isinstance(T, tuple)), "finite transformations")
+    for p in seen:
+        for key in ("global_bboxes_data", "optimised_bboxes"):
+            for recs in p.data_to_save[key].values():
+                check(all(np.isfinite(np.asarray(r[:4], np.float64)).all() for r in recs), key)
+    first = {"gold": gold.stage_times, "maintenance": maint.stage_times}
+
+    # warm maintenance runs: the capture a user checks against the gold map
+    cfg_gold, cfg_maint = ConfigLoader(cfg_path, "gold_std"), ConfigLoader(cfg_path, "maintenance")
+    gold_var = task.load_gold_std(cfg_gold.pickle_path)
+    stages: dict = {}
+    walls = []
+    beit_attention_packed.launches = 0
+    for _ in range(5):
+        t0 = time.perf_counter()
+        p = task.setup_pipeline("maintenance", cfg_maint, cfg_gold, gold_var, device=dev)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        for k, v in p.stage_times.items():
+            stages.setdefault(k, []).append(v * 1e3)
+    check(beit_attention_packed.launches == 5 * 12, beit_attention_packed.launches)
+    n_frames = len(p.data_to_save["predictions"])
+    check(n_frames == 128, n_frames)
+    med = {k: statistics.median(v) for k, v in stages.items()}
+    result = {
+        "phase": "pipeline_full_width", "frames_per_scan": n_frames, "img_size": 640,
+        "crop_budget": 384, "dtype": "bfloat16", "decode_workers": 8, "conf_thresh": 0.25,
+        "cli_s": cli_s, "cli_stage_ms": {s: {k: v * 1e3 for k, v in t.items()} for s, t in first.items()},
+        "b1_launches_cli_by_kernel": b1_by_kernel, "b2_launches_cli": b2,
+        "b2_launches_cli_by_shape": b2_by_shape,
+        "detections_maintenance": sum(len(v) for v in out["predictions"].values()),
+        "kept_boxes_maintenance": sum(len(v) for v in out["optimised_bboxes"].values()),
+        "rows": len(rows), "missing": sum(r["status"] == "missing" for r in rows),
+        "verdict": out["alignment_verdict"],
+        "warm_stage_ms_median": med, "warm_stage_ms_samples": stages,
+        "warm_capture_ms_median": statistics.median(walls), "warm_capture_ms_samples": walls,
+        "detect_map_frames_per_s": n_frames / ((med["detect"] + med["map"]) / 1e3),
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    emit(result)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available; this script needs an NVIDIA GPU",
@@ -1200,6 +1623,12 @@ def main() -> int:
     phase_finetune_parity(dev)
     finetune = phase_finetune_full_width(dev)
     b4 = phase_kernel_b4(dev, mem_rate)
+    with tempfile.TemporaryDirectory() as tmp:
+        tiled_root = str(Path(tmp, "full"))
+        copy_project(tiled_root, frames=128)
+        phase_ingest_parity(tmp, tiled_root)
+        phase_pipeline_parity(dev, tmp)
+        pipe = phase_pipeline_full_width(dev, tiled_root)
     from tpu3dlm_torch.ops.kernels.nn_variants import VARIANTS
 
     b4_rows = []
@@ -1231,6 +1660,9 @@ def main() -> int:
             "library_ms": b1["library_ms"],
             # every kernel_b1 case with the kernel the C entry routed it to
             "cases": b1["checks"],
+            "launches_on_pipeline": pipe["b1_launches_cli_by_kernel"]["attention_bf16_tma"],
+            "launches_on_pipeline_path": "pipeline_full_width: the CLI's gold and maintenance "
+                                         "runs (128 frames a scan, BEiT-base bf16)",
         },
         {
             # B1's other route: every f32 shape and the bf16 shapes past the
@@ -1258,6 +1690,8 @@ def main() -> int:
             # cdist + min is a yardstick, not a library version
             "library_ms": None, "cdist_yardstick_ms": b2["cdist_yardstick_ms"],
             "launches_by_shape": compare["b2_launches_by_shape_main_path"],
+            "launches_on_pipeline": pipe["b2_launches_cli"],
+            "launches_on_pipeline_by_shape": pipe["b2_launches_cli_by_shape"],
             "ms_by_shape": {f"{c['shape'][0]}x{c['shape'][1]}": {k: c[k] for k in ("kernel_ms", "bound_ms")}
                             for c in b2["checks"] if "kernel_ms" in c},
         },

@@ -101,6 +101,25 @@ def test_compare_on_card_matches_cpu(cuda_device, tmp_path):
     chip_smoke.phase_compare_parity(cuda_device, str(tmp_path))
 
 
+def test_ingestion_matches_expected_digests(tmp_path):
+    """``load_scan`` (after ``ImageExtractor.fetch_data``) on the committed
+    capture: every array's sha256 equals the JAX package's, recorded in
+    tests/fixtures/torch_project/expected.json. It needs no card; it is here
+    so that the GPU host, which has no cv2, runs it."""
+    import chip_smoke
+
+    checked, extracted, _ = chip_smoke.check_ingestion(str(tmp_path))
+    assert checked == 24 and extracted == {"gold_std": 5, "maintenance": 5}
+
+
+def test_pipeline_on_card_matches_cpu(cuda_device, tmp_path):
+    """The two-scan Pipeline on the committed capture on the card (kernels
+    B1 and B2) and on the CPU (twins): chip_smoke.py's pipeline_parity."""
+    import chip_smoke
+
+    chip_smoke.phase_pipeline_parity(cuda_device, str(tmp_path))
+
+
 @pytest.mark.parametrize(
     "dtype,shape,tol",
     [

@@ -1,5 +1,6 @@
 """tpu3dlm_torch stands alone: it imports neither jax/flax nor anything of
-the JAX package, so it runs on a GPU host that has none of them."""
+the JAX package, nor cv2, PIL, yaml, pandas or msgpack, so it runs on a GPU
+host that has none of them."""
 
 import subprocess
 import sys
@@ -8,19 +9,21 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "tpu3dlm", "cv2", "PIL", "yaml", "pandas", "msgpack")
 
 _PROBE = """
 import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "flax", "tpu3dlm"):
+FORBIDDEN = %r
+for name in FORBIDDEN:
     sys.modules[name] = None  # any import of them now raises ImportError
 import tpu3dlm_torch
 mods = [m.name for m in pkgutil.walk_packages(tpu3dlm_torch.__path__, "tpu3dlm_torch.")]
 for m in mods:
     importlib.import_module(m)
-bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "flax", "tpu3dlm") and sys.modules[k] is not None)
+bad = sorted(k for k in sys.modules if k.split(".")[0] in FORBIDDEN and sys.modules[k] is not None)
 assert not bad, bad
 print(len(mods))
-"""
+""" % (FORBIDDEN,)
 
 
 def test_port_imports_without_jax_or_tpu3dlm():
@@ -28,7 +31,16 @@ def test_port_imports_without_jax_or_tpu3dlm():
         [sys.executable, "-c", _PROBE], cwd=REPO, capture_output=True, text=True, timeout=120
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 36  # every module of the three slices was imported
+    assert int(out.stdout.strip()) >= 46  # every module of the four slices was imported
+
+
+def test_cli_imports_none_of_the_forbidden_packages():
+    # only what the import itself loads (an interpreter may preload jax)
+    probe = ("import sys; before = set(sys.modules); import tpu3dlm_torch.cli; "
+             f"bad = sorted(k for k in set(sys.modules) - before if k.split('.')[0] in {FORBIDDEN!r}); "
+             "assert not bad, bad")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
 
 
 @pytest.mark.parametrize("path", ["tpu3dlm_torch", "chip_smoke.py"])
@@ -40,4 +52,4 @@ def test_no_jax_or_tpu3dlm_import_statements(path):
             words = line.split()
             if words[:1] in (["import"], ["from"]) and len(words) > 1:
                 root = words[1].split(".")[0]
-                assert root not in ("jax", "jaxlib", "flax", "tpu3dlm"), f"{f}: {line}"
+                assert root not in FORBIDDEN, f"{f}: {line}"

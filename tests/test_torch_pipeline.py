@@ -1,0 +1,213 @@
+"""The whole fourth slice of the port against the JAX package on the CPU:
+the two-scan Pipeline (fused route) and the CLI on a ``make_project``
+capture — 3 frames a scan, 800 points/m², the fixture checkpoints,
+``fused_inference = true``, ``infer_dtype = f32`` — with the bars of
+``chip_smoke.py``'s ``pipeline_parity`` at CPU-vs-JAX tolerances: masks,
+labels and damage equal, boxes within 1e-3 px, corners within 1e-4 m, the
+NMS keep-mask identical, transforms and every ICP step within 1e-4, verdict
+reasons, report rows and CSV bytes identical, exactly one missing sign.
+
+The port runs once, through the CLI (``--data maintenance`` on a capture
+without a gold pickle runs gold, then maintenance), and its two Pipelines
+are held against one JAX two-scan run. The JAX normals take their numpy
+path (as in ``test_torch_alignment.py``), which the port reproduces."""
+
+import os
+import pickle
+import shutil
+import unittest.mock as mock
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from tpu3dlm.pipeline import evaluate
+from tpu3dlm.pipeline import task as JT
+from tpu3dlm.utils.config import ConfigLoader as JCfg
+from tpu3dlm_torch import cli
+from tpu3dlm_torch.pipeline import task as PT
+from tpu3dlm_torch.utils.config import ConfigLoader as PCfg
+
+# one thread, as the JAX package's CPU reductions: with more, torch splits
+# the ICP sums differently and the report's 4-decimal distances can flip
+torch.set_num_threads(1)
+
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
+EXTRA = [("fused_inference = false", "fused_inference = true"),
+         ("infer_dtype = bf16", "infer_dtype = f32")]
+
+
+def two_scans(cfg_path, T, Cfg, **kw):
+    gold_cfg, maint_cfg = Cfg(cfg_path, "gold_std"), Cfg(cfg_path, "maintenance")
+    gold = T.setup_pipeline("gold_std", gold_cfg, None, **kw)
+    maint = T.setup_pipeline("maintenance", maint_cfg, gold_cfg, T.load_gold_std(gold_cfg.pickle_path), **kw)
+    return gold, maint
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    root = str(tmp_path_factory.mktemp("jax"))
+    cfg_jax, _, _, _ = evaluate.make_project(
+        root, os.path.join(FIXTURES, "yolo_synthetic.msgpack"),
+        os.path.join(FIXTURES, "beit_synthetic.msgpack"), extra_cfg=EXTRA, num_frames=3,
+        cloud_points_per_m2=800)
+    port_root = str(tmp_path_factory.mktemp("port"))
+    shutil.copytree(os.path.join(root, "configs"), os.path.join(port_root, "configs"))
+    cfg_port = os.path.join(port_root, "configs", "variables.cfg")
+    with mock.patch("tpu3dlm.native.native_grid_normals", return_value=None):
+        jax_runs = two_scans(cfg_jax, JT, JCfg)
+    seen = []
+    real = PT.setup_pipeline
+    with mock.patch.object(PT, "setup_pipeline", lambda *a, **k: seen.append(real(*a, **k)) or seen[-1]):
+        cli.main(["--data", "maintenance", "--config", cfg_port, "--device", "cpu"])
+    assert [p.data_folder for p in seen] == ["gold_std", "maintenance"]
+    return dict(jax=jax_runs, port=tuple(seen), cfg_jax=cfg_jax, cfg_port=cfg_port)
+
+
+def records_close(got: dict, want: dict, tol: float):
+    """Same frames, record counts, damage and labels; coordinates within tol."""
+    assert got.keys() == want.keys()
+    for f in want:
+        assert len(got[f]) == len(want[f]), f
+        for a, b in zip(got[f], want[f]):
+            assert a[4] == b[4] and a[6] == b[6], (f, a[4:], b[4:])
+            np.testing.assert_allclose(np.asarray(a[:4], np.float64), np.asarray(b[:4], np.float64),
+                                       rtol=0, atol=tol)
+            assert abs(a[5] - b[5]) <= 1e-4
+
+
+def test_detections_boxes_and_nms_match_jax(runs):
+    for j, p in zip(runs["jax"], runs["port"]):
+        a, b = p.data_to_save, j.data_to_save
+        assert sum(len(v) for v in b["predictions"].values()) > 0
+        records_close(a["predictions"], b["predictions"], 1e-3)
+        records_close(a["global_bboxes_data"], b["global_bboxes_data"], 1e-4)
+        records_close(a["optimised_bboxes"], b["optimised_bboxes"], 1e-4)
+        assert sorted(a) == sorted(b)
+        np.testing.assert_array_equal(a["pose_df"][chip_smoke_cols()].to_numpy(dtype=np.float32),
+                                      b["pose_df"][chip_smoke_cols()].to_numpy(dtype=np.float32))
+        np.testing.assert_array_equal(a["pose_df"]["timestamp"].astype(np.int64),
+                                      b["pose_df"]["timestamp"].values.astype(np.int64))
+
+
+def chip_smoke_cols():
+    return ["tx", "ty", "tz", "qx", "qy", "qz", "qw"]
+
+
+def test_compare_matches_jax(runs):
+    a, b = runs["port"][1].data_to_save, runs["jax"][1].data_to_save
+    assert len(a["transformations"]) == len(b["transformations"])
+    assert chip_smoke._steps_err(a["transformations"], b["transformations"]) <= 1e-4
+    va, vb = a["alignment_verdict"], b["alignment_verdict"]
+    assert va["reasons"] == vb["reasons"] and va["ok"] == vb["ok"]
+    assert abs(va["rmse"] - vb["rmse"]) <= 1e-5 and abs(va["inlier_frac"] - vb["inlier_frac"]) <= 1e-5
+    assert a["comparison_rows"] == b["comparison_rows"]
+    assert sum(r["status"] == "missing" for r in a["comparison_rows"]) == 1
+    assert a["aligned_bboxes"].keys() == b["aligned_bboxes"].keys()
+    csv = [open(runs[k][1].cfg.csv_output, "rb").read() for k in ("port", "jax")]
+    assert csv[0] == csv[1]
+
+
+def test_pickle_keys_and_stage_names_match_jax(runs):
+    for j, p in zip(runs["jax"], runs["port"]):
+        with open(p.cfg.pickle_path, "rb") as f:
+            got = pickle.load(f)
+        with open(j.cfg.pickle_path, "rb") as f:
+            want = pickle.load(f)
+        assert list(got) == list(want) == ["predictions", "global_bboxes_data", "optimised_bboxes",
+                                           "pose_df", "stage_times"]
+        assert list(got["stage_times"]) == list(want["stage_times"])
+        assert list(p.stage_times) == list(j.stage_times)
+    assert list(runs["port"][1].stage_times) == ["extract", "detect", "map", "compare"]
+
+
+def test_resume_skips_detect_and_reprojects(runs):
+    gold = runs["port"][0]
+    resumed = PT.Pipeline("gold_std", gold.cfg, device="cpu")
+    out = resumed.run(resume=True)
+    assert "detect" not in resumed.stage_times
+    assert out["predictions"] == gold.data_to_save["predictions"]
+    records_close(out["global_bboxes_data"], gold.data_to_save["global_bboxes_data"], 1e-4)
+    records_close(out["optimised_bboxes"], gold.data_to_save["optimised_bboxes"], 1e-4)
+
+
+def test_cli_writes_the_same_csv(runs):
+    got = open(PCfg(runs["cfg_port"], "maintenance").csv_output, "rb").read()
+    want = open(runs["jax"][1].cfg.csv_output, "rb").read()
+    assert got == want and got.count(b"missing") == 1
+
+
+def test_project_patch_is_make_projects():
+    assert chip_smoke.PROJECT_PATCH == evaluate._cfg_patch(evaluate.IMG_SIZE, evaluate.BEIT_KW)
+
+
+def test_cli_mode_logic(tmp_path, monkeypatch):
+    """Gold alone for ``--data gold_std``; otherwise gold first when its
+    pickle is missing or unreadable, then the folder with the baseline."""
+    cfg = str(tmp_path / "configs" / "variables.cfg")
+    calls = []
+
+    def fake_setup(folder, c, c_gold=None, goldstd_var=None, device=None):
+        calls.append((folder, c_gold is not None, goldstd_var))
+        if folder == "gold_std":
+            os.makedirs(os.path.dirname(c.pickle_path), exist_ok=True)
+            with open(c.pickle_path, "wb") as f:
+                pickle.dump({"gold": 1}, f)
+
+    monkeypatch.setattr(PT, "setup_pipeline", fake_setup)
+    cli.main(["--data", "gold_std", "--config", cfg, "--device", "cpu"])  # writes the default config
+    assert os.path.exists(cfg) and calls == [("gold_std", False, None)]
+    calls.clear()
+    cli.main(["--data", "maintenance", "--config", cfg, "--device", "cpu"])
+    assert calls == [("maintenance", True, {"gold": 1})]
+    calls.clear()
+    os.remove(PCfg(cfg, "gold_std").pickle_path)
+    cli.main(["--data", "maintenance", "--config", cfg, "--device", "cpu"])
+    assert calls == [("gold_std", False, None), ("maintenance", True, {"gold": 1})]
+    calls.clear()
+    with open(PCfg(cfg, "gold_std").pickle_path, "wb") as f:
+        f.write(b"\x80\x04truncated")
+    cli.main(["--data", "maintenance", "--config", cfg, "--device", "cpu"])
+    assert calls == [("gold_std", False, None), ("maintenance", True, {"gold": 1})]
+    with pytest.raises(NotImplementedError, match="A20"):
+        cli.main(["--setup"])
+    with pytest.raises(NotImplementedError, match="A16"):
+        cli.main(["--watch"])
+
+
+@pytest.mark.parametrize("line,item", [
+    ("fused_inference = true", "A15"),
+    ("streaming_chunk = 0", "A16"),
+    ("scan_cache = false", "A16"),
+    ("visualise = false", "A17"),
+    ("alignment_vis = false", "A18"),
+    ("comparison_vis = false", "A18"),
+    ("use_pallas = true", "plain PyTorch"),
+    ("beit_quant = none", "A21"),
+    ("mesh_devices = 1", "A22"),
+    ("yolo_weights =", "A24"),
+])
+def test_unported_settings_raise_before_work(tmp_path, line, item):
+    change = {"fused_inference = true": "fused_inference = false", "streaming_chunk = 0": "streaming_chunk = 32",
+              "scan_cache = false": "scan_cache = true", "visualise = false": "visualise = true",
+              "alignment_vis = false": "alignment_vis = true", "comparison_vis = false": "comparison_vis = true",
+              "use_pallas = true": "use_pallas = false", "beit_quant = none": "beit_quant = int8",
+              "mesh_devices = 1": "mesh_devices = 2", "yolo_weights =": f"yolo_weights = {tmp_path}/best.pt"}[line]
+    (tmp_path / "best.pt").write_bytes(b"")
+    cfg = chip_smoke.write_config(str(tmp_path), [("fused_inference = false", "fused_inference = true"),
+                                                 (line, change)])
+    c = PCfg(cfg, "gold_std")
+    with pytest.raises(NotImplementedError, match=item):
+        PT.setup_pipeline("gold_std", c, None, device="cpu")
+    assert not os.path.exists(c.pickle_path) and not os.path.exists(c.depth_image_dir)
+
+
+def test_cuda_is_the_default_device(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU: the default device resolves")
+    cfg = chip_smoke.write_config(str(tmp_path), [("fused_inference = false", "fused_inference = true")])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PT.Pipeline("gold_std", PCfg(cfg, "gold_std"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(["--data", "gold_std", "--config", cfg])

@@ -88,3 +88,37 @@ def project_boxes(
     T = G.pose_to_matrix(poses)  # (F, 4, 4)
     world = G.transform_points(T[:, None], cam)
     return world, box_mask & z_valid
+
+
+def project_detections(scan, det, scale_depth: float = 1000.0, median_samples: int = 16,
+                       device: str | torch.device = "cuda") -> GlobalBoxes:
+    """Scan + 2D Detections → GlobalBoxes (world-frame quads) on ``device``,
+    host arrays back: the staged route's projection and the Pipeline's
+    resume path. The frame axis is padded to a bucket as in the reference
+    (padded frames carry ``mask=False`` and zero depth)."""
+    import numpy as np
+
+    from tpu3dlm_torch.device import resolve_device
+    from tpu3dlm_torch.utils.shapes import next_bucket, pad_axis0, pad_poses
+
+    dev = resolve_device(device)
+    F = int(np.asarray(det.mask).shape[0])
+    Fb = next_bucket(F)
+    up = lambda a, dtype=torch.float32: torch.as_tensor(np.asarray(a), device=dev).to(dtype)  # noqa: E731
+    corners, mask = project_boxes(
+        up(pad_axis0(det.boxes, Fb)),
+        up(pad_axis0(det.mask, Fb, fill=False), torch.bool),
+        up(pad_axis0(scan.depth, Fb)),
+        up(pad_axis0(scan.intrinsics, Fb, fill=1)),
+        up(pad_axis0(scan.rgb_size, Fb, fill=1)),
+        up(pad_poses(scan.poses, Fb)),
+        scale_depth=scale_depth,
+        median_samples=median_samples,
+    )
+    return GlobalBoxes(
+        corners=to_numpy(corners)[:F],
+        damage=np.asarray(det.damage),
+        conf=np.asarray(det.conf),
+        label=np.asarray(det.label),
+        mask=to_numpy(mask)[:F],
+    )

@@ -51,7 +51,7 @@ def _load_exact(module: torch.nn.Module, sd: dict[str, np.ndarray]) -> None:
         for k, v in sd.items():
             if tuple(own[k].shape) != v.shape:
                 raise ValueError(f"shape of {k}: port {tuple(own[k].shape)}, Flax {v.shape}")
-            own[k].copy_(torch.from_numpy(np.ascontiguousarray(v)))
+            own[k].copy_(torch.from_numpy(np.array(v)))  # a writable copy
 
 
 # ---------------------------------------------------------------------------

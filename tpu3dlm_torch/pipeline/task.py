@@ -1,0 +1,355 @@
+"""Pipeline orchestrator (port of ``tpu3dlm/pipeline/task.py``, fused route).
+
+``Pipeline(data_folder, cfg, cfg_goldstd, goldstd_var, device).run()``
+follows the reference's order: extract (``ImageExtractor`` when the
+database exists, then ``load_scan``) → detect + classify + project in one
+fused step (``FusedScanRunner``) → map (pose table, 3D NMS) → atomic pickle
+of the intermediates under the reference's keys → with a gold-standard
+baseline, the maintenance compare (``Alignment`` + ``BBoxComparison``).
+``resume=True`` reuses the pickled detections and re-projects them.
+Per-stage wall-clock lands in ``stage_times`` (extract, detect, map,
+compare).
+
+Settings the port cannot honour yet raise ``NotImplementedError`` naming
+their ROADMAP item before any work: ``fused_inference = false`` (the
+staged route, A15), ``streaming_chunk > 0`` and ``scan_cache = true``
+(A16), ``visualise`` (A17), ``alignment_vis`` / ``comparison_vis`` (A18),
+``beit_quant = int8`` (A21), ``mesh_devices > 1`` (A22), ``.pt``
+checkpoints (A24) and ``use_pallas = false`` (the port has no plain path on
+the card). ``icp_ann`` goes to ``Alignment`` as is, which raises for
+``auto``/``on`` on targets of 131,072 points or more (A14).
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import pickle
+import threading
+import time
+
+import numpy as np
+import torch
+
+from tpu3dlm_torch.alignment.align import Alignment
+from tpu3dlm_torch.alignment.comparison import BBoxComparison
+from tpu3dlm_torch.data.dataset import load_scan
+from tpu3dlm_torch.data.poses import poses_to_frame
+from tpu3dlm_torch.data.rtabmap_db import ImageExtractor
+from tpu3dlm_torch.data.scan import Detections, Scan, detections_from_frame_dict
+from tpu3dlm_torch.device import resolve_device
+from tpu3dlm_torch.mapper.nms3d import suppress_bboxes
+from tpu3dlm_torch.mapper.projection import project_detections
+from tpu3dlm_torch.models.beit import BeitClassifier, BeitConfig
+from tpu3dlm_torch.models.layers import init_seeded_
+from tpu3dlm_torch.models.yolov10 import YOLOv10
+
+_WEIGHTS: dict = {}
+_WEIGHTS_LOCK = threading.Lock()
+
+
+def _cached_weights(key, builder):
+    """Port modules on their device, shared across Pipeline instances: a
+    two-scan run reads and converts each checkpoint once. The key holds the
+    kind, the absolute path and mtime, the model config, the device and the
+    dtype, so an updated file or another shape misses."""
+    with _WEIGHTS_LOCK:
+        if key not in _WEIGHTS:
+            _WEIGHTS[key] = builder()
+        return _WEIGHTS[key]
+
+
+def unsupported_settings(cfg) -> list[str]:
+    """Each setting of ``cfg`` the port cannot run yet, with its ROADMAP item."""
+    out = []
+    if not getattr(cfg, "fused_inference", False):
+        out.append("fused_inference = false: the staged route is not ported yet (ROADMAP A15); "
+                   "set fused_inference = true")
+    if getattr(cfg, "streaming_chunk", 0) > 0:
+        out.append("streaming_chunk > 0: streaming ingestion is not ported yet (ROADMAP A16)")
+    if getattr(cfg, "scan_cache", False):
+        out.append("scan_cache = true: the scanpack cache is not ported yet (ROADMAP A16)")
+    if getattr(cfg, "visualise", False):
+        out.append("visualise = true: the map mesh is not ported yet (ROADMAP A17)")
+    for knob in ("alignment_vis", "comparison_vis"):
+        if getattr(cfg, knob, False):
+            out.append(f"{knob} = true: visualisation is not ported yet (ROADMAP A18)")
+    if not getattr(cfg, "use_pallas", True):
+        out.append("use_pallas = false: the port has no switch that runs plain PyTorch in place "
+                   "of its kernels on the card")
+    if getattr(cfg, "beit_quant", "none") == "int8":
+        out.append("beit_quant = int8: the int8 classifier is not ported yet (ROADMAP A21)")
+    if getattr(cfg, "mesh_devices", 1) > 1:
+        out.append("mesh_devices > 1: multi-GPU runs are not ported yet (ROADMAP A22)")
+    for knob in ("yolo_weights", "beit_weights"):
+        path = getattr(cfg, knob, "") or ""
+        if path and os.path.exists(path) and not path.endswith(".msgpack"):
+            out.append(f"{knob} = {path}: .pt checkpoints are not ported yet (ROADMAP A24)")
+    return out
+
+
+class Pipeline:
+    def __init__(self, data_folder, cfg, cfg_goldstd=None, goldstd_var=None,
+                 device: str | torch.device = "cuda"):
+        problems = unsupported_settings(cfg)
+        if problems:
+            raise NotImplementedError("; ".join(problems))
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.cfg_goldstd = cfg_goldstd
+        self.data_folder = data_folder
+        self.goldstd_var = goldstd_var
+        self.data_to_save: dict = {}
+        self.stage_times: dict[str, float] = {}
+        logging.basicConfig(level=logging.INFO)
+        self.logger = logging.getLogger(__name__)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return torch.bfloat16 if getattr(self.cfg, "infer_dtype", "bf16") == "bf16" else torch.float32
+
+    def _labels(self) -> list[str]:
+        return getattr(self.cfg, "damage_labels", "undamaged,damaged").split(",")
+
+    def _timed(self, name: str, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.stage_times[name] = time.perf_counter() - t0
+        return out
+
+    def run(self, resume: bool = False) -> dict:
+        """Full pipeline; ``resume=True`` reuses detections from the stage
+        pickle when present, so a crash after detect does not repeat it."""
+        scan = self._timed("extract", self._extract_images)
+        detections = None
+        if resume and os.path.exists(self.cfg.pickle_path):
+            try:
+                with open(self.cfg.pickle_path, "rb") as f:
+                    prior = pickle.load(f)
+                if "predictions" in prior:
+                    detections = detections_from_frame_dict(prior["predictions"], scan.num_frames)
+                    self.logger.info("Resumed detections from checkpoint.")
+            except Exception as e:
+                self.logger.warning("resume failed (%s); re-running detect", e)
+        fused_gboxes = None
+        if detections is None:
+            detections, fused_gboxes = self._timed("detect", self._fused_inference, scan)
+        global_bboxes, optimised, pose_df = self._timed(
+            "map", self._map_detected_objects, scan, detections, fused_gboxes
+        )
+
+        self.data_to_save = {
+            "predictions": detections.to_frame_dict(),
+            "global_bboxes_data": global_bboxes.to_frame_dict(),
+            "optimised_bboxes": optimised.to_frame_dict(),
+            "pose_df": pose_df,
+            "stage_times": dict(self.stage_times),
+        }
+        try:
+            os.makedirs(os.path.dirname(self.cfg.pickle_path) or ".", exist_ok=True)
+            # atomic write: a crash mid-dump must not leave a truncated pickle
+            tmp = self.cfg.pickle_path + f".tmp{os.getpid()}"
+            with open(tmp, "wb") as f:
+                pickle.dump(self.data_to_save, f)
+            os.replace(tmp, self.cfg.pickle_path)
+            self.logger.info("Variables stored to pickle file.")
+        except Exception as e:
+            self.logger.info(f"Failed to write to file: {e}")
+
+        if self.cfg_goldstd and self.goldstd_var:
+            self._timed(
+                "compare", self._goldstd_vs_maintenance, pose_df,
+                self.data_to_save["optimised_bboxes"],
+            )
+
+        frames = scan.num_frames
+        core = self.stage_times.get("detect", 0) + self.stage_times.get("map", 0)
+        if core > 0:
+            self.logger.info(
+                "Throughput: %.2f frames/sec (detect+project, %d frames)", frames / core, frames,
+            )
+        return self.data_to_save
+
+    def _extract_images(self) -> Scan:
+        self.logger.info("Extracting frames...")
+        if os.path.exists(self.cfg.db_path):
+            extractor = ImageExtractor(self.cfg.db_path, self.cfg.depth_image_dir, self.cfg.image_dir)
+            extractor.fetch_data()
+            extractor.close()
+        scan = load_scan(
+            image_dir=self.cfg.image_dir,
+            depth_image_dir=self.cfg.depth_image_dir,
+            calibration_dir=self.cfg.calibration_dir,
+            pose_path=self.cfg.pose_path,
+            img_size=self.cfg.img_size,
+            depth_width=self.cfg.depth_width,
+            depth_height=self.cfg.depth_height,
+            workers=getattr(self.cfg, "decode_workers", 0),
+        )
+        self.logger.info("Frames extracted.")
+        return scan
+
+    def _fused_inference(self, scan: Scan):
+        """Detect + classify + project in one step (``pipeline/fused.py``)."""
+        return self._make_fused_runner()(scan)
+
+    def _make_fused_runner(self):
+        from tpu3dlm_torch.pipeline.fused import FusedScanRunner
+
+        labels = self._labels()
+        return FusedScanRunner(
+            img_size=self.cfg.img_size,
+            conf_thresh=self.cfg.conf_thresh,
+            max_det=getattr(self.cfg, "max_det", 64),
+            nc=getattr(self.cfg, "num_classes", 80),
+            variant=getattr(self.cfg, "yolo_variant", "n"),
+            beit_config=self._beit_config(len(labels)),
+            yolo=self._load_yolo_weights(),
+            beit=self._load_beit_weights(len(labels)),
+            mesh_devices=getattr(self.cfg, "mesh_devices", 1),
+            dtype=self.dtype,
+            crop_budget=getattr(self.cfg, "crop_budget", 128),
+            device=self.device,
+        )
+
+    def _map_detected_objects(self, scan: Scan, detections: Detections, fused_gboxes=None):
+        self.logger.info("Extracting Pose Information...")
+        pose_df = poses_to_frame(np.asarray(scan.timestamps), np.asarray(scan.poses))
+        self.logger.info("Processing Pose...")
+        global_bboxes = (
+            fused_gboxes if fused_gboxes is not None
+            else project_detections(scan, detections, device=self.device)
+        )
+        self.logger.info("Executing 3D NMS...")
+        optimised = suppress_bboxes(
+            global_bboxes, np.asarray(scan.poses),
+            top_k=getattr(self.cfg, "nms_top_k", 1024), device=self.device,
+        )
+        self.logger.info("3D NMS Executed.")
+        return global_bboxes, optimised, pose_df
+
+    def _goldstd_vs_maintenance(self, pose_df, optimised_bboxes):
+        from tpu3dlm_torch.data.ply import load_ply
+
+        base_cloud = comp_cloud = None
+        try:
+            if os.path.exists(self.cfg_goldstd.ply_path):
+                base_cloud, _ = load_ply(self.cfg_goldstd.ply_path)
+            if os.path.exists(self.cfg.ply_path):
+                comp_cloud, _ = load_ply(self.cfg.ply_path)
+        except Exception as e:
+            self.logger.warning("cloud load failed (%s); aligning on poses+boxes", e)
+
+        align = Alignment(
+            base_pose_df=self.goldstd_var["pose_df"],
+            comparison_pose_df=pose_df,
+            base_bboxes=self.goldstd_var["optimised_bboxes"],
+            comparison_bboxes=optimised_bboxes,
+            base_cloud=base_cloud,
+            comparison_cloud=comp_cloud,
+            max_points=getattr(self.cfg, "icp_max_points", 16384),
+            icp_iterations=getattr(self.cfg, "icp_iterations", 30),
+            global_init=getattr(self.cfg, "icp_global_init", "auto"),
+            ann=getattr(self.cfg, "icp_ann", "auto"),
+            verdict_inlier_floor=getattr(self.cfg, "align_inlier_floor", 0.35),
+            verdict_rmse_ceiling=getattr(self.cfg, "align_rmse_ceiling", 0.08),
+            device=self.device,
+        )
+        aligned_bboxes, transformations, base_map, _ = align.compare(self.data_folder)
+        self.data_to_save["transformations"] = transformations
+        self.data_to_save["aligned_bboxes"] = aligned_bboxes
+        verdict = align.last_verdict.to_dict() if align.last_verdict else None
+        self.data_to_save["alignment_verdict"] = verdict
+
+        compare = BBoxComparison(
+            self.goldstd_var["optimised_bboxes"],
+            aligned_bboxes,
+            base_map,
+            csv_output_file=self.cfg.csv_output,
+            id2damage=dict(enumerate(self._labels())),
+            precomputed_match=align.last_match,
+            alignment_verdict=verdict,
+            device=self.device,
+        )
+        self.data_to_save["comparison_rows"] = compare.match_bboxes()
+
+    # -- weights ----------------------------------------------------------
+
+    def _beit_config(self, num_labels: int) -> BeitConfig:
+        """BeitConfig from the cfg's beit_* architecture knobs (BEiT-base
+        defaults)."""
+        base = BeitConfig()
+        return BeitConfig(
+            image_size=getattr(self.cfg, "beit_image_size", base.image_size),
+            patch_size=getattr(self.cfg, "beit_patch_size", base.patch_size),
+            hidden_size=getattr(self.cfg, "beit_hidden_size", base.hidden_size),
+            num_layers=getattr(self.cfg, "beit_num_layers", base.num_layers),
+            num_heads=getattr(self.cfg, "beit_num_heads", base.num_heads),
+            intermediate_size=getattr(self.cfg, "beit_intermediate_size", base.intermediate_size),
+            num_labels=num_labels,
+            quant=getattr(self.cfg, "beit_quant", "none"),
+        )
+
+    def _weights_key(self, kind: str, path: str, model_cfg) -> tuple:
+        stamp = (os.path.abspath(path), os.path.getmtime(path)) if path else (None, None)
+        return (kind, *stamp, model_cfg, str(self.device), self.dtype)
+
+    def _load_yolo_weights(self) -> YOLOv10:
+        from tpu3dlm_torch.models.checkpoint import read_flax_msgpack
+        from tpu3dlm_torch.models.weights import yolov10_from_flax
+
+        path = getattr(self.cfg, "yolo_weights", "") or ""
+        path = path if os.path.exists(path) else ""
+        nc, variant = getattr(self.cfg, "num_classes", 80), getattr(self.cfg, "yolo_variant", "n")
+
+        def build():
+            if path:
+                self.logger.info("Loading native YOLOv10 checkpoint %s", path)
+                model = yolov10_from_flax(read_flax_msgpack(path), variant=variant, nc=nc)
+            else:
+                model = init_seeded_(YOLOv10(nc=nc, variant=variant), torch.Generator().manual_seed(0))
+            return model.to(self.device, self.dtype).eval()
+
+        return _cached_weights(self._weights_key("yolo", path, (nc, variant)), build)
+
+    def _load_beit_weights(self, num_labels: int) -> BeitClassifier:
+        from tpu3dlm_torch.models.checkpoint import read_flax_msgpack
+        from tpu3dlm_torch.models.weights import beit_from_flax
+
+        path = getattr(self.cfg, "beit_weights", "") or ""
+        path = path if os.path.exists(path) else ""
+        cfg = self._beit_config(num_labels)
+
+        def build():
+            if path:
+                self.logger.info("Loading native BEiT checkpoint %s", path)
+                model = beit_from_flax(read_flax_msgpack(path), cfg)
+            else:
+                model = init_seeded_(BeitClassifier(cfg), torch.Generator().manual_seed(1))
+            return model.to(self.device, self.dtype).eval()
+
+        return _cached_weights(self._weights_key("beit", path, cfg), build)
+
+
+def load_gold_std(pickle_path: str):
+    """None on a missing or corrupt pickle (reference task_def.py:200-209)."""
+    try:
+        with open(pickle_path, "rb") as f:
+            return pickle.load(f)
+    except FileNotFoundError:
+        logging.error(f"The file {pickle_path} was not found.")
+        return None
+    except (pickle.UnpicklingError, EOFError, AttributeError, ModuleNotFoundError) as e:
+        # truncated file, or a pickle of classes this process cannot load
+        # (a gold pickle written by the JAX package holds a pandas DataFrame)
+        logging.error(f"Failed to unpickle the file {pickle_path}: {e}")
+        return None
+
+
+def setup_pipeline(data_folder, cfg, cfg_goldstd=None, goldstd_var=None,
+                   device: str | torch.device = "cuda") -> Pipeline:
+    pipeline = Pipeline(data_folder, cfg, cfg_goldstd, goldstd_var, device=device)
+    pipeline.run()
+    return pipeline
