@@ -5,7 +5,7 @@
 
 Builds every CUDA kernel of the port from ``tpu3dlm_torch/csrc`` (into
 ``tpu3dlm_torch/_build``, one ``nvcc`` per source and one ``c++`` for the
-host codecs, all at once), then runs sixteen phases, each printing one JSON
+host codecs, all at once), then runs twenty phases, each printing one JSON
 line; any failure raises and the script exits non-zero without a result:
 
 1. ``kernel_b1``: kernel B1 (BEiT attention) against its plain PyTorch twin
@@ -31,14 +31,18 @@ line; any failure raises and the script exits non-zero without a result:
    timed over warm runs, with a per-stage split.
 5. ``kernel_b2``: kernel B2 (nearest neighbour) against its twin at the
    compare's shapes (16384 × 1,048,576 with sentinel padding, 10240 ×
-   65,536, 4096 × 262,144), an odd small shape and a tie case: every d²
+   65,536, 4096 × 262,144), the Pipeline's (16384 and 4096 × 65,536), the
+   anchor-index builds' (1,048,576 × 8192 and 262,144 × 2048, the target
+   as the queries), an odd small shape and a tie case: every d²
    within 1e-4 m², and where the indices differ the two d² within 1e-5 m²
    (a genuine near-tie); against an f64 brute force on 2048 queries, d²
    within 1e-3 and every pick's true d² within 1e-5 m² of the minimum;
    identical-pick shares of ≥ 99.9% (twin) and ≥ 99% (f64) on the sparse
    shapes (``phase_kernel_b2`` says why not on the dense ones). Times of the
-   kernel, the twin and a chunked ``torch.cdist(...).min(1)`` (a yardstick:
-   no single PyTorch call computes this function) beside the bound.
+   kernel and the twin at every compare, Pipeline and index-build shape,
+   and of a chunked ``torch.cdist(...).min(1)`` at the compare's (a
+   yardstick: no single PyTorch call computes this function), beside the
+   bound.
 6. ``compare_parity``: ``Alignment.compare`` + ``BBoxComparison`` on the
    card against the same on the CPU (twin) on a ~20k-point two-scan scene:
    final transform and every recorded step within 1e-4, rmse and inlier
@@ -49,62 +53,86 @@ line; any failure raises and the script exits non-zero without a result:
    launch counts at 0 and a cold gold cache, then 5 warm captures, with the
    split into gold-side host work, NN sweeps and the rest, and B2's calls
    of one capture by shape (count and CUDA-event ms per (n, m)).
-8. ``kernel_b3``: kernel B3 (head-major attention) against its twin at
+8. ``ann_parity``: the anchor-bucketed NN index (``ops/ann.py``) over the
+   scene's padded gold target (1,048,576 rows, 8192 anchors) built on the
+   card against the CPU from the same anchors (anchors identical; a row on
+   another anchor only at an f32 near-tie, ≤ 1e-5 m² in f64; every other
+   bucket identical), and ``nn_anchored`` on 16384 queries, card against
+   CPU (the same pick or d² within 1e-5 m²) and against exact B2 (recall ≥
+   99.5% by the JAX package's rule); times of the build and of one
+   anchored sweep beside exact B2, at the final and the coarse stage.
+9. ``compare_full_width_ann``: ``compare_full_width`` at ``ann="auto"``,
+   the default: a cold capture with an empty index cache (one B2 launch at
+   each index-build shape, the builds timed), 5 warm captures in turns
+   with 5 at ``ann="off"`` (no build launch), a split into anchored and
+   exact sweeps; the registration sanity and the final transform within
+   5e-3 of the ``ann="off"`` capture's.
+10. ``kernel_b3``: kernel B3 (head-major attention) against its twin at
    (h, B, N, d) = (12, 384, 197, 64) bf16 (1e-2) and small f32 shapes
    (1e-5; N = 33, B = 5), and against B1 through the layouts on every
    input; B3's path — the public op ``beit_attention`` forward and backward
    at the production shape — once with the count at 0; times of the
    kernel, the twin and ``F.scaled_dot_product_attention`` beside the
    bound.
-9. ``attention_grad``: B1's and B3's outputs carry gradients on the card,
+11. ``attention_grad``: B1's and B3's outputs carry gradients on the card,
    and their q, k, v and bias gradients equal plain autograd through the
    twins at f32 within 1e-5; a BEiT-base attention layer's q/k/v weights
    and relative-position table get non-zero gradients.
-10. ``finetune_parity``: three finetune steps of a small BEiT (32 px,
+12. ``finetune_parity``: three finetune steps of a small BEiT (32 px,
    hidden 64, 2 layers, 4 heads, 3 labels) at f32 on the card and on the
    CPU: losses within 1e-5, the first step's gradients within 1e-5.
-11. ``finetune_full_width``: the finetune main path — ``init_finetune`` and
+13. ``finetune_full_width``: the finetune main path — ``init_finetune`` and
     ``make_beit_train_step`` on BEiT-base at 224, f32, batch 64 — one
     warm-up step with the counts at 0 (12 B1 launches, all on
     ``attention_simt``, each one's output
     held against the twin on that layer's own q, k, v and bias within
     1e-5), 5 timed steps (the loss must fall), peak memory and a profiled
     step.
-12. ``kernel_b4``: kernel B4's variants against their bf16 twin and f64
+14. ``kernel_b4``: kernel B4's variants against their bf16 twin and f64
     (and bit-equal to each other) at small shapes; then the probe's path
     (``tpu3dlm_torch/scripts/bench_nn_variants.py``: verify, then time at
     16384 × 1,048,576 beside B2) with the counts of both CUDA kernels at 0,
     its JSON lines, and each variant's output of that timing run held
     against the twin on the same inputs by the small shapes' bars (f64 on
     every 64th query); the twin's time and the bound.
-13. ``ingest_parity``: the committed capture (``tests/fixtures/
+15. ``ingest_parity``: the committed capture (``tests/fixtures/
     torch_project``, two 5-frame scans written by the JAX package's
     ``make_project``) through ``ImageExtractor.fetch_data`` and
     ``load_scan`` at img_size 128 and 640 on this host, which has no cv2:
     every array's sha256 equal to the JAX package's (``expected.json``);
     host decode ms per frame (JPEG, depth PNG, resizes) and ``load_scan``
     frames/s of a 128-frame scan with 0 and 8 decode workers.
-14. ``pipeline_parity``: ``bench_e2e.py``'s flow on that capture
+16. ``pipeline_parity``: ``bench_e2e.py``'s flow on that capture
     (make_project's config, fused route, fixture checkpoints, f32): gold and
     maintenance Pipelines on the card against the CPU — masks, labels and
     damage equal, boxes within 1e-2 px, corners within 1e-4 m, the same
     kept boxes, every ICP step within 1e-4, verdict reasons identical,
     report rows and CSV identical but for the 0.1 mm-rounded box distance
     (within 2e-4 m), exactly one missing sign; B1 and B2 launched.
-15. ``pipeline_full_width``: the user's path, ``tpu3dlm_torch.cli.main(
+17. ``pipeline_full_width``: the user's path, ``tpu3dlm_torch.cli.main(
     ["--data", "maintenance", ...])``, on the capture tiled to 128 frames a
     scan at 640², crop budget 384, bf16, a seeded BEiT-base, once with the
     counts at 0 (B1: 12 launches per scan on ``attention_bf16_tma``; B2 by
     shape), then 5 warm maintenance runs: per-stage ms, frames/s of detect
     + map, capture ms, peak memory. Sanity bars only.
-16. ``kernels``: one line listing every ported kernel (B1 on its two
+18. ``staged_parity``: ``pipeline_parity`` on the staged route (the default
+    ``fused_inference = false``, as ``BENCH_E2E_FUSED=0`` runs
+    ``bench_e2e.py``): ``ObjectDetector``, then ``DamageDetector`` over
+    every valid box; the same bars, and B1 launched once per layer for
+    each classifier batch.
+19. ``staged_full_width``: ``pipeline_full_width`` on the staged route
+    (the default detector batch of 64): B1 launches per scan by kernel,
+    the crops classified, B2 by shape, then 5 warm maintenance runs.
+20. ``kernels``: one line listing every ported kernel (B1 on its two
     routes — ``attention_bf16_tma`` counted on the scan step,
     ``attention_simt`` on the finetune step — B2, B3, B4 v1 and v2) with
     its launches, the path they were counted on (``launches_on``), error,
     times and bound; every B1 case with its route, and B2's main-path
-    launches and times by shape. B1's and B2's rows also carry their
-    launches on the Pipeline (``launches_on_pipeline``, from
-    ``pipeline_full_width``).
+    launches and its times and bounds by shape. B1's and B2's rows also
+    carry their launches on the Pipeline (``launches_on_pipeline``, from
+    ``pipeline_full_width``); B1's on the staged route
+    (``launches_on_staged``, from ``staged_full_width``) and B2's on the
+    ANN compare (``launches_on_ann``, from ``compare_full_width_ann``).
 
 The card's name and power limit (nvidia-smi) are printed before the last
 line; the last line is ``{"ok": true, "device": {...}}``. Inputs and
@@ -449,14 +477,15 @@ IDENTITY_POSES = np.tile(np.array([0, 0, 0, 0, 0, 0, 1], np.float32), (4, 1))
 
 def run_compare(scene, device, csv_path, **kw):
     """One capture the way the pipeline runs it: ``Alignment.compare`` then
-    ``BBoxComparison.match_bboxes`` with the fused assignment and verdict.
-    Returns (alignment, aligned boxes, report rows)."""
+    ``BBoxComparison.match_bboxes`` with the fused assignment and verdict
+    (``ann="off"`` unless ``kw`` says otherwise). Returns (alignment,
+    aligned boxes, report rows)."""
     from tpu3dlm_torch.alignment.align import Alignment
     from tpu3dlm_torch.alignment.comparison import BBoxComparison
 
     base, comp, base_boxes, comp_boxes, _ = scene
     align = Alignment(IDENTITY_POSES, IDENTITY_POSES, base_boxes, comp_boxes, base_cloud=base,
-                      comparison_cloud=comp, ann="off", device=device, **kw)
+                      comparison_cloud=comp, device=device, **{"ann": "off", **kw})
     aligned, _, _, _ = align.compare("chip_smoke")
     rows = BBoxComparison(base_boxes, aligned, None, csv_output_file=csv_path,
                           precomputed_match=align.last_match,
@@ -507,7 +536,12 @@ def f64_nearest(a, b, chunk: int = 65536):
 def kernel_b2_cases(scene) -> list:
     """Kernel B2's cases, (name, queries, targets, sparse): the compare's
     three shapes on the scene (the final stage's 1,048,576 targets padded
-    with sentinels), an odd sparse shape and every target three times."""
+    with sentinels; the init scoring's 10240 × 65,536 is also the
+    Pipeline's), the Pipeline's two ICP shapes against a 65,536-point
+    target, the anchor-index builds over the padded full target (8192
+    anchors) and the coarse target (2048) with the target as the queries,
+    an odd sparse shape and every target three times."""
+    from tpu3dlm_torch.ops.ann import default_index_shape, sample_anchor_ids
     from tpu3dlm_torch.ops.icp import pad_target_bucket
 
     base, comp = scene[0], scene[1]
@@ -516,17 +550,31 @@ def kernel_b2_cases(scene) -> list:
     q16 = pick(comp, 16384)
     init_q = np.concatenate([q16[:2048] + np.float32(0.05 * k) for k in range(5)])
     dup = rng.uniform(-2, 3, (1000, 3)).astype(np.float32)
+    full = pad_target_bucket(base)[0]  # 1,048,576 with 1e6 sentinels
+    coarse = base[np.random.default_rng(1).choice(base.shape[0], 262144, replace=False)]  # the compare's draw
+    t65 = pick(base, 65536)
+    anchors = lambda t: t[sample_anchor_ids(t.shape[0], default_index_shape(t.shape[0])[0], 0).numpy()]  # noqa: E731
     return [
-        ("final_stage", q16, pad_target_bucket(base)[0], False),  # 1,048,576 with 1e6 sentinels
-        ("init_scoring", init_q, pick(base, 65536), False),
+        ("final_stage", q16, full, False),
+        ("init_scoring", init_q, t65, False),
         ("coarse_stage", q16[:4096], pick(base, 262144), False),
+        ("pipeline_final_stage", q16, t65, False),
+        ("pipeline_coarse_stage", q16[:4096], t65, False),
+        ("index_build_full", full, anchors(full), False),
+        ("index_build_coarse", coarse, anchors(coarse), False),
         ("odd", rng.uniform(-2, 3, (1000, 3)), rng.uniform(-2, 3, (3001, 3)), True),
         ("ties", rng.uniform(-2, 3, (777, 3)), np.concatenate([dup, dup, dup]), True),
     ]
 
 
+B2_TIMED = ("final_stage", "init_scoring", "coarse_stage", "pipeline_final_stage", "pipeline_coarse_stage",
+            "index_build_full", "index_build_coarse")
+B2_CDIST = ("final_stage", "init_scoring", "coarse_stage")  # cdist's (n, m) output fits on the card
+
+
 def phase_kernel_b2(dev, mem_rate, scene) -> dict:
-    """B2 against its twin, and against f64, at the compare's shapes.
+    """B2 against its twin, and against f64, at the compare's shapes, the
+    Pipeline's and the anchor-index builds'.
 
     On the 1M-point scene the points lie ~4.6 mm apart, so many queries
     have a second neighbour whose d² is within the f32 rounding of the
@@ -537,7 +585,10 @@ def phase_kernel_b2(dev, mem_rate, scene) -> dict:
     f64, the true d² of the kernel's pick at most 1e-5 m² above the true
     minimum. The share of identical picks (≥ 99.9% against the twin, ≥ 99%
     against f64) binds on the sparse uniform shapes, where near-ties are
-    rare; on the scene shapes it is recorded."""
+    rare; on the scene shapes it is recorded. In the index build over the
+    padded target the 1e6 sentinel rows are queries too: their d² (~3e12
+    m² to a real anchor) is compared only through the pick, which must be a
+    point equal to the query (a sentinel anchor)."""
     from tpu3dlm_torch.ops.kernels.pairwise import nearest_neighbors, nearest_neighbors_reference
 
     up = lambda x: torch.as_tensor(np.ascontiguousarray(x, np.float32), device=dev)  # noqa: E731
@@ -549,9 +600,13 @@ def phase_kernel_b2(dev, mem_rate, scene) -> dict:
         idx, d2 = nearest_neighbors(a, b)
         torch.cuda.synchronize()
         ri, rd2 = nearest_neighbors_reference(a, b)
-        same = float((idx == ri).float().mean())
-        err = float((d2 - rd2).abs().max())
-        diff = idx != ri
+        far = (a.abs() >= 1e5).any(1)  # sentinel queries
+        if bool(far.any()):
+            check(bool((b[idx[far]] == a[far]).all() and (b[ri[far]] == a[far]).all()), (name, "sentinels"))
+        near = ~far
+        same = float((idx[near] == ri[near]).float().mean())
+        err = float((d2[near] - rd2[near]).abs().max())
+        diff = (idx != ri) & near
         tie_err = float((d2[diff] - rd2[diff]).abs().max()) if bool(diff.any()) else 0.0
         check(err <= 1e-4 and tie_err <= 1e-5 and (same >= 0.999 or not sparse),
               (name, same, err, tie_err))
@@ -569,16 +624,17 @@ def phase_kernel_b2(dev, mem_rate, scene) -> dict:
         row = {"case": name, "shape": [a.shape[0], b.shape[0]], "same_index_frac": same,
                "max_abs_err": err, "max_err_where_index_differs": tie_err,
                "f64_same_index_frac": f64_same, "f64_max_abs_err": f64_err,
-               "f64_max_excess_of_pick": excess}
-        if name in ("final_stage", "init_scoring", "coarse_stage"):
+               "f64_max_excess_of_pick": excess, "sentinel_queries": int(far.sum())}
+        if name in B2_TIMED:
             n, m = a.shape[0], b.shape[0]
-            big = name == "final_stage"
+            big = n * m >= 1 << 33
             row["kernel_ms"] = cuda_ms(lambda: nearest_neighbors(a, b))
             row["plain_ms"] = cuda_ms(lambda: nearest_neighbors_reference(a, b),
                                       iters=2 if big else 5, warmup=1)
-            row["cdist_yardstick_ms"] = cuda_ms(lambda: cdist_min(a, b), iters=3, warmup=1)
+            if name in B2_CDIST:
+                row["cdist_yardstick_ms"] = cuda_ms(lambda: cdist_min(a, b), iters=3, warmup=1)
             row["bound_ms"], row["bound_by"] = nn_bound_ms(n, m, mem_rate)
-            if big:
+            if name == "final_stage":
                 timing = row
         checks.append(row)
     result = {"phase": "kernel_b2", "checks": checks, "max_abs_err": timing["max_abs_err"],
@@ -764,6 +820,222 @@ def phase_compare_full_width(dev, tmp, scene) -> dict:
         "gold_side_host_ms_cold_only": {"normals": normals_ms},
         "profile": profile,
         "peak_mem_gb": peak_gb,
+        "final_transform": align.final_transform.tolist(),
+    }
+    emit(result)
+    return result
+
+
+# ---------------------------------------------------------------------------
+# Slice 5: the anchor-bucketed NN index (kernel B2 builds it)
+# ---------------------------------------------------------------------------
+
+
+def anchor_assignment(index, m: int) -> torch.Tensor:
+    """(m,) the anchor whose bucket holds each target row, −1 where the row
+    was dropped by overflow."""
+    C, B = index.bucket_ids.shape
+    filled = index.buckets[..., 0] < 1e7  # empty slots hold 1e8
+    slot_anchor = torch.arange(C, device=filled.device)[:, None].expand(C, B)
+    out = torch.full((m,), -1, dtype=torch.int64, device=filled.device)
+    out[index.bucket_ids[filled].long()] = slot_anchor[filled]
+    return out
+
+
+def hold_index(got, want, tgt: torch.Tensor) -> dict:
+    """An index built on the card (kernel B2's assignment sweep) against the
+    one built on the CPU (the twin's) from the same anchors. The anchors
+    must be identical. The assignment of a target row to an anchor is an
+    argmin over anchors in f32, where kernel and twin round differently
+    (``phase_kernel_b2``): every row that went to another anchor must be a
+    near-tie (its f64 d² to the two anchors within 1e-5 m², B2's bar), and
+    every bucket that no such row touches must be identical, slot for slot
+    (coordinates and ids). Returns the counts."""
+    check(torch.equal(got.anchors.cpu(), want.anchors.cpu()), "anchors differ")
+    m = tgt.shape[0]
+    a_g, a_c = anchor_assignment(got, m).cpu(), anchor_assignment(want, m).cpu()
+    moved = (a_g != a_c) & (a_g >= 0) & (a_c >= 0)
+    anchors = want.anchors.cpu().double()
+    p = tgt.cpu().double()[moved]
+    d_g = ((p - anchors[a_g[moved]]) ** 2).sum(1)
+    d_c = ((p - anchors[a_c[moved]]) ** 2).sum(1)
+    tie = float((d_g - d_c).abs().max()) if bool(moved.any()) else 0.0
+    check(tie <= 1e-5, ("assignment differs beyond a near-tie", tie))
+    touched = torch.zeros(want.anchors.shape[0], dtype=torch.bool)
+    for a in (a_g, a_c):
+        touched[a[moved | ((a_g < 0) != (a_c < 0))].clamp(min=0)] = True
+    same_b = torch.equal(got.buckets.cpu()[~touched], want.buckets.cpu()[~touched])
+    same_i = torch.equal(got.bucket_ids.cpu()[~touched], want.bucket_ids.cpu()[~touched])
+    check(same_b and same_i, "untouched buckets differ")
+    identical = all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(got, want))
+    return {"identical": identical, "rows_on_another_anchor": int(moved.sum()),
+            "max_near_tie_d2_gap": tie, "anchors_touched": int(touched.sum()),
+            "dropped_rows": {"card": int((a_g < 0).sum()), "cpu": int((a_c < 0).sum())}}
+
+
+def hold_anchored(pi, pd, ci, cd, ei, ed) -> dict:
+    """Anchored picks on the card (pi, pd) against the CPU (ci, cd) — the
+    same pick, or d² within 1e-5 m² — and against exact B2 (ei, ed) by the
+    JAX package's recall rule (tests/test_ann.py): the same pick or d²
+    isclose(rtol 1e-3, atol 1e-4) for ≥ 99.5% of queries, and every miss
+    within 4× the exact d² + 1e-3 m²."""
+    pi, pd, ci, cd, ei, ed = (t.cpu() for t in (pi, pd, ci, cd, ei, ed))
+    differ = pi != ci
+    gap = float((pd[differ] - cd[differ]).abs().max()) if bool(differ.any()) else 0.0
+    check(gap <= 1e-5, ("anchored picks card vs CPU", gap))
+    exact = (pi == ei) | torch.isclose(pd, ed, rtol=1e-3, atol=1e-4)
+    recall = float(exact.float().mean())
+    worst = float((pd[~exact] - 4 * ed[~exact]).max()) if bool((~exact).any()) else -1.0
+    check(recall >= 0.995 and worst <= 1e-3, ("recall against exact B2", recall, worst))
+    return {"same_pick_card_cpu": float((~differ).float().mean()), "max_d2_gap_where_picks_differ": gap,
+            "recall_vs_exact": recall, "worst_miss_excess": worst}
+
+
+def phase_ann_parity(dev, scene) -> dict:
+    """``build_anchor_index`` on the 1M-point scene's padded gold target
+    (1,048,576 rows, 8192 anchors, buckets of 512) on the card against the
+    CPU with the same anchor ids (``hold_index``), and ``nn_anchored`` on
+    16384 queries (the maintenance cloud moved onto the gold one) card
+    against CPU and against exact B2 (``hold_anchored``). Then CUDA-event
+    times: the build (after a first one) and one anchored sweep at the
+    final stage's 16384 queries and at the coarse stage's 4096 against the
+    coarse target's index (262,144 rows, 2048 anchors), each beside exact
+    B2 at the same shape."""
+    from tpu3dlm_torch.alignment.align import _subsample
+    from tpu3dlm_torch.ops import ann
+    from tpu3dlm_torch.ops.icp import pad_target_bucket
+    from tpu3dlm_torch.ops.kernels.pairwise import nearest_neighbors
+
+    base, comp, _, _, Tw = scene
+    Ti = np.linalg.inv(Tw).astype(np.float32)
+    tgt = torch.from_numpy(pad_target_bucket(base)[0])
+    coarse = torch.from_numpy(base[np.random.default_rng(1).choice(base.shape[0], min(262144, base.shape[0]),
+                                                                    replace=False)])
+    q = _subsample(comp, 16384) @ Ti[:3, :3].T + Ti[:3, 3]
+    q = torch.from_numpy(np.ascontiguousarray(q, np.float32))
+    out = {"phase": "ann_parity"}
+    for name, t, qq in (("full", tgt, q), ("coarse", coarse, q[:4096])):
+        m = t.shape[0]
+        c, b = ann.default_index_shape(m)
+        t_g, q_g = t.to(dev), qq.to(dev)
+        before = nearest_neighbors.launches_by_shape[m, c]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        idx_g = ann.build_anchor_index(t_g, c, b)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        check(nearest_neighbors.launches_by_shape[m, c] == before + 1, (m, c))
+        row = {"target": m, "anchors": c, "bucket_cap": b, "first_build_ms": first_ms}
+        pi, pd = ann.nn_anchored(q_g, idx_g)
+        ei, ed = nearest_neighbors(q_g, t_g)
+        if name == "full":  # the CPU side at the full target only (the twin's sweep takes ~30 s)
+            t0 = time.perf_counter()
+            idx_c = ann.build_anchor_index(t, c, b)
+            row["cpu_build_s"] = time.perf_counter() - t0
+            row["index"] = hold_index(idx_g, idx_c, t)
+            ci, cd = ann.nn_anchored(qq, idx_c)
+            row["anchored"] = hold_anchored(pi, pd, ci, cd, ei, ed)
+        row["build_ms"] = cuda_ms(lambda: ann.build_anchor_index(t_g, c, b), iters=3, warmup=0)
+        row["anchored_sweep_ms"] = cuda_ms(lambda: ann.nn_anchored(q_g, idx_g))
+        row["exact_b2_ms"] = cuda_ms(lambda: nearest_neighbors(q_g, t_g))
+        row["queries"] = qq.shape[0]
+        out[name] = row
+    emit(out)
+    return out
+
+
+def phase_compare_full_width_ann(dev, tmp, scene, off_transform) -> dict:
+    """``compare_full_width``'s scene and settings with ``ann="auto"``, the
+    default: one cold capture with an empty index cache (B2 builds the
+    indices over the 1,048,576-row full target and the 262,144-row coarse
+    target, one launch each, timed), then 5 warm captures in turns with 5
+    at ``ann="off"`` (the cache hits: no build launch), and one more warm
+    capture split by CUDA events into anchored sweeps and exact B2 sweeps.
+    Bars: the registration sanity of ``compare_full_width`` and the final
+    transform within 5e-3 of the ``ann="off"`` capture's (the JAX
+    package's bar, tests/test_ann.py)."""
+    import os
+
+    from tpu3dlm_torch.alignment import align as align_mod
+    from tpu3dlm_torch.ops import icp as icp_mod
+    from tpu3dlm_torch.ops.kernels.pairwise import nearest_neighbors
+
+    Tw = scene[4]
+    csv_path = os.path.join(tmp, "ann.csv")
+    builds = [(1_048_576, 8192), (262_144, 2048)]
+    build_ms = {}  # "rows x anchors" → ms, in the order the stages built them
+    real_build = align_mod.build_anchor_index
+
+    def timed_build(tj, n_anchors, bucket_cap):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_build(tj, n_anchors=n_anchors, bucket_cap=bucket_cap)
+        torch.cuda.synchronize()
+        build_ms[f"{tj.shape[0]}x{n_anchors}"] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    align_mod._ANN_INDEX_CACHE.clear()
+    nearest_neighbors.launches = 0
+    nearest_neighbors.launches_by_shape.clear()
+    align_mod.build_anchor_index = timed_build
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        align, _, rows = run_compare(scene, dev, csv_path, ann="auto")
+        torch.cuda.synchronize()
+        cold_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        align_mod.build_anchor_index = real_build
+    cold_launches = nearest_neighbors.launches
+    cold_by_shape = {f"{n}x{m}": c for (n, m), c in sorted(nearest_neighbors.launches_by_shape.items())}
+    check(all(nearest_neighbors.launches_by_shape[s] == 1 for s in builds) and len(build_ms) == 2,
+          (cold_by_shape, build_ms))
+    err = float(np.abs(align.final_transform @ Tw - np.eye(4)).max())
+    n_missing = sum(r["status"] == "missing" for r in rows)
+    check(err <= 0.15 and n_missing == 1, (err, n_missing))
+    vs_off = float(np.abs(align.final_transform - np.asarray(off_transform)).max())
+    check(vs_off <= 5e-3, ("ann=auto vs ann=off transform", vs_off))
+
+    # warm: auto and off in turns, the index cache hit every time
+    samples = {"auto": [], "off": []}
+    for _ in range(5):
+        for ann_mode in ("auto", "off"):
+            samples[ann_mode].append(host_ms(lambda: run_compare(scene, dev, csv_path, ann=ann_mode), runs=1)[0])
+    check(all(nearest_neighbors.launches_by_shape[s] == 1 for s in builds), "a warm capture rebuilt an index")
+
+    # split of one more warm capture: anchored and exact sweeps by CUDA events
+    spans = {"anchored": [], "exact": []}
+    real = {"anchored": icp_mod.nn_anchored, "exact": icp_mod.nearest_neighbors}
+
+    def timed(kind):
+        def fn(*args, **kwargs):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = real[kind](*args, **kwargs)
+            e.record()
+            spans[kind].append((s, e))
+            return out
+        return fn
+
+    icp_mod.nn_anchored, icp_mod.nearest_neighbors = timed("anchored"), timed("exact")
+    try:
+        split_ms, _ = host_ms(lambda: run_compare(scene, dev, csv_path, ann="auto"), runs=1)
+    finally:
+        icp_mod.nn_anchored, icp_mod.nearest_neighbors = real["anchored"], real["exact"]
+    sweep_ms = {k: sum(s.elapsed_time(e) for s, e in v) for k, v in spans.items()}
+    result = {
+        "phase": "compare_full_width_ann", "ann": "auto", "points": [int(scene[0].shape[0]), int(scene[1].shape[0])],
+        "b2_launches_cold_capture": cold_launches, "b2_launches_by_shape_cold_capture": cold_by_shape,
+        "index_build_ms": build_ms,
+        "cold_capture_ms": cold_ms, "transform_err": err, "missing": n_missing,
+        "max_abs_diff_vs_ann_off": vs_off, "rmse": align.last_verdict.rmse,
+        "inlier_frac": align.last_verdict.inlier_frac, "verdict_ok": align.last_verdict.ok,
+        "warm_capture_ms_median": {k: statistics.median(v) for k, v in samples.items()},
+        "warm_capture_ms_samples": samples,
+        "split_capture_ms": split_ms,
+        "split_ms": {"anchored_sweeps": sweep_ms["anchored"], "anchored_calls": len(spans["anchored"]),
+                     "exact_sweeps": sweep_ms["exact"], "exact_calls": len(spans["exact"]),
+                     "rest": split_ms - sweep_ms["anchored"] - sweep_ms["exact"]},
     }
     emit(result)
     return result
@@ -1416,35 +1688,47 @@ def _read_csv(path: str) -> tuple[list, list]:
         return reader.fieldnames, list(reader)
 
 
-def phase_pipeline_parity(dev, tmp: str) -> dict:
+def phase_pipeline_parity(dev, tmp: str, fused: bool = True) -> dict:
     """``bench_e2e.py``'s flow on the committed capture (make_project's
-    config, fused route, fixture checkpoints, f32): gold and maintenance
-    Pipelines on the card and on the CPU. Masks, labels and damage equal;
-    boxes within 1e-2 px; corners of every projected and every kept box
-    within 1e-4 m (the NMS keep-mask identical: same records); transforms
-    and every ICP step within 1e-4; verdict reasons identical; report rows
-    and the CSV identical in every field but the box distance, which is
-    rounded to 0.1 mm and may move by that last digit (card and CPU
-    transforms differ by ~1e-5 over a ~3 m lever), so it is held within
-    2e-4 m; exactly one missing sign; B1 and B2 launched on the card run."""
+    config, fixture checkpoints, f32), on the fused route
+    (``pipeline_parity``) or, with ``fused=False``, on the staged route
+    under the default ``fused_inference = false`` (``staged_parity``, as
+    ``BENCH_E2E_FUSED=0`` runs it): gold and maintenance Pipelines on the
+    card and on the CPU. Masks, labels and damage equal; boxes within 1e-2
+    px; corners of every projected and every kept box within 1e-4 m (the
+    NMS keep-mask identical: same records); transforms and every ICP step
+    within 1e-4; verdict reasons identical; report rows and the CSV
+    identical in every field but the box distance, which is rounded to 0.1
+    mm and may move by that last digit (card and CPU transforms differ by
+    ~1e-5 over a ~3 m lever), so it is held within 2e-4 m; exactly one
+    missing sign; B1 and B2 launched on the card run, B1 once per layer for
+    each classify call (fused: one per scan; staged: one per batch of 64
+    valid detections)."""
     import os
 
     from tpu3dlm_torch.ops.kernels.attention import beit_attention_packed
     from tpu3dlm_torch.ops.kernels.pairwise import nearest_neighbors
 
+    phase = "pipeline_parity" if fused else "staged_parity"
     extra = [("infer_dtype = bf16", "infer_dtype = f32"),
              ("yolo_weights =", f"yolo_weights = {FIXTURES / 'yolo_synthetic.msgpack'}"),
              ("beit_weights =", f"beit_weights = {FIXTURES / 'beit_synthetic.msgpack'}")]
     runs, launches = {}, {}
     for name, device in (("cpu", "cpu"), ("gpu", dev)):
-        root = os.path.join(tmp, f"parity_{name}")
+        root = os.path.join(tmp, f"{phase}_{name}")
         copy_project(root)
+        cfg = pipeline_config(root, extra) if fused else write_config(root, PROJECT_PATCH + extra)
         b1, b2 = beit_attention_packed.launches, nearest_neighbors.launches
         t0 = time.perf_counter()
-        runs[name] = run_two_scans(pipeline_config(root, extra), device)
+        runs[name] = run_two_scans(cfg, device)
         runs[name + "_s"] = time.perf_counter() - t0
         launches[name] = {"b1": beit_attention_packed.launches - b1, "b2": nearest_neighbors.launches - b2}
-    check(launches["gpu"]["b1"] == 2 * 2 and launches["gpu"]["b2"] >= 5, launches)
+    detections = {s: sum(len(v) for v in runs["gpu"][i].data_to_save["predictions"].values())
+                  for i, s in enumerate(FOLDERS)}
+    layers = 2  # make_project's compact BEiT
+    classify_calls = 2 if fused else sum(-(-n // 64) for n in detections.values())
+    check(classify_calls > 0 and launches["gpu"]["b1"] == layers * classify_calls
+          and launches["gpu"]["b2"] >= 5, (launches, detections))
     errs = {"box_px": 0.0, "corner_m": 0.0, "kept_corner_m": 0.0}
     for i, scan in enumerate(FOLDERS):
         c, g = runs["cpu"][i].data_to_save, runs["gpu"][i].data_to_save
@@ -1452,6 +1736,8 @@ def phase_pipeline_parity(dev, tmp: str) -> dict:
         errs["corner_m"] = max(errs["corner_m"], _records_err(c["global_bboxes_data"], g["global_bboxes_data"], 4))
         errs["kept_corner_m"] = max(errs["kept_corner_m"],
                                     _records_err(c["optimised_bboxes"], g["optimised_bboxes"], 4))
+        if not fused:  # the staged route classifies every valid detection
+            check(all(r[4] >= 0 for recs in g["predictions"].values() for r in recs), (scan, "damage"))
     check(errs["box_px"] <= 1e-2 and errs["corner_m"] <= 1e-4 and errs["kept_corner_m"] <= 1e-4, errs)
     c, g = runs["cpu"][1].data_to_save, runs["gpu"][1].data_to_save
     step_err = _steps_err(g["transformations"], c["transformations"])
@@ -1466,9 +1752,8 @@ def phase_pipeline_parity(dev, tmp: str) -> dict:
     missing = sum(r["status"] == "missing" for r in g["comparison_rows"])
     check(missing == 1, g["comparison_rows"])
     kept = sum(len(v) for v in g["optimised_bboxes"].values())
-    result = {"phase": "pipeline_parity", "launches_gpu_run": launches["gpu"],
-              "detections": {s: sum(len(v) for v in runs["gpu"][i].data_to_save["predictions"].values())
-                             for i, s in enumerate(FOLDERS)},
+    result = {"phase": phase, "launches_gpu_run": launches["gpu"], "detections": detections,
+              "classify_calls": classify_calls,
               "kept_boxes_maintenance": kept, "max_box_err_px": errs["box_px"],
               "max_corner_err_m": errs["corner_m"], "max_kept_corner_err_m": errs["kept_corner_m"],
               "max_step_err": step_err, "max_report_distance_err_m": dist_err,
@@ -1495,18 +1780,29 @@ FULL_WIDTH_PATCH = [
     ("fused_inference = false", "fused_inference = true"),
     ("yolo_weights =", f"yolo_weights = {FIXTURES / 'yolo_synthetic.msgpack'}"),
 ]
+# the staged route at the same settings, but with the default detector
+# batch (64 frames) and the default fused_inference = false; crop_budget
+# is the fused route's knob and is left at its default
+STAGED_FULL_WIDTH_PATCH = [p for p in FULL_WIDTH_PATCH
+                           if p[0] not in ("batch_size = 64", "crop_budget = 128", "fused_inference = false")]
 
 
-def phase_pipeline_full_width(dev, tiled_root: str) -> dict:
+def phase_pipeline_full_width(dev, tiled_root: str, fused: bool = True) -> dict:
     """The user's path: ``tpu3dlm_torch.cli.main(["--data", "maintenance",
     "--config", cfg])`` on the capture tiled to 128 frames a scan (it runs
-    gold, then maintenance), at 640², crop budget 384, bf16, the fixture
-    YOLOv10-n and a seeded BEiT-base at 224 (``beit_weights`` empty),
-    ``icp_ann`` at its default — once with the launch counts at 0, then 5
-    warm maintenance runs through ``setup_pipeline``. Sanity bars only
-    (the CSV parses, every row has a verdict, finite outputs): random
-    BEiT-base weights and a detector trained at 128 px make the missing
-    count meaningless here."""
+    gold, then maintenance), at 640², bf16, the fixture YOLOv10-n and a
+    seeded BEiT-base at 224 (``beit_weights`` empty), ``icp_ann`` at its
+    default — on the fused route with crop budget 384
+    (``pipeline_full_width``) or, with ``fused=False``, on the staged route
+    under the default config's ``fused_inference = false`` and detector
+    batch of 64 (``staged_full_width``) — once with the launch counts at 0
+    (B1 per scan by kernel, 12 per classify call: one per scan when fused,
+    one per batch of 64 valid detections when staged; the crops classified;
+    B2 by shape), then 5 warm maintenance runs through ``setup_pipeline``:
+    per-stage ms, frames/s of detect + map, capture ms, peak memory. Sanity
+    bars only (the CSV parses, every row has a verdict, finite outputs):
+    random BEiT-base weights and a detector trained at 128 px make the
+    missing count meaningless here."""
     import csv
     import os
 
@@ -1516,12 +1812,16 @@ def phase_pipeline_full_width(dev, tiled_root: str) -> dict:
     from tpu3dlm_torch.pipeline import task
     from tpu3dlm_torch.utils.config import ConfigLoader
 
-    cfg_path = write_config(tiled_root, FULL_WIDTH_PATCH)
-    seen = []
+    phase = "pipeline_full_width" if fused else "staged_full_width"
+    cfg_path = write_config(tiled_root, FULL_WIDTH_PATCH if fused else STAGED_FULL_WIDTH_PATCH)
+    seen, b1_by_scan = [], []
     real_setup = task.setup_pipeline
 
     def recording_setup(*args, **kwargs):
+        before = dict(beit_attention_packed.launches_by_kernel)
         seen.append(real_setup(*args, **kwargs))
+        b1_by_scan.append({k: v - before.get(k, 0) for k, v in beit_attention_packed.launches_by_kernel.items()
+                           if v != before.get(k, 0)})
         return seen[-1]
 
     torch.cuda.reset_peak_memory_stats()
@@ -1540,10 +1840,19 @@ def phase_pipeline_full_width(dev, tiled_root: str) -> dict:
     b2 = nearest_neighbors.launches
     b2_by_shape = {f"{n}x{m}": c for (n, m), c in sorted(nearest_neighbors.launches_by_shape.items())}
     check([p.data_folder for p in seen] == ["gold_std", "maintenance"], [p.data_folder for p in seen])
-    check(b1_by_kernel == {"attention_bf16_tma": 2 * 12}, b1_by_kernel)
+    # crops classified per scan: the top crop_budget of the 128 × 8 box
+    # slots when fused, every valid detection when staged
+    crops = [384 if fused else sum(len(v) for v in p.data_to_save["predictions"].values())
+             for p in seen]
+    calls = [1 if fused else -(-n // 64) for n in crops]
+    check(b1_by_scan == [{"attention_bf16_tma": 12 * c} if c else {} for c in calls], (b1_by_scan, crops))
+    check(b1_by_kernel == {"attention_bf16_tma": 12 * sum(calls)}, b1_by_kernel)
     check(b2 >= 4 and sum(nearest_neighbors.launches_by_shape.values()) == b2, b2_by_shape)
     gold, maint = seen
     out = maint.data_to_save
+    if not fused:
+        check(all(r[4] >= 0 for p in seen for recs in p.data_to_save["predictions"].values() for r in recs),
+              "every valid detection classified")
     with open(maint.cfg.csv_output, newline="") as f:
         rows = list(csv.DictReader(f))
     check(len(rows) == len(out["comparison_rows"]) and all(r.get("alignment") for r in rows), rows)
@@ -1567,14 +1876,17 @@ def phase_pipeline_full_width(dev, tiled_root: str) -> dict:
         walls.append((time.perf_counter() - t0) * 1e3)
         for k, v in p.stage_times.items():
             stages.setdefault(k, []).append(v * 1e3)
-    check(beit_attention_packed.launches == 5 * 12, beit_attention_packed.launches)
+    check(beit_attention_packed.launches == 5 * 12 * calls[1], beit_attention_packed.launches)
     n_frames = len(p.data_to_save["predictions"])
     check(n_frames == 128, n_frames)
     med = {k: statistics.median(v) for k, v in stages.items()}
     result = {
-        "phase": "pipeline_full_width", "frames_per_scan": n_frames, "img_size": 640,
-        "crop_budget": 384, "dtype": "bfloat16", "decode_workers": 8, "conf_thresh": 0.25,
+        "phase": phase, "route": "fused" if fused else "staged", "frames_per_scan": n_frames,
+        "img_size": 640, "dtype": "bfloat16", "decode_workers": 8, "conf_thresh": 0.25,
+        **({"crop_budget": 384} if fused else {"detector_batch": 64, "classifier_batch": 64}),
         "cli_s": cli_s, "cli_stage_ms": {s: {k: v * 1e3 for k, v in t.items()} for s, t in first.items()},
+        "crops_classified_by_scan": dict(zip(FOLDERS, crops)),
+        "b1_launches_cli_by_scan": dict(zip(FOLDERS, b1_by_scan)),
         "b1_launches_cli_by_kernel": b1_by_kernel, "b2_launches_cli": b2,
         "b2_launches_cli_by_shape": b2_by_shape,
         "detections_maintenance": sum(len(v) for v in out["predictions"].values()),
@@ -1618,6 +1930,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         phase_compare_parity(dev, tmp)
         compare = phase_compare_full_width(dev, tmp, scene)
+        phase_ann_parity(dev, scene)
+        compare_ann = phase_compare_full_width_ann(dev, tmp, scene, compare["final_transform"])
     b3 = phase_kernel_b3(dev, mem_rate)
     phase_attention_grad(dev)
     phase_finetune_parity(dev)
@@ -1629,6 +1943,10 @@ def main() -> int:
         phase_ingest_parity(tmp, tiled_root)
         phase_pipeline_parity(dev, tmp)
         pipe = phase_pipeline_full_width(dev, tiled_root)
+        phase_pipeline_parity(dev, tmp, fused=False)
+        staged_root = str(Path(tmp, "staged"))
+        copy_project(staged_root, frames=128)
+        staged = phase_pipeline_full_width(dev, staged_root, fused=False)
     from tpu3dlm_torch.ops.kernels.nn_variants import VARIANTS
 
     b4_rows = []
@@ -1663,6 +1981,10 @@ def main() -> int:
             "launches_on_pipeline": pipe["b1_launches_cli_by_kernel"]["attention_bf16_tma"],
             "launches_on_pipeline_path": "pipeline_full_width: the CLI's gold and maintenance "
                                          "runs (128 frames a scan, BEiT-base bf16)",
+            "launches_on_staged": staged["b1_launches_cli_by_kernel"]["attention_bf16_tma"],
+            "launches_on_staged_by_scan": staged["b1_launches_cli_by_scan"],
+            "launches_on_staged_path": "staged_full_width: the CLI's gold and maintenance runs on "
+                                       "the staged route (every valid box classified, batches of 64)",
         },
         {
             # B1's other route: every f32 shape and the bf16 shapes past the
@@ -1692,8 +2014,13 @@ def main() -> int:
             "launches_by_shape": compare["b2_launches_by_shape_main_path"],
             "launches_on_pipeline": pipe["b2_launches_cli"],
             "launches_on_pipeline_by_shape": pipe["b2_launches_cli_by_shape"],
-            "ms_by_shape": {f"{c['shape'][0]}x{c['shape'][1]}": {k: c[k] for k in ("kernel_ms", "bound_ms")}
-                            for c in b2["checks"] if "kernel_ms" in c},
+            "launches_on_ann": compare_ann["b2_launches_cold_capture"],
+            "launches_on_ann_by_shape": compare_ann["b2_launches_by_shape_cold_capture"],
+            "launches_on_ann_path": "compare_full_width_ann: the cold capture at ann='auto' "
+                                    "(index builds, init scoring, exact measurement)",
+            "ms_by_shape": {f"{c['shape'][0]}x{c['shape'][1]}": {
+                "case": c["case"], **{k: c[k] for k in ("kernel_ms", "plain_ms", "bound_ms", "bound_by")}}
+                for c in b2["checks"] if "kernel_ms" in c},
         },
         {
             "name": "beit_attention", "route": "cuda", "kernel": "attention_bf16_tma",

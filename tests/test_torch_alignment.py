@@ -146,15 +146,82 @@ def test_host_helpers_identical(rng):
     np.testing.assert_array_equal(PA._poses_to_array(poses), JA._poses_to_array(poses))
 
 
+def test_compare_with_the_anchor_index_matches_jax(tmp_path, monkeypatch):
+    """``ann="on"``: every ICP stage iterates on the anchor index over the
+    padded target (32,768 points: 256 anchors, buckets of 512), built by the
+    port from the anchors JAX draws; the compare's bars as above."""
+    import jax
+
+    from tpu3dlm_torch.ops import ann as PANN
+
+    def jax_anchor_ids(m, c, seed):
+        perm = jax.random.permutation(jax.random.PRNGKey(seed), m)[:c]
+        return torch.from_numpy(np.asarray(perm).astype(np.int64))
+
+    monkeypatch.setattr(PANN, "sample_anchor_ids", jax_anchor_ids)
+    base, comp, bb, cb, Tw = chip_smoke.two_scan_scene(20000, 3)
+    kw = {**KW, "ann": "on"}
+    JA._GOLD_CACHE.clear()
+    JA._ANN_INDEX_CACHE.clear()
+    PA._GOLD_CACHE.clear()
+    PA._ANN_INDEX_CACHE.clear()
+    with mock.patch("tpu3dlm.native.native_grid_normals", return_value=None):
+        ja = JA.Alignment(POSES, POSES, bb, cb, base_cloud=base, comparison_cloud=comp, **kw)
+        j_out = ja.compare("test")
+    pa = PA.Alignment(POSES, POSES, bb, cb, base_cloud=base, comparison_cloud=comp, device="cpu", **kw)
+    p_out = pa.compare("test")
+    assert len(JA._ANN_INDEX_CACHE) == len(PA._ANN_INDEX_CACHE) == 1
+    (p_index,) = PA._ANN_INDEX_CACHE.values()
+    (j_index,) = JA._ANN_INDEX_CACHE.values()
+    assert p_index.buckets.shape == (256, 512, 3)
+    for got, want in zip(p_index, j_index):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_allclose(pa.final_transform, ja.final_transform, rtol=0, atol=1e-4)
+    steps_close(pa.transformations, ja.transformations, 1e-4)
+    assert np.abs(pa.final_transform @ Tw - np.eye(4)).max() <= 0.15
+    jv, pv = ja.last_verdict, pa.last_verdict
+    assert pv.reasons == jv.reasons and pv.ok == jv.ok
+    assert abs(pv.rmse - jv.rmse) <= 1e-5 and abs(pv.inlier_frac - jv.inlier_frac) <= 1e-5
+    np.testing.assert_array_equal(pa.last_match["assign"], ja.last_match["assign"])
+    paths = {k: str(tmp_path / f"{k}.csv") for k in ("jax", "port")}
+    j_rows = JC.BBoxComparison(bb, j_out[0], None, csv_output_file=paths["jax"],
+                               precomputed_match=ja.last_match,
+                               alignment_verdict=jv.to_dict()).match_bboxes()
+    p_rows = PC.BBoxComparison(bb, p_out[0], None, csv_output_file=paths["port"],
+                               precomputed_match=pa.last_match, alignment_verdict=pv.to_dict(),
+                               device="cpu").match_bboxes()
+    assert p_rows == j_rows and sum(r["status"] == "missing" for r in p_rows) == 1
+    assert open(paths["port"], "rb").read() == open(paths["jax"], "rb").read()
+    # a second capture against the same gold cloud reuses the index
+    PA.Alignment(POSES, POSES, bb, cb, base_cloud=base, comparison_cloud=comp, device="cpu", **kw).compare()
+    assert list(PA._ANN_INDEX_CACHE.values()) == [p_index]
+
+
+def test_index_for_engages_like_the_reference(monkeypatch):
+    """"off" never, "auto" from 131,072 padded points, "on" always; one
+    build per (content, size, shape, device), an LRU of 4."""
+    built = []
+    monkeypatch.setattr(PA, "build_anchor_index", lambda tj, n_anchors, bucket_cap: built.append(
+        (int(tj.shape[0]), n_anchors, bucket_cap)) or object())
+    PA._ANN_INDEX_CACHE.clear()
+    align = lambda ann: PA.Alignment(POSES, POSES, {}, {}, ann=ann, device="cpu")  # noqa: E731
+    small, big = torch.zeros(131_071, 3), torch.zeros(131_072, 3)
+    assert align("off")._index_for(big, ("fp",)) is None
+    assert align("auto")._index_for(small, ("fp",)) is None
+    first = align("auto")._index_for(big, ("fp",))
+    assert align("auto")._index_for(big, ("fp",)) is first  # cached across Alignments
+    assert align("on")._index_for(small, ("fp",)) is not None
+    assert built == [(131_072, 1024, 512), (131_071, 1023, 512)]
+    for i in range(4):
+        align("on")._index_for(torch.zeros(1024, 3), (f"fp{i}",))
+    assert len(PA._ANN_INDEX_CACHE) == 4 and len(built) == 6
+    assert align("auto")._index_for(big, ("fp",)) is not first  # evicted, rebuilt
+    PA._ANN_INDEX_CACHE.clear()
+
+
 def test_unported_settings_raise():
-    big = np.zeros((200_000, 3), np.float32)
-    big[:, 0] = np.arange(200_000)
-    kw = dict(base_cloud=big, comparison_cloud=big[:5000], device="cpu")
-    with pytest.raises(NotImplementedError, match="A14"):
-        PA.Alignment(POSES, POSES, {}, {}, **kw).compare()  # ann="auto", 262,144-pt target
-    with pytest.raises(NotImplementedError, match="A14"):
-        PA.Alignment(POSES, POSES, {}, {}, ann="on", base_cloud=big[:3000],
-                     comparison_cloud=big[:3000], device="cpu").compare()
+    with pytest.raises(ValueError, match="ann"):
+        PA.Alignment(POSES, POSES, {}, {}, ann="nope", device="cpu")
     with pytest.raises(NotImplementedError, match="A22"):
         PA.Alignment(POSES, POSES, {}, {}, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="global_init"):

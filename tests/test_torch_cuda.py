@@ -384,3 +384,109 @@ def test_cuda_refuses_head_widths_no_kernel_takes(cuda_device, d):
     with pytest.raises(ValueError, match="multiple of 16 up to 128"):
         beit_attention(hm, hm, hm, bias)
     assert (beit_attention_packed.launches, beit_attention.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# The staged route and the anchor-bucketed NN index
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("m,real,c", [(1 << 20, 1_000_000, 8192), (1 << 18, 1 << 18, 2048)])
+def test_b2_at_the_index_build_shapes(cuda_device, m, real, c):
+    """The anchor-index build's sweep: every target row a query against the
+    sampled anchors (1,048,576 × 8192 over a sentinel-padded target,
+    262,144 × 2048). Real queries: d² within 1e-4 m² of the twin's, and
+    where the picks differ the two d² within 1e-5 m² (f32 near-ties);
+    sentinel queries pick a sentinel anchor, as the twin does."""
+    from tpu3dlm_torch.ops.ann import sample_anchor_ids
+    from tpu3dlm_torch.ops.icp import pad_target_bucket
+
+    g = torch.Generator().manual_seed(m)
+    pts = torch.rand(real, 3, generator=g) * torch.tensor([4.0, 2.5, 1.5]) - torch.tensor([1.5, 1.25, 0.0])
+    tgt = torch.from_numpy(pad_target_bucket(pts.numpy())[0])
+    assert tgt.shape[0] == m
+    anchors = tgt[sample_anchor_ids(m, c, 0)]
+    a, b = tgt.to(cuda_device), anchors.to(cuda_device)
+    before = nearest_neighbors.launches_by_shape[m, c]
+    idx, d2 = nearest_neighbors(a, b)
+    torch.cuda.synchronize()
+    assert nearest_neighbors.launches_by_shape[m, c] == before + 1
+    ri, rd2 = nearest_neighbors_reference(a, b)
+    far = torch.arange(m, device=cuda_device) >= real
+    if bool(far.any()):
+        assert bool((b[idx[far]] == a[far]).all()) and torch.equal(idx[far], ri[far])
+    near = ~far
+    assert (d2[near] - rd2[near]).abs().max() <= 1e-4
+    diff = (idx != ri) & near
+    assert (idx[near] == ri[near]).float().mean() >= 0.99
+    if diff.any():
+        assert (d2[diff] - rd2[diff]).abs().max() <= 1e-5
+
+
+def test_anchor_index_on_card_matches_cpu(cuda_device):
+    """``build_anchor_index`` on the card (kernel B2's sweep) against the
+    CPU (the twin's) from the same anchors, on a 65,536-row target with
+    sentinel padding: anchors identical, a row on another anchor only at an
+    f32 near-tie, every other bucket identical (``chip_smoke.hold_index``);
+    then ``nn_anchored`` card against CPU and against exact B2
+    (``chip_smoke.hold_anchored``)."""
+    import chip_smoke
+    from tpu3dlm_torch.ops.ann import build_anchor_index, default_index_shape, nn_anchored
+    from tpu3dlm_torch.ops.icp import pad_target_bucket
+
+    base = chip_smoke.two_scan_scene(60_000, 9)[0]
+    tgt = torch.from_numpy(pad_target_bucket(base)[0])
+    c, b = default_index_shape(tgt.shape[0])
+    got = build_anchor_index(tgt.to(cuda_device), c, b)
+    want = build_anchor_index(tgt, c, b)
+    torch.cuda.synchronize()
+    chip_smoke.hold_index(got, want, tgt)
+    q = torch.from_numpy(base[::7][:4099] + 0.003)
+    pi, pd = nn_anchored(q.to(cuda_device), got)
+    ci, cd = nn_anchored(q, want)
+    ei, ed = nearest_neighbors(q.to(cuda_device), tgt.to(cuda_device))
+    torch.cuda.synchronize()
+    chip_smoke.hold_anchored(pi, pd, ci, cd, ei, ed)
+
+
+def test_damage_detector_on_card_matches_cpu(cuda_device):
+    """The staged classifier in f32 on the card (kernel B1 in each layer)
+    and on the CPU (twin), same seeded BEiT, on 70 valid boxes of a
+    synthetic scan (two batches of 64): damage equal."""
+    import numpy as np
+
+    import chip_smoke
+    from tpu3dlm_torch.data.scan import Detections
+    from tpu3dlm_torch.models.beit import BeitConfig
+    from tpu3dlm_torch.pipeline.classifier import DamageDetector
+
+    cfg = BeitConfig(image_size=64, hidden_size=64, num_layers=2, num_heads=4, intermediate_size=128,
+                     num_labels=3)
+    scan = chip_smoke.synthetic_scan(12, 128, (48, 64), 3)
+    rng = np.random.default_rng(4)
+    xy = rng.uniform(0, 500, (12, 8, 2))
+    wh = rng.uniform(20, 140, (12, 8, 2))
+    mask = np.zeros(96, bool)
+    mask[rng.choice(96, 70, replace=False)] = True
+    det = Detections(boxes=np.concatenate([xy, xy + wh], -1).astype(np.float32),
+                     conf=np.full((12, 8), 0.9, np.float32), label=np.zeros((12, 8), np.int32),
+                     damage=np.full((12, 8), -1, np.int32), mask=mask.reshape(12, 8))
+    cpu = DamageDetector(config=cfg, rng_seed=5, dtype=torch.float32, device="cpu")
+    gpu = DamageDetector(config=cfg, rng_seed=5, dtype=torch.float32, device=cuda_device)
+    gpu.beit.load_state_dict(cpu.beit.state_dict())  # same weights on both
+    before = beit_attention_packed.launches
+    got = gpu.classify_detections(scan, det)
+    torch.cuda.synchronize()
+    assert beit_attention_packed.launches - before == 2 * cfg.num_layers
+    want = cpu.classify_detections(scan, det)
+    np.testing.assert_array_equal(got.damage, want.damage)
+    assert (got.damage[det.mask] >= 0).all() and (got.damage[~det.mask] == -1).all()
+
+
+def test_staged_pipeline_on_card_matches_cpu(cuda_device, tmp_path):
+    """The two-scan Pipeline on the staged route (the default
+    ``fused_inference = false``) on the card and on the CPU:
+    chip_smoke.py's staged_parity."""
+    import chip_smoke
+
+    chip_smoke.phase_pipeline_parity(cuda_device, str(tmp_path), fused=False)

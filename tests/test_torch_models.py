@@ -255,6 +255,22 @@ def test_shape_helpers_match_jax():
     )
 
 
+@pytest.mark.parametrize("n", [0, 3, 4, 9])
+def test_padded_batches_match_jax(n):
+    """Fixed batches of 4 with a zero-padded ragged tail, as the staged
+    route's detector and classifier run them."""
+    rng = np.random.default_rng(n)
+    arrays = [rng.normal(size=(n, 2, 3)).astype(np.float32), np.arange(n, dtype=np.int64)]
+    got = list(shapes.padded_batches(arrays, 4))
+    want = list(jax_shapes.padded_batches(arrays, 4))
+    assert len(got) == len(want) == -(-n // 4)
+    for (g_chunks, g_start, g_valid), (w_chunks, w_start, w_valid) in zip(got, want):
+        assert (g_start, g_valid) == (w_start, w_valid)
+        for g, w in zip(g_chunks, w_chunks):
+            assert g.shape[0] == 4 and g.dtype == w.dtype
+            np.testing.assert_array_equal(g, w)
+
+
 def test_detection_records_round_trip():
     """Reference record shapes: 7-field and 6-field records in, identical
     padded arrays and identical records out."""

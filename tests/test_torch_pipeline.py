@@ -177,7 +177,7 @@ def test_cli_mode_logic(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("line,item", [
-    ("fused_inference = true", "A15"),
+    ("view_img = false", "A18"),
     ("streaming_chunk = 0", "A16"),
     ("scan_cache = false", "A16"),
     ("visualise = false", "A17"),
@@ -189,7 +189,7 @@ def test_cli_mode_logic(tmp_path, monkeypatch):
     ("yolo_weights =", "A24"),
 ])
 def test_unported_settings_raise_before_work(tmp_path, line, item):
-    change = {"fused_inference = true": "fused_inference = false", "streaming_chunk = 0": "streaming_chunk = 32",
+    change = {"view_img = false": "view_img = true", "streaming_chunk = 0": "streaming_chunk = 32",
               "scan_cache = false": "scan_cache = true", "visualise = false": "visualise = true",
               "alignment_vis = false": "alignment_vis = true", "comparison_vis = false": "comparison_vis = true",
               "use_pallas = true": "use_pallas = false", "beit_quant = none": "beit_quant = int8",
@@ -201,6 +201,24 @@ def test_unported_settings_raise_before_work(tmp_path, line, item):
     with pytest.raises(NotImplementedError, match=item):
         PT.setup_pipeline("gold_std", c, None, device="cpu")
     assert not os.path.exists(c.pickle_path) and not os.path.exists(c.depth_image_dir)
+
+
+def test_streaming_chunk_is_ignored_on_the_staged_route(tmp_path, caplog):
+    """Under ``fused_inference = false`` the reference warns that
+    ``streaming_chunk`` needs the fused route and runs on; so does the
+    port (the staged route, on the committed capture)."""
+    chip_smoke.copy_project(str(tmp_path))
+    cfg = chip_smoke.write_config(str(tmp_path), chip_smoke.PROJECT_PATCH + [
+        ("streaming_chunk = 0", "streaming_chunk = 32"), ("infer_dtype = bf16", "infer_dtype = f32"),
+        ("yolo_weights =", f"yolo_weights = {FIXTURES}/yolo_synthetic.msgpack"),
+        ("beit_weights =", f"beit_weights = {FIXTURES}/beit_synthetic.msgpack")])
+    c = PCfg(cfg, "gold_std")
+    assert c.streaming_chunk == 32 and not c.fused_inference
+    with caplog.at_level("WARNING"):
+        p = PT.setup_pipeline("gold_std", c, None, device="cpu")
+    assert any("streaming_chunk = 32 ignored" in r.getMessage() for r in caplog.records)
+    assert list(p.stage_times) == ["extract", "detect", "map"] and os.path.exists(c.pickle_path)
+    assert len(p.data_to_save["predictions"]) == 5
 
 
 def test_cuda_is_the_default_device(tmp_path):

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from tpu3dlm_torch.device import resolve_device
+from tpu3dlm_torch.ops.ann import build_anchor_index, default_index_shape
 from tpu3dlm_torch.ops.icp import (
     centroid_align_np,
     icp,
@@ -44,7 +45,6 @@ from tpu3dlm_torch.ops.icp import (
     init_residuals_batched,
     pad_target_bucket,
     pca_init_candidates_np,
-    target_bucket,
     target_moments_np,
 )
 from tpu3dlm_torch.ops.matching import auction_assign
@@ -60,6 +60,13 @@ from tpu3dlm_torch.utils.shapes import next_bucket
 _CACHE_LOCK = threading.Lock()
 _GOLD_CACHE: OrderedDict = OrderedDict()
 _GOLD_CACHE_MAX = 2
+
+# Anchor-index cache, for the same reason: keyed by the stage target's
+# content fingerprint, its padded size, the index shape and the device
+# (~67 MB on the device at 1M points, so the LRU stays small). The lock
+# above covers it too.
+_ANN_INDEX_CACHE: OrderedDict = OrderedDict()
+_ANN_CACHE_MAX = 4
 
 # ann="auto" builds the anchor index for stage targets of this many points
 ANN_AUTO_MIN_TARGET = 131_072
@@ -194,7 +201,7 @@ def _compare_program(
     score_q,  # (n_score, 3) | None — init-scoring query subsample
     score_t,  # (m_score, 3) | None — init-scoring target subsample
     anchors,  # None | (base_cent, base_lab, base_mask, comp_cent, comp_lab, comp_mask)
-    stages,  # per-ICP-stage (query, target, normals|None)
+    stages,  # per-ICP-stage (query, target, normals|None, AnchorIndex|None)
     match,  # None | (base_cent, base_lab, base_mask, comp_cent, comp_lab, comp_mask, unmatch_cost)
     *,
     global_init: str,
@@ -229,11 +236,12 @@ def _compare_program(
 
     steps = []
     res_icp = None
-    for si, ((qj, tj, nj), d) in enumerate(zip(stages, dists)):
+    for si, ((qj, tj, nj, t_index), d) in enumerate(zip(stages, dists)):
         kw = dict(
             init_transform=T,
             max_correspondence_dist=float(d),
             iterations=iterations,
+            target_index=t_index,
             _measure=si == len(stages) - 1,
         )
         if nj is not None:
@@ -492,16 +500,32 @@ class Alignment:
                 entry["coarse"] = ((self._place(pts), self._place(nrm)), fp_c)
             return entry["coarse"]
 
-    def _check_ann(self, n_target: int) -> None:
-        """Raise where the reference would build an anchor index over a
-        stage target (the largest is the padded full target)."""
-        m = target_bucket(n_target)
-        if self.ann == "on" or (self.ann == "auto" and m >= ANN_AUTO_MIN_TARGET):
-            raise NotImplementedError(
-                f"ann={self.ann!r} builds the anchor-bucketed NN index for a "
-                f"{m}-point target, which is not ported yet (ROADMAP A14); "
-                "pass ann='off' for the exact sweep"
-            )
+    def _index_for(self, tj: torch.Tensor, fp: tuple):
+        """The anchor index over one (padded) stage target, or None: "off"
+        never builds one, "auto" only from ``ANN_AUTO_MIN_TARGET`` points,
+        and none when the index would have more anchors than points. Built
+        once per target content and device and kept across compare calls
+        (``fp`` is the unpadded target's fingerprint, which the gold entry
+        already carries)."""
+        if self.ann == "off":
+            return None
+        m = int(tj.shape[0])
+        if self.ann == "auto" and m < ANN_AUTO_MIN_TARGET:
+            return None
+        c, b = default_index_shape(m)
+        if c > m:
+            return None
+        key = (fp, m, c, b, str(self.device))
+        with _CACHE_LOCK:
+            index = _ANN_INDEX_CACHE.get(key)
+            if index is not None:
+                _ANN_INDEX_CACHE.move_to_end(key)
+                return index
+            index = build_anchor_index(tj, n_anchors=c, bucket_cap=b)
+            _ANN_INDEX_CACHE[key] = index
+            while len(_ANN_INDEX_CACHE) > _ANN_CACHE_MAX:
+                _ANN_INDEX_CACHE.popitem(last=False)
+            return index
 
     def compare(self, data_folder: str = ""):
         """Run registration; returns
@@ -524,7 +548,6 @@ class Alignment:
         if isinstance(dists, (int, float)):
             dists = (float(dists),)
         dists = tuple(float(x) for x in dists)
-        self._check_ann(base_s.shape[0])
         use_coarse = len(dists) > 1 and (
             comp_s.shape[0] > self.coarse_query_cap
             or base_s.shape[0] > self.coarse_target_cap
@@ -552,18 +575,22 @@ class Alignment:
             anchors = (*box_arrays[0], *box_arrays[1])
 
         # coarse-to-fine stages: the coarse ones on a subsampled query and
-        # target, the final one on the full query budget and full target
+        # target, the final one on the full query budget and full target;
+        # each distinct stage target gets its anchor index (or None)
         coarse = None
         if use_coarse:
-            (tj_c, nj_c), _ = self._gold_coarse(gold, base_s)
+            (tj_c, nj_c), fp_c = self._gold_coarse(gold, base_s)
             q_c = _subsample(comp_s, min(self.coarse_query_cap, comp_s.shape[0]))
-            coarse = (self._place(q_c), tj_c, nj_c)
+            coarse = ((self._place(q_c), tj_c, nj_c), fp_c)
         tj_f, nj_f = gold["full"]
-        full = (self._place(comp_s), tj_f, nj_f)
-        stages = [
-            full if si == len(dists) - 1 or coarse is None else coarse
-            for si in range(len(dists))
-        ]
+        full = ((self._place(comp_s), tj_f, nj_f), gold["fp"])
+        indices: dict = {}  # id(stage target) → AnchorIndex | None
+        stages = []
+        for si in range(len(dists)):
+            (qj, tj, nj), tgt_fp = full if si == len(dists) - 1 or coarse is None else coarse
+            if id(tj) not in indices:
+                indices[id(tj)] = self._index_for(tj, tgt_fp)
+            stages.append((qj, tj, nj, indices[id(tj)]))
 
         match_args = None
         if self.match_dist_threshold is not None and box_arrays is not None:

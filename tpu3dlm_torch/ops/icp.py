@@ -4,7 +4,9 @@ Point-to-point and hybrid point-to-plane ICP with per-iteration increments
 recorded for the animation contract, the batched init scoring, and the host
 numpy helpers that build init candidates and pad targets to power-of-two
 buckets. Every correspondence search is kernel B2
-(``ops/kernels/pairwise.nearest_neighbors``).
+(``ops/kernels/pairwise.nearest_neighbors``), except the iterations of a
+solve given an anchor index (``target_index``, ``ops/ann.py``), which use
+the anchored search; the measurement pass stays on B2 either way.
 
 The reference runs each solver as one ``lax.scan`` whose iterations turn
 into identity increments once converged (``lax.cond`` skips the NN sweep).
@@ -22,6 +24,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from tpu3dlm_torch.ops.ann import AnchorIndex, nn_anchored
 from tpu3dlm_torch.ops.geometry import so3_exp
 from tpu3dlm_torch.ops.kernels.pairwise import nearest_neighbors
 
@@ -91,6 +94,15 @@ def _moved(src: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
     return src @ T[:3, :3].T + T[:3, 3]
 
 
+def _iteration_nn(target_index: AnchorIndex | None, ann_top_p: int) -> Callable:
+    """The per-iteration correspondence search: the anchored search when
+    an index over the target is given, else kernel B2. (The measurement
+    pass always calls B2.)"""
+    if target_index is None:
+        return nearest_neighbors
+    return lambda q, _tgt: nn_anchored(q, target_index, top_p=ann_top_p)
+
+
 def _init_T(init_transform, like: torch.Tensor) -> torch.Tensor:
     if init_transform is None:
         return torch.eye(4, dtype=torch.float32, device=like.device)
@@ -104,6 +116,8 @@ def icp(
     max_correspondence_dist: float = 0.5,
     iterations: int = 20,
     early_stop_tol: float = 1e-5,
+    target_index: AnchorIndex | None = None,
+    ann_top_p: int = 4,
     *,
     _measure: bool = True,
 ) -> ICPResult:
@@ -111,15 +125,19 @@ def icp(
 
     ``early_stop_tol``: once an increment (|t| + angle) falls below it, the
     remaining iterations record identity increments and skip the NN sweep;
-    0 disables. ``_measure=False`` skips the final measurement sweep (the
-    compare program's non-final stages, whose rmse nobody reads)."""
+    0 disables. ``target_index``: an ``ops.ann.AnchorIndex`` over
+    ``target``; the iterations then use the anchored search over the top
+    ``ann_top_p`` buckets, and the measurement stays exact.
+    ``_measure=False`` skips the final measurement sweep (the compare
+    program's non-final stages, whose rmse nobody reads)."""
     src0 = source.to(torch.float32)
     tgt = target.to(torch.float32)
     max_d2 = max_correspondence_dist ** 2
+    nn = _iteration_nn(target_index, ann_top_p)
 
     def live_inc(T):
         moved = _moved(src0, T)
-        idx, d2 = nearest_neighbors(moved, tgt)
+        idx, d2 = nn(moved, tgt)
         w = (d2 <= max_d2).to(torch.float32)
         return kabsch(moved, tgt[idx], w)
 
@@ -149,6 +167,8 @@ def icp_point_to_plane(
     damping: float = 1e-6,
     point_weight: float = 0.1,
     early_stop_tol: float = 1e-5,
+    target_index: AnchorIndex | None = None,
+    ann_top_p: int = 4,
     *,
     _measure: bool = True,
 ) -> ICPResult:
@@ -159,18 +179,20 @@ def icp_point_to_plane(
     plane-parallel directions. Per iteration: NN correspondences (kernel
     B2), a damped 6×6 normal-equation solve over both residuals
     (``solve_ex``: no hidden host sync), increment exp(ω) and t composed
-    onto T. ``_measure`` as in ``icp``; rmse is the plane residual's."""
+    onto T. ``target_index``, ``ann_top_p`` and ``_measure`` as in ``icp``;
+    rmse is the plane residual's."""
     src0 = source.to(torch.float32)
     tgt = target.to(torch.float32)
     nrm = target_normals.to(torch.float32)
     max_d2 = max_correspondence_dist ** 2
+    nn = _iteration_nn(target_index, ann_top_p)
     dev = src0.device
     eye3 = torch.eye(3, dtype=torch.float32, device=dev)
     eye6 = torch.eye(6, dtype=torch.float32, device=dev)
 
     def live_inc(T):
         moved = _moved(src0, T)
-        idx, d2 = nearest_neighbors(moved, tgt)
+        idx, d2 = nn(moved, tgt)
         q = tgt[idx]
         n = nrm[idx]
         w = (d2 <= max_d2).to(torch.float32)

@@ -1,23 +1,27 @@
-"""Pipeline orchestrator (port of ``tpu3dlm/pipeline/task.py``, fused route).
+"""Pipeline orchestrator (port of ``tpu3dlm/pipeline/task.py``).
 
 ``Pipeline(data_folder, cfg, cfg_goldstd, goldstd_var, device).run()``
 follows the reference's order: extract (``ImageExtractor`` when the
-database exists, then ``load_scan``) → detect + classify + project in one
-fused step (``FusedScanRunner``) → map (pose table, 3D NMS) → atomic pickle
-of the intermediates under the reference's keys → with a gold-standard
-baseline, the maintenance compare (``Alignment`` + ``BBoxComparison``).
-``resume=True`` reuses the pickled detections and re-projects them.
-Per-stage wall-clock lands in ``stage_times`` (extract, detect, map,
-compare).
+database exists, then ``load_scan``) → detect + classify → map (pose table,
+projection, 3D NMS) → atomic pickle of the intermediates under the
+reference's keys → with a gold-standard baseline, the maintenance compare
+(``Alignment`` + ``BBoxComparison``). Detection takes the route the config
+selects: ``fused_inference = false`` (the default) the staged route,
+``ObjectDetector`` then ``DamageDetector`` (every valid box classified),
+with the map stage projecting the detections; ``fused_inference = true``
+the fused step (``FusedScanRunner``, the top ``crop_budget`` boxes
+classified, projection inside the step). ``resume=True`` reuses the
+pickled detections and re-projects them. Per-stage wall-clock lands in
+``stage_times`` (extract, detect, map, compare).
 
 Settings the port cannot honour yet raise ``NotImplementedError`` naming
-their ROADMAP item before any work: ``fused_inference = false`` (the
-staged route, A15), ``streaming_chunk > 0`` and ``scan_cache = true``
-(A16), ``visualise`` (A17), ``alignment_vis`` / ``comparison_vis`` (A18),
-``beit_quant = int8`` (A21), ``mesh_devices > 1`` (A22), ``.pt``
+their ROADMAP item before any work: ``streaming_chunk > 0`` under the fused
+route and ``scan_cache = true`` (A16; under the staged route
+``streaming_chunk`` is ignored with a warning, as in the reference),
+``visualise`` (A17), ``view_img``, ``alignment_vis`` and ``comparison_vis``
+(A18), ``beit_quant = int8`` (A21), ``mesh_devices > 1`` (A22), ``.pt``
 checkpoints (A24) and ``use_pallas = false`` (the port has no plain path on
-the card). ``icp_ann`` goes to ``Alignment`` as is, which raises for
-``auto``/``on`` on targets of 131,072 points or more (A14).
+the card). ``icp_ann`` goes to ``Alignment`` as is.
 """
 
 from __future__ import annotations
@@ -62,15 +66,14 @@ def _cached_weights(key, builder):
 def unsupported_settings(cfg) -> list[str]:
     """Each setting of ``cfg`` the port cannot run yet, with its ROADMAP item."""
     out = []
-    if not getattr(cfg, "fused_inference", False):
-        out.append("fused_inference = false: the staged route is not ported yet (ROADMAP A15); "
-                   "set fused_inference = true")
-    if getattr(cfg, "streaming_chunk", 0) > 0:
+    if getattr(cfg, "streaming_chunk", 0) > 0 and getattr(cfg, "fused_inference", False):
         out.append("streaming_chunk > 0: streaming ingestion is not ported yet (ROADMAP A16)")
     if getattr(cfg, "scan_cache", False):
         out.append("scan_cache = true: the scanpack cache is not ported yet (ROADMAP A16)")
     if getattr(cfg, "visualise", False):
         out.append("visualise = true: the map mesh is not ported yet (ROADMAP A17)")
+    if getattr(cfg, "view_img", False):
+        out.append("view_img = true: annotated frames are not ported yet (ROADMAP A18)")
     for knob in ("alignment_vis", "comparison_vis"):
         if getattr(cfg, knob, False):
             out.append(f"{knob} = true: visualisation is not ported yet (ROADMAP A18)")
@@ -122,6 +125,15 @@ class Pipeline:
     def run(self, resume: bool = False) -> dict:
         """Full pipeline; ``resume=True`` reuses detections from the stage
         pickle when present, so a crash after detect does not repeat it."""
+        stream_n = getattr(self.cfg, "streaming_chunk", 0)
+        if stream_n > 0:
+            # only the fused route streams (unsupported_settings refuses it
+            # there); the staged route materialises the capture, as the
+            # reference does
+            self.logger.warning(
+                "streaming_chunk = %d ignored: streaming requires fused_inference = true; "
+                "the full capture will be materialised in host memory", stream_n,
+            )
         scan = self._timed("extract", self._extract_images)
         detections = None
         if resume and os.path.exists(self.cfg.pickle_path):
@@ -135,7 +147,10 @@ class Pipeline:
                 self.logger.warning("resume failed (%s); re-running detect", e)
         fused_gboxes = None
         if detections is None:
-            detections, fused_gboxes = self._timed("detect", self._fused_inference, scan)
+            if getattr(self.cfg, "fused_inference", False):
+                detections, fused_gboxes = self._timed("detect", self._fused_inference, scan)
+            else:
+                detections = self._timed("detect", self._detect_signs, scan)
         global_bboxes, optimised, pose_df = self._timed(
             "map", self._map_detected_objects, scan, detections, fused_gboxes
         )
@@ -190,6 +205,40 @@ class Pipeline:
         )
         self.logger.info("Frames extracted.")
         return scan
+
+    def _detect_signs(self, scan: Scan) -> Detections:
+        """The staged route: ``ObjectDetector`` over the frames, then
+        ``DamageDetector`` over every valid box."""
+        from tpu3dlm_torch.pipeline.classifier import DamageDetector
+        from tpu3dlm_torch.pipeline.detector import ObjectDetector
+
+        self.logger.info("Detecting Signs...")
+        detector = ObjectDetector(
+            conf_thresh=self.cfg.conf_thresh,
+            iou_thresh=self.cfg.iou_thresh,
+            img_size=self.cfg.img_size,
+            batch_size=self.cfg.batch_size,
+            max_det=getattr(self.cfg, "max_det", 64),
+            nc=getattr(self.cfg, "num_classes", 80),
+            variant=getattr(self.cfg, "yolo_variant", "n"),
+            yolo=self._load_yolo_weights(),
+            dtype=self.dtype,
+            device=self.device,
+        )
+        detections = detector(scan)
+
+        labels = self._labels()
+        classifier = DamageDetector(
+            num_labels=len(labels),
+            id2label=dict(enumerate(labels)),
+            config=self._beit_config(len(labels)),
+            beit=self._load_beit_weights(len(labels)),
+            dtype=self.dtype,
+            device=self.device,
+        )
+        detections = classifier.classify_detections(scan, detections)
+        self.logger.info("Inference Complete.")
+        return detections
 
     def _fused_inference(self, scan: Scan):
         """Detect + classify + project in one step (``pipeline/fused.py``)."""

@@ -3,8 +3,9 @@
 The JAX package pads per-capture axes to buckets so that a serving process
 compiles one program per bucket. PyTorch runs eagerly and needs no bucket
 for that, but the fused runner still pads the frame axis exactly as the
-reference does, so that crop selection and every output match it; these
-are the same helpers, kept here so the port imports nothing of tpu3dlm.
+reference does, so that crop selection and every output match it, and the
+staged route runs fixed-size batches; these are the same helpers, kept
+here so the port imports nothing of tpu3dlm.
 """
 
 from __future__ import annotations
@@ -39,6 +40,17 @@ def pad_axis0(x, size: int, fill=0) -> np.ndarray:
         return x
     pad = np.full((size - x.shape[0],) + x.shape[1:], fill, x.dtype)
     return np.concatenate([x, pad], axis=0)
+
+
+def padded_batches(arrays, batch: int):
+    """Iterate axis 0 of ``arrays`` in fixed ``batch``-size chunks, the
+    ragged tail zero-padded, so every call downstream sees one shape (the
+    staged route's detector and classifier batches, and with them kernel
+    B1's launch shape). Yields ``(chunk_list, start, n_valid)``; callers
+    keep the first ``n_valid`` rows. Yields nothing for empty arrays."""
+    n = arrays[0].shape[0]
+    for start in range(0, n, batch):
+        yield [pad_axis0(a[start:start + batch], batch) for a in arrays], start, min(batch, n - start)
 
 
 def pad_poses(poses, size: int) -> np.ndarray:
