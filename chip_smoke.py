@@ -5,7 +5,7 @@
 
 Builds every CUDA kernel of the port from ``tpu3dlm_torch/csrc`` (into
 ``tpu3dlm_torch/_build``, one ``nvcc`` per source and one ``c++`` for the
-host codecs, all at once), then runs twenty phases, each printing one JSON
+host codecs, all at once), then runs twenty-three phases, each printing one JSON
 line; any failure raises and the script exits non-zero without a result:
 
 1. ``kernel_b1``: kernel B1 (BEiT attention) against its plain PyTorch twin
@@ -123,7 +123,34 @@ line; any failure raises and the script exits non-zero without a result:
 19. ``staged_full_width``: ``pipeline_full_width`` on the staged route
     (the default detector batch of 64): B1 launches per scan by kernel,
     the crops classified, B2 by shape, then 5 warm maintenance runs.
-20. ``kernels``: one line listing every ported kernel (B1 on its two
+20. ``stream_parity``: ``pipeline_parity`` streamed in chunks of 2 frames
+    (``streaming_chunk = 2``: chunks of 2, 2 and 1 + padding): the same
+    bars card against CPU, and the card's streamed run against its
+    whole-scan fused run; at most 2 chunks in flight, B1 once per layer and
+    chunk, the valid boxes per chunk (the per-chunk crop budget never
+    binds).
+21. ``stream_full_width``: the serving path — the capture tiled to 512
+    frames a scan at 640², YOLOv10-n, a seeded BEiT-base in bf16, crop
+    budget 384, 8 decode threads, ``streaming_chunk = 32`` — through the
+    CLI with the counts at 0 (B1 12 launches per chunk at B = 256 on
+    ``attention_bf16_tma``, one chunk's output held against the twin within
+    1e-2 absolute and relative); then 3 warm streamed maintenance runs in
+    turns with 3 whole-scan ones, one profiled streamed run (device idle
+    share), and with
+    ``scan_cache = true`` one writing run and 3 decode-free runs on each
+    route: stage and capture ms, frames/s of extract + detect, device and
+    host peaks, chunks in flight, valid boxes; the same report rows on
+    every leg as in the CLI's run (the missing count is recorded: at 640²
+    the 128-px fixture detector keeps one box a scan).
+22. ``watch_full_width``: ``ScanWatcher`` on the default config (staged
+    route) over ``gold_std`` and 3 maintenance captures of 128 frames at
+    640², at concurrency 1 and then 2 on fresh copies: DONE for every
+    maintenance capture with the missing count of a plain CLI run, the same
+    report rows at both and as that run, no thread left after ``close()``,
+    and at concurrency 2
+    B1's and B2's launch counts equal to the sum of the captures' own;
+    per-capture wall clock and captures per minute.
+23. ``kernels``: one line listing every ported kernel (B1 on its two
     routes — ``attention_bf16_tma`` counted on the scan step,
     ``attention_simt`` on the finetune step — B2, B3, B4 v1 and v2) with
     its launches, the path they were counted on (``launches_on``), error,
@@ -132,7 +159,10 @@ line; any failure raises and the script exits non-zero without a result:
     carry their launches on the Pipeline (``launches_on_pipeline``, from
     ``pipeline_full_width``); B1's on the staged route
     (``launches_on_staged``, from ``staged_full_width``) and B2's on the
-    ANN compare (``launches_on_ann``, from ``compare_full_width_ann``).
+    ANN compare (``launches_on_ann``, from ``compare_full_width_ann``); B1's
+    on the streamed path (``launches_on_stream``, its shape and error, from
+    ``stream_full_width``); B1's and B2's on the watcher
+    (``launches_on_watch``, from ``watch_full_width``).
 
 The card's name and power limit (nvidia-smi) are printed before the last
 line; the last line is ``{"ok": true, "device": {...}}``. Inputs and
@@ -1502,17 +1532,57 @@ def write_config(root: str, patches: list) -> str:
     return str(path)
 
 
-def copy_project(root: str, frames: int | None = None) -> str:
+def drop_sign(scan: Path, label: int = 0, margin_px: float = 16.0) -> int:
+    """The sign of ``label`` is taken out of the capture's depth: every
+    depth pixel under its ground-truth boxes (gt.json, RGB pixels, widened
+    by ``margin_px``) reads 0, no return, in the files and in data.db. Its
+    detections then project to no 3D box. Returns the boxes blanked.
+
+    In the maintenance capture the sign of label 0 is the red one, the only
+    sign the fixture YOLOv10-n (trained at 128 px) finds at 640²; gold keeps
+    it, so a full-width report has one missing sign, as at 128 px, while
+    maintenance still has detections to classify."""
+    import sqlite3
+
+    from tpu3dlm_torch.data import codecs
+
+    gt = json.loads((scan / "gt.json").read_text())
+    depth_dir = scan / "rtabmap_extract" / "data_depth"
+    conn = sqlite3.connect(scan / "data.db")
+    blanked = 0
+    for frame, boxes in gt["gt_boxes_2d"].items():
+        path = depth_dir / f"{int(frame) + 1}.png"
+        depth = codecs.read_png(str(path))
+        sx, sy = depth.shape[1] / gt["rgb_wh"][0], depth.shape[0] / gt["rgb_wh"][1]
+        for x0, y0, x1, y1, _, lab in boxes:
+            if lab != label:
+                continue
+            c0, r0 = (max(int((v - margin_px) * s), 0) for v, s in ((x0, sx), (y0, sy)))
+            c1, r1 = (int(np.ceil((v + margin_px) * s)) for v, s in ((x1, sx), (y1, sy)))
+            depth[r0:r1, c0:c1] = 0
+            blanked += 1
+        blob = codecs.encode_png(depth)
+        path.write_bytes(blob)
+        conn.execute("UPDATE Data SET depth = ? WHERE id = ?", (blob, int(frame) + 1))
+    conn.commit()
+    conn.close()
+    return blanked
+
+
+def copy_project(root: str, frames: int | None = None, dropped_sign: bool = False) -> str:
     """The committed capture copied to ``<root>/configs/data`` (the layout
     make_project writes), each scan tiled to ``frames`` frames when given:
     frame k (1-based) is source frame (k − 1) mod 5 + 1, in the files, in
     data.db (Data and Node rows k) and in poses.txt (row k, id k), so every
-    stem pairs with its own pose row."""
+    stem pairs with its own pose row. With ``dropped_sign``, maintenance
+    loses the red sign first (``drop_sign``)."""
     import shutil
     import sqlite3
 
     data = Path(root, "configs", "data")
     shutil.copytree(PROJECT / "data", data)
+    if dropped_sign:
+        check(drop_sign(data / "maintenance") == 4, "the red sign is in 4 maintenance frames")
     if frames is None:
         return str(data)
     for folder in FOLDERS:
@@ -1688,79 +1758,146 @@ def _read_csv(path: str) -> tuple[list, list]:
         return reader.fieldnames, list(reader)
 
 
-def phase_pipeline_parity(dev, tmp: str, fused: bool = True) -> dict:
+class StreamRecorder:
+    """Wraps ``FusedScanRunner.run_stream`` while in use: records each
+    stream's chunk count and ``stream_peak_inflight``."""
+
+    def __enter__(self):
+        from tpu3dlm_torch.pipeline.fused import FusedScanRunner
+
+        self.streams: list[dict] = []
+        self._cls, self._real = FusedScanRunner, FusedScanRunner.run_stream
+        recorder = self
+
+        def run_stream(runner, chunks, max_inflight: int = 2):
+            rec = {"chunks": 0, "max_inflight": max_inflight}
+            recorder.streams.append(rec)
+
+            def counted():
+                for item in chunks:
+                    rec["chunks"] += 1
+                    yield item
+
+            out = recorder._real(runner, counted(), max_inflight)
+            rec["peak_inflight"] = runner.stream_peak_inflight
+            return out
+
+        FusedScanRunner.run_stream = run_stream
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.run_stream = self._real
+        return False
+
+
+def hold_pipelines(a: tuple, b: tuple) -> dict:
+    """Two runs of gold and maintenance held to the parity bars: masks,
+    labels and damage equal, boxes within 1e-2 px, corners of every
+    projected and kept box within 1e-4 m, every ICP step within 1e-4,
+    verdict reasons identical, report rows and CSV identical but for the
+    0.1 mm-rounded distance (within 2e-4 m), one missing sign in both.
+    Returns the largest errors."""
+    errs = {"box_px": 0.0, "corner_m": 0.0, "kept_corner_m": 0.0}
+    for x, y in zip(a, b):
+        c, g = x.data_to_save, y.data_to_save
+        errs["box_px"] = max(errs["box_px"], _records_err(c["predictions"], g["predictions"], 4))
+        errs["corner_m"] = max(errs["corner_m"], _records_err(c["global_bboxes_data"], g["global_bboxes_data"], 4))
+        errs["kept_corner_m"] = max(errs["kept_corner_m"],
+                                    _records_err(c["optimised_bboxes"], g["optimised_bboxes"], 4))
+    check(errs["box_px"] <= 1e-2 and errs["corner_m"] <= 1e-4 and errs["kept_corner_m"] <= 1e-4, errs)
+    c, g = a[1].data_to_save, b[1].data_to_save
+    errs["step"] = _steps_err(g["transformations"], c["transformations"])
+    check(errs["step"] <= 1e-4, errs["step"])
+    check(g["alignment_verdict"]["reasons"] == c["alignment_verdict"]["reasons"],
+          (g["alignment_verdict"], c["alignment_verdict"]))
+    dist_err = _report_err(g["comparison_rows"], c["comparison_rows"])
+    csv_rows = [_read_csv(x[1].cfg.csv_output) for x in (a, b)]
+    check(csv_rows[0][0] == csv_rows[1][0], "CSV headers differ")
+    errs["report_distance_m"] = max(dist_err, _report_err(csv_rows[1][1], csv_rows[0][1]))
+    check(errs["report_distance_m"] <= 2e-4, errs["report_distance_m"])
+    for x in (a, b):
+        missing = sum(r["status"] == "missing" for r in x[1].data_to_save["comparison_rows"])
+        check(missing == 1, x[1].data_to_save["comparison_rows"])
+    return errs
+
+
+def phase_pipeline_parity(dev, tmp: str, fused: bool = True, stream: int = 0) -> dict:
     """``bench_e2e.py``'s flow on the committed capture (make_project's
     config, fixture checkpoints, f32), on the fused route
-    (``pipeline_parity``) or, with ``fused=False``, on the staged route
-    under the default ``fused_inference = false`` (``staged_parity``, as
-    ``BENCH_E2E_FUSED=0`` runs it): gold and maintenance Pipelines on the
-    card and on the CPU. Masks, labels and damage equal; boxes within 1e-2
-    px; corners of every projected and every kept box within 1e-4 m (the
-    NMS keep-mask identical: same records); transforms and every ICP step
-    within 1e-4; verdict reasons identical; report rows and the CSV
-    identical in every field but the box distance, which is rounded to 0.1
-    mm and may move by that last digit (card and CPU transforms differ by
-    ~1e-5 over a ~3 m lever), so it is held within 2e-4 m; exactly one
-    missing sign; B1 and B2 launched on the card run, B1 once per layer for
-    each classify call (fused: one per scan; staged: one per batch of 64
-    valid detections)."""
+    (``pipeline_parity``), on the staged route under the default
+    ``fused_inference = false`` (``fused=False``: ``staged_parity``, as
+    ``BENCH_E2E_FUSED=0`` runs it), or on the fused route streamed in
+    chunks of ``stream`` frames (``stream_parity``): gold and maintenance
+    Pipelines on the card and on the CPU, held by ``hold_pipelines`` (the
+    box distance of the report is rounded to 0.1 mm and may move by that
+    last digit: card and CPU transforms differ by ~1e-5 over a ~3 m lever).
+    B1 and B2 launched on the card run, B1 once per layer for each classify
+    call (fused: one per scan; staged: one per batch of 64 valid
+    detections; streamed: one per chunk). Streamed, also the card's
+    whole-scan fused run held to the streamed card run by the same bars,
+    at most 2 chunks in flight, and the valid boxes per chunk, which show
+    that the per-chunk crop budget never binds."""
     import os
 
     from tpu3dlm_torch.ops.kernels.attention import beit_attention_packed
     from tpu3dlm_torch.ops.kernels.pairwise import nearest_neighbors
 
-    phase = "pipeline_parity" if fused else "staged_parity"
+    phase = "stream_parity" if stream else "pipeline_parity" if fused else "staged_parity"
     extra = [("infer_dtype = bf16", "infer_dtype = f32"),
              ("yolo_weights =", f"yolo_weights = {FIXTURES / 'yolo_synthetic.msgpack'}"),
              ("beit_weights =", f"beit_weights = {FIXTURES / 'beit_synthetic.msgpack'}")]
-    runs, launches = {}, {}
-    for name, device in (("cpu", "cpu"), ("gpu", dev)):
+    legs = [("cpu", "cpu", stream), ("gpu", dev, stream)] + ([("gpu_whole", dev, 0)] if stream else [])
+    runs, launches, streams = {}, {}, {}
+    for name, device, chunk in legs:
         root = os.path.join(tmp, f"{phase}_{name}")
         copy_project(root)
-        cfg = pipeline_config(root, extra) if fused else write_config(root, PROJECT_PATCH + extra)
+        more = [("streaming_chunk = 0", f"streaming_chunk = {chunk}")] if chunk else []
+        cfg = pipeline_config(root, extra + more) if fused else write_config(root, PROJECT_PATCH + extra)
         b1, b2 = beit_attention_packed.launches, nearest_neighbors.launches
         t0 = time.perf_counter()
-        runs[name] = run_two_scans(cfg, device)
+        with StreamRecorder() as rec:
+            runs[name] = run_two_scans(cfg, device)
         runs[name + "_s"] = time.perf_counter() - t0
         launches[name] = {"b1": beit_attention_packed.launches - b1, "b2": nearest_neighbors.launches - b2}
+        streams[name] = rec.streams
+        check(len(rec.streams) == (2 if chunk else 0), rec.streams)
     detections = {s: sum(len(v) for v in runs["gpu"][i].data_to_save["predictions"].values())
                   for i, s in enumerate(FOLDERS)}
     layers = 2  # make_project's compact BEiT
-    classify_calls = 2 if fused else sum(-(-n // 64) for n in detections.values())
+    if stream:
+        classify_calls = sum(r["chunks"] for r in streams["gpu"])
+        check(all(r["peak_inflight"] <= 2 for r in streams["gpu"] + streams["cpu"]), streams)
+    else:
+        classify_calls = 2 if fused else sum(-(-n // 64) for n in detections.values())
     check(classify_calls > 0 and launches["gpu"]["b1"] == layers * classify_calls
           and launches["gpu"]["b2"] >= 5, (launches, detections))
-    errs = {"box_px": 0.0, "corner_m": 0.0, "kept_corner_m": 0.0}
-    for i, scan in enumerate(FOLDERS):
-        c, g = runs["cpu"][i].data_to_save, runs["gpu"][i].data_to_save
-        errs["box_px"] = max(errs["box_px"], _records_err(c["predictions"], g["predictions"], 4))
-        errs["corner_m"] = max(errs["corner_m"], _records_err(c["global_bboxes_data"], g["global_bboxes_data"], 4))
-        errs["kept_corner_m"] = max(errs["kept_corner_m"],
-                                    _records_err(c["optimised_bboxes"], g["optimised_bboxes"], 4))
-        if not fused:  # the staged route classifies every valid detection
-            check(all(r[4] >= 0 for recs in g["predictions"].values() for r in recs), (scan, "damage"))
-    check(errs["box_px"] <= 1e-2 and errs["corner_m"] <= 1e-4 and errs["kept_corner_m"] <= 1e-4, errs)
-    c, g = runs["cpu"][1].data_to_save, runs["gpu"][1].data_to_save
-    step_err = _steps_err(g["transformations"], c["transformations"])
-    check(step_err <= 1e-4, step_err)
-    check(g["alignment_verdict"]["reasons"] == c["alignment_verdict"]["reasons"],
-          (g["alignment_verdict"], c["alignment_verdict"]))
-    dist_err = _report_err(g["comparison_rows"], c["comparison_rows"])
-    csv_rows = {k: _read_csv(runs[k][1].cfg.csv_output) for k in ("cpu", "gpu")}
-    check(csv_rows["cpu"][0] == csv_rows["gpu"][0], "CSV headers differ")
-    dist_err = max(dist_err, _report_err(csv_rows["gpu"][1], csv_rows["cpu"][1]))
-    check(dist_err <= 2e-4, dist_err)
-    missing = sum(r["status"] == "missing" for r in g["comparison_rows"])
-    check(missing == 1, g["comparison_rows"])
-    kept = sum(len(v) for v in g["optimised_bboxes"].values())
+    if not fused:  # the staged route classifies every valid detection
+        check(all(r[4] >= 0 for p in runs["gpu"] for recs in p.data_to_save["predictions"].values()
+                  for r in recs), "damage")
+    errs = hold_pipelines(runs["cpu"], runs["gpu"])
+    g = runs["gpu"][1].data_to_save
     result = {"phase": phase, "launches_gpu_run": launches["gpu"], "detections": detections,
-              "classify_calls": classify_calls,
-              "kept_boxes_maintenance": kept, "max_box_err_px": errs["box_px"],
-              "max_corner_err_m": errs["corner_m"], "max_kept_corner_err_m": errs["kept_corner_m"],
-              "max_step_err": step_err, "max_report_distance_err_m": dist_err,
-              "rows": len(g["comparison_rows"]), "missing": missing,
+              "classify_calls": classify_calls, "b1_launches_per_classify_call": layers,
+              "kept_boxes_maintenance": sum(len(v) for v in g["optimised_bboxes"].values()),
+              "max_box_err_px": errs["box_px"], "max_corner_err_m": errs["corner_m"],
+              "max_kept_corner_err_m": errs["kept_corner_m"], "max_step_err": errs["step"],
+              "max_report_distance_err_m": errs["report_distance_m"],
+              "rows": len(g["comparison_rows"]), "missing": sum(r["status"] == "missing" for r in g["comparison_rows"]),
               "verdict": g["alignment_verdict"],
-              "wall_s": {"cpu": runs["cpu_s"], "gpu": runs["gpu_s"]},
+              "wall_s": {k: runs[k + "_s"] for k, _, _ in legs},
               "stage_s_gpu": {s: runs["gpu"][i].stage_times for i, s in enumerate(FOLDERS)}}
+    if stream:
+        # per chunk: k = min(crop_budget, chunk · max_det) crops are
+        # classified; the budget binds only when a chunk has more valid boxes
+        valid = [[len(v) for _, v in sorted(p.data_to_save["predictions"].items())] for p in runs["gpu"]]
+        per_chunk = [[sum(v[i:i + stream]) for i in range(0, len(v), stream)] for v in valid]
+        budget = min(128, stream * 8)  # make_project's crop_budget (the default) and max_det
+        check(max(max(c) for c in per_chunk) <= budget, per_chunk)
+        whole = hold_pipelines(runs["gpu"], runs["gpu_whole"])
+        result.update({"chunk_frames": stream, "streams_gpu": streams["gpu"], "streams_cpu": streams["cpu"],
+                       "valid_boxes_per_chunk": dict(zip(FOLDERS, per_chunk)), "crops_per_chunk": budget,
+                       "vs_card_whole_scan": whole,
+                       "launches_gpu_whole_run": launches["gpu_whole"]})
     emit(result)
     return result
 
@@ -1902,6 +2039,293 @@ def phase_pipeline_full_width(dev, tiled_root: str, fused: bool = True) -> dict:
     return result
 
 
+def maintenance_run(cfg_maint, cfg_gold, gold_var, dev):
+    """One maintenance Pipeline; returns (pipeline, capture ms)."""
+    from tpu3dlm_torch.pipeline import task
+
+    t0 = time.perf_counter()
+    p = task.setup_pipeline("maintenance", cfg_maint, cfg_gold, gold_var, device=dev)
+    return p, (time.perf_counter() - t0) * 1e3
+
+
+def host_peak_mb(fn) -> tuple:
+    """(``fn()``, the peak of the host allocations while it ran in MB);
+    numpy arrays report theirs to tracemalloc."""
+    import tracemalloc
+
+    tracemalloc.start()
+    try:
+        out = fn()
+        return out, tracemalloc.get_traced_memory()[1] / 1e6
+    finally:
+        tracemalloc.stop()
+
+
+def valid_boxes(p) -> int:
+    return sum(len(v) for v in p.data_to_save["predictions"].values())
+
+
+def phase_stream_full_width(dev, root: str, mem_rate: float, frames: int = 512, chunk: int = 32) -> dict:
+    """The serving path at full width: the committed capture tiled to 512
+    frames a scan at 640², the fixture YOLOv10-n, a seeded BEiT-base in
+    bf16, crop budget 384, 8 decode threads, ``streaming_chunk = 32``
+    (``scripts/bench_stream.py``'s chunk); maintenance has lost the red
+    sign (``drop_sign``). The CLI's maintenance run (gold, then
+    maintenance) once with the counts at 0: B1 12 launches per chunk
+    (16 chunks a scan) at B = 256 crops on ``attention_bf16_tma``, one
+    chunk's B1 output held against the twin at that shape (1e-2 absolute
+    and relative, as ``kernel_b1`` holds bf16) and timed there. Then,
+    with each scan's data.db moved aside (the warm runs read the extracted
+    files, as a watched capture is served; extraction from the database
+    rewrites every file and with it the cache's fingerprint): 3 warm
+    maintenance runs streamed, in turns with 3 whole-scan fused runs
+    (``streaming_chunk = 0``); one profiled streamed run (device idle
+    share); then ``scan_cache = true``: one writing run, then 3 decode-free
+    runs on each route in turns. The first run of each route runs under
+    tracemalloc for the host peak of its frame arrays; its time, which also
+    carries the route's first-run costs, is kept apart from the medians of
+    the other two. Per leg: stage ms,
+    capture ms, frames/s of extract + detect, device peak memory (reset per
+    run), host peak, streams' peak in flight, valid boxes. Sanity: finite
+    outputs, every frame's records, exactly one missing sign in the CLI's
+    report and the same report rows on every leg (the 0.1 mm distance
+    within 2e-4 m)."""
+    import os
+    import shutil
+
+    from tpu3dlm_torch import cli
+    from tpu3dlm_torch.data import dataset
+    from tpu3dlm_torch.models import beit as beit_module
+    from tpu3dlm_torch.ops.kernels.attention import beit_attention_packed, beit_attention_packed_reference
+    from tpu3dlm_torch.ops.kernels.pairwise import nearest_neighbors
+    from tpu3dlm_torch.pipeline import task
+    from tpu3dlm_torch.utils.config import ConfigLoader
+
+    copy_project(root, frames=frames, dropped_sign=True)
+    cfg_path = write_config(root, FULL_WIDTH_PATCH + [("streaming_chunk = 0", f"streaming_chunk = {chunk}")])
+    seen, b1_by_scan, held = [], [], {}
+    real_setup, real_b1 = task.setup_pipeline, beit_module.beit_attention_packed
+
+    def recording_setup(*args, **kwargs):
+        before = dict(beit_attention_packed.launches_by_kernel)
+        seen.append(real_setup(*args, **kwargs))
+        b1_by_scan.append({k: v - before.get(k, 0) for k, v in beit_attention_packed.launches_by_kernel.items()
+                           if v != before.get(k, 0)})
+        return seen[-1]
+
+    b1_batches: dict = {}
+
+    def keeping_b1(q, k, v, bias, num_heads):
+        out = real_b1(q, k, v, bias, num_heads)
+        b1_batches[q.shape[0]] = b1_batches.get(q.shape[0], 0) + 1
+        if not held and q.shape[0] == chunk * 8:  # one chunk's crops: chunk frames × max_det
+            held.update(q=q.clone(), k=k.clone(), v=v.clone(), bias=bias.clone(), h=num_heads, out=out.clone())
+        return out
+
+    beit_attention_packed.launches = 0
+    beit_attention_packed.launches_by_kernel.clear()
+    nearest_neighbors.launches = 0
+    nearest_neighbors.launches_by_shape.clear()
+    task.setup_pipeline, beit_module.beit_attention_packed = recording_setup, keeping_b1
+    try:
+        with StreamRecorder() as rec:
+            t0 = time.perf_counter()
+            cli.main(["--data", "maintenance", "--config", cfg_path, "--device", str(dev)])
+            cli_s = time.perf_counter() - t0
+    finally:
+        task.setup_pipeline, beit_module.beit_attention_packed = real_setup, real_b1
+    b1_by_kernel = dict(beit_attention_packed.launches_by_kernel)
+    b2 = nearest_neighbors.launches
+    check([p.data_folder for p in seen] == list(FOLDERS), [p.data_folder for p in seen])
+    n_chunks = -(-frames // chunk)
+    check([r["chunks"] for r in rec.streams] == [n_chunks, n_chunks]
+          and all(r["peak_inflight"] <= 2 for r in rec.streams), rec.streams)
+    check(b1_by_scan == [{"attention_bf16_tma": 12 * n_chunks}] * 2, b1_by_scan)
+    check(b1_batches == {chunk * 8: 2 * 12 * n_chunks}, b1_batches)
+    check(b2 >= 4, b2)
+    want = beit_attention_packed_reference(held["q"], held["k"], held["v"], held["bias"], held["h"])
+    b1_err = float((held["out"].float() - want.float()).abs().max())
+    # kernel_b1's bf16 bar: 1e-2 absolute and relative, one bf16 ulp of p and of the output
+    torch.testing.assert_close(held["out"].float(), want.float(), atol=1e-2, rtol=1e-2)
+    b1_shape = list(held["q"].shape[:2]) + [held["h"], held["q"].shape[2] // held["h"]]
+    # B1 at this launch shape, after the counted run (these launches are not counted as the path's)
+    b1_ms = cuda_ms(lambda: beit_attention_packed(held["q"], held["k"], held["v"], held["bias"], held["h"]))
+    b1_bound_ms, b1_bound_by = attention_bound_ms(*b1_shape, torch.bfloat16, mem_rate)
+    del held
+    cli_rows = seen[1].data_to_save["comparison_rows"]
+    check(sum(r["status"] == "missing" for r in cli_rows) == 1, cli_rows)
+
+    for folder in FOLDERS:
+        db = Path(root, "configs", "data", folder, "data.db")
+        shutil.move(str(db), str(db) + ".aside")
+    cfg_gold, cfg_maint = ConfigLoader(cfg_path, "gold_std"), ConfigLoader(cfg_path, "maintenance")
+    gold_var = task.load_gold_std(cfg_gold.pickle_path)
+    legs: dict = {}
+    runs: dict = {}
+
+    def leg(name, route_chunk, cache, traced=False):
+        cfg_maint.streaming_chunk, cfg_maint.scan_cache = route_chunk, cache
+        torch.cuda.reset_peak_memory_stats()
+        run = lambda: maintenance_run(cfg_maint, cfg_gold, gold_var, dev)  # noqa: E731
+        with StreamRecorder() as r:
+            (p, ms), host_peak = host_peak_mb(run) if traced else (run(), None)
+        entry = legs.setdefault(name, {"capture_ms": [], "stage_ms": {}, "peak_mem_gb": [],
+                                       "peak_inflight": [], "valid_boxes": []})
+        if traced:  # tracemalloc slows the host: this run is timed apart
+            entry["host_peak_mb"], entry["traced_capture_ms"] = host_peak, ms
+        else:
+            entry["capture_ms"].append(ms)
+            for k, v in p.stage_times.items():
+                entry["stage_ms"].setdefault(k, []).append(v * 1e3)
+        entry["peak_mem_gb"].append(torch.cuda.max_memory_allocated() / 1e9)
+        entry["peak_inflight"].append([x["peak_inflight"] for x in r.streams])
+        entry["valid_boxes"].append(valid_boxes(p))
+        runs.setdefault(name, []).append(p)
+
+    for traced in (True, False, False):
+        leg("stream", chunk, False, traced)
+        leg("whole_scan", 0, False, traced)
+    cfg_maint.streaming_chunk, cfg_maint.scan_cache = chunk, False
+    profile = profile_capture(lambda: maintenance_run(cfg_maint, cfg_gold, gold_var, dev))
+    leg("cache_write_stream", chunk, True)
+    pack = dataset._pack_path(cfg_maint.image_dir, 640)
+    check(os.path.exists(pack + ".src"), "the streamed run wrote and finalised the pack")
+    decodes = []
+    real_decode = dataset._decode_frames
+    dataset._decode_frames = lambda pairs, *a, **k: decodes.append(len(pairs)) or real_decode(pairs, *a, **k)
+    try:
+        for traced in (True, False, False):
+            leg("cached_stream", chunk, True, traced)
+            leg("cached_whole_scan", 0, True, traced)
+    finally:
+        dataset._decode_frames = real_decode
+    check(decodes == [], f"cached runs decoded {sum(decodes)} frames")
+
+    ref = runs["stream"][0].data_to_save
+    dist_err = _report_err(cli_rows, ref["comparison_rows"])
+    for name, ps in runs.items():
+        for p in ps:
+            out = p.data_to_save
+            dist_err = max(dist_err, _report_err(out["comparison_rows"], ref["comparison_rows"]))
+            check(all(np.isfinite(np.asarray(r[:4], np.float64)).all()
+                      for recs in out["optimised_bboxes"].values() for r in recs), name)
+            check(len(out["predictions"]) == frames, name)
+    check(dist_err <= 2e-4, dist_err)
+    summary = {}
+    for name, e in legs.items():
+        med = {k: statistics.median(v) for k, v in e["stage_ms"].items()}
+        summary[name] = {
+            "runs": len(e["capture_ms"]), "capture_ms_median": statistics.median(e["capture_ms"]),
+            "capture_ms_samples": e["capture_ms"], "stage_ms_median": med, "stage_ms_samples": e["stage_ms"],
+            "extract_detect_frames_per_s": frames / ((med["extract"] + med["detect"]) / 1e3),
+            "device_peak_gb": max(e["peak_mem_gb"]), "host_peak_mb": e.get("host_peak_mb"),
+            "traced_capture_ms": e.get("traced_capture_ms"),
+            "stream_peak_inflight": e["peak_inflight"], "valid_boxes": e["valid_boxes"],
+        }
+    result = {
+        "phase": "stream_full_width", "frames_per_scan": frames, "chunk_frames": chunk, "img_size": 640,
+        "dtype": "bfloat16", "crop_budget": 384, "crops_per_chunk": min(384, chunk * 8), "decode_workers": 8,
+        "cli_s": cli_s, "cli_stage_ms": {p.data_folder: {k: v * 1e3 for k, v in p.stage_times.items()} for p in seen},
+        "chunks_per_scan": n_chunks, "b1_launches_cli_by_scan": dict(zip(FOLDERS, b1_by_scan)),
+        "b1_launches_cli_by_kernel": b1_by_kernel, "b1_launch_shape": b1_shape, "b1_max_abs_err_vs_twin": b1_err,
+        "b1_ms_at_launch_shape": b1_ms, "b1_bound_ms_at_launch_shape": b1_bound_ms, "b1_bound_by": b1_bound_by,
+        "b2_launches_cli": b2, "valid_boxes_cli": {p.data_folder: valid_boxes(p) for p in seen},
+        "report_rows": len(cli_rows), "missing": sum(r["status"] == "missing" for r in cli_rows),
+        "max_report_distance_err_m": dist_err, "legs": summary,
+        "profile_stream_run": profile,
+    }
+    emit(result)
+    return result
+
+
+def phase_watch_full_width(dev, tmp: str, frames: int = 128) -> dict:
+    """The serving watcher on the default config (staged route) at full
+    width: a data root of ``gold_std`` and 3 maintenance captures, each the
+    committed capture tiled to 128 frames at 640², the maintenance ones
+    without the red sign (``drop_sign``), a seeded BEiT-base in bf16.
+    ``ScanWatcher(poll_interval=0.05, max_scans=4)`` on the card at
+    ``concurrency = 1``, then on fresh copies at ``concurrency = 2``. Bars:
+    every maintenance capture gets DONE with one missing sign, as does a
+    plain CLI run of the same capture, and the report rows agree across the
+    two runs and with that CLI run (the 0.1 mm distance within 2e-4 m); the
+    thread count after ``close()`` equals the count before; at ``concurrency = 2`` the B1 and
+    B2 launch counts equal the sum of the captures' own counts, taken one
+    by one at ``concurrency = 1`` (lost counter updates would break this).
+    Per-capture wall clock and captures per minute are records only."""
+    import os
+    import shutil
+    import threading
+
+    from tpu3dlm_torch import cli
+    from tpu3dlm_torch.ops.kernels.attention import beit_attention_packed
+    from tpu3dlm_torch.ops.kernels.pairwise import nearest_neighbors
+    from tpu3dlm_torch.pipeline import task
+    from tpu3dlm_torch.pipeline.watch import DONE_SENTINEL, ScanWatcher
+
+    captures = ["maintenance", "maintenance_2", "maintenance_3"]
+    out: dict = {}
+    own: dict = {}
+    rows: dict = {}
+    for concurrency in (1, 2):
+        root = os.path.join(tmp, f"watch_{concurrency}")
+        data = copy_project(root, frames=frames, dropped_sign=True)
+        for name in captures[1:]:
+            shutil.copytree(os.path.join(data, "maintenance"), os.path.join(data, name))
+        cfg = write_config(root, STAGED_FULL_WIDTH_PATCH)
+        real_setup = task.setup_pipeline
+
+        def counting_setup(folder, *a, **k):
+            b1, b2 = beit_attention_packed.launches, nearest_neighbors.launches
+            p = real_setup(folder, *a, **k)
+            if concurrency == 1:  # one capture at a time: its own counts
+                own[folder] = {"b1": beit_attention_packed.launches - b1, "b2": nearest_neighbors.launches - b2}
+            return p
+
+        beit_attention_packed.launches = nearest_neighbors.launches = 0
+        threads = threading.active_count()
+        task.setup_pipeline = counting_setup
+        try:
+            w = ScanWatcher(cfg, poll_interval=0.05, max_scans=4, concurrency=concurrency, device=dev)
+            t0 = time.perf_counter()
+            w.run()
+            wall_s = time.perf_counter() - t0
+        finally:
+            task.setup_pipeline = real_setup
+        check(threading.active_count() == threads, (threading.active_count(), threads))
+        check(sorted(w.processed) == sorted(["gold_std"] + captures) and not w.suspect, (w.processed, w.suspect))
+        recs = {f: json.loads(Path(data, f, DONE_SENTINEL).read_text()) for f in ["gold_std"] + captures}
+        check(all("missing" in recs[f] for f in captures), recs)
+        rows[concurrency] = {f: _read_csv(os.path.join(data, f, "comparison_output.csv"))[1] for f in captures}
+        launches = {"b1": beit_attention_packed.launches, "b2": nearest_neighbors.launches}
+        maint_s = wall_s - recs["gold_std"]["wall_clock_s"]
+        out[concurrency] = {
+            "wall_s": wall_s, "captures_per_min": 4 * 60 / wall_s,
+            "maintenance_captures_per_min": len(captures) * 60 / maint_s,
+            "capture_wall_clock_s": {f: r["wall_clock_s"] for f, r in recs.items()},
+            "capture_stage_s": {f: r["stage_times"] for f, r in recs.items()},
+            "launches": launches, "threads_before_after": [threads, threading.active_count()],
+            "missing": {f: recs[f]["missing"] for f in captures},
+        }
+        if concurrency == 1:
+            # a plain CLI run of the same capture, against its gold pickle
+            cli.main(["--data", "maintenance", "--config", cfg, "--device", str(dev)])
+            cli_rows = _read_csv(os.path.join(data, "maintenance", "comparison_output.csv"))[1]
+    total = {k: sum(c[k] for c in own.values()) for k in ("b1", "b2")}
+    check(out[2]["launches"] == total and total["b1"] > 0 and total["b2"] > 0, (out[2]["launches"], own))
+    dist_err = _report_err(cli_rows, rows[1]["maintenance"])
+    missing = sum(r["status"] == "missing" for r in cli_rows)
+    check(missing == 1 and all(out[c]["missing"][f] == 1 for c in out for f in captures), (missing, out))
+    for f in captures:
+        dist_err = max(dist_err, _report_err(rows[2][f], rows[1][f]), _report_err(rows[1][f], rows[1]["maintenance"]))
+    check(dist_err <= 2e-4, dist_err)
+    result = {"phase": "watch_full_width", "frames_per_capture": frames, "img_size": 640, "route": "staged",
+              "captures": ["gold_std"] + captures, "poll_interval_s": 0.05, "missing_cli": missing,
+              "by_concurrency": out, "launches_per_capture": own, "b1_launches_on_watch": out[2]["launches"]["b1"],
+              "b2_launches_on_watch": out[2]["launches"]["b2"], "max_report_distance_err_m": dist_err}
+    emit(result)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available; this script needs an NVIDIA GPU",
@@ -1947,6 +2371,9 @@ def main() -> int:
         staged_root = str(Path(tmp, "staged"))
         copy_project(staged_root, frames=128)
         staged = phase_pipeline_full_width(dev, staged_root, fused=False)
+        phase_pipeline_parity(dev, tmp, stream=2)
+        stream = phase_stream_full_width(dev, str(Path(tmp, "stream")), mem_rate)
+        watch = phase_watch_full_width(dev, tmp)
     from tpu3dlm_torch.ops.kernels.nn_variants import VARIANTS
 
     b4_rows = []
@@ -1985,6 +2412,17 @@ def main() -> int:
             "launches_on_staged_by_scan": staged["b1_launches_cli_by_scan"],
             "launches_on_staged_path": "staged_full_width: the CLI's gold and maintenance runs on "
                                        "the staged route (every valid box classified, batches of 64)",
+            "launches_on_stream": stream["b1_launches_cli_by_kernel"]["attention_bf16_tma"],
+            "launches_on_stream_shape": stream["b1_launch_shape"],
+            "launches_on_stream_max_abs_err": stream["b1_max_abs_err_vs_twin"],
+            "ms_at_stream_shape": stream["b1_ms_at_launch_shape"],
+            "bound_ms_at_stream_shape": stream["b1_bound_ms_at_launch_shape"],
+            "launches_on_stream_path": "stream_full_width: the CLI's gold and maintenance runs streamed "
+                                       f"in chunks of {stream['chunk_frames']} frames (512 a scan, 12 "
+                                       "launches per chunk)",
+            "launches_on_watch": watch["b1_launches_on_watch"],
+            "launches_on_watch_path": "watch_full_width: ScanWatcher at concurrency 2 over gold_std and "
+                                      "3 maintenance captures (staged route, 128 frames each)",
         },
         {
             # B1's other route: every f32 shape and the bf16 shapes past the
@@ -2018,6 +2456,9 @@ def main() -> int:
             "launches_on_ann_by_shape": compare_ann["b2_launches_by_shape_cold_capture"],
             "launches_on_ann_path": "compare_full_width_ann: the cold capture at ann='auto' "
                                     "(index builds, init scoring, exact measurement)",
+            "launches_on_watch": watch["b2_launches_on_watch"],
+            "launches_on_watch_path": "watch_full_width: ScanWatcher at concurrency 2 over gold_std and "
+                                      "3 maintenance captures (3 compares)",
             "ms_by_shape": {f"{c['shape'][0]}x{c['shape'][1]}": {
                 "case": c["case"], **{k: c[k] for k in ("kernel_ms", "plain_ms", "bound_ms", "bound_by")}}
                 for c in b2["checks"] if "kernel_ms" in c},

@@ -490,3 +490,48 @@ def test_staged_pipeline_on_card_matches_cpu(cuda_device, tmp_path):
     import chip_smoke
 
     chip_smoke.phase_pipeline_parity(cuda_device, str(tmp_path), fused=False)
+
+
+def test_streamed_pipeline_on_card_matches_cpu(cuda_device, tmp_path):
+    """The two-scan Pipeline streamed in chunks of 2 frames on the card and
+    on the CPU, and against the card's whole-scan run: chip_smoke.py's
+    stream_parity."""
+    import chip_smoke
+
+    chip_smoke.phase_pipeline_parity(cuda_device, str(tmp_path), stream=2)
+
+
+def test_launch_counters_lose_no_update_under_threads(cuda_device):
+    """The serving watcher's workers launch B1 and B2 from several threads:
+    with a tiny switch interval, 8 threads × 50 launches each must count
+    exactly 400 per wrapper."""
+    import sys
+    import threading
+
+    g = torch.Generator().manual_seed(0)
+    a, b = (torch.rand(n, 3, generator=g).to(cuda_device) for n in (64, 256))
+    q, k, v = (torch.randn(2, 9, 64, generator=g).to(cuda_device, torch.bfloat16) for _ in range(3))
+    bias = torch.randn(4, 9, 9, generator=g).to(cuda_device)
+    before = (nearest_neighbors.launches, beit_attention_packed.launches,
+              sum(beit_attention_packed.launches_by_kernel.values()))
+
+    def work():
+        for _ in range(50):
+            nearest_neighbors(a, b)
+            beit_attention_packed(q, k, v, bias, 4)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work) for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    torch.cuda.synchronize()
+    assert nearest_neighbors.launches - before[0] == 400
+    assert beit_attention_packed.launches - before[1] == 400
+    assert sum(beit_attention_packed.launches_by_kernel.values()) - before[2] == 400

@@ -1,6 +1,7 @@
 """tpu3dlm_torch stands alone: it imports neither jax/flax nor anything of
-the JAX package, nor cv2, PIL, yaml, pandas or msgpack, so it runs on a GPU
-host that has none of them."""
+the JAX package, nor cv2, PIL, yaml, pandas, msgpack, safetensors,
+ultralytics or transformers, so it runs on a GPU host that has none of
+them."""
 
 import subprocess
 import sys
@@ -9,7 +10,8 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "tpu3dlm", "cv2", "PIL", "yaml", "pandas", "msgpack")
+FORBIDDEN = ("jax", "jaxlib", "flax", "tpu3dlm", "cv2", "PIL", "yaml", "pandas", "msgpack", "safetensors",
+             "ultralytics", "transformers")
 
 _PROBE = """
 import importlib, pkgutil, sys
@@ -22,6 +24,7 @@ for m in mods:
     importlib.import_module(m)
 bad = sorted(k for k in sys.modules if k.split(".")[0] in FORBIDDEN and sys.modules[k] is not None)
 assert not bad, bad
+assert {"tpu3dlm_torch.data.scanpack", "tpu3dlm_torch.pipeline.watch"} <= set(mods), mods
 print(len(mods))
 """ % (FORBIDDEN,)
 
@@ -31,7 +34,7 @@ def test_port_imports_without_jax_or_tpu3dlm():
         [sys.executable, "-c", _PROBE], cwd=REPO, capture_output=True, text=True, timeout=120
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 46  # every module of the four slices was imported
+    assert int(out.stdout.strip()) >= 52  # every module of the six slices was imported
 
 
 def test_cli_imports_none_of_the_forbidden_packages():

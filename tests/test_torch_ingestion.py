@@ -69,8 +69,6 @@ def test_scan_dataset_identical_to_jax():
 
 def test_load_scan_refusals(tmp_path):
     args = scan_args(os.path.join(CAPTURE, "gold_std"))
-    with pytest.raises(NotImplementedError, match="A16"):
-        PD.load_scan(*args, cache=True)
     with pytest.raises(ValueError, match="resize_mode"):
         PD.load_scan(*args, resize_mode="crop")
     empty = tmp_path / "e"

@@ -9,9 +9,15 @@ first ensures the gold-standard pickle exists and reads back (running the
 gold pipeline when it is missing or unreadable), then runs that folder's
 pipeline with the maintenance compare. The config defaults to
 ``configs/variables.cfg`` under the working directory and is written with
-the defaults when absent. ``--setup`` (the synthetic capture generator
-needs a JPEG encoder, ROADMAP A20) and ``--watch`` (serving, A16) are not
-ported yet and raise.
+the defaults when absent. ``--watch`` switches to the serving mode
+(``pipeline/watch.py::ScanWatcher``: poll the data root, run each capture
+as it lands) on the same device:
+
+    python -m tpu3dlm_torch.cli --watch [--poll-interval S] [--max-scans N]
+        [--watch-concurrency C] [--config cfg] [--device cuda|cpu]
+
+``--setup`` (the synthetic capture generator needs a JPEG encoder, ROADMAP
+A20) is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -37,14 +43,19 @@ def main(argv=None):
     parser.add_argument("--setup", action="store_true",
                         help="Generate a synthetic scan (not ported yet).")
     parser.add_argument("--watch", action="store_true",
-                        help="Continuous serving mode (not ported yet).")
+                        help="Continuous serving mode: poll the data root and process new capture "
+                        "folders as they land (pipeline/watch.ScanWatcher).")
+    parser.add_argument("--poll-interval", type=float, default=5.0,
+                        help="--watch: seconds between directory polls.")
+    parser.add_argument("--max-scans", type=int, default=None,
+                        help="--watch: stop after N processed scans (default: run forever).")
+    parser.add_argument("--watch-concurrency", type=int, default=1,
+                        help="--watch: captures processed at once (gold_std always runs alone).")
     args = parser.parse_args(argv)
     if args.setup:
         raise NotImplementedError(
             "--setup: the synthetic capture generator needs a JPEG encoder and is not "
             "ported yet (ROADMAP A20)")
-    if args.watch:
-        raise NotImplementedError("--watch: the serving mode is not ported yet (ROADMAP A16)")
 
     from tpu3dlm_torch.device import resolve_device
     from tpu3dlm_torch.pipeline.task import load_gold_std, setup_pipeline
@@ -55,6 +66,13 @@ def main(argv=None):
     if not os.path.exists(config_path):
         logging.info("No config at %s — writing defaults.", config_path)
         write_default_config(config_path)
+
+    if args.watch:
+        from tpu3dlm_torch.pipeline.watch import ScanWatcher
+
+        ScanWatcher(config_path, poll_interval=args.poll_interval, max_scans=args.max_scans,
+                    concurrency=args.watch_concurrency, device=device).run()
+        return
 
     cfg = ConfigLoader(config_path, args.data)
     cfg_goldstd = ConfigLoader(config_path, "gold_std")

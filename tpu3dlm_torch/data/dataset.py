@@ -7,21 +7,28 @@ CV_8UC4→float32 byte-reinterpret depth decode (×1000 metres→mm) or 16UC1
 millimetres, and the two resize modes (square or letterbox). Decoding and
 resizing go through the port's own codecs (``data/codecs.py``), which give
 cv2's bytes, so ``load_scan`` returns the reference's arrays exactly.
-The scanpack cache (``cache=True``) and ``iter_scan_chunks`` are not ported
-yet (ROADMAP A16).
+``load_scan(cache=True)`` and ``iter_scan_chunks(cache=True)`` serve a
+capture from its scanpack (``data/scanpack.py``) when the pack is valid for
+the files on disk, and write it when it is not; ``iter_scan_chunks``
+streams a capture in fixed-shape chunks.
 """
 
 from __future__ import annotations
 
+import json
+import logging
 import os
 
 import numpy as np
 
-from tpu3dlm_torch.data import codecs
+from tpu3dlm_torch.data import codecs, scanpack
 from tpu3dlm_torch.data.calibration import load_calibration
 from tpu3dlm_torch.data.poses import load_poses
 from tpu3dlm_torch.data.scan import Scan
 from tpu3dlm_torch.utils.natsort import natsorted
+from tpu3dlm_torch.utils.shapes import pad_poses
+
+_log = logging.getLogger(__name__)
 
 
 def _pair_filenames(image_dir: str, depth_image_dir: str) -> list[tuple[str, str]]:
@@ -56,6 +63,49 @@ def _pose_rows_for_pairs(
     kept = [p for p, s in zip(pairs, stems) if s <= n_poses]
     rows = np.asarray([s - 1 for s in stems if s <= n_poses], dtype=np.int64)
     return kept, rows
+
+
+def _source_fingerprint(image_dir, depth_image_dir, pairs, calibration_dir=None) -> dict:
+    """Stat fingerprint (file count, bytes, max mtime) over the capture's
+    paired source files and their calibration YAMLs. The scanpack cache is
+    valid only while it matches, so a capture re-exported in place (same
+    frame count, re-processed pixels or corrected calibration) rebuilds the
+    pack: the pack stores the parsed intrinsics, so the YAMLs are part of
+    the print."""
+    count, total, mtime = 0, 0, 0.0
+    for rgb_name, d_name in pairs:
+        paths = [os.path.join(image_dir, rgb_name), os.path.join(depth_image_dir, d_name)]
+        if calibration_dir is not None:
+            paths.append(os.path.join(calibration_dir, os.path.splitext(rgb_name)[0] + ".yaml"))
+        for p in paths:
+            try:
+                st = os.stat(p)
+            except OSError:
+                continue
+            count += 1
+            total += st.st_size
+            mtime = max(mtime, st.st_mtime)
+    return {"files": count, "bytes": total, "mtime": round(mtime, 6)}
+
+
+def _fingerprint_matches(pack_path: str, fp: dict) -> bool:
+    try:
+        with open(pack_path + ".src") as f:
+            return json.load(f) == fp
+    except (OSError, ValueError):
+        return False
+
+
+def _write_fingerprint(pack_path: str, fp: dict) -> None:
+    try:
+        with open(pack_path + ".src", "w") as f:
+            json.dump(fp, f)
+    except OSError:
+        pass  # the pack stays unvalidated and is rebuilt on the next load
+
+
+def _pack_path(image_dir: str, img_size: int) -> str:
+    return os.path.join(os.path.dirname(image_dir.rstrip("/")), f"scan_{img_size}.pack")
 
 
 def load_depth_image(path: str, depth_height: int, depth_width: int) -> np.ndarray:
@@ -211,6 +261,117 @@ def _decode_frames(
     return rgb, depth, intrinsics, rgb_size, lbox
 
 
+def iter_scan_chunks(
+    image_dir: str,
+    depth_image_dir: str,
+    calibration_dir: str,
+    pose_path: str,
+    chunk_frames: int = 64,
+    img_size: int = 640,
+    depth_width: int = 192,
+    depth_height: int = 256,
+    resize_mode: str = "square",
+    cache: bool = False,
+    workers: int = 0,
+):
+    """Stream a capture as fixed-shape ``Scan`` chunks of ``chunk_frames``.
+
+    Host memory stays O(chunk_frames) whatever the capture's length, and
+    every chunk has the same shape: the last one is zero-padded, with
+    identity poses (a zero quaternion normalises to NaN) and ``rgb_size``
+    1 (no division by zero in the box affine).
+
+    ``cache=True`` (square mode): chunks are served from the capture's
+    scanpack when it is valid (memory-mapped slices, no image decode);
+    otherwise this pass decodes and writes the pack chunk by chunk, so the
+    next run streams decode-free. A stream abandoned midway leaves the pack
+    unfinalised, and it is ignored. A failed pack write warns and the
+    stream goes on uncached.
+
+    Yields ``(scan_chunk, valid)``: the first ``valid`` ≤ chunk_frames rows
+    are real frames.
+    """
+    if resize_mode not in ("square", "letterbox"):
+        raise ValueError(f"resize_mode must be square|letterbox, got {resize_mode}")
+    pairs = _pair_filenames(image_dir, depth_image_dir)
+    timestamps, poses = load_poses(pose_path)
+    pairs, pose_rows = _pose_rows_for_pairs(pairs, poses.shape[0])
+    n = len(pairs)
+    if n == 0:
+        raise ValueError(f"no paired frames found in {image_dir} / {depth_image_dir}")
+    poses = poses[pose_rows]
+    timestamps = timestamps[pose_rows]
+
+    pack = pack_writer = None
+    if cache and resize_mode == "square":
+        pack_path = _pack_path(image_dir, img_size)
+        src_fp = _source_fingerprint(image_dir, depth_image_dir, pairs, calibration_dir)
+        pack = scanpack.scanpack_memmap(pack_path)
+        if pack is not None and pack["dims"] != (n, img_size, img_size, depth_height, depth_width):
+            pack = None  # another frame count or shape
+        if pack is not None and not _fingerprint_matches(pack_path, src_fp):
+            pack = None  # the source files were re-exported in place
+        if pack is None:
+            try:
+                pack_writer = scanpack.scanpack_create(
+                    pack_path, n, img_size, img_size, depth_height, depth_width)
+            except OSError:
+                pack_writer = None
+
+    for start in range(0, n, chunk_frames):
+        stop = min(start + chunk_frames, n)
+        valid = stop - start
+        if pack is not None:
+            # contiguous copies of the mapped slices: the chunk's O(chunk) cost
+            rgb = np.array(pack["rgb"][start:stop])
+            depth = np.array(pack["depth"][start:stop])
+            intrinsics = np.array(pack["intr"][start:stop])
+            rgb_size = np.array(pack["rgb_size"][start:stop])
+            lbox = None
+        else:
+            rgb, depth, intrinsics, rgb_size, lbox = _decode_frames(
+                pairs[start:stop], image_dir, depth_image_dir, calibration_dir,
+                img_size, depth_width, depth_height, resize_mode, workers,
+            )
+            if pack_writer is not None:
+                # the cache is only an optimisation: a write failure must not
+                # abort a run whose decode and compute succeed
+                try:
+                    pack_writer["rgb"][start:stop] = rgb
+                    pack_writer["depth"][start:stop] = depth
+                    pack_writer["intr"][start:stop] = intrinsics
+                    pack_writer["rgb_size"][start:stop] = rgb_size
+                    pack_writer["poses"][start:stop] = poses[start:stop]
+                    if stop == n:
+                        for name in ("rgb", "depth", "intr", "rgb_size", "poses"):
+                            pack_writer[name].flush()
+                        scanpack.scanpack_finalize(pack_path)
+                        _write_fingerprint(pack_path, src_fp)
+                except OSError as e:
+                    _log.warning("scan cache write failed (%s) — continuing uncached", e)
+                    pack_writer = None
+        if valid < chunk_frames:
+            pad = chunk_frames - valid
+
+            def _pad(a, fill=0):
+                if a is None:
+                    return None
+                return np.concatenate([a, np.full((pad,) + a.shape[1:], fill, a.dtype)])
+
+            rgb, depth, intrinsics, lbox = _pad(rgb), _pad(depth), _pad(intrinsics), _pad(lbox)
+            rgb_size = _pad(rgb_size, fill=1)
+            chunk_poses = pad_poses(poses[start:stop], chunk_frames)
+            chunk_ts = np.concatenate([timestamps[start:stop], np.zeros(pad, timestamps.dtype)])
+        else:
+            chunk_poses = poses[start:stop]
+            chunk_ts = timestamps[start:stop]
+        yield (
+            Scan(rgb=rgb, depth=depth, intrinsics=intrinsics, rgb_size=rgb_size,
+                 poses=chunk_poses, timestamps=chunk_ts, letterbox=lbox),
+            valid,
+        )
+
+
 def load_scan(
     image_dir: str,
     depth_image_dir: str,
@@ -229,11 +390,36 @@ def load_scan(
     resize or ``resize_mode="letterbox"``; depth at native resolution in
     mm; intrinsics and poses per frame. The frame count is min(paired
     frames, pose rows).
+
+    ``cache=True`` (square mode): a scanpack beside the image directory
+    (``scan_<img_size>.pack``) is served with one sequential read when its
+    depth grid and frame count match and its source fingerprint equals the
+    files on disk (so re-exported pixels or calibration rebuild it); the
+    poses always come from the live ``poses.txt``, never from the pack.
+    Otherwise the capture is decoded and the pack written; a failed write
+    warns and the scan is returned uncached.
     """
     if resize_mode not in ("square", "letterbox"):
         raise ValueError(f"resize_mode must be square|letterbox, got {resize_mode}")
-    if cache:
-        raise NotImplementedError("the scanpack cache (cache=True) is not ported yet (ROADMAP A16)")
+    pack_path = _pack_path(image_dir, img_size)
+    use_cache = cache and resize_mode == "square"
+    if use_cache:
+        cached = scanpack.scanpack_read(pack_path)
+        if cached is not None and cached[1].shape[1:] != (depth_height, depth_width):
+            cached = None  # another depth grid
+        if cached is not None:
+            rgb, depth, intrinsics, rgb_size, _ = cached
+            timestamps, poses_now = load_poses(pose_path)
+            pairs_now, rows_now = _pose_rows_for_pairs(
+                _pair_filenames(image_dir, depth_image_dir), poses_now.shape[0])
+            # stale when frames were added or removed, or the capture was
+            # re-exported in place (same count, other source bytes)
+            if rgb.shape[0] == len(pairs_now) and _fingerprint_matches(
+                    pack_path, _source_fingerprint(image_dir, depth_image_dir, pairs_now, calibration_dir)):
+                # the live poses: a poses.txt rewritten in place (a re-run
+                # pose-graph optimisation) is not covered by the fingerprint
+                return Scan(rgb=rgb, depth=depth, intrinsics=intrinsics, rgb_size=rgb_size,
+                            poses=poses_now[rows_now], timestamps=timestamps[rows_now])
     pairs = _pair_filenames(image_dir, depth_image_dir)
     timestamps, poses = load_poses(pose_path)
     pairs, pose_rows = _pose_rows_for_pairs(pairs, poses.shape[0])
@@ -247,6 +433,14 @@ def load_scan(
         pairs, image_dir, depth_image_dir, calibration_dir,
         img_size, depth_width, depth_height, resize_mode, workers,
     )
+    if use_cache:
+        try:
+            scanpack.scanpack_write(pack_path, rgb, depth, intrinsics, rgb_size, poses[:n])
+        except OSError as e:
+            _log.warning("scan cache write failed (%s) — continuing uncached", e)
+        else:
+            _write_fingerprint(pack_path, _source_fingerprint(image_dir, depth_image_dir, pairs,
+                                                              calibration_dir))
     return Scan(
         rgb=rgb,
         depth=depth,

@@ -44,7 +44,13 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
 
 def as_device_tensor(x, device: torch.device, dtype=None) -> torch.Tensor:
     """numpy/sequence → tensor on ``device``. A tensor already on another
-    device raises: moving data between devices is the caller's decision."""
+    device raises: moving data between devices is the caller's decision.
+
+    Host data bound for a card is staged in page-locked memory and copied
+    with ``non_blocking=True``, so the host goes on while the stream's
+    queued work runs (a pageable copy would first wait for it). PyTorch's
+    pinned host allocator keeps the staging block until the event recorded
+    behind its copy has completed, so a block is never reused early."""
     if isinstance(x, torch.Tensor):
         if x.device != device:
             raise ValueError(
@@ -52,7 +58,9 @@ def as_device_tensor(x, device: torch.device, dtype=None) -> torch.Tensor:
                 "explicitly"
             )
         return x if dtype is None else x.to(dtype)
-    return torch.as_tensor(x, dtype=dtype, device=device)
+    if device.type != "cuda":
+        return torch.as_tensor(x, dtype=dtype, device=device)
+    return torch.as_tensor(x, dtype=dtype).pin_memory().to(device, non_blocking=True)
 
 
 def module_device(module: torch.nn.Module) -> torch.device:

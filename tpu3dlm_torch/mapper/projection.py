@@ -15,6 +15,7 @@ from typing import Any
 import torch
 
 from tpu3dlm_torch.data.scan import to_numpy
+from tpu3dlm_torch.device import as_device_tensor
 from tpu3dlm_torch.ops import geometry as G
 
 
@@ -69,7 +70,7 @@ def project_boxes(
     rgb_size = rgb_size.float()
     poses = poses.float()
     hd, wd = depth.shape[1], depth.shape[2]
-    depth_wh = torch.tensor([wd, hd], dtype=torch.float32, device=depth.device)
+    depth_wh = as_device_tensor([wd, hd], depth.device, torch.float32)
 
     fx, fy, cx, cy = G.scale_intrinsics(
         intrinsics[:, 0], intrinsics[:, 1], intrinsics[:, 2], intrinsics[:, 3],

@@ -19,6 +19,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from tpu3dlm_torch.device import as_device_tensor
 from tpu3dlm_torch.ops.kernels.attention import beit_attention_packed
 
 
@@ -158,6 +159,6 @@ def preprocess_crops(crops: torch.Tensor) -> torch.Tensor:
     """uint8 (B, S, S, 3) → normalised float32: rescale 1/255, then
     mean/std 0.5 (BeitImageProcessor parity)."""
     x = crops.float() / 255.0
-    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=crops.device)
-    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=crops.device)
+    mean = as_device_tensor(IMAGENET_MEAN, crops.device, torch.float32)
+    std = as_device_tensor(IMAGENET_STD, crops.device, torch.float32)
     return (x - mean) / std

@@ -76,8 +76,7 @@ def masked_median(values: torch.Tensor, mask: torch.Tensor) -> tuple[torch.Tenso
     of the two middle elements for even counts). Returns (median, valid);
     an empty mask gives (0, False)."""
     n = mask.sum(-1)
-    inf = torch.tensor(float("inf"), dtype=values.dtype, device=values.device)
-    s = torch.sort(torch.where(mask, values, inf), dim=-1).values
+    s = torch.sort(torch.where(mask, values, float("inf")), dim=-1).values
     lo = torch.clamp((n - 1) // 2, min=0)
     hi = torch.clamp(n // 2, min=0)
     med = (

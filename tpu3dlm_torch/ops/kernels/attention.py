@@ -54,6 +54,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 from collections import Counter
 
 import torch
@@ -237,6 +238,12 @@ def beit_attention_packed_backward(q, k, v, bias, num_heads: int, grad_out):
 # ---------------------------------------------------------------------------
 
 
+# the launch counters are read-modify-writes that threads (the serving
+# watcher's workers) can interleave: one lock per wrapper
+_PACKED_COUNT_LOCK = threading.Lock()
+_HEADMAJOR_COUNT_LOCK = threading.Lock()
+
+
 class BeitAttentionPackedFn(torch.autograd.Function):
     """B1 under autograd: forward = the kernel (CUDA) or the twin (CPU),
     backward = ``beit_attention_packed_backward`` from the saved inputs."""
@@ -250,8 +257,9 @@ class BeitAttentionPackedFn(torch.autograd.Function):
                 return beit_attention_packed_reference(q, k, v, bias, num_heads)
         B, N, H = q.shape
         o = _launch("beit_attention_packed_launch", q, k, v, bias, (B, N, H, num_heads))
-        beit_attention_packed.launches += 1
-        beit_attention_packed.launches_by_kernel[kernel_route(q.dtype, N, H // num_heads)] += 1
+        with _PACKED_COUNT_LOCK:
+            beit_attention_packed.launches += 1
+            beit_attention_packed.launches_by_kernel[kernel_route(q.dtype, N, H // num_heads)] += 1
         return o
 
     @staticmethod
@@ -272,8 +280,9 @@ class BeitAttentionFn(torch.autograd.Function):
                 return beit_attention_reference(q, k, v, bias)
         h, B, N, d = q.shape
         o = _launch("beit_attention_headmajor_launch", q, k, v, bias, (h, B, N, d))
-        beit_attention.launches += 1
-        beit_attention.launches_by_kernel[kernel_route(q.dtype, N, d)] += 1
+        with _HEADMAJOR_COUNT_LOCK:
+            beit_attention.launches += 1
+            beit_attention.launches_by_kernel[kernel_route(q.dtype, N, d)] += 1
         return o
 
     @staticmethod

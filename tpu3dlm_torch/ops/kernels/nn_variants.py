@@ -36,6 +36,7 @@ instruction rate, 0.51 ms (see the source).
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -105,6 +106,9 @@ def nn_variant_reference(
     return idx, d2
 
 
+_COUNT_LOCK = threading.Lock()
+
+
 def nn_variant(a: torch.Tensor, b: torch.Tensor, variant: str) -> tuple[torch.Tensor, torch.Tensor]:
     """(idx (N,) int64, d2 (N,) f32) of each query's nearest target by the
     bf16 cross term: the CUDA kernel of ``variant`` for CUDA tensors, the
@@ -138,7 +142,8 @@ def nn_variant(a: torch.Tensor, b: torch.Tensor, variant: str) -> tuple[torch.Te
         )
     if err != 0:
         raise RuntimeError(f"nn_variant {variant} launch failed: cudaError {err}")
-    nn_variant.launches[kernel] += 1
+    with _COUNT_LOCK:
+        nn_variant.launches[kernel] += 1
     return idx, d2
 
 

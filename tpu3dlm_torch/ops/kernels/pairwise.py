@@ -24,6 +24,7 @@ operations bind (see the source for the design).
 from __future__ import annotations
 
 import ctypes
+import threading
 from collections import Counter
 
 import torch
@@ -119,6 +120,9 @@ def nearest_neighbors_reference(a: torch.Tensor, b: torch.Tensor) -> tuple[torch
     return idx, d2
 
 
+_COUNT_LOCK = threading.Lock()
+
+
 def nearest_neighbors(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(idx (N,) int64, d2 (N,) f32) of each query's nearest target: the
     CUDA kernel for CUDA tensors, the plain twin for CPU tensors.
@@ -146,8 +150,9 @@ def nearest_neighbors(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, t
         )
     if err != 0:
         raise RuntimeError(f"nearest_neighbors launch failed: cudaError {err}")
-    nearest_neighbors.launches += 1
-    nearest_neighbors.launches_by_shape[n, m] += 1
+    with _COUNT_LOCK:  # threads (the serving watcher's workers) launch too
+        nearest_neighbors.launches += 1
+        nearest_neighbors.launches_by_shape[n, m] += 1
     return idx, d2
 
 

@@ -110,6 +110,9 @@ def full_scan_step(
     for name, m in (("yolo", yolo), ("beit", beit)):
         if module_device(m) != dev:
             raise ValueError(f"{name} weights are on {module_device(m)}, the step runs on {dev}")
+    # uploads and constants never wait for the device, so a stream of
+    # chunks (FusedScanRunner.run_stream) decodes the next chunk while this
+    # one runs
     rgb_u8 = as_device_tensor(rgb_u8, dev)
     depth, intrinsics, rgb_size, poses, box_affine = (
         as_device_tensor(a, dev, torch.float32)

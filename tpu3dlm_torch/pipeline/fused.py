@@ -4,13 +4,16 @@ GlobalBoxes) (port of ``tpu3dlm/pipeline/fused.py``).
 The runner holds a YOLOv10 and a BEiT on its device, pads the scan's frame
 axis to a bucket with inert frames exactly as the reference does, runs
 ``parallel.inference.full_scan_step`` on the whole scan and returns host
-records trimmed to the real frames. Not ported yet: ``mesh_devices > 1``
-and ``run_stream`` (they raise ``NotImplementedError``).
+records trimmed to the real frames. ``run_stream`` runs the same step over
+a stream of fixed-shape chunks (``data.dataset.iter_scan_chunks``) with at
+most ``max_inflight`` chunks on the device. Not ported yet:
+``mesh_devices > 1`` (raises ``NotImplementedError``, ROADMAP A22).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from collections import deque
 
 import numpy as np
 import torch
@@ -123,5 +126,57 @@ class FusedScanRunner:
     def __call__(self, scan: Scan) -> tuple[Detections, GlobalBoxes]:
         return self._finalize(self._dispatch(_pad_scan_frames(scan)), scan.num_frames)
 
-    def run_stream(self, chunks, max_inflight: int = 2):
-        raise NotImplementedError("streaming fused inference is not ported yet (ROADMAP A16)")
+    def run_stream(self, chunks, max_inflight: int = 2) -> tuple[Detections, GlobalBoxes]:
+        """Run a stream of fixed-shape ``(Scan, valid)`` chunks (see
+        ``data.dataset.iter_scan_chunks``); returns the Detections and
+        GlobalBoxes of all real frames, concatenated in order.
+
+        The oldest pending chunk is drained to the host before the next one
+        is dispatched, so at most ``max_inflight`` chunks hold device
+        buffers and memory stays O(chunk_frames · max_inflight) whatever
+        the capture's length; kernels run asynchronously, so the host
+        decodes chunk i+1 while the device runs chunk i.
+        ``self.stream_peak_inflight`` records the high-water mark. An empty
+        stream raises ``ValueError``.
+
+        ``crop_budget`` applies per chunk: k = min(crop_budget,
+        chunk_frames · max_det) crops are classified per chunk, where the
+        whole-scan call selects the global top k across all frames. The two
+        agree exactly whenever the budget does not bind (at most
+        crop_budget above-threshold boxes per chunk); when it binds,
+        streaming classifies at least as many crops as whole-scan.
+        """
+        pending: deque = deque()
+        dets: list[Detections] = []
+        gbs: list[GlobalBoxes] = []
+        self.stream_peak_inflight = 0
+
+        def drain_one():
+            out, valid = pending.popleft()
+            det, gb = self._finalize(out, valid)
+            dets.append(det)
+            gbs.append(gb)
+
+        for scan, valid in chunks:
+            while len(pending) >= max_inflight:
+                drain_one()
+            pending.append((self._dispatch(scan), valid))
+            self.stream_peak_inflight = max(self.stream_peak_inflight, len(pending))
+        while pending:
+            drain_one()
+        if not dets:
+            raise ValueError("run_stream: empty chunk stream")
+
+        def cat(xs):
+            return np.concatenate(xs, axis=0)
+
+        det = Detections(
+            boxes=cat([d.boxes for d in dets]),
+            conf=cat([d.conf for d in dets]),
+            label=cat([d.label for d in dets]),
+            damage=cat([d.damage for d in dets]),
+            mask=cat([d.mask for d in dets]),
+        )
+        gb = GlobalBoxes(corners=cat([g.corners for g in gbs]), damage=det.damage, conf=det.conf,
+                         label=det.label, mask=det.mask)
+        return det, gb

@@ -10,18 +10,24 @@ selects: ``fused_inference = false`` (the default) the staged route,
 ``ObjectDetector`` then ``DamageDetector`` (every valid box classified),
 with the map stage projecting the detections; ``fused_inference = true``
 the fused step (``FusedScanRunner``, the top ``crop_budget`` boxes
-classified, projection inside the step). ``resume=True`` reuses the
-pickled detections and re-projects them. Per-stage wall-clock lands in
-``stage_times`` (extract, detect, map, compare).
+classified, projection inside the step). With ``streaming_chunk > 0`` on
+the fused route, extract only indexes the capture and detect streams it in
+chunks of that many frames (``iter_scan_chunks`` → ``FusedScanRunner.
+run_stream``), so host memory stays bounded by the chunk; under the staged
+route ``streaming_chunk`` is ignored with a warning, as in the reference.
+``scan_cache = true`` serves the decoded capture from its scanpack on both
+routes. ``resume=True`` reuses the pickled detections and re-projects them
+(ignored under streaming, which keeps no frames to re-project). Weights
+come from a JAX-package ``.msgpack``, a torch ``.pt`` (ultralytics YOLOv10,
+HF BEiT) or a ``.safetensors`` file, or are seeded when the path is empty.
+Per-stage wall-clock lands in ``stage_times`` (extract, detect, map,
+compare).
 
 Settings the port cannot honour yet raise ``NotImplementedError`` naming
-their ROADMAP item before any work: ``streaming_chunk > 0`` under the fused
-route and ``scan_cache = true`` (A16; under the staged route
-``streaming_chunk`` is ignored with a warning, as in the reference),
-``visualise`` (A17), ``view_img``, ``alignment_vis`` and ``comparison_vis``
-(A18), ``beit_quant = int8`` (A21), ``mesh_devices > 1`` (A22), ``.pt``
-checkpoints (A24) and ``use_pallas = false`` (the port has no plain path on
-the card). ``icp_ann`` goes to ``Alignment`` as is.
+their ROADMAP item before any work: ``visualise`` (A17), ``view_img``,
+``alignment_vis`` and ``comparison_vis`` (A18), ``beit_quant = int8``
+(A21), ``mesh_devices > 1`` (A22) and ``use_pallas = false`` (the port has
+no plain path on the card). ``icp_ann`` goes to ``Alignment`` as is.
 """
 
 from __future__ import annotations
@@ -37,8 +43,8 @@ import torch
 
 from tpu3dlm_torch.alignment.align import Alignment
 from tpu3dlm_torch.alignment.comparison import BBoxComparison
-from tpu3dlm_torch.data.dataset import load_scan
-from tpu3dlm_torch.data.poses import poses_to_frame
+from tpu3dlm_torch.data.dataset import _pair_filenames, _pose_rows_for_pairs, iter_scan_chunks, load_scan
+from tpu3dlm_torch.data.poses import load_poses, poses_to_frame
 from tpu3dlm_torch.data.rtabmap_db import ImageExtractor
 from tpu3dlm_torch.data.scan import Detections, Scan, detections_from_frame_dict
 from tpu3dlm_torch.device import resolve_device
@@ -66,10 +72,6 @@ def _cached_weights(key, builder):
 def unsupported_settings(cfg) -> list[str]:
     """Each setting of ``cfg`` the port cannot run yet, with its ROADMAP item."""
     out = []
-    if getattr(cfg, "streaming_chunk", 0) > 0 and getattr(cfg, "fused_inference", False):
-        out.append("streaming_chunk > 0: streaming ingestion is not ported yet (ROADMAP A16)")
-    if getattr(cfg, "scan_cache", False):
-        out.append("scan_cache = true: the scanpack cache is not ported yet (ROADMAP A16)")
     if getattr(cfg, "visualise", False):
         out.append("visualise = true: the map mesh is not ported yet (ROADMAP A17)")
     if getattr(cfg, "view_img", False):
@@ -84,10 +86,6 @@ def unsupported_settings(cfg) -> list[str]:
         out.append("beit_quant = int8: the int8 classifier is not ported yet (ROADMAP A21)")
     if getattr(cfg, "mesh_devices", 1) > 1:
         out.append("mesh_devices > 1: multi-GPU runs are not ported yet (ROADMAP A22)")
-    for knob in ("yolo_weights", "beit_weights"):
-        path = getattr(cfg, knob, "") or ""
-        if path and os.path.exists(path) and not path.endswith(".msgpack"):
-            out.append(f"{knob} = {path}: .pt checkpoints are not ported yet (ROADMAP A24)")
     return out
 
 
@@ -126,16 +124,20 @@ class Pipeline:
         """Full pipeline; ``resume=True`` reuses detections from the stage
         pickle when present, so a crash after detect does not repeat it."""
         stream_n = getattr(self.cfg, "streaming_chunk", 0)
-        if stream_n > 0:
-            # only the fused route streams (unsupported_settings refuses it
-            # there); the staged route materialises the capture, as the
-            # reference does
+        use_stream = stream_n > 0 and getattr(self.cfg, "fused_inference", False)
+        if stream_n > 0 and not use_stream:
+            # the staged route materialises the capture, as the reference does
             self.logger.warning(
                 "streaming_chunk = %d ignored: streaming requires fused_inference = true; "
                 "the full capture will be materialised in host memory", stream_n,
             )
-        scan = self._timed("extract", self._extract_images)
+        scan = self._timed("extract", self._extract_light if use_stream else self._extract_images)
         detections = None
+        if resume and use_stream:
+            # resumed detections would re-project through the placeholder
+            # scan, which holds no depth: re-run the streamed detect instead
+            self.logger.info("resume ignored under streaming ingestion — re-running detect")
+            resume = False
         if resume and os.path.exists(self.cfg.pickle_path):
             try:
                 with open(self.cfg.pickle_path, "rb") as f:
@@ -147,7 +149,9 @@ class Pipeline:
                 self.logger.warning("resume failed (%s); re-running detect", e)
         fused_gboxes = None
         if detections is None:
-            if getattr(self.cfg, "fused_inference", False):
+            if use_stream:
+                detections, fused_gboxes = self._timed("detect", self._fused_streaming, stream_n)
+            elif getattr(self.cfg, "fused_inference", False):
                 detections, fused_gboxes = self._timed("detect", self._fused_inference, scan)
             else:
                 detections = self._timed("detect", self._detect_signs, scan)
@@ -187,12 +191,16 @@ class Pipeline:
             )
         return self.data_to_save
 
-    def _extract_images(self) -> Scan:
-        self.logger.info("Extracting frames...")
+    def _fetch_from_db(self) -> None:
+        """The capture's database, when present, to frame files."""
         if os.path.exists(self.cfg.db_path):
             extractor = ImageExtractor(self.cfg.db_path, self.cfg.depth_image_dir, self.cfg.image_dir)
             extractor.fetch_data()
             extractor.close()
+
+    def _extract_images(self) -> Scan:
+        self.logger.info("Extracting frames...")
+        self._fetch_from_db()
         scan = load_scan(
             image_dir=self.cfg.image_dir,
             depth_image_dir=self.cfg.depth_image_dir,
@@ -201,10 +209,52 @@ class Pipeline:
             img_size=self.cfg.img_size,
             depth_width=self.cfg.depth_width,
             depth_height=self.cfg.depth_height,
+            cache=getattr(self.cfg, "scan_cache", False),
             workers=getattr(self.cfg, "decode_workers", 0),
         )
         self.logger.info("Frames extracted.")
         return scan
+
+    def _extract_light(self) -> Scan:
+        """Streaming extract: the database to files as usual, but only the
+        poses and the frame count come into memory; the frames stay on disk
+        for ``iter_scan_chunks`` to decode chunk by chunk."""
+        self.logger.info("Extracting frames (streaming mode)...")
+        self._fetch_from_db()
+        pairs = _pair_filenames(self.cfg.image_dir, self.cfg.depth_image_dir)
+        ts, poses = load_poses(self.cfg.pose_path)
+        pairs, pose_rows = _pose_rows_for_pairs(pairs, poses.shape[0])
+        n = len(pairs)
+        if n == 0:
+            raise ValueError(f"no paired frames found in {self.cfg.image_dir} / {self.cfg.depth_image_dir}")
+        self.logger.info("Frames indexed (%d, decode deferred).", n)
+        # 1×1 placeholders keep Scan's shape contract (num_frames is
+        # depth.shape[0]) without holding frames
+        return Scan(
+            rgb=np.zeros((n, 1, 1, 3), np.uint8),
+            depth=np.zeros((n, 1, 1), np.float32),
+            intrinsics=np.zeros((n, 4), np.float32),
+            rgb_size=np.ones((n, 2), np.float32),
+            poses=poses[pose_rows],
+            timestamps=ts[pose_rows],
+        )
+
+    def _fused_streaming(self, chunk_frames: int):
+        """Chunked fused inference: ``iter_scan_chunks`` into
+        ``FusedScanRunner.run_stream``; host memory bounded by the chunk."""
+        chunks = iter_scan_chunks(
+            image_dir=self.cfg.image_dir,
+            depth_image_dir=self.cfg.depth_image_dir,
+            calibration_dir=self.cfg.calibration_dir,
+            pose_path=self.cfg.pose_path,
+            chunk_frames=chunk_frames,
+            img_size=self.cfg.img_size,
+            depth_width=self.cfg.depth_width,
+            depth_height=self.cfg.depth_height,
+            cache=getattr(self.cfg, "scan_cache", False),
+            workers=getattr(self.cfg, "decode_workers", 0),
+        )
+        return self._make_fused_runner().run_stream(chunks)
 
     def _detect_signs(self, scan: Scan) -> Detections:
         """The staged route: ``ObjectDetector`` over the frames, then
@@ -347,16 +397,19 @@ class Pipeline:
 
     def _load_yolo_weights(self) -> YOLOv10:
         from tpu3dlm_torch.models.checkpoint import read_flax_msgpack
-        from tpu3dlm_torch.models.weights import yolov10_from_flax
+        from tpu3dlm_torch.models.weights import load_torch_state_dict, yolov10_from_flax, yolov10_from_ultralytics
 
         path = getattr(self.cfg, "yolo_weights", "") or ""
         path = path if os.path.exists(path) else ""
         nc, variant = getattr(self.cfg, "num_classes", 80), getattr(self.cfg, "yolo_variant", "n")
 
         def build():
-            if path:
+            if path.endswith(".msgpack"):
                 self.logger.info("Loading native YOLOv10 checkpoint %s", path)
                 model = yolov10_from_flax(read_flax_msgpack(path), variant=variant, nc=nc)
+            elif path:
+                self.logger.info("Converting YOLOv10 torch checkpoint %s", path)
+                model = yolov10_from_ultralytics(load_torch_state_dict(path), variant=variant, nc=nc)
             else:
                 model = init_seeded_(YOLOv10(nc=nc, variant=variant), torch.Generator().manual_seed(0))
             return model.to(self.device, self.dtype).eval()
@@ -365,16 +418,19 @@ class Pipeline:
 
     def _load_beit_weights(self, num_labels: int) -> BeitClassifier:
         from tpu3dlm_torch.models.checkpoint import read_flax_msgpack
-        from tpu3dlm_torch.models.weights import beit_from_flax
+        from tpu3dlm_torch.models.weights import beit_from_flax, beit_from_hf, load_torch_state_dict
 
         path = getattr(self.cfg, "beit_weights", "") or ""
         path = path if os.path.exists(path) else ""
         cfg = self._beit_config(num_labels)
 
         def build():
-            if path:
+            if path.endswith(".msgpack"):
                 self.logger.info("Loading native BEiT checkpoint %s", path)
                 model = beit_from_flax(read_flax_msgpack(path), cfg)
+            elif path:
+                self.logger.info("Converting BEiT torch checkpoint %s", path)
+                model = beit_from_hf(load_torch_state_dict(path), cfg)
             else:
                 model = init_seeded_(BeitClassifier(cfg), torch.Generator().manual_seed(1))
             return model.to(self.device, self.dtype).eval()
