@@ -5,8 +5,8 @@
 
 Builds every CUDA kernel of the port from ``tpu3dlm_torch/csrc`` (into
 ``tpu3dlm_torch/_build``, one ``nvcc`` per source and one ``c++`` for the
-host codecs, all at once), then runs twenty-three phases, each printing one JSON
-line; any failure raises and the script exits non-zero without a result:
+host C++ sources, all at once), then runs twenty-five phases, each printing one
+JSON line; any failure raises and the script exits non-zero without a result:
 
 1. ``kernel_b1``: kernel B1 (BEiT attention) against its plain PyTorch twin
    at the production shape in bf16 (tolerance 1e-2 abs and rel: one bf16
@@ -150,7 +150,30 @@ line; any failure raises and the script exits non-zero without a result:
     and at concurrency 2
     B1's and B2's launch counts equal to the sum of the captures' own;
     per-capture wall clock and captures per minute.
-23. ``kernels``: one line listing every ported kernel (B1 on its two
+23. ``mesh_parity``: the map stage (``visualise = true``) on the card
+    against the CPU on the committed capture at ``bench_e2e.py``'s small
+    configuration, ``eps = 0.1``, ``mesh_voxel = 0.04``: the gold
+    Pipeline's ``map_mesh.ply`` for ``mesh_source = tsdf``,
+    ``cloud``/``density`` and ``cloud``/``poisson`` — TSDF and density
+    meshes identical, the Poisson mesh within the planar-sheet bars of
+    ``hold_mesh`` — then the TSDF field of both scans at 0.08 and 0.04
+    (NaN-mask flips and values more than 1e-5 apart counted, ≤ 1e-4 of the
+    voxels) and the Poisson χ and iso of the DBSCAN-kept gold cloud within
+    1e-5 × max|χ| (cuFFT against pocketfft). No port kernel runs there.
+24. ``mesh_full_width``: (a) the CLI's gold run with ``visualise = true``
+    on the capture tiled to 128 frames at 640² for each mesh setting at
+    ``mesh_voxel = 0.04``: the median of 3 warm ``plot`` stages, the
+    device peak and idle share of one, and the legs of one (DBSCAN,
+    normals, splat, FFT solve, fuse, iso sample, march, cull, PLY write,
+    the rest — uploads and downloads — apart; CUDA events on the device
+    legs); (b)
+    ``Mapping.make_mesh`` on the ~1M-point gold cloud of
+    ``two_scan_scene(1_000_000)``, DBSCAN at ``eps = 0.1``, ``min_points =
+    50`` (the default 0.04 / 1000 leaves no core point, checked), both
+    meshers at 0.04 and 0.01, with ``tests/test_meshing.py``'s two-sided
+    distance gate; (c) the TSDF of the 128-frame scan at 0.01. Effective
+    voxel, grid dims and voxel count, vertices and faces of each.
+25. ``kernels``: one line listing every ported kernel (B1 on its two
     routes — ``attention_bf16_tma`` counted on the scan step,
     ``attention_simt`` on the finetune step — B2, B3, B4 v1 and v2) with
     its launches, the path they were counted on (``launches_on``), error,
@@ -164,9 +187,10 @@ line; any failure raises and the script exits non-zero without a result:
     ``stream_full_width``); B1's and B2's on the watcher
     (``launches_on_watch``, from ``watch_full_width``).
 
-The card's name and power limit (nvidia-smi) are printed before the last
-line; the last line is ``{"ok": true, "device": {...}}``. Inputs and
-weights are made from fixed seeds. Without CUDA the script exits 1.
+The script's total seconds are printed on the line before the card's name
+and power limit (nvidia-smi), which come before the last line; the last
+line is ``{"ok": true, "device": {...}}``. Inputs and weights are made from
+fixed seeds. Without CUDA the script exits 1.
 """
 
 from __future__ import annotations
@@ -2326,6 +2350,437 @@ def phase_watch_full_width(dev, tmp: str, frames: int = 128) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# Slice 7: the 3D map (mapping, meshing, Poisson, TSDF)
+# ---------------------------------------------------------------------------
+
+
+def mesh_gap(got, want) -> dict:
+    """Two meshes ((V, 3), (F, 3)) side by side: the face counts, their
+    relative gap, and the two-sided vertex distance (each vertex to the
+    nearest vertex of the other mesh): the largest, and the share of
+    vertices farther than 1 mm (the larger of the two directions)."""
+    from scipy.spatial import cKDTree
+
+    (gv, gf), (wv, wf) = got, want
+    out = {"faces": [len(gf), len(wf)], "face_gap": abs(len(gf) - len(wf)) / max(len(wf), 1)}
+    if len(gv) == 0 or len(wv) == 0:
+        return {**out, "max_m": 0.0 if len(gv) == len(wv) else float("inf"), "far_share": 0.0}
+    d1, d2 = cKDTree(wv).query(gv)[0], cKDTree(gv).query(wv)[0]
+    return {**out, "max_m": float(max(d1.max(), d2.max())),
+            "far_share": float(max((d1 > 1e-3).mean(), (d2 > 1e-3).mean()))}
+
+
+def hold_mesh(got, want, voxel: float, sheet: bool = False) -> dict:
+    """The Poisson meshes' bars. In general: face counts within 0.5%, every
+    vertex within 1e-3 m of the other mesh. On a planar sheet (``sheet``:
+    the committed capture's DBSCAN-kept cloud, a wall at z = 3 m that the
+    grid puts on its nodes; χ steps across the sheet, the iso is ≈ 0 and
+    the sheet's nodes hold χ within FFT rounding of it, so rounding decides
+    which cubes cross, in the JAX package as here): face counts within 8%,
+    ≤ 20% of the vertices farther than 1e-3 m, every vertex within one
+    voxel (ROADMAP §C: measured up to 6.1%, 14.2% and 0.69 voxel)."""
+    gap = mesh_gap(got, want)
+    if sheet:
+        check(gap["face_gap"] <= 0.08 and gap["far_share"] <= 0.2 and gap["max_m"] <= voxel, gap)
+    else:
+        check(gap["face_gap"] <= 0.005 and gap["max_m"] <= 1e-3, gap)
+    return gap
+
+
+# the mesh settings of the Pipeline's map stage, as config patches
+MESH_SETTINGS = {"tsdf": [("mesh_source = cloud", "mesh_source = tsdf")],
+                 "cloud/density": [],
+                 "cloud/poisson": [("mesher = density", "mesher = poisson")]}
+# visualise on, with tests/test_meshing.py's DBSCAN radius (the committed
+# capture's cloud holds ~2k points a m², so at the default 0.04 no point has
+# min_points = 50 neighbours and DBSCAN keeps everything)
+MESH_PATCH = [("eps = 0.04", "eps = 0.1"), ("visualise = false", "visualise = true")]
+
+
+def hold_tsdf(got, want) -> dict:
+    """Two TSDF fields ((field, origin, voxel) each): the same grid; voxels
+    observed on one side only (NaN-mask flips) and voxels observed on both
+    but more than 1e-5 apart are counted, and together may be at most 1e-4
+    of the voxels (pixel-rounding flips; each step of the fusion rounds
+    exactly on both devices, so 0 is expected)."""
+    (a, lo_a, v_a), (b, lo_b, v_b) = got, want
+    check(a.shape == b.shape and np.array_equal(lo_a, lo_b) and v_a == v_b,
+          (a.shape, b.shape, lo_a, lo_b, v_a, v_b))
+    na, nb = np.isnan(a), np.isnan(b)
+    both = ~na & ~nb
+    diff = np.abs(a[both] - b[both])
+    out = {"dims": list(a.shape), "voxels": int(a.size), "voxel": v_a, "observed": int((~nb).sum()),
+           "nan_flips": int((na != nb).sum()), "off_by_more_than_1e-5": int((diff > 1e-5).sum()),
+           "max_abs_err": float(diff.max()) if diff.size else 0.0,
+           "identical": bool(np.array_equal(a, b, equal_nan=True))}
+    check(out["nan_flips"] + out["off_by_more_than_1e-5"] <= 1e-4 * a.size, out)
+    return out
+
+
+def hold_chi(got, want) -> dict:
+    """Two Poisson indicators ((χ, origin, voxel, iso) each): the same grid,
+    χ within 1e-5 × max|χ| (cuFFT against pocketfft) and the iso within
+    1e-5 × max|χ| (a sheet's iso is ≈ 0, so its own size is no scale)."""
+    (a, lo_a, v_a, iso_a), (b, lo_b, v_b, iso_b) = got, want
+    check(a.shape == b.shape and np.array_equal(lo_a, lo_b) and v_a == v_b, (a.shape, b.shape, v_a, v_b))
+    scale = float(np.abs(b).max())
+    out = {"dims": list(a.shape), "voxel": v_a, "max_abs_chi": scale,
+           "chi_err_rel_max": float(np.abs(a - b).max()) / scale,
+           "iso": [iso_a, iso_b], "iso_err_rel_max": abs(iso_a - iso_b) / scale}
+    check(out["chi_err_rel_max"] <= 1e-5 and out["iso_err_rel_max"] <= 1e-5, out)
+    return out
+
+
+def two_sided_gate(verts, points, voxel: float, gate: bool = True) -> dict:
+    """``tests/test_meshing.py::test_synthetic_cloud_two_sided_distance`` on
+    a 2000-point subsample: mesh → cloud (every 7th point) mean under 2
+    voxels and max under 5, cloud → mesh mean under 2 voxels. Checked when
+    ``gate`` (the single-layer Poisson surface the gate was made for);
+    otherwise only measured (the density shell lies on both sides of the
+    points)."""
+    from scipy.spatial import cKDTree
+
+    rs = np.random.RandomState(0)
+    vi = rs.choice(len(verts), min(2000, len(verts)), replace=False)
+    d_vc = cKDTree(points[::7]).query(verts[vi])[0]
+    pi = rs.choice(len(points), min(2000, len(points)), replace=False)
+    d_cv = cKDTree(verts).query(points[pi])[0]
+    out = {"mesh_to_cloud_mean_voxels": float(d_vc.mean()) / voxel,
+           "mesh_to_cloud_max_voxels": float(d_vc.max()) / voxel,
+           "cloud_to_mesh_mean_voxels": float(d_cv.mean()) / voxel}
+    check(not gate or (out["mesh_to_cloud_mean_voxels"] < 2 and out["mesh_to_cloud_max_voxels"] < 5
+                       and out["cloud_to_mesh_mean_voxels"] < 2), out)
+    return {**out, "gated": gate}
+
+
+def port_launches() -> dict:
+    from tpu3dlm_torch.ops.kernels.attention import beit_attention_packed
+    from tpu3dlm_torch.ops.kernels.pairwise import nearest_neighbors
+
+    return {"b1": beit_attention_packed.launches, "b2": nearest_neighbors.launches}
+
+
+def phase_mesh_parity(dev, tmp: str) -> dict:
+    """The map stage on the card against the CPU, on the committed capture at
+    ``bench_e2e.py``'s small configuration (make_project's config, fused
+    route, fixture checkpoints, f32) with ``visualise = true``, ``eps =
+    0.1`` and the default ``mesh_voxel = 0.04``: the gold Pipeline's
+    ``map_mesh.ply`` for each mesh setting, the density and TSDF meshes
+    identical, the Poisson mesh within ``hold_mesh``'s sheet bars; then the
+    device legs alone: the TSDF field of both scans at 0.08 and 0.04
+    (``hold_tsdf``) and χ of the DBSCAN-kept gold cloud at 0.08 and 0.04
+    (``hold_chi``). DBSCAN, the splat, the march and the cull are the same
+    host code on both sides. No port kernel runs in the map stage."""
+    import os
+
+    from tpu3dlm_torch.data.dataset import load_scan
+    from tpu3dlm_torch.data.ply import load_ply, load_ply_mesh
+    from tpu3dlm_torch.mapper.clustering import largest_cluster
+    from tpu3dlm_torch.mapper.meshing import tsdf_from_scan
+    from tpu3dlm_torch.mapper.poisson import mesh_poisson, poisson_indicator
+    from tpu3dlm_torch.pipeline import task
+    from tpu3dlm_torch.utils.config import ConfigLoader
+
+    t_start = time.perf_counter()
+    extra = [("infer_dtype = bf16", "infer_dtype = f32"),
+             ("yolo_weights =", f"yolo_weights = {FIXTURES / 'yolo_synthetic.msgpack'}"),
+             ("beit_weights =", f"beit_weights = {FIXTURES / 'beit_synthetic.msgpack'}")] + MESH_PATCH
+    meshes, plot_ms, launches = {}, {}, []
+    real_plot = task.Pipeline._plot_map
+
+    def counted_plot(self, *args):
+        before = port_launches()
+        out = real_plot(self, *args)
+        launches.append({k: v - before[k] for k, v in port_launches().items()})
+        return out
+
+    task.Pipeline._plot_map = counted_plot
+    try:
+        for name, device in (("cpu", "cpu"), ("gpu", dev)):
+            root = os.path.join(tmp, f"mesh_parity_{name}")
+            copy_project(root)
+            for setting, patch in MESH_SETTINGS.items():
+                cfg = ConfigLoader(pipeline_config(root, extra + patch), "gold_std")
+                p = task.Pipeline("gold_std", cfg, device=device)
+                p.run()
+                out = os.path.join(os.path.dirname(cfg.ply_path), "map_mesh.ply")
+                meshes[name, setting] = load_ply_mesh(out)
+                plot_ms[f"{name} {setting}"] = p.stage_times["plot"] * 1e3
+    finally:
+        task.Pipeline._plot_map = real_plot
+    voxel = cfg.mesh_voxel
+    result = {"phase": "mesh_parity", "mesh_voxel": voxel, "eps": cfg.eps, "min_points": cfg.min_points,
+              "plot_ms": plot_ms, "meshes": {}}
+    for setting in MESH_SETTINGS:
+        got, want = meshes["gpu", setting], meshes["cpu", setting]
+        check(len(want[1]) > 1000, (setting, len(want[1])))
+        if setting == "cloud/poisson":
+            result["meshes"][setting] = hold_mesh(got, want, voxel, sheet=True)
+        else:
+            check(np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1]), f"{setting} mesh")
+            result["meshes"][setting] = {"faces": len(got[1]), "identical": True}
+
+    tsdf = {}
+    for folder in FOLDERS:
+        ext = PROJECT / "data" / folder / "rtabmap_extract"
+        scan = load_scan(str(ext / "data_rgb"), str(ext / "data_depth"), str(ext / "calibration"),
+                         str(PROJECT / "data" / folder / "poses.txt"), img_size=128)
+        for v in (0.08, 0.04):
+            tsdf[f"{folder} {v}"] = hold_tsdf(tsdf_from_scan(scan, v, device=dev),
+                                              tsdf_from_scan(scan, v, device="cpu"))
+    pts, _ = load_ply(str(PROJECT / "data" / "gold_std" / "cloud.ply"))
+    pts = pts[largest_cluster(pts, 0.1, 50)]
+    vp = np.loadtxt(PROJECT / "data" / "gold_std" / "poses.txt", skiprows=1, ndmin=2)[:, 1:4].astype(
+        np.float32).mean(axis=0)
+    chi = {}
+    for v in (0.08, 0.04):
+        chi[str(v)] = hold_chi(poisson_indicator(pts, voxel=v, viewpoint=vp, device=dev),
+                               poisson_indicator(pts, voxel=v, viewpoint=vp, device="cpu"))
+        chi[str(v)]["mesh"] = hold_mesh(mesh_poisson(pts, voxel=v, viewpoint=vp, device=dev),
+                                        mesh_poisson(pts, voxel=v, viewpoint=vp, device="cpu"), v, sheet=True)
+    check(len(launches) == 6 and all(n == {"b1": 0, "b2": 0} for n in launches), launches)
+    result.update({"tsdf": tsdf, "chi_kept_gold_cloud": chi, "kept_points": len(pts),
+                   "port_kernel_launches_in_plot_stages": launches, "wall_s": time.perf_counter() - t_start})
+    emit(result)
+    return result
+
+
+class StageLegs:
+    """Times the legs of the map stage while it runs: the functions it calls
+    are wrapped in their modules, for the ``with`` block, by timers (host
+    clock around a synchronize on both sides; CUDA events beside it for the
+    device legs, the FFT solve and the TSDF fusion with its depth upload).
+    ``ms`` holds each leg's total; ``other_ms`` (set by ``stage``) the rest
+    of the stage: uploads, downloads and the glue between legs."""
+
+    def __init__(self):
+        self.ms: dict = {}
+        self._undo: list = []
+
+    def _wrap(self, module, attr: str, leg: str, device: bool = False) -> None:
+        real = getattr(module, attr)
+
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if device:
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+            out = real(*args, **kwargs)
+            if device:
+                end.record()
+            torch.cuda.synchronize()
+            self.ms[leg] = self.ms.get(leg, 0.0) + (time.perf_counter() - t0) * 1e3
+            if device:
+                self.ms[leg + "_cuda_event"] = self.ms.get(leg + "_cuda_event", 0.0) + start.elapsed_time(end)
+            return out
+
+        setattr(module, attr, timed)
+        self._undo.append((module, attr, real))
+
+    def __enter__(self):
+        from tpu3dlm_torch.data import ply
+        from tpu3dlm_torch.mapper import mapping, meshing, poisson
+        from tpu3dlm_torch.ops import pointcloud
+
+        for module, attr, leg, device in (
+            (mapping, "load_ply", "ply_read", False),
+            (mapping, "largest_cluster", "dbscan", False),
+            (pointcloud, "estimate_normals_grid", "normals", False),
+            (meshing, "trilinear_scatter", "splat", False),
+            (poisson, "trilinear_scatter", "splat", False),
+            (poisson, "_solve_indicator", "fft_solve", True),
+            (poisson, "trilinear_sample", "iso_sample", False),
+            (meshing, "tsdf_grid", "tsdf_bounds", False),
+            (meshing, "_fuse_tsdf", "fuse_with_depth_upload", True),
+            (meshing, "marching_tetrahedra", "march", False),
+            (poisson, "marching_tetrahedra", "march", False),
+            (poisson, "_cull_leakage", "cull", False),
+            (mapping, "save_ply_mesh", "ply_write", False),
+            (ply, "save_ply_mesh", "ply_write", False),
+        ):
+            self._wrap(module, attr, leg, device)
+        return self
+
+    def __exit__(self, *exc):
+        for module, attr, real in reversed(self._undo):
+            setattr(module, attr, real)
+        self._undo.clear()
+
+    def stage(self, fn) -> float:
+        """Runs ``fn`` with the legs timed; returns its wall ms."""
+        with self:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        self.ms["other_ms"] = wall - sum(v for k, v in self.ms.items() if not k.endswith("_cuda_event"))
+        return wall
+
+
+def mesh_stats(verts, faces) -> dict:
+    check(len(faces) > 1000 and np.isfinite(verts).all(), len(faces))
+    return {"vertices": len(verts), "faces": len(faces)}
+
+
+def mesh_grid(points, voxel: float, mesher: str) -> dict:
+    """The grid a cloud mesher builds: effective voxel, dims, voxel count."""
+    from tpu3dlm_torch.mapper.meshing import grid_bounds
+    from tpu3dlm_torch.mapper.poisson import next_fast_len
+
+    kw = dict(pad=6, fast_len=next_fast_len, min_dim=4) if mesher == "poisson" else {}
+    _, dims, vox = grid_bounds(points, voxel, **kw)
+    return {"voxel": vox, "dims": list(dims), "voxels": int(np.prod(dims))}
+
+
+def tsdf_grid_of(scan, voxel: float) -> dict:
+    from tpu3dlm_torch.mapper.meshing import tsdf_grid
+
+    _, dims, vox, _, _ = tsdf_grid(scan, voxel, None, None, 20_000_000)
+    return {"voxel": vox, "dims": list(dims), "voxels": int(np.prod(dims))}
+
+
+def no_core_point(points, eps: float, min_points: int) -> dict:
+    """DBSCAN's core test at (eps, min_points) for every point at once:
+    the neighbours within eps, the point itself included, counted by a
+    k-d tree (in f64; DBSCAN compares f32 differences, which moves a count
+    only at the ball's edge). With no point at ``min_points``, DBSCAN labels
+    every point noise and ``largest_cluster`` keeps them all."""
+    from scipy.spatial import cKDTree
+
+    counts = cKDTree(points).query_ball_point(points, r=eps, return_length=True, workers=-1)
+    most = int(counts.max())
+    return {"eps": eps, "min_points": min_points, "most_neighbours": most,
+            "no_core_point": most < min_points, "kept_points": len(points) if most < min_points else None}
+
+
+def phase_mesh_full_width(dev, tmp: str) -> dict:
+    """The map stage at full width. (a) The CLI's gold run with ``visualise
+    = true`` on the capture tiled to 128 frames (``FULL_WIDTH_PATCH``:
+    640², bf16, fused) for each mesh setting at the default ``mesh_voxel =
+    0.04`` (``eps = 0.1``, ``min_points = 50``): the stage's ms in the CLI
+    run, then the median of 3 warm ``plot`` stages on that Pipeline, the
+    device peak of one, one under ``torch.profiler`` (device idle share) and
+    one with its legs timed (``StageLegs``). (b) ``Mapping.make_mesh`` on
+    the ~1M-point gold cloud of ``two_scan_scene(1_000_000)`` written as a
+    PLY (a trajectory at the origin, inside the scene): DBSCAN at ``eps =
+    0.1``, ``min_points = 50`` once (the default 0.04 / 1000 checked by
+    ``no_core_point``), then both meshers at 0.04 and 0.01, each call with
+    its legs timed and its device peak. (c) ``mesh_scan`` (``tsdf_from_scan``
+    and the march) on the 128-frame scan at 0.01. Sanity: > 1000 faces
+    each; the two-sided gate of ``tests/test_meshing.py`` on (b)'s Poisson
+    meshes (measured on the density shells); the TSDF meshes' median z in
+    the scene's band (2.5–3.2 m). No port kernel runs in the map stage."""
+    import os
+
+    from tpu3dlm_torch import cli
+    from tpu3dlm_torch.data.ply import load_ply, load_ply_mesh, save_ply
+    from tpu3dlm_torch.data.poses import poses_to_frame
+    from tpu3dlm_torch.mapper.clustering import largest_cluster
+    from tpu3dlm_torch.mapper.mapping import Mapping
+    from tpu3dlm_torch.mapper.meshing import mesh_scan
+    from tpu3dlm_torch.pipeline import task
+
+    t_start = time.perf_counter()
+    root = os.path.join(tmp, "mesh_full")
+    copy_project(root, frames=128)
+    result: dict = {"phase": "mesh_full_width", "pipeline": {}, "cloud_1m": {}}
+    scan = kept = None
+    real_setup = task.setup_pipeline
+    for setting, patch in MESH_SETTINGS.items():
+        cfg_path = write_config(root, FULL_WIDTH_PATCH + MESH_PATCH + patch)
+        seen = []
+        task.setup_pipeline = lambda *a, **k: seen.append(real_setup(*a, **k)) or seen[-1]
+        try:
+            cli.main(["--data", "gold_std", "--config", cfg_path, "--device", str(dev)])
+        finally:
+            task.setup_pipeline = real_setup
+        p = seen[0]
+        cfg = p.cfg
+        cli_plot_ms = p.stage_times["plot"] * 1e3
+        if scan is None:
+            scan = p._extract_images()
+            cloud, _ = load_ply(cfg.ply_path)
+            kept = cloud[largest_cluster(cloud, cfg.eps, cfg.min_points)]
+        rec = p.data_to_save
+        args = (scan, rec["global_bboxes_data"], rec["optimised_bboxes"], rec["pose_df"])
+        warm = []
+        for _ in range(3):
+            p._timed("plot", p._plot_map, *args)
+            warm.append(p.stage_times["plot"] * 1e3)
+        torch.cuda.reset_peak_memory_stats()
+        before = port_launches()
+        p._plot_map(*args)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        check(port_launches() == before, "no port kernel in the map stage")
+        prof = profile_capture(lambda: p._plot_map(*args))
+        legs = StageLegs()
+        legs_wall = legs.stage(lambda: p._plot_map(*args))
+        verts, faces = load_ply_mesh(os.path.join(os.path.dirname(cfg.ply_path), "map_mesh.ply"))
+        if setting == "tsdf":
+            grid = tsdf_grid_of(scan, cfg.mesh_voxel)
+            check(2.5 < float(np.median(verts[:, 2])) < 3.2, "TSDF mesh z band")
+        else:
+            grid = {**mesh_grid(kept, cfg.mesh_voxel, cfg.mesher), "cloud_points": len(cloud),
+                    "kept_points": len(kept)}
+        result["pipeline"][setting] = {
+            **grid, **mesh_stats(verts, faces), "cli_plot_ms": cli_plot_ms,
+            "cli_stage_ms": {k: v * 1e3 for k, v in p.stage_times.items() if k != "plot"},
+            "warm_plot_ms_median": statistics.median(warm), "warm_plot_ms_samples": warm,
+            "timed_legs_stage_ms": legs_wall, "split_ms": legs.ms, "device_peak_gb": peak, "profile": prof,
+        }
+
+    # (b) the ~1M-point gold cloud of the compare's scene
+    cloud_dir = os.path.join(tmp, "mesh_1m")
+    os.makedirs(cloud_dir, exist_ok=True)
+    ply = os.path.join(cloud_dir, "cloud.ply")
+    save_ply(ply, two_scan_scene(1_000_000)[0])
+    pose = poses_to_frame(np.zeros(1), IDENTITY_POSES[:1])
+    mapper = Mapping({}, {}, pose, eps=0.1, min_points=50, ply_filepath=ply, device=dev)
+    n_cloud = len(mapper.points)
+    t0 = time.perf_counter()
+    default = no_core_point(mapper.points, 0.04, 1000)
+    default["check_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    mapper.preprocess()
+    dbscan_ms = (time.perf_counter() - t0) * 1e3
+    kept = mapper.points
+    check(len(kept) >= 0.5 * n_cloud, (len(kept), n_cloud))
+    result["cloud_1m"].update({"points": n_cloud, "kept_points": len(kept), "dbscan_ms": dbscan_ms,
+                               "default_eps_check": default})
+    for mesher in ("density", "poisson"):
+        for voxel in (0.04, 0.01):
+            m = Mapping({}, {}, pose, eps=0.1, min_points=50, ply_filepath=ply,
+                        preprocess_point_cloud=False, device=dev)
+            m.points = kept
+            out = os.path.join(cloud_dir, f"{mesher}_{voxel}.ply")
+            torch.cuda.reset_peak_memory_stats()
+            legs = StageLegs()
+            call_ms = legs.stage(lambda: m.make_mesh(out, voxel=voxel, mesher=mesher))
+            verts, faces = load_ply_mesh(out)
+            result["cloud_1m"][f"{mesher} {voxel}"] = {
+                **mesh_grid(kept, voxel, mesher), **mesh_stats(verts, faces), "make_mesh_ms": call_ms,
+                "split_ms": legs.ms, "device_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "two_sided_gate": two_sided_gate(verts, kept, mesh_grid(kept, voxel, mesher)["voxel"],
+                                                 gate=mesher == "poisson"),
+            }
+
+    # (c) the TSDF of the 128-frame scan at 0.01
+    torch.cuda.reset_peak_memory_stats()
+    legs = StageLegs()
+    mesh = {}
+    wall = legs.stage(lambda: mesh.update(zip(("verts", "faces"), mesh_scan(scan, 0.01, device=dev))))
+    check(2.5 < float(np.median(mesh["verts"][:, 2])) < 3.2, "TSDF mesh z band")
+    result["tsdf_001"] = {**tsdf_grid_of(scan, 0.01), **mesh_stats(mesh["verts"], mesh["faces"]),
+                          "frames": scan.num_frames, "mesh_scan_ms": wall, "split_ms": legs.ms,
+                          "device_peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    result["wall_s"] = time.perf_counter() - t_start
+    emit(result)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available; this script needs an NVIDIA GPU",
@@ -2340,7 +2795,7 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     mem_rate = card_memory_rate(torch.cuda.get_device_name(0))
-    t0 = time.perf_counter()
+    t_script = t0 = time.perf_counter()
     libs = build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": sorted(str(p.name) for p in libs.values())})
@@ -2374,6 +2829,8 @@ def main() -> int:
         phase_pipeline_parity(dev, tmp, stream=2)
         stream = phase_stream_full_width(dev, str(Path(tmp, "stream")), mem_rate)
         watch = phase_watch_full_width(dev, tmp)
+        phase_mesh_parity(dev, tmp)
+        phase_mesh_full_width(dev, tmp)
     from tpu3dlm_torch.ops.kernels.nn_variants import VARIANTS
 
     b4_rows = []
@@ -2476,6 +2933,7 @@ def main() -> int:
         },
         *b4_rows,
     ]})
+    emit({"phase": "total", "seconds": time.perf_counter() - t_script})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

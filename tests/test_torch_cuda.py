@@ -535,3 +535,64 @@ def test_launch_counters_lose_no_update_under_threads(cuda_device):
     assert nearest_neighbors.launches - before[0] == 400
     assert beit_attention_packed.launches - before[1] == 400
     assert sum(beit_attention_packed.launches_by_kernel.values()) - before[2] == 400
+
+
+def _capture_scan(folder):
+    import chip_smoke
+    from tpu3dlm_torch.data.dataset import load_scan
+
+    ext = chip_smoke.PROJECT / "data" / folder / "rtabmap_extract"
+    return load_scan(str(ext / "data_rgb"), str(ext / "data_depth"), str(ext / "calibration"),
+                     str(chip_smoke.PROJECT / "data" / folder / "poses.txt"), img_size=128)
+
+
+@pytest.mark.parametrize("voxel", [0.08, 0.04, 0.02])
+def test_tsdf_on_card_matches_cpu(cuda_device, voxel):
+    """The TSDF field of the committed capture fused on the card against the
+    CPU, under mesh_parity's bars (``chip_smoke.hold_tsdf``), and its mesh
+    identical."""
+    import numpy as np
+
+    import chip_smoke
+    from tpu3dlm_torch.mapper.meshing import marching_tetrahedra, tsdf_from_scan
+
+    for folder in chip_smoke.FOLDERS:
+        scan = _capture_scan(folder)
+        got, want = tsdf_from_scan(scan, voxel, device=cuda_device), tsdf_from_scan(scan, voxel, device="cpu")
+        held = chip_smoke.hold_tsdf(got, want)
+        if held["identical"]:
+            for a, b in zip(marching_tetrahedra(*got[:1], 0.0, *got[1:]),
+                            marching_tetrahedra(*want[:1], 0.0, *want[1:])):
+                np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("voxel", [0.08, 0.04])
+def test_poisson_solve_on_card_matches_cpu(cuda_device, voxel):
+    """χ and the iso of a noisy sphere (normals given) and of the capture's
+    gold cloud (normals estimated) solved on the card against the CPU, under
+    mesh_parity's bars (``chip_smoke.hold_chi``), and the meshes within
+    ``hold_mesh``'s (the general bars on the sphere)."""
+    import numpy as np
+
+    import chip_smoke
+    from tpu3dlm_torch.data.ply import load_ply
+    from tpu3dlm_torch.mapper.poisson import mesh_poisson, poisson_indicator
+
+    rng = np.random.RandomState(0)
+    d = rng.randn(8000, 3)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    sphere = ((d + rng.randn(8000, 3) * 0.005).astype(np.float32), (-d).astype(np.float32))
+    cloud, _ = load_ply(str(chip_smoke.PROJECT / "data" / "gold_std" / "cloud.ply"))
+    for pts, normals in (sphere, (cloud, None)):
+        chip_smoke.hold_chi(poisson_indicator(pts, normals, voxel=voxel, device=cuda_device),
+                            poisson_indicator(pts, normals, voxel=voxel, device="cpu"))
+    chip_smoke.hold_mesh(mesh_poisson(*sphere, voxel=voxel, device=cuda_device),
+                         mesh_poisson(*sphere, voxel=voxel, device="cpu"), voxel)
+
+
+def test_map_stage_on_card_matches_cpu(cuda_device, tmp_path):
+    """``visualise = true`` through the gold Pipeline for each mesh setting,
+    card against CPU: chip_smoke.py's mesh_parity phase."""
+    import chip_smoke
+
+    chip_smoke.phase_mesh_parity(cuda_device, str(tmp_path))

@@ -1,7 +1,7 @@
 """tpu3dlm_torch stands alone: it imports neither jax/flax nor anything of
 the JAX package, nor cv2, PIL, yaml, pandas, msgpack, safetensors,
-ultralytics or transformers, so it runs on a GPU host that has none of
-them."""
+ultralytics, transformers or open3d, so it runs on a GPU host that has none
+of them."""
 
 import subprocess
 import sys
@@ -11,7 +11,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "tpu3dlm", "cv2", "PIL", "yaml", "pandas", "msgpack", "safetensors",
-             "ultralytics", "transformers")
+             "ultralytics", "transformers", "open3d")
 
 _PROBE = """
 import importlib, pkgutil, sys
@@ -24,7 +24,9 @@ for m in mods:
     importlib.import_module(m)
 bad = sorted(k for k in sys.modules if k.split(".")[0] in FORBIDDEN and sys.modules[k] is not None)
 assert not bad, bad
-assert {"tpu3dlm_torch.data.scanpack", "tpu3dlm_torch.pipeline.watch"} <= set(mods), mods
+assert {"tpu3dlm_torch.data.scanpack", "tpu3dlm_torch.pipeline.watch", "tpu3dlm_torch.native",
+        "tpu3dlm_torch.mapper.clustering", "tpu3dlm_torch.mapper.meshing", "tpu3dlm_torch.mapper.poisson",
+        "tpu3dlm_torch.mapper.mapping"} <= set(mods), mods
 print(len(mods))
 """ % (FORBIDDEN,)
 
@@ -34,7 +36,7 @@ def test_port_imports_without_jax_or_tpu3dlm():
         [sys.executable, "-c", _PROBE], cwd=REPO, capture_output=True, text=True, timeout=120
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 52  # every module of the six slices was imported
+    assert int(out.stdout.strip()) >= 57  # every module of the seven slices was imported
 
 
 def test_cli_imports_none_of_the_forbidden_packages():

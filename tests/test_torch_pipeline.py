@@ -205,7 +205,6 @@ def test_cli_mode_logic(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("line,item", [
     ("view_img = false", "A18"),
-    ("visualise = false", "A17"),
     ("alignment_vis = false", "A18"),
     ("comparison_vis = false", "A18"),
     ("use_pallas = true", "plain PyTorch"),
@@ -213,7 +212,7 @@ def test_cli_mode_logic(tmp_path, monkeypatch):
     ("mesh_devices = 1", "A22"),
 ])
 def test_unported_settings_raise_before_work(tmp_path, line, item):
-    change = {"view_img = false": "view_img = true", "visualise = false": "visualise = true",
+    change = {"view_img = false": "view_img = true",
               "alignment_vis = false": "alignment_vis = true", "comparison_vis = false": "comparison_vis = true",
               "use_pallas = true": "use_pallas = false", "beit_quant = none": "beit_quant = int8",
               "mesh_devices = 1": "mesh_devices = 2"}[line]

@@ -8,15 +8,19 @@ anything under ``tpu3dlm`` — so it runs on a GPU host that has neither.
 Hand-written kernels live in ``csrc/`` (CUDA C++ for ``sm_90a``), are built
 at first use by ``kernels/build.py`` and are called through wrappers in
 ``ops/kernels/``. Every wrapper launches its kernel for CUDA tensors and
-runs its plain PyTorch twin only for CPU tensors. The host image codecs
-(``csrc/host/codecs.cpp``, behind ``data/codecs.py``) are built the same way
-by the system C++ compiler, because the GPU host has no cv2.
+runs its plain PyTorch twin only for CPU tensors. Host C++ is built the same
+way by the system C++ compiler: the image codecs (``csrc/host/codecs.cpp``,
+behind ``data/codecs.py``), because the GPU host has no cv2, and the map
+stage's DBSCAN and meshing legs (``csrc/host/dbscan.cpp`` and
+``meshing.cpp``, copies of the JAX package's, behind ``native.py``).
 
 Entry points (``python -m tpu3dlm_torch.cli``, ``pipeline.task.Pipeline``,
 ``pipeline.fused.FusedScanRunner``, ``parallel.inference.full_scan_step``,
 ``mapper.nms3d.suppress_bboxes``, ``alignment.align.Alignment``,
-``alignment.comparison.BBoxComparison``) run on ``device="cuda"`` unless
-the caller asks for ``device="cpu"``; see ``device.resolve_device``.
+``alignment.comparison.BBoxComparison``, ``mapper.mapping.Mapping``,
+``mapper.meshing.mesh_scan``, ``mapper.poisson.mesh_poisson``) run on
+``device="cuda"`` unless the caller asks for ``device="cpu"``; see
+``device.resolve_device``.
 """
 
 from tpu3dlm_torch.device import resolve_device

@@ -1,5 +1,7 @@
-"""Dependency-free PLY point-cloud I/O, ascii and binary (port of
-``tpu3dlm/data/ply.py::load_ply`` / ``save_ply``, numpy only).
+"""Dependency-free PLY I/O, numpy only (port of ``tpu3dlm/data/ply.py``):
+point clouds ascii and binary (``load_ply`` / ``save_ply``) and binary
+triangle meshes (``save_ply_mesh`` / ``load_ply_mesh``, the map stage's
+``map_mesh.ply``, byte for byte the JAX writer's).
 
 The pipeline reads the two scans' ``cloud.ply`` with ``load_ply`` and hands
 the points to ``alignment.align.Alignment``. NaN/inf points are dropped on
@@ -148,3 +150,84 @@ def save_ply(
             else:
                 for p in points:
                     f.write(f"{p[0]} {p[1]} {p[2]}\n".encode())
+
+
+def save_ply_mesh(
+    path: str,
+    vertices: np.ndarray,
+    faces: np.ndarray,
+    colors: np.ndarray | None = None,
+) -> None:
+    """Write a triangle mesh ((V, 3) float vertices, (F, 3) int faces,
+    optional per-vertex [0,1] colors) as binary PLY."""
+    vertices = np.asarray(vertices, np.float32)
+    faces = np.asarray(faces, np.int32)
+    nv, nf = vertices.shape[0], faces.shape[0]
+    header = [
+        "ply",
+        "format binary_little_endian 1.0",
+        f"element vertex {nv}",
+        "property float x",
+        "property float y",
+        "property float z",
+    ]
+    if colors is not None:
+        header += ["property uchar red", "property uchar green", "property uchar blue"]
+    header += [
+        f"element face {nf}",
+        "property list uchar int vertex_indices",
+        "end_header",
+    ]
+    with open(path, "wb") as f:
+        f.write(("\n".join(header) + "\n").encode("ascii"))
+        if colors is not None:
+            c8 = np.clip(np.asarray(colors) * 255.0, 0, 255).astype(np.uint8)
+            dtype = np.dtype(
+                [("x", "<f4"), ("y", "<f4"), ("z", "<f4"),
+                 ("red", "u1"), ("green", "u1"), ("blue", "u1")]
+            )
+            rec = np.empty(nv, dtype=dtype)
+            rec["x"], rec["y"], rec["z"] = vertices[:, 0], vertices[:, 1], vertices[:, 2]
+            rec["red"], rec["green"], rec["blue"] = c8[:, 0], c8[:, 1], c8[:, 2]
+            f.write(rec.tobytes())
+        else:
+            f.write(vertices.astype("<f4").tobytes())
+        fdtype = np.dtype([("n", "u1"), ("i", "<i4", (3,))])
+        frec = np.empty(nf, dtype=fdtype)
+        frec["n"] = 3
+        frec["i"] = faces
+        f.write(frec.tobytes())
+
+
+def load_ply_mesh(path: str) -> tuple[np.ndarray, np.ndarray]:
+    """Read a binary PLY triangle mesh written by `save_ply_mesh` →
+    ((V, 3) float32 vertices, (F, 3) int32 faces)."""
+    with open(path, "rb") as f:
+        if f.readline().strip() != b"ply":
+            raise ValueError(f"{path} is not a PLY file")
+        nv = nf = 0
+        vprops: list[tuple[str, str]] = []
+        in_vertex = False
+        while True:
+            line = f.readline()
+            if not line:  # readline at EOF returns b"" forever → guard or spin
+                raise ValueError("unexpected EOF in PLY header")
+            tokens = line.decode("ascii", "replace").strip().split()
+            if not tokens:
+                continue
+            if tokens[0] == "element":
+                in_vertex = tokens[1] == "vertex"
+                if in_vertex:
+                    nv = int(tokens[2])
+                elif tokens[1] == "face":
+                    nf = int(tokens[2])
+            elif tokens[0] == "property" and in_vertex and tokens[1] != "list":
+                vprops.append((_PLY_DTYPES[tokens[1]], tokens[2]))
+            elif tokens[0] == "end_header":
+                break
+        vdtype = np.dtype([(name, "<" + dt) for dt, name in vprops])
+        raw = np.frombuffer(f.read(vdtype.itemsize * nv), dtype=vdtype)
+        verts = np.stack([raw["x"], raw["y"], raw["z"]], axis=1).astype(np.float32)
+        fdtype = np.dtype([("n", "u1"), ("i", "<i4", (3,))])
+        fraw = np.frombuffer(f.read(fdtype.itemsize * nf), dtype=fdtype)
+        return verts, fraw["i"].astype(np.int32)

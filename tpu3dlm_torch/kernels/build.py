@@ -6,8 +6,12 @@ into its own shared library, loaded with ctypes:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o _build/<name>-<hash>.so csrc/<name>.cu
 
-Host sources, ``csrc/host/<name>.cpp`` (the image codecs), are compiled the
-same way by the system C++ compiler, so they build on a host without CUDA:
+Host sources, ``csrc/host/<name>.cpp``, are compiled the same way by the
+system C++ compiler, so they build on a host without CUDA: ``codecs.cpp``
+(the image codecs), ``dbscan.cpp`` (the map stage's DBSCAN) and
+``meshing.cpp`` (marching tetrahedra, the Poisson leakage cull and the
+trilinear splat); the last two are copies of the JAX package's
+``native/src/dbscan.cpp`` and ``poisson.cpp``:
 
     c++ -O3 -shared -fPIC -std=c++17 -o _build/host-<name>-<hash>.so \
         csrc/host/<name>.cpp
@@ -17,7 +21,7 @@ of the source, the shared headers ``csrc/*.cuh`` and the flags, so an
 edited source rebuilds and an unchanged one loads at once. ``build_all``
 starts one compiler per source, all together, and waits for them. A missing
 ``nvcc`` or C++ compiler, or a failed build, raises: there is no fallback to
-the plain PyTorch versions or to a Python decoder.
+the plain PyTorch versions, to a Python decoder or to numpy meshing.
 """
 
 from __future__ import annotations
@@ -68,7 +72,7 @@ def _cxx() -> str:
     found = shutil.which("c++")
     if found:
         return found
-    raise RuntimeError("tpu3dlm_torch: no C++ compiler (c++) found; the host codecs cannot be built")
+    raise RuntimeError("tpu3dlm_torch: no C++ compiler (c++) found; the host C++ sources cannot be built")
 
 
 def library_path(name: str) -> Path:

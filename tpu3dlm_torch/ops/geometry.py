@@ -1,5 +1,5 @@
-"""Geometry core for projection, 3D NMS and ICP (port of the parts of
-``tpu3dlm/ops/geometry.py`` that those stages use).
+"""Geometry core for projection, 3D NMS, ICP and the map stage (port of the
+parts of ``tpu3dlm/ops/geometry.py`` that those stages use).
 
 Every function is batched over leading axes: where the JAX package vmaps a
 per-box function, these take the frame and box axes as leading dimensions.
@@ -35,6 +35,35 @@ def pose_to_matrix(pose: torch.Tensor) -> torch.Tensor:
     T[..., :3, 3] = pose[..., :3]
     T[..., 3, 3] = 1.0
     return T
+
+
+def invert_se3(T: torch.Tensor) -> torch.Tensor:
+    """Closed-form inverse of (..., 4, 4) SE(3) matrices: [Rᵀ, −Rᵀt]."""
+    Rt = T[..., :3, :3].transpose(-1, -2)
+    Ti = torch.zeros_like(T)
+    Ti[..., :3, :3] = Rt
+    Ti[..., :3, 3] = -(Rt @ T[..., :3, 3:4])[..., 0]
+    Ti[..., 3, 3] = 1.0
+    return Ti
+
+
+def camera_direction(pose: torch.Tensor, forward: torch.Tensor | None = None) -> torch.Tensor:
+    """(..., 7) poses → (..., 3) unit view directions (the rotated +Z axis,
+    or ``forward``)."""
+    if forward is None:
+        forward = torch.tensor([0.0, 0.0, 1.0], dtype=pose.dtype, device=pose.device)
+    return (quat_to_rotmat(pose[..., 3:7]) @ forward[:, None])[..., 0]
+
+
+def create_3d_bounding_box(corners4: torch.Tensor, depth_buffer: float) -> torch.Tensor:
+    """Planar (..., 4, 3) quads → (..., 8, 3) boxes extruded along each
+    quad's normal: the corners − n·buffer, then + n·buffer."""
+    v1 = corners4[..., 1, :] - corners4[..., 0, :]
+    v2 = corners4[..., 3, :] - corners4[..., 0, :]
+    n = torch.linalg.cross(v1, v2)
+    n = n / torch.clamp(torch.linalg.vector_norm(n, dim=-1, keepdim=True), min=1e-12)
+    n = n[..., None, :]
+    return torch.cat([corners4 - n * depth_buffer, corners4 + n * depth_buffer], dim=-2)
 
 
 def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:

@@ -20,14 +20,20 @@ routes. ``resume=True`` reuses the pickled detections and re-projects them
 (ignored under streaming, which keeps no frames to re-project). Weights
 come from a JAX-package ``.msgpack``, a torch ``.pt`` (ultralytics YOLOv10,
 HF BEiT) or a ``.safetensors`` file, or are seeded when the path is empty.
-Per-stage wall-clock lands in ``stage_times`` (extract, detect, map,
-compare).
+With ``visualise = true`` the run writes the 3D map, ``map_mesh.ply`` next
+to the cloud, after the pickle: ``mesh_source = tsdf`` fuses the scan's
+depth frames on the device (``mapper/meshing.py::mesh_scan``), ``cloud``
+meshes ``cloud.ply`` through ``Mapping.make_mesh`` with the ``mesher`` the
+config names (``density`` or ``poisson``), both at ``mesh_voxel``; a
+streamed run keeps no frames and skips the map with a warning, as the
+reference does. Per-stage wall-clock lands in ``stage_times`` (extract,
+detect, map, plot, compare).
 
 Settings the port cannot honour yet raise ``NotImplementedError`` naming
-their ROADMAP item before any work: ``visualise`` (A17), ``view_img``,
-``alignment_vis`` and ``comparison_vis`` (A18), ``beit_quant = int8``
-(A21), ``mesh_devices > 1`` (A22) and ``use_pallas = false`` (the port has
-no plain path on the card). ``icp_ann`` goes to ``Alignment`` as is.
+their ROADMAP item before any work: ``view_img``, ``alignment_vis`` and
+``comparison_vis`` (A18), ``beit_quant = int8`` (A21), ``mesh_devices > 1``
+(A22) and ``use_pallas = false`` (the port has no plain path on the card).
+``icp_ann`` goes to ``Alignment`` as is.
 """
 
 from __future__ import annotations
@@ -72,8 +78,6 @@ def _cached_weights(key, builder):
 def unsupported_settings(cfg) -> list[str]:
     """Each setting of ``cfg`` the port cannot run yet, with its ROADMAP item."""
     out = []
-    if getattr(cfg, "visualise", False):
-        out.append("visualise = true: the map mesh is not ported yet (ROADMAP A17)")
     if getattr(cfg, "view_img", False):
         out.append("view_img = true: annotated frames are not ported yet (ROADMAP A18)")
     for knob in ("alignment_vis", "comparison_vis"):
@@ -176,6 +180,15 @@ class Pipeline:
             self.logger.info("Variables stored to pickle file.")
         except Exception as e:
             self.logger.info(f"Failed to write to file: {e}")
+
+        if self.cfg.visualise:
+            if use_stream:
+                self.logger.warning(
+                    "visualise skipped: streaming ingestion keeps no frames in memory "
+                    "(set streaming_chunk = 0 to plot)"
+                )
+            else:
+                self._timed("plot", self._plot_map, scan, global_bboxes, optimised, pose_df)
 
         if self.cfg_goldstd and self.goldstd_var:
             self._timed(
@@ -328,6 +341,37 @@ class Pipeline:
         )
         self.logger.info("3D NMS Executed.")
         return global_bboxes, optimised, pose_df
+
+    def _plot_map(self, scan: Scan, global_bboxes, optimised, pose_df) -> str:
+        """The 3D map: a triangle-mesh PLY next to the cloud, from the scan's
+        fused TSDF (``mesh_source = tsdf``) or from ``cloud.ply`` (``cloud``,
+        the default). Returns its path."""
+        from tpu3dlm_torch.data.ply import save_ply_mesh
+        from tpu3dlm_torch.mapper.mapping import Mapping
+        from tpu3dlm_torch.mapper.meshing import mesh_scan
+
+        self.logger.info("Generating 3D Map...")
+        out = os.path.join(os.path.dirname(self.cfg.ply_path) or ".", "map_mesh.ply")
+        voxel = getattr(self.cfg, "mesh_voxel", 0.04)
+        if getattr(self.cfg, "mesh_source", "cloud") == "tsdf":
+            verts, faces = mesh_scan(scan, voxel=voxel, device=self.device)
+            save_ply_mesh(out, verts, faces)
+            self.logger.info("TSDF mesh: %d vertices / %d triangles → %s", len(verts), len(faces), out)
+        else:
+            mapper = Mapping(
+                global_bboxes_data=global_bboxes,
+                optimised_bboxes=optimised,
+                pose=pose_df,
+                eps=self.cfg.eps,
+                min_points=self.cfg.min_points,
+                ply_filepath=self.cfg.ply_path,
+                preprocess_point_cloud=self.cfg.preprocess_point_cloud,
+                overlay_pose=self.cfg.overlay_pose,
+                device=self.device,
+            )
+            mapper.make_mesh(output_path=out, voxel=voxel, mesher=getattr(self.cfg, "mesher", "density"))
+        self.logger.info("3D Map Generated.")
+        return out
 
     def _goldstd_vs_maintenance(self, pose_df, optimised_bboxes):
         from tpu3dlm_torch.data.ply import load_ply
