@@ -596,3 +596,60 @@ def test_map_stage_on_card_matches_cpu(cuda_device, tmp_path):
     import chip_smoke
 
     chip_smoke.phase_mesh_parity(cuda_device, str(tmp_path))
+
+
+@pytest.mark.parametrize("m", [1, 16, 17, 300])
+@pytest.mark.parametrize("layout", ["row-major", "column-major"])
+def test_int8_gemm_on_card_identical_to_twin(cuda_device, m, layout):
+    """``torch._int_mm`` (cuBLASLt) through ``ops/quant.py::int8_product``:
+    int32 results identical to the CPU twin, rows ≤ 16 padded to 17 and
+    sliced; ``Int8Dense`` passes its kernel column-major."""
+    from tpu3dlm_torch.ops import quant
+
+    g = torch.Generator().manual_seed(m)
+    a = torch.randint(-127, 128, (m, 768), generator=g, dtype=torch.int8)
+    b = torch.randint(-127, 128, (768, 200), generator=g, dtype=torch.int8)
+    bd = b.to(cuda_device)
+    if layout == "column-major":
+        bd = bd.t().contiguous().t()
+    before = quant.launches
+    got = quant.int8_product(a.to(cuda_device), bd)
+    assert quant.launches == before + 1 and got.dtype == torch.int32 and got.shape == (m, 200)
+    assert torch.equal(got.cpu(), quant.int8_product(a, b))
+    with pytest.raises(ValueError, match="multiples of 8"):
+        quant.int8_product(a[:, :12].to(cuda_device), b[:12].to(cuda_device))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)])
+def test_int8_beit_on_card_matches_cpu(cuda_device, dtype, tol):
+    """The int8 BEiT (32 px, hidden 64, 2 layers, 4 heads) on the card
+    against the same weights on the CPU: logits within ``tol`` × max(1,
+    max|logit|) (f32: the int8 products are exact and the float parts
+    differ by summation order, except on a crop where that drift moves an
+    activation's int8 code across a rounding tie: at most 10% of the crops,
+    each within 5e-3; bf16: the bars of the bf16 path, every crop), the
+    same top-1 on decisive crops; B1 once per layer and 6 int8 GEMMs per
+    layer."""
+    from tpu3dlm_torch.models.beit import BeitConfig, preprocess_crops, seeded_beit
+    from tpu3dlm_torch.ops import quant
+
+    cfg = BeitConfig(image_size=32, patch_size=16, hidden_size=64, num_layers=2, num_heads=4,
+                     intermediate_size=128, num_labels=3, quant="int8")
+    model = seeded_beit(cfg, torch.Generator().manual_seed(3))
+    crops = torch.randint(0, 256, (40, 32, 32, 3), generator=torch.Generator().manual_seed(4), dtype=torch.uint8)
+    with torch.no_grad():
+        want = model.to(dtype)(preprocess_crops(crops)).float()
+        card = model.to(cuda_device)
+        b1, gemms = beit_attention_packed.launches, quant.launches
+        got = card(preprocess_crops(crops.to(cuda_device))).float().cpu()
+    assert beit_attention_packed.launches == b1 + 2 and quant.launches == gemms + 12
+    top = torch.sort(want, -1).values
+    decisive = (top[:, -1] - top[:, -2]) > 0.1 * want.abs().max()
+    assert decisive.any()
+    assert torch.equal(got.argmax(-1)[decisive], want.argmax(-1)[decisive])
+    scale = max(1.0, want.abs().max().item())
+    err = (got - want).abs().amax(-1) / scale
+    if dtype == torch.float32:
+        assert (err > tol).float().mean().item() <= 0.1 and err.max().item() <= 5e-3, err
+    else:
+        assert err.max().item() <= tol, err

@@ -215,14 +215,24 @@ def test_pad_target_bucket_identical(n):
 
 @pytest.mark.parametrize("voxel", [0.08, 0.25])
 def test_grid_normals_match_jax_numpy_path(voxel):
-    """|n·n_ref| > 0.999 on ≥ 99.9% of points against the JAX package's
-    numpy path (its native core patched out, as tests/test_native.py:214)."""
+    """The port's plain twin (``estimate_normals_grid_numpy``) is the JAX
+    package's numpy path (its native core patched out, as
+    tests/test_native.py:214): identical, with and without a viewpoint. The
+    main path's C++ core agrees with both up to sign: |n·n_ref| > 0.999 on
+    ≥ 99.9% of points."""
+    from tpu3dlm_torch.ops.pointcloud import estimate_normals_grid_numpy
+
     rng = np.random.default_rng(13)
     pts = planar_scene(rng, 4000)
     pts += rng.normal(0, 2e-3, pts.shape).astype(np.float32)
-    got = estimate_normals_grid(pts, voxel=voxel)
+    twin = estimate_normals_grid_numpy(pts, voxel=voxel)
+    vp = np.array([0.5, 0.0, -1.0], np.float32)
     with mock.patch("tpu3dlm.native.native_grid_normals", return_value=None):
         want = JP.estimate_normals_grid(pts, voxel=voxel)
+        want_vp = JP.estimate_normals_grid(pts, voxel=voxel, viewpoint=vp)
+    np.testing.assert_array_equal(twin, want)
+    np.testing.assert_array_equal(estimate_normals_grid_numpy(pts, voxel=voxel, viewpoint=vp), want_vp)
+    got = estimate_normals_grid(pts, voxel=voxel)
     assert got.shape == want.shape and got.dtype == np.float32
     agree = np.abs(np.einsum("ij,ij->i", got, want))
     assert (agree > 0.999).mean() >= 0.999

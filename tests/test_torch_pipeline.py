@@ -199,8 +199,10 @@ def test_cli_mode_logic(tmp_path, monkeypatch):
         f.write(b"\x80\x04truncated")
     cli.main(["--data", "maintenance", "--config", cfg, "--device", "cpu"])
     assert calls == [("gold_std", False, None), ("maintenance", True, {"gold": 1})]
-    with pytest.raises(NotImplementedError, match="A20"):
-        cli.main(["--setup"])
+    calls.clear()
+    cli.main(["--data", "gold_std", "--setup", "--config", cfg, "--device", "cpu"])  # writes the capture first
+    gold = PCfg(cfg, "gold_std")
+    assert calls == [("gold_std", False, None)] and len(os.listdir(gold.image_dir)) == 8
 
 
 @pytest.mark.parametrize("line,item", [
@@ -208,13 +210,12 @@ def test_cli_mode_logic(tmp_path, monkeypatch):
     ("alignment_vis = false", "A18"),
     ("comparison_vis = false", "A18"),
     ("use_pallas = true", "plain PyTorch"),
-    ("beit_quant = none", "A21"),
     ("mesh_devices = 1", "A22"),
 ])
 def test_unported_settings_raise_before_work(tmp_path, line, item):
     change = {"view_img = false": "view_img = true",
               "alignment_vis = false": "alignment_vis = true", "comparison_vis = false": "comparison_vis = true",
-              "use_pallas = true": "use_pallas = false", "beit_quant = none": "beit_quant = int8",
+              "use_pallas = true": "use_pallas = false",
               "mesh_devices = 1": "mesh_devices = 2"}[line]
     cfg = chip_smoke.write_config(str(tmp_path), [("fused_inference = false", "fused_inference = true"),
                                                  (line, change)])

@@ -16,8 +16,12 @@ as it lands) on the same device:
     python -m tpu3dlm_torch.cli --watch [--poll-interval S] [--max-scans N]
         [--watch-concurrency C] [--config cfg] [--device cuda|cpu]
 
-``--setup`` (the synthetic capture generator needs a JPEG encoder, ROADMAP
-A20) is not ported yet and raises.
+``--setup`` first writes a synthetic capture into the data folder
+(``data/synthetic.py::generate_scan`` on the host: the cold start of the
+README's Quick start), then runs as above:
+
+    python -m tpu3dlm_torch.cli --data gold_std --setup
+    python -m tpu3dlm_torch.cli --data maintenance --setup
 """
 
 from __future__ import annotations
@@ -41,7 +45,7 @@ def main(argv=None):
         help="Device to run on: cuda (default; raises without a GPU) or cpu.",
     )
     parser.add_argument("--setup", action="store_true",
-                        help="Generate a synthetic scan (not ported yet).")
+                        help="Generate a synthetic scan into the data folder before running.")
     parser.add_argument("--watch", action="store_true",
                         help="Continuous serving mode: poll the data root and process new capture "
                         "folders as they land (pipeline/watch.ScanWatcher).")
@@ -52,10 +56,6 @@ def main(argv=None):
     parser.add_argument("--watch-concurrency", type=int, default=1,
                         help="--watch: captures processed at once (gold_std always runs alone).")
     args = parser.parse_args(argv)
-    if args.setup:
-        raise NotImplementedError(
-            "--setup: the synthetic capture generator needs a JPEG encoder and is not "
-            "ported yet (ROADMAP A20)")
 
     from tpu3dlm_torch.device import resolve_device
     from tpu3dlm_torch.pipeline.task import load_gold_std, setup_pipeline
@@ -67,15 +67,22 @@ def main(argv=None):
         logging.info("No config at %s — writing defaults.", config_path)
         write_default_config(config_path)
 
+    cfg = ConfigLoader(config_path, args.data)
+    cfg_goldstd = ConfigLoader(config_path, "gold_std")
+
+    if args.setup:
+        from tpu3dlm_torch.data.synthetic import generate_scan
+
+        data_root = os.path.dirname(os.path.dirname(cfg.pose_path))
+        logging.info("Generating synthetic scan under %s/%s", data_root, args.data)
+        generate_scan(data_root, args.data)
+
     if args.watch:
         from tpu3dlm_torch.pipeline.watch import ScanWatcher
 
         ScanWatcher(config_path, poll_interval=args.poll_interval, max_scans=args.max_scans,
                     concurrency=args.watch_concurrency, device=device).run()
         return
-
-    cfg = ConfigLoader(config_path, args.data)
-    cfg_goldstd = ConfigLoader(config_path, "gold_std")
 
     if args.data == "gold_std":
         setup_pipeline(args.data, cfg_goldstd, None, device=device)

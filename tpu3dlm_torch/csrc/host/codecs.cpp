@@ -916,3 +916,441 @@ void tl_resize_linear_u8(const uint8_t* src, int sh, int sw, int cn, uint8_t* ds
 }
 
 }  // extern "C"
+
+// ---------------------------------------------------------------------------
+// JPEG encode
+// ---------------------------------------------------------------------------
+//
+// Baseline JPEG as cv2.imencode(".jpg", img) writes it with its bundled
+// libjpeg-turbo at the defaults: quality 95, 4:2:0 chroma, the Annex K
+// quantisation and Huffman tables (no optimisation), a JFIF 1.01 APP0
+// header. Each stage follows libjpeg-turbo's 8-bit SIMD build bit for bit:
+// jccolor.c's fixed-point RGB->YCbCr, jcsample.c's h2v2 box filter with the
+// alternating 1, 2 bias, edge replication to whole blocks (jcprepct.c,
+// jcsample.c), jfdctint.c's islow forward DCT, jcdctmgr.c's quantisation by
+// 16-bit reciprocals (compute_reciprocal), dummy blocks past the image edge
+// that repeat the previous DC (jccoefct.c), and jchuff.c's entropy coder.
+
+namespace {
+
+const uint8_t kStdLumaQuant[64] = {
+    16, 11, 10, 16, 24,  40,  51,  61,  12, 12, 14, 19, 26,  58,  60,  55,
+    14, 13, 16, 24, 40,  57,  69,  56,  14, 17, 22, 29, 51,  87,  80,  62,
+    18, 22, 37, 56, 68,  109, 103, 77,  24, 35, 55, 64, 81,  104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99};
+const uint8_t kStdChromaQuant[64] = {
+    17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+    24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99,
+    99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99,
+    99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99};
+
+const uint8_t kDcLumaBits[16] = {0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0};
+const uint8_t kDcChromaBits[16] = {0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0};
+const uint8_t kDcVals[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+const uint8_t kAcLumaBits[16] = {0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d};
+const uint8_t kAcLumaVals[162] = {
+    0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06, 0x13, 0x51, 0x61, 0x07,
+    0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08, 0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52, 0xd1, 0xf0,
+    0x24, 0x33, 0x62, 0x72, 0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25, 0x26, 0x27, 0x28,
+    0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49,
+    0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69,
+    0x6a, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89,
+    0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7,
+    0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5,
+    0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2,
+    0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8,
+    0xf9, 0xfa};
+const uint8_t kAcChromaBits[16] = {0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77};
+const uint8_t kAcChromaVals[162] = {
+    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41, 0x51, 0x07, 0x61, 0x71,
+    0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91, 0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33, 0x52, 0xf0,
+    0x15, 0x62, 0x72, 0xd1, 0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26,
+    0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48,
+    0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68,
+    0x69, 0x6a, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87,
+    0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5,
+    0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3,
+    0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda,
+    0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8,
+    0xf9, 0xfa};
+
+struct HuffCodes {
+    uint32_t code[256] = {};
+    uint8_t size[256] = {};
+};
+
+// jchuff.c jpeg_make_c_derived_tbl: canonical codes by length
+HuffCodes make_codes(const uint8_t bits[16], const uint8_t* vals) {
+    HuffCodes t;
+    uint32_t code = 0;
+    int k = 0;
+    for (int len = 1; len <= 16; len++) {
+        for (int i = 0; i < bits[len - 1]; i++, k++) {
+            t.code[vals[k]] = code++;
+            t.size[vals[k]] = static_cast<uint8_t>(len);
+        }
+        code <<= 1;
+    }
+    return t;
+}
+
+// jcparam.c jpeg_quality_scaling + jpeg_add_quant_table (force_baseline)
+void scale_quant(const uint8_t basic[64], int quality, uint16_t out[64]) {
+    quality = quality < 1 ? 1 : (quality > 100 ? 100 : quality);
+    const long scale = quality < 50 ? 5000 / quality : 200 - quality * 2;
+    for (int i = 0; i < 64; i++) {
+        long t = (basic[i] * scale + 50L) / 100L;
+        t = t <= 0 ? 1 : (t > 255 ? 255 : t);
+        out[i] = static_cast<uint16_t>(t);
+    }
+}
+
+// jcdctmgr.c compute_reciprocal with a 16-bit DCTELEM (the SIMD build)
+struct Divisor {
+    uint32_t recip, corr, shift;
+};
+
+Divisor reciprocal(uint16_t divisor) {
+    if (divisor == 1) return {1, 0, 16};
+    int b = 0;
+    for (uint32_t d = divisor; d > 1; d >>= 1) b++;  // flss(divisor) - 1
+    int r = 16 + b;
+    uint32_t fq = (1u << r) / divisor;
+    const uint32_t fr = (1u << r) % divisor;
+    uint32_t c = divisor / 2;
+    if (fr == 0) {
+        fq >>= 1;
+        r--;
+    } else if (fr <= divisor / 2u) {
+        c++;
+    } else {
+        fq++;
+    }
+    return {fq, c, static_cast<uint32_t>(r)};
+}
+
+// jfdctint.c jpeg_fdct_islow on level-shifted samples, in place
+void fdct_islow(int32_t* d) {
+    constexpr int CB = 13, P1 = 2;
+    auto descale = [](int64_t x, int n) { return static_cast<int32_t>((x + (int64_t(1) << (n - 1))) >> n); };
+    for (int row = 0; row < 8; row++) {
+        int32_t* p = d + row * 8;
+        const int64_t t0 = p[0] + p[7], t7 = p[0] - p[7], t1 = p[1] + p[6], t6 = p[1] - p[6];
+        const int64_t t2 = p[2] + p[5], t5 = p[2] - p[5], t3 = p[3] + p[4], t4 = p[3] - p[4];
+        const int64_t t10 = t0 + t3, t13 = t0 - t3, t11 = t1 + t2, t12 = t1 - t2;
+        p[0] = static_cast<int32_t>((t10 + t11) << P1);
+        p[4] = static_cast<int32_t>((t10 - t11) << P1);
+        int64_t z1 = (t12 + t13) * 4433;
+        p[2] = descale(z1 + t13 * 6270, CB - P1);
+        p[6] = descale(z1 + t12 * -15137, CB - P1);
+        z1 = t4 + t7;
+        int64_t z2 = t5 + t6, z3 = t4 + t6, z4 = t5 + t7;
+        const int64_t z5 = (z3 + z4) * 9633;
+        const int64_t a4 = t4 * 2446, a5 = t5 * 16819, a6 = t6 * 25172, a7 = t7 * 12299;
+        z1 *= -7373;
+        z2 *= -20995;
+        z3 *= -16069;
+        z4 *= -3196;
+        z3 += z5;
+        z4 += z5;
+        p[7] = descale(a4 + z1 + z3, CB - P1);
+        p[5] = descale(a5 + z2 + z4, CB - P1);
+        p[3] = descale(a6 + z2 + z3, CB - P1);
+        p[1] = descale(a7 + z1 + z4, CB - P1);
+    }
+    for (int col = 0; col < 8; col++) {
+        int32_t* p = d + col;
+        const int64_t t0 = p[0] + p[56], t7 = p[0] - p[56], t1 = p[8] + p[48], t6 = p[8] - p[48];
+        const int64_t t2 = p[16] + p[40], t5 = p[16] - p[40], t3 = p[24] + p[32], t4 = p[24] - p[32];
+        const int64_t t10 = t0 + t3, t13 = t0 - t3, t11 = t1 + t2, t12 = t1 - t2;
+        p[0] = descale(t10 + t11, P1);
+        p[32] = descale(t10 - t11, P1);
+        int64_t z1 = (t12 + t13) * 4433;
+        p[16] = descale(z1 + t13 * 6270, CB + P1);
+        p[48] = descale(z1 + t12 * -15137, CB + P1);
+        z1 = t4 + t7;
+        int64_t z2 = t5 + t6, z3 = t4 + t6, z4 = t5 + t7;
+        const int64_t z5 = (z3 + z4) * 9633;
+        const int64_t a4 = t4 * 2446, a5 = t5 * 16819, a6 = t6 * 25172, a7 = t7 * 12299;
+        z1 *= -7373;
+        z2 *= -20995;
+        z3 *= -16069;
+        z4 *= -3196;
+        z3 += z5;
+        z4 += z5;
+        p[56] = descale(a4 + z1 + z3, CB + P1);
+        p[40] = descale(a5 + z2 + z4, CB + P1);
+        p[24] = descale(a6 + z2 + z3, CB + P1);
+        p[8] = descale(a7 + z1 + z4, CB + P1);
+    }
+}
+
+class BitWriter {
+  public:
+    explicit BitWriter(std::vector<uint8_t>& out) : out_(out) {}
+    void put(uint32_t code, int size) {
+        acc_ = (acc_ << size) | (code & ((1u << size) - 1));
+        bits_ += size;
+        while (bits_ >= 8) {
+            const uint8_t byte = static_cast<uint8_t>(acc_ >> (bits_ - 8));
+            out_.push_back(byte);
+            if (byte == 0xFF) out_.push_back(0);
+            bits_ -= 8;
+        }
+        acc_ &= (1ull << bits_) - 1;
+    }
+    void flush() {  // jchuff.c flush_bits: seven 1 bits, the partial byte dropped
+        put(0x7F, 7);
+        bits_ = 0;
+        acc_ = 0;
+    }
+
+  private:
+    std::vector<uint8_t>& out_;
+    uint64_t acc_ = 0;
+    int bits_ = 0;
+};
+
+void put16(std::vector<uint8_t>& o, int v) {
+    o.push_back(static_cast<uint8_t>(v >> 8));
+    o.push_back(static_cast<uint8_t>(v & 0xFF));
+}
+
+void put_dht(std::vector<uint8_t>& o, int cls_id, const uint8_t bits[16], const uint8_t* vals) {
+    int n = 0;
+    for (int i = 0; i < 16; i++) n += bits[i];
+    o.push_back(0xFF);
+    o.push_back(0xC4);
+    put16(o, 2 + 1 + 16 + n);
+    o.push_back(static_cast<uint8_t>(cls_id));
+    o.insert(o.end(), bits, bits + 16);
+    o.insert(o.end(), vals, vals + n);
+}
+
+// One component plane, level-unshifted samples, replicated out to whole
+// MCUs (right: jcsample.c expand_right_edge; bottom: jcprepct.c
+// expand_bottom_edge).
+struct Plane {
+    int w = 0, h = 0;  // padded size
+    std::vector<uint8_t> px;
+};
+
+void encode_jpeg(const uint8_t* rgb, int width, int height, int quality, std::vector<uint8_t>& o) {
+    if (width < 1 || height < 1 || width > 65500 || height > 65500) fail("image size out of range");
+    // jccolor.c rgb_ycc_convert (SCALEBITS 16)
+    static const int32_t kFix[8] = {19595, 38470, 7471, 11059, 21709, 32768, 27439, 5329};
+    const int32_t half = 1 << 15, off = (128 << 16) + half - 1;
+    const int mcux = (width + 15) / 16, mcuy = (height + 15) / 16;
+    // full-resolution planes, width padded to the Y blocks (replicated),
+    // height padded to an even row count (replicated) and then to whole
+    // MCUs for Y
+    const int ybw = (width + 7) / 8, cbw = (width + 15) / 16;  // width_in_blocks
+    const int ybh = (height + 7) / 8;
+    Plane Y, Cb, Cr;
+    Y.w = mcux * 16;
+    Y.h = mcuy * 16;
+    Y.px.assign(static_cast<size_t>(Y.w) * Y.h, 0);
+    const int cw_full = cbw * 16;  // downsampler input width: output_cols * 2
+    const int rows2 = (height + 1) / 2 * 2;
+    std::vector<uint8_t> cbf(static_cast<size_t>(cw_full) * rows2), crf(cbf.size());
+    for (int y = 0; y < rows2; y++) {
+        const int sy = y < height ? y : height - 1;
+        const uint8_t* s = rgb + static_cast<size_t>(sy) * width * 3;
+        uint8_t* yr = Y.px.data() + static_cast<size_t>(y) * Y.w;
+        uint8_t* br = cbf.data() + static_cast<size_t>(y) * cw_full;
+        uint8_t* rr = crf.data() + static_cast<size_t>(y) * cw_full;
+        for (int x = 0; x < width; x++) {
+            const int32_t r = s[3 * x], g = s[3 * x + 1], b = s[3 * x + 2];
+            yr[x] = static_cast<uint8_t>((kFix[0] * r + kFix[1] * g + kFix[2] * b + half) >> 16);
+            br[x] = static_cast<uint8_t>((-kFix[3] * r - kFix[4] * g + kFix[5] * b + off) >> 16);
+            rr[x] = static_cast<uint8_t>((kFix[5] * r - kFix[6] * g - kFix[7] * b + off) >> 16);
+        }
+        for (int x = width; x < Y.w; x++) yr[x] = yr[width - 1];
+        for (int x = width; x < cw_full; x++) {
+            br[x] = br[width - 1];
+            rr[x] = rr[width - 1];
+        }
+    }
+    for (int y = rows2; y < Y.h; y++)  // whole MCUs: replicate the last row
+        std::memcpy(Y.px.data() + static_cast<size_t>(y) * Y.w,
+                    Y.px.data() + static_cast<size_t>(rows2 - 1) * Y.w, Y.w);
+    // jcsample.c h2v2_downsample, then pad to whole MCUs
+    auto down = [&](const std::vector<uint8_t>& full, Plane& p) {
+        p.w = mcux * 8;
+        p.h = mcuy * 8;
+        p.px.assign(static_cast<size_t>(p.w) * p.h, 0);
+        const int oh = rows2 / 2, ow = cbw * 8;
+        for (int y = 0; y < oh; y++) {
+            const uint8_t* a = full.data() + static_cast<size_t>(2 * y) * cw_full;
+            const uint8_t* b = a + cw_full;
+            uint8_t* o2 = p.px.data() + static_cast<size_t>(y) * p.w;
+            int bias = 1;
+            for (int x = 0; x < ow; x++) {
+                o2[x] = static_cast<uint8_t>((a[2 * x] + a[2 * x + 1] + b[2 * x] + b[2 * x + 1] + bias) >> 2);
+                bias ^= 3;
+            }
+            for (int x = ow; x < p.w; x++) o2[x] = o2[ow - 1];
+        }
+        for (int y = oh; y < p.h; y++)
+            std::memcpy(p.px.data() + static_cast<size_t>(y) * p.w,
+                        p.px.data() + static_cast<size_t>(oh - 1) * p.w, p.w);
+    };
+    down(cbf, Cb);
+    down(crf, Cr);
+
+    uint16_t ql[64], qc[64];
+    scale_quant(kStdLumaQuant, quality, ql);
+    scale_quant(kStdChromaQuant, quality, qc);
+    Divisor dl[64], dc[64];
+    for (int i = 0; i < 64; i++) {
+        dl[i] = reciprocal(static_cast<uint16_t>(ql[i] << 3));
+        dc[i] = reciprocal(static_cast<uint16_t>(qc[i] << 3));
+    }
+
+    // headers (jcmarker.c)
+    o.push_back(0xFF);
+    o.push_back(0xD8);
+    static const uint8_t app0[18] = {0xFF, 0xE0, 0, 16, 'J', 'F', 'I', 'F', 0, 1, 1, 0, 0, 1, 0, 1, 0, 0};
+    o.insert(o.end(), app0, app0 + 18);
+    for (int t = 0; t < 2; t++) {
+        const uint16_t* q = t == 0 ? ql : qc;
+        o.push_back(0xFF);
+        o.push_back(0xDB);
+        put16(o, 67);
+        o.push_back(static_cast<uint8_t>(t));
+        for (int i = 0; i < 64; i++) o.push_back(static_cast<uint8_t>(q[kNaturalOrder[i]]));
+    }
+    o.push_back(0xFF);
+    o.push_back(0xC0);
+    put16(o, 17);
+    o.push_back(8);
+    put16(o, height);
+    put16(o, width);
+    o.push_back(3);
+    static const uint8_t comps[9] = {1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1};
+    o.insert(o.end(), comps, comps + 9);
+    put_dht(o, 0x00, kDcLumaBits, kDcVals);
+    put_dht(o, 0x10, kAcLumaBits, kAcLumaVals);
+    put_dht(o, 0x01, kDcChromaBits, kDcVals);
+    put_dht(o, 0x11, kAcChromaBits, kAcChromaVals);
+    static const uint8_t sos[14] = {0xFF, 0xDA, 0, 12, 3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0};
+    o.insert(o.end(), sos, sos + 14);
+
+    static const HuffCodes dcl = make_codes(kDcLumaBits, kDcVals), dcc = make_codes(kDcChromaBits, kDcVals);
+    static const HuffCodes acl = make_codes(kAcLumaBits, kAcLumaVals),
+                           acc = make_codes(kAcChromaBits, kAcChromaVals);
+    BitWriter bw(o);
+    int32_t block[64];
+    auto quantize = [&](const Plane& p, int bx, int by, const Divisor* dv, int16_t out[64]) {
+        for (int y = 0; y < 8; y++) {
+            const uint8_t* s = p.px.data() + static_cast<size_t>(by * 8 + y) * p.w + bx * 8;
+            for (int x = 0; x < 8; x++) block[y * 8 + x] = static_cast<int32_t>(s[x]) - 128;
+        }
+        fdct_islow(block);
+        for (int i = 0; i < 64; i++) {
+            int32_t t = block[i];
+            const bool neg = t < 0;
+            uint32_t u = static_cast<uint32_t>(neg ? -t : t);
+            u = static_cast<uint32_t>((static_cast<uint64_t>(u + dv[i].corr) * dv[i].recip) >> (dv[i].shift));
+            // 16-bit DCTELEM: the product is taken modulo 2^32 (UDCTELEM2)
+            out[i] = static_cast<int16_t>(neg ? -static_cast<int32_t>(u) : static_cast<int32_t>(u));
+        }
+    };
+    auto encode_block = [&](const int16_t* q, int& last_dc, const HuffCodes& dct, const HuffCodes& act) {
+        int t = q[0] - last_dc;
+        last_dc = q[0];
+        int t2 = t;
+        if (t < 0) {
+            t = -t;
+            t2--;
+        }
+        int nbits = 0;
+        while (t) {
+            nbits++;
+            t >>= 1;
+        }
+        bw.put(dct.code[nbits], dct.size[nbits]);
+        if (nbits) bw.put(static_cast<uint32_t>(t2), nbits);
+        int r = 0;
+        for (int k = 1; k < 64; k++) {
+            int v = q[kNaturalOrder[k]];
+            if (v == 0) {
+                r++;
+                continue;
+            }
+            while (r > 15) {
+                bw.put(act.code[0xF0], act.size[0xF0]);
+                r -= 16;
+            }
+            int v2 = v;
+            if (v < 0) {
+                v = -v;
+                v2--;
+            }
+            int nb = 1;
+            while ((v >>= 1)) nb++;
+            const int sym = (r << 4) + nb;
+            bw.put(act.code[sym], act.size[sym]);
+            bw.put(static_cast<uint32_t>(v2), nb);
+            r = 0;
+        }
+        if (r > 0) bw.put(act.code[0], act.size[0]);
+    };
+    int dcy = 0, dcb = 0, dcr = 0;
+    int16_t q[64], above_dc = 0;
+    for (int my = 0; my < mcuy; my++) {
+        for (int mx = 0; mx < mcux; mx++) {
+            // Y: 2x2 blocks. Past the component's blocks, jccoefct.c codes
+            // dummies (zero AC): at the right edge with the DC of the block
+            // to their left, in a row below the image with the DC of the
+            // MCU's last block above.
+            for (int yy = 0; yy < 2; yy++) {
+                const int by = my * 2 + yy;
+                for (int xx = 0; xx < 2; xx++) {
+                    const int bx = mx * 2 + xx;
+                    if (by < ybh && bx < ybw) {
+                        quantize(Y, bx, by, dl, q);
+                    } else {
+                        const int16_t dcv = by < ybh ? q[0] : above_dc;
+                        std::memset(q, 0, sizeof(q));
+                        q[0] = dcv;
+                    }
+                    encode_block(q, dcy, dcl, acl);
+                }
+                if (by < ybh) above_dc = q[0];
+            }
+            quantize(Cb, mx, my, dc, q);
+            encode_block(q, dcb, dcc, acc);
+            quantize(Cr, mx, my, dc, q);
+            encode_block(q, dcr, dcc, acc);
+        }
+    }
+    bw.flush();
+    o.push_back(0xFF);
+    o.push_back(0xD9);
+}
+
+}  // namespace
+
+extern "C" {
+
+// RGB (H, W, 3) uint8 -> baseline JPEG bytes. Writes at most cap bytes to
+// out; returns 0 and the length in *len, 1 with the needed length in *len
+// when cap is too small, -1 on an error (message in err).
+int tl_jpeg_encode(const uint8_t* rgb, int width, int height, int quality, uint8_t* out, size_t cap,
+                   size_t* len, char* err, int errlen) {
+    try {
+        std::vector<uint8_t> o;
+        o.reserve(static_cast<size_t>(width) * height / 2 + 1024);
+        encode_jpeg(rgb, width, height, quality, o);
+        *len = o.size();
+        if (o.size() > cap) return 1;
+        std::memcpy(out, o.data(), o.size());
+        return 0;
+    } catch (const DecodeError& e) {
+        copy_message(e.msg, err, errlen);
+        return -1;
+    }
+}
+
+}  // extern "C"

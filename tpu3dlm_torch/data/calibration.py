@@ -1,4 +1,4 @@
-"""Per-frame camera calibration YAML parser (port of
+"""Per-frame camera calibration YAML parser and writer (port of
 ``tpu3dlm/data/calibration.py``).
 
 The reference reads the file with PyYAML's ``safe_load``; the card host has
@@ -8,7 +8,8 @@ sequences of scalars, with ints, floats and plain strings resolved as
 ``safe_load`` resolves them. Anything outside that subset (tags, anchors,
 quoted or multi-line scalars, booleans, nulls, directives such as
 OpenCV's ``%YAML:1.0``) raises ``ValueError`` naming the file rather than
-being read differently from PyYAML.
+being read differently from PyYAML. ``write_calibration`` writes the bytes
+the reference's ``yaml.safe_dump`` writes.
 """
 
 from __future__ import annotations
@@ -163,3 +164,36 @@ def calibration_to_array(calib: dict) -> tuple[np.ndarray, np.ndarray]:
     intr = np.array([calib["fx"], calib["fy"], calib["cx"], calib["cy"]], np.float32)
     wh = np.array([calib["image_width"], calib["image_height"]], np.float32)
     return intr, wh
+
+
+def _yaml_float(v: float) -> str:
+    """A float as PyYAML's ``safe_dump`` writes it (``repr``, lower case,
+    ``.0`` before a bare exponent)."""
+    if v != v:
+        return ".nan"
+    if v in (np.inf, -np.inf):
+        return ".inf" if v > 0 else "-.inf"
+    text = repr(float(v)).lower()
+    if "." not in text and "e" in text:
+        text = text.replace("e", ".0e", 1)
+    return text
+
+
+def write_calibration(
+    calibration_path: str,
+    image_width: int,
+    image_height: int,
+    fx: float,
+    fy: float,
+    cx: float,
+    cy: float,
+) -> None:
+    """Emit a calibration YAML in the RTAB-Map export layout, byte for byte
+    what the reference's ``yaml.safe_dump`` writes (sorted keys, block
+    style), so it reads back through ``parse_yaml_subset``."""
+    data = [float(fx), 0.0, float(cx), 0.0, float(fy), float(cy), 0.0, 0.0, 1.0]
+    lines = ["camera_matrix:", "  cols: 3", "  data:"]
+    lines += [f"  - {_yaml_float(v)}" for v in data]
+    lines += ["  rows: 3", f"image_height: {int(image_height)}", f"image_width: {int(image_width)}"]
+    with open(calibration_path, "w") as f:
+        f.write("\n".join(lines) + "\n")

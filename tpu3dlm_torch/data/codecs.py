@@ -14,6 +14,9 @@ carries its own, held to cv2's output byte for byte:
   as BGRA (H, W, 4), 16-bit gray (H, W) uint16. Python parses the chunks,
   checks CRCs and inflates IDAT (``zlib``); the C++ source undoes the row
   filters. Interlaced, palette, gray+alpha and other bit depths raise.
+- ``encode_jpeg``: RGB uint8 → the bytes ``cv2.imencode(".jpg", ...)``
+  writes at its defaults (quality 95, 4:2:0, libjpeg-turbo's fixed-point
+  colour conversion, islow DCT and Annex K tables).
 - ``write_png``: the inverse for the same layouts (filter None), so a file
   it writes decodes under ``imread(IMREAD_UNCHANGED)`` to its input.
 - ``resize_linear``: ``cv2.resize(..., INTER_LINEAR)`` on uint8 (fixed-point
@@ -47,7 +50,9 @@ def _lib() -> ctypes.CDLL:
         lib.tl_jpeg_decode.argtypes = [u8p, ctypes.c_size_t, u8p, i, i, ctypes.c_char_p, i]
         lib.tl_png_unfilter.argtypes = [u8p, i, i, i, u8p]
         lib.tl_resize_linear_u8.argtypes = [u8p, i, i, i, u8p, i, i]
-        for fn in (lib.tl_jpeg_header, lib.tl_jpeg_decode, lib.tl_png_unfilter):
+        lib.tl_jpeg_encode.argtypes = [u8p, i, i, i, u8p, ctypes.c_size_t, ctypes.POINTER(ctypes.c_size_t),
+                                       ctypes.c_char_p, i]
+        for fn in (lib.tl_jpeg_header, lib.tl_jpeg_decode, lib.tl_png_unfilter, lib.tl_jpeg_encode):
             fn.restype = i
         lib.tl_resize_linear_u8.restype = None
         lib._typed = True
@@ -81,6 +86,27 @@ def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
 
 def read_jpeg(path: str) -> np.ndarray:
     return decode_jpeg(_read(path), path)
+
+
+def encode_jpeg(rgb: np.ndarray, quality: int = 95) -> bytes:
+    """(H, W, 3) RGB uint8 → baseline JPEG bytes, those of
+    ``cv2.imencode(".jpg", cvtColor(rgb, COLOR_RGB2BGR))`` (4:2:0, Annex K
+    tables, JFIF header; ``csrc/host/codecs.cpp``)."""
+    img = np.ascontiguousarray(rgb)
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"encode_jpeg takes (H, W, 3) uint8 RGB, got {img.shape} {img.dtype}")
+    h, w = img.shape[:2]
+    lib, err, n = _lib(), ctypes.create_string_buffer(_ERRLEN), ctypes.c_size_t()
+    cap = h * w + 4096
+    while True:
+        out = np.empty(cap, np.uint8)
+        rc = lib.tl_jpeg_encode(img.ctypes.data, w, h, int(quality), out.ctypes.data, cap, ctypes.byref(n),
+                                err, _ERRLEN)
+        if rc == 0:
+            return out[:n.value].tobytes()
+        if rc != 1:
+            raise ValueError(f"encode_jpeg: {err.value.decode()}")
+        cap = n.value
 
 
 # ---------------------------------------------------------------------------

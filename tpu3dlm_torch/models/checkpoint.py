@@ -129,11 +129,12 @@ def restore_flax_msgpack(data: bytes):
 
 def read_flax_msgpack(path: str):
     """A flax ``.msgpack`` checkpoint file → nested dicts of numpy arrays.
-    A ``.pt`` (PyTorch) checkpoint raises: its converters are not ported."""
+    Any other file raises: ``.pt``/``.safetensors`` checkpoints are read by
+    ``tpu3dlm_torch.models.weights.load_torch_state_dict``."""
     if not path.endswith(".msgpack"):
         raise NotImplementedError(
-            f"{path}: only flax .msgpack checkpoints are read; .pt checkpoints "
-            "(load_torch_state_dict and its converters) are not ported yet (ROADMAP A24)"
+            f"{path}: only flax .msgpack checkpoints are read here; load .pt/.safetensors "
+            "checkpoints with tpu3dlm_torch.models.weights.load_torch_state_dict"
         )
     with open(path, "rb") as f:
         data = f.read()

@@ -39,15 +39,17 @@ _DETECT_LAYER = 23
 
 
 def _leaves(tree: Mapping, path=()):
+    """(path, leaf) pairs; float leaves as float32, int8 kernels as is."""
     for k, v in tree.items():
         if isinstance(v, Mapping):
             yield from _leaves(v, path + (k,))
         else:
-            yield path + (k,), np.asarray(v, np.float32)
+            v = np.asarray(v)
+            yield path + (k,), v if v.dtype == np.int8 else v.astype(np.float32)
 
 
 def _torch_value(leaf: str, v: np.ndarray) -> np.ndarray:
-    if leaf == "kernel":
+    if leaf in ("kernel", "kernel_q"):
         return np.transpose(v, (3, 2, 0, 1)) if v.ndim == 4 else v.T
     return v
 
@@ -339,17 +341,30 @@ def yolov10_from_flax(variables: Mapping, variant: str = "n", nc: int | None = N
 # ---------------------------------------------------------------------------
 
 
-def _beit_key(path: tuple) -> str:
-    """('layer3', 'attn', 'query', 'kernel') → 'layers.3.attn.query.weight'."""
+def _beit_key(path: tuple, int8_dense: bool = False) -> str:
+    """('layer3', 'attn', 'query', 'kernel') → 'layers.3.attn.query.weight';
+    the leaves of an ``Int8Dense`` (``int8_dense``): ``kernel_q`` →
+    ``weight_q``, ``scale`` and ``bias`` as they are."""
     toks = list(path)
     if toks[0].startswith("layer"):
         toks = ["layers", toks[0][len("layer"):]] + toks[1:]
-    toks[-1] = {"kernel": "weight", "scale": "weight"}.get(toks[-1], toks[-1])
+    names = {"kernel_q": "weight_q"} if int8_dense else {"kernel": "weight", "scale": "weight"}
+    toks[-1] = names.get(toks[-1], toks[-1])
     return ".".join(toks)
 
 
+def _is_int8_dense(params: Mapping, path: tuple) -> bool:
+    node = params
+    for k in path[:-1]:
+        node = node[k]
+    return "kernel_q" in node
+
+
 def beit_config_from_flax(params: Mapping) -> BeitConfig:
-    """Infer the ``BeitConfig`` a Flax BEiT tree was built with."""
+    """Infer the ``BeitConfig`` a Flax BEiT tree was built with (int8 when
+    its encoder projections carry ``kernel_q``)."""
+    fc1 = params["layer0"]["fc1"]
+    int8 = "kernel_q" in fc1
     kh, _, _, hidden = np.shape(params["patch_embed"]["kernel"])
     num_rel, heads = np.shape(params["layer0"]["attn"]["relative_position_bias_table"])
     grid = (int(round(np.sqrt(num_rel - 3))) + 1) // 2
@@ -359,20 +374,60 @@ def beit_config_from_flax(params: Mapping) -> BeitConfig:
         hidden_size=hidden,
         num_layers=sum(k.startswith("layer") for k in params),
         num_heads=heads,
-        intermediate_size=int(np.shape(params["layer0"]["fc1"]["kernel"])[-1]),
+        intermediate_size=int(np.shape(fc1["kernel_q" if int8 else "kernel"])[-1]),
         num_labels=int(np.shape(params["classifier"]["kernel"])[-1]),
         use_mean_pooling="pool_ln" in params,
+        quant="int8" if int8 else "none",
     )
 
 
 def beit_from_flax(variables: Mapping, cfg: BeitConfig | None = None) -> BeitClassifier:
     """Flax ``{"params"}`` of ``tpu3dlm.models.beit.BeitClassifier`` → the
     port's ``BeitClassifier`` (float32, CPU); the config is inferred from
-    the tree unless given."""
+    the tree unless given. A quantised tree (``quantize_beit_variables``
+    here or in the JAX package: ``kernel_q`` int8, ``scale`` f32) goes into
+    the ``Int8Dense`` modules of a ``quant="int8"`` model."""
     params = variables["params"]
     cfg = cfg or beit_config_from_flax(params)
     model = BeitClassifier(cfg)
-    sd = {_beit_key(path): _torch_value(path[-1], v) for path, v in _leaves(params)}
+    sd = {_beit_key(path, _is_int8_dense(params, path)): _torch_value(path[-1], v)
+          for path, v in _leaves(params)}
     _load_exact(model, sd)
     return model.eval()
+
+
+def quantize_beit_variables(variables: Mapping) -> dict:
+    """Float BEiT variables (a Flax tree of numpy arrays) → int8 variables
+    for ``BeitConfig(quant="int8")`` (port of
+    ``tpu3dlm/models/weights.py::quantize_beit_variables``).
+
+    Every encoder Dense kernel (attention q/k/v/output, fc1, fc2) becomes
+    ``kernel_q`` int8 + per-output-channel ``scale`` f32
+    (``ops/quant.py::quantize_weight``), its bias f32; everything else
+    passes through. Refuses a tree that is already quantised."""
+    from tpu3dlm_torch.ops.quant import quantize_weight
+
+    def walk(tree: Mapping, path: tuple) -> dict:
+        out: dict = {}
+        for k, v in tree.items():
+            if isinstance(v, Mapping):
+                if "kernel_q" in v:
+                    raise ValueError(
+                        f"quantize_beit_variables: {'/'.join(path + (k,))} is already int8-quantized")
+                is_enc_dense = (k in ("fc1", "fc2") and path and path[-1].startswith("layer")) or (
+                    k in ("query", "key", "value", "output") and len(path) >= 2
+                    and path[-1] == "attn" and path[-2].startswith("layer"))
+                if is_enc_dense and "kernel" in v:
+                    wq, scale = quantize_weight(torch.from_numpy(np.array(v["kernel"], np.float32)))
+                    q = {"kernel_q": wq.numpy(), "scale": scale.numpy()}
+                    if "bias" in v:
+                        q["bias"] = np.asarray(v["bias"], np.float32)
+                    out[k] = q
+                else:
+                    out[k] = walk(v, path + (k,))
+            else:
+                out[k] = v
+        return out
+
+    return walk(dict(variables), ())
 

@@ -1,10 +1,12 @@
-"""ctypes bindings of the port's host C++ for the map stage (port of the
-meshing and clustering part of ``tpu3dlm/native/__init__.py``).
+"""ctypes bindings of the port's host C++ for normals and the map stage
+(port of the normals, meshing and clustering part of
+``tpu3dlm/native/__init__.py``).
 
-``csrc/host/dbscan.cpp`` and ``csrc/host/meshing.cpp`` are copies of the
-JAX package's ``native/src/dbscan.cpp`` and ``poisson.cpp``; the same code
-built with the same flags gives the same labels, splats, meshes and keep
-masks. Each library is built at first use by ``kernels/build.py``. The JAX
+``csrc/host/normals.cpp``, ``csrc/host/dbscan.cpp`` and
+``csrc/host/meshing.cpp`` are copies of the JAX package's
+``native/src/normals.cpp``, ``dbscan.cpp`` and ``poisson.cpp``; the same code
+built with the same flags gives the same normals, labels, splats, meshes and
+keep masks. Each library is built at first use by ``kernels/build.py``. The JAX
 package returns ``None`` when its library is missing and falls back to
 numpy; here a missing compiler or a failed build raises, and so does a
 non-zero return code.
@@ -29,6 +31,15 @@ def _dbscan_lib() -> ctypes.CDLL:
     if not getattr(lib, "_typed", False):
         lib.tpu3dlm_dbscan.restype = ctypes.c_int
         lib.tpu3dlm_dbscan.argtypes = [_f32p, _i64, _dbl, ctypes.c_int, _i32p]
+        lib._typed = True
+    return lib
+
+
+def _normals_lib() -> ctypes.CDLL:
+    lib = load_host_library("normals")
+    if not getattr(lib, "_typed", False):
+        lib.tpu3dlm_grid_normals.restype = ctypes.c_int
+        lib.tpu3dlm_grid_normals.argtypes = [_f32p, _i64, _dbl, _f32p, _f32p]
         lib._typed = True
     return lib
 
@@ -62,6 +73,18 @@ def _ptr(a: np.ndarray, kind):
 def _check(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"tpu3dlm_torch: host {what} returned {rc}")
+
+
+def grid_normals(points: np.ndarray, voxel: float, viewpoint=None) -> np.ndarray:
+    """(N, 3) → (N, 3) float32 unit normals (``tpu3dlm_grid_normals``)."""
+    pts = np.ascontiguousarray(points, np.float32).reshape(-1, 3)
+    out = np.empty_like(pts)
+    vp = None if viewpoint is None else np.ascontiguousarray(viewpoint, np.float32).reshape(3)
+    rc = _normals_lib().tpu3dlm_grid_normals(
+        _ptr(pts, _f32p), pts.shape[0], float(voxel), _f32p() if vp is None else _ptr(vp, _f32p),
+        _ptr(out, _f32p))
+    _check(rc, "grid_normals")
+    return out
 
 
 def dbscan(points: np.ndarray, eps: float, min_points: int) -> np.ndarray:

@@ -1,12 +1,14 @@
-"""Per-point normals for point-to-plane ICP (port of
-``tpu3dlm/ops/pointcloud.py::estimate_normals_grid``, its numpy path).
+"""Per-point normals for point-to-plane ICP and Poisson meshing (port of
+``tpu3dlm/ops/pointcloud.py::estimate_normals_grid``).
 
-Host numpy, run once per gold cloud and cached with it by the alignment.
-The reference prefers a native C++ core (``tpu3dlm/native``) and keeps this
-numpy path as its fallback; the port keeps the numpy path only.
-Point-to-plane ICP cannot tell a normal from its negation (H = JᵀJ and
-g = Jᵀr are unchanged when n flips, and rmse squares r), so eigenvector sign
-conventions do not move its result.
+``estimate_normals_grid`` runs the host C++ core that the JAX package's
+default route runs (``csrc/host/normals.cpp``, a copy of
+``tpu3dlm/native/src/normals.cpp``), so both packages give every point the
+same normal, sign included; a failed build raises. Once per gold cloud,
+cached with it by the alignment. ``estimate_normals_grid_numpy`` is its
+plain twin, the JAX package's numpy fallback: the same lines, each with the
+sign its eigensolver happens to pick (about a third opposite without a
+viewpoint). Nothing on the main path calls the twin.
 """
 
 from __future__ import annotations
@@ -15,7 +17,19 @@ import numpy as np
 
 
 def estimate_normals_grid(points, voxel: float = 0.08, viewpoint=None) -> np.ndarray:
-    """(N, 3) float32 unit normals from per-voxel PCA.
+    """(N, 3) float32 unit normals from per-voxel PCA (host C++): points bin
+    into ``voxel``-sized cells, each cell's smallest-eigenvalue direction is
+    the normal of its points, cells with < 3 points take the global
+    dominant-plane normal; with ``viewpoint`` the normals face it."""
+    from tpu3dlm_torch.native import grid_normals
+
+    if np.shape(points)[0] == 0:
+        return np.zeros((0, 3), np.float32)
+    return grid_normals(points, voxel, viewpoint)
+
+
+def estimate_normals_grid_numpy(points, voxel: float = 0.08, viewpoint=None) -> np.ndarray:
+    """The plain twin of ``estimate_normals_grid`` in numpy.
 
     Points bin into ``voxel``-sized cells; each cell's 3×3 covariance
     accumulates by bincount, a batched eigh gives the smallest-eigenvalue

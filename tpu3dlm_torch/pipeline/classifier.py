@@ -30,8 +30,7 @@ import torch
 
 from tpu3dlm_torch.data.scan import Detections, Scan
 from tpu3dlm_torch.device import resolve_device
-from tpu3dlm_torch.models.beit import BeitClassifier, BeitConfig, preprocess_crops
-from tpu3dlm_torch.models.layers import init_seeded_
+from tpu3dlm_torch.models.beit import BeitClassifier, BeitConfig, preprocess_crops, seeded_beit
 from tpu3dlm_torch.ops.image import rectify_crops
 from tpu3dlm_torch.utils.shapes import padded_batches
 
@@ -74,7 +73,7 @@ class DamageDetector:
                 "DamageDetector initialised with random weights: convert a finetuned BEiT "
                 "checkpoint via models/weights.py for real use."
             )
-            beit = init_seeded_(BeitClassifier(self.config), torch.Generator().manual_seed(rng_seed))
+            beit = seeded_beit(self.config, torch.Generator().manual_seed(rng_seed))
         self.beit = beit.to(self.device, dtype).eval()
 
     def _classify(self, crops_u8: torch.Tensor) -> torch.Tensor:

@@ -21,7 +21,7 @@ import torch
 from tpu3dlm_torch.data.scan import Detections, Scan, to_numpy
 from tpu3dlm_torch.device import resolve_device
 from tpu3dlm_torch.mapper.projection import GlobalBoxes
-from tpu3dlm_torch.models.beit import BeitClassifier, BeitConfig
+from tpu3dlm_torch.models.beit import BeitClassifier, BeitConfig, seeded_beit
 from tpu3dlm_torch.models.layers import init_seeded_
 from tpu3dlm_torch.models.yolov10 import YOLOv10
 from tpu3dlm_torch.parallel.inference import full_scan_step, square_box_affine
@@ -87,7 +87,7 @@ class FusedScanRunner:
         if yolo is None:
             yolo = init_seeded_(YOLOv10(nc=nc, variant=variant), torch.Generator().manual_seed(rng_seed))
         if beit is None:
-            beit = init_seeded_(BeitClassifier(beit_config), torch.Generator().manual_seed(rng_seed + 1))
+            beit = seeded_beit(beit_config, torch.Generator().manual_seed(rng_seed + 1))
         self.yolo = yolo.to(self.device, dtype).to(memory_format=torch.channels_last).eval()
         self.beit = beit.to(self.device, dtype).eval()
 

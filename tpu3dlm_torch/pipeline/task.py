@@ -29,15 +29,21 @@ streamed run keeps no frames and skips the map with a warning, as the
 reference does. Per-stage wall-clock lands in ``stage_times`` (extract,
 detect, map, plot, compare).
 
+``beit_quant = int8`` serves the int8 classifier on every route: the
+checkpoint (or the seeded draw) is loaded as float, then quantised
+(``quantize_beit_variables`` on a Flax tree, ``quantize_beit`` on a module),
+as the reference does.
+
 Settings the port cannot honour yet raise ``NotImplementedError`` naming
 their ROADMAP item before any work: ``view_img``, ``alignment_vis`` and
-``comparison_vis`` (A18), ``beit_quant = int8`` (A21), ``mesh_devices > 1``
-(A22) and ``use_pallas = false`` (the port has no plain path on the card).
-``icp_ann`` goes to ``Alignment`` as is.
+``comparison_vis`` (A18), ``mesh_devices > 1`` (A22) and ``use_pallas =
+false`` (the port has no plain path on the card). ``icp_ann`` goes to
+``Alignment`` as is.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import os
 import pickle
@@ -56,7 +62,7 @@ from tpu3dlm_torch.data.scan import Detections, Scan, detections_from_frame_dict
 from tpu3dlm_torch.device import resolve_device
 from tpu3dlm_torch.mapper.nms3d import suppress_bboxes
 from tpu3dlm_torch.mapper.projection import project_detections
-from tpu3dlm_torch.models.beit import BeitClassifier, BeitConfig
+from tpu3dlm_torch.models.beit import BeitClassifier, BeitConfig, quantize_beit, seeded_beit
 from tpu3dlm_torch.models.layers import init_seeded_
 from tpu3dlm_torch.models.yolov10 import YOLOv10
 
@@ -86,8 +92,6 @@ def unsupported_settings(cfg) -> list[str]:
     if not getattr(cfg, "use_pallas", True):
         out.append("use_pallas = false: the port has no switch that runs plain PyTorch in place "
                    "of its kernels on the card")
-    if getattr(cfg, "beit_quant", "none") == "int8":
-        out.append("beit_quant = int8: the int8 classifier is not ported yet (ROADMAP A21)")
     if getattr(cfg, "mesh_devices", 1) > 1:
         out.append("mesh_devices > 1: multi-GPU runs are not ported yet (ROADMAP A22)")
     return out
@@ -462,21 +466,35 @@ class Pipeline:
 
     def _load_beit_weights(self, num_labels: int) -> BeitClassifier:
         from tpu3dlm_torch.models.checkpoint import read_flax_msgpack
-        from tpu3dlm_torch.models.weights import beit_from_flax, beit_from_hf, load_torch_state_dict
+        from tpu3dlm_torch.models.weights import (
+            beit_from_flax, beit_from_hf, load_torch_state_dict, quantize_beit_variables,
+        )
 
         path = getattr(self.cfg, "beit_weights", "") or ""
         path = path if os.path.exists(path) else ""
         cfg = self._beit_config(num_labels)
+        int8 = cfg.quant == "int8"
+        # checkpoints are stored float whatever beit_quant says: load as
+        # float, quantise after
+        float_cfg = dataclasses.replace(cfg, quant="none")
 
         def build():
             if path.endswith(".msgpack"):
                 self.logger.info("Loading native BEiT checkpoint %s", path)
-                model = beit_from_flax(read_flax_msgpack(path), cfg)
-            elif path:
-                self.logger.info("Converting BEiT torch checkpoint %s", path)
-                model = beit_from_hf(load_torch_state_dict(path), cfg)
+                variables = read_flax_msgpack(path)
+                if int8:
+                    self.logger.info("Quantizing BEiT weights to int8 (beit_quant)")
+                    variables = quantize_beit_variables(variables)
+                model = beit_from_flax(variables, cfg)
             else:
-                model = init_seeded_(BeitClassifier(cfg), torch.Generator().manual_seed(1))
+                if path:
+                    self.logger.info("Converting BEiT torch checkpoint %s", path)
+                    model = beit_from_hf(load_torch_state_dict(path), float_cfg)
+                else:
+                    model = seeded_beit(float_cfg, torch.Generator().manual_seed(1))
+                if int8:
+                    self.logger.info("Quantizing BEiT weights to int8 (beit_quant)")
+                    model = quantize_beit(model)
             return model.to(self.device, self.dtype).eval()
 
         return _cached_weights(self._weights_key("beit", path, cfg), build)

@@ -61,7 +61,7 @@ _SCHEMA: dict[str, str] = {
     "beit_num_layers": "int",
     "beit_num_heads": "int",
     "beit_intermediate_size": "int",
-    # "none" | "int8": quantized classifier serving (int8 is not ported yet)
+    # "none" | "int8": quantized classifier serving (ops/quant.py)
     "beit_quant": "str",
     "nms_top_k": "int",
     "crop_budget": "int",
@@ -158,10 +158,10 @@ num_classes = 80
 crop_budget = 128
 # 0 = whole-scan ingestion; N>0 streams the capture in N-frame chunks
 # with host-decode/device-compute overlap (bounded memory for scans
-# larger than host or device memory; not ported yet)
+# larger than host RAM/HBM — data/dataset.iter_scan_chunks)
 streaming_chunk = 0
-# serve frames from the scanpack cache (zero decodes after the first
-# pass; not ported yet)
+# serve streamed chunks from the scanpack cache (memory-mapped, zero
+# decodes after the first pass — data/scanpack.py)
 scan_cache = false
 # host decode thread pool (0/1 = sequential; the decoders release the GIL
 # so this scales with host cores)
@@ -178,7 +178,7 @@ beit_hidden_size = 768
 beit_num_layers = 12
 beit_num_heads = 12
 beit_intermediate_size = 3072
-# none | int8 — int8 quantizes every encoder Dense at load (not ported yet)
+# none | int8 — int8 quantizes every encoder Dense at load
 beit_quant = none
 
 # depth / projection
