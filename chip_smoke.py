@@ -5,7 +5,7 @@
 
 Builds every CUDA kernel of the port from ``tpu3dlm_torch/csrc`` (into
 ``tpu3dlm_torch/_build``, one ``nvcc`` per source and one ``c++`` for the
-host C++ sources, all at once), then runs twenty-eight phases, each printing one
+host C++ sources, all at once), then runs thirty-one phases, each printing one
 JSON line; any failure raises and the script exits non-zero without a result:
 
 1. ``kernel_b1``: kernel B1 (BEiT attention) against its plain PyTorch twin
@@ -205,7 +205,33 @@ JSON line; any failure raises and the script exits non-zero without a result:
     checkpoint is in the repo); host generation ms per scan, JPEG encode
     ms per frame, detect frames/s, classify ms per batch of 64 in bf16 and
     int8, and the device idle share of one profiled axis.
-28. ``kernels``: one line listing every ported kernel (B1 on its two
+28. ``vis_parity``: the views of a run (``view_img``, ``alignment_vis``,
+    ``comparison_vis``) through gold and maintenance on the staged route
+    at ``bench_e2e.py``'s configuration (fixture checkpoints, f32), the ICP
+    cut to one iteration a stage so the animation has at most 80 frames,
+    on the card against the CPU: the card's report CSV byte-identical with
+    the switches off, both runs held by ``pipeline_parity``'s bars; the
+    annotated PNGs identical but where a drawn box corner straddles an
+    integer between card and CPU (those frames and pixels counted); the
+    animation's frame count equal and its frames within 1% of the pixels
+    on another surface (background, gold, comparison); ``frame_view_
+    geometry`` and ``scan_to_pointcloud`` of both scans within 1e-5 m; B1
+    and B2 launched.
+29. ``vis_full_width``: (a) the animation of ``compare_full_width``'s
+    capture (two ~1M-point clouds, subsampled to 50,000 as the Pipeline
+    does, density mesh at span/72, 480 × 640) over its first 5 moving
+    steps (100 frames): mesh, render per frame, write, host peak, and the
+    whole record's frame count and reckoned time; (b) ``view_img`` on
+    ``staged_full_width``'s 128-frame maintenance capture at 640²: the
+    detect stage with and without it, the drawing and PNG ms per frame; (c)
+    ``scan_to_pointcloud`` of that scan on the card.
+30. ``envelope_parity``: the convergence-envelope sweep
+    (``python -m tpu3dlm_torch.scripts.alignment_envelope``: 3 seeds, 144
+    registrations) on the card against ``docs/ALIGNMENT_ENVELOPE.json``:
+    every cell's success and verdict flag equal, or (printed) within 0.5° /
+    0.01 m of the success line or near a verdict floor; the verdict's catch
+    and false-alarm rates within 0.05; B2's launches and the wall time.
+31. ``kernels``: one line listing every ported kernel (B1 on its two
     routes — ``attention_bf16_tma`` counted on the scan step,
     ``attention_simt`` on the finetune step — B2, B3, B4 v1 and v2) with
     its launches, the path they were counted on (``launches_on``), error,
@@ -221,7 +247,9 @@ JSON line; any failure raises and the script exits non-zero without a result:
     forward and the int8 scan step (``launches_on_int8``, from
     ``int8_full_width``) and per damage-eval run (``launches_on_damage_
     eval``, from ``eval_parity``); B1's and B2's in ``verify``
-    (``launches_on_verify``).
+    (``launches_on_verify``); B1's and B2's on the views of a run
+    (``launches_on_vis``, from ``vis_parity``) and B2's on the envelope
+    sweep (``launches_on_envelope``).
 
 The script's total seconds are printed on the line before the card's name
 and power limit (nvidia-smi), which come before the last line; the last
@@ -3200,6 +3228,426 @@ def phase_eval_full_width(dev, tmp: str, parity: dict) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# Slice 9: the views of a run and the convergence-envelope sweep
+# ---------------------------------------------------------------------------
+
+
+def frame_classes(frame: np.ndarray) -> np.ndarray:
+    """Each pixel of an animation frame as background (0), the gold map's
+    grey (1) or the comparison map's red (2)."""
+    f = frame.astype(np.int16)
+    background = (f == 255).all(-1)
+    red = (f[..., 0] - f[..., 1]) > 40
+    return np.where(background, 0, np.where(red, 2, 1))
+
+
+def hold_frames(got: list, want: list, bar: float = 1e-3) -> dict:
+    """Two renders of one animation: the same frame count and, per frame,
+    at most ``bar`` of the pixels on another surface (background, gold or
+    comparison). A last-ulp difference in the replayed points reorders the
+    renderer's z-ties (its ``argsort`` is not stable), which reshades
+    pixels within a surface; the share of differing pixels is returned, not
+    held."""
+    check(len(got) == len(want), (len(got), len(want)))
+    pixels = [float((a != b).any(-1).mean()) for a, b in zip(got, want)]
+    classes = [float((frame_classes(a) != frame_classes(b)).mean()) for a, b in zip(got, want)]
+    check(max(classes, default=0.0) <= bar, classes)
+    return {"frames": len(got), "identical_frames": sum(p == 0.0 for p in pixels),
+            "max_pixel_share": max(pixels, default=0.0), "max_surface_share": max(classes, default=0.0)}
+
+
+VIS_SWITCHES = [("view_img = false", "view_img = true"), ("alignment_vis = false", "alignment_vis = true"),
+                ("comparison_vis = false", "comparison_vis = true")]
+# one ICP iteration a stage: 4 recorded steps, so at most 80 frames a run
+# (the default 30 record 91 moving steps, 1820 frames)
+VIS_CUT = [("icp_iterations = 30", "icp_iterations = 1")]
+
+
+def capture_scan(folder: str, img_size: int = 128):
+    """One scan of the committed capture through ``load_scan``."""
+    from tpu3dlm_torch.data.dataset import load_scan
+
+    ext = PROJECT / "data" / folder / "rtabmap_extract"
+    return load_scan(str(ext / "data_rgb"), str(ext / "data_depth"), str(ext / "calibration"),
+                     str(PROJECT / "data" / folder / "poses.txt"), img_size=img_size)
+
+
+def hold_view_geometry(dev, scan, gboxes) -> dict:
+    """``frame_view_geometry`` of every frame and ``scan_to_pointcloud`` of
+    the scan on ``dev`` against the CPU: cloud points and boxes within 1e-5
+    m, the valid masks and the frustum's lines identical, its points within
+    1e-6 m. Returns the largest errors."""
+    from tpu3dlm_torch.mapper.projection import frame_view_geometry
+    from tpu3dlm_torch.ops.pointcloud import scan_to_pointcloud
+
+    errs = {"cloud_m": 0.0, "box_m": 0.0, "frustum_m": 0.0, "boxes": 0}
+    for f in range(scan.num_frames):
+        got = frame_view_geometry(scan, gboxes, f, device=dev)
+        want = frame_view_geometry(scan, gboxes, f, device="cpu")
+        check(got["cloud_points"].shape == want["cloud_points"].shape, (got["cloud_points"].shape, f))
+        errs["cloud_m"] = max(errs["cloud_m"], float(np.abs(got["cloud_points"] - want["cloud_points"]).max()))
+        check(len(got["boxes"]) == len(want["boxes"]), f)
+        errs["boxes"] += len(got["boxes"])
+        for a, b in zip(got["boxes"], want["boxes"]):
+            errs["box_m"] = max(errs["box_m"], float(np.abs(a - b).max()))
+        check(got["frustum"]["lines"] == want["frustum"]["lines"], f)
+        errs["frustum_m"] = max(errs["frustum_m"], float(np.abs(got["frustum"]["points"] - want["frustum"]["points"]).max()))
+    args = (scan.depth, scan.intrinsics, scan.rgb_size, scan.poses)
+    pts, ok = scan_to_pointcloud(*args, device=dev)
+    w_pts, w_ok = scan_to_pointcloud(*args, device="cpu")
+    check(torch.equal(ok.cpu(), w_ok), "scan_to_pointcloud valid masks")
+    errs["scan_cloud_m"] = float((pts.cpu() - w_pts).abs().max())
+    errs["scan_points"] = int(w_ok.sum())
+    check(max(errs["cloud_m"], errs["box_m"], errs["scan_cloud_m"]) <= 1e-5 and errs["frustum_m"] <= 1e-6, errs)
+    return errs
+
+
+def drawn_corners(record) -> list:
+    """Per frame, the integer corners ``_save_annotated`` draws each valid
+    box at (the stored frame's pixels), from a recorded (rgb_size, frame
+    side, boxes, mask, letterbox)."""
+    wh, S, boxes, mask, lb = record
+    out = []
+    for f in range(boxes.shape[0]):
+        row = []
+        for b in range(boxes.shape[1]):
+            if mask[f, b]:
+                if lb is not None:
+                    s, px, py = lb[f]
+                    c = boxes[f, b] * s + [px, py, px, py]
+                else:
+                    sx, sy = S / wh[f, 0], S / wh[f, 1]
+                    c = boxes[f, b] * [sx, sy, sx, sy]
+                row.append(tuple(int(v) for v in c))
+        out.append(row)
+    return out
+
+
+class VisRecorder:
+    """Records, while active, what the views of a run produce: each
+    ``VisualiseAlignment`` that wrote a video (with its seconds), and the
+    detections each ``_save_annotated`` drew, by output directory."""
+
+    def __enter__(self):
+        from tpu3dlm_torch.alignment import visualise as vis_mod
+        from tpu3dlm_torch.pipeline.detector import ObjectDetector
+
+        self.animations, self.annotated = [], {}
+        self._vis_mod, self._real_vis = vis_mod, vis_mod.VisualiseAlignment
+        self._detector, self._real_save = ObjectDetector, ObjectDetector._save_annotated
+        rec = self
+
+        class Recording(vis_mod.VisualiseAlignment):
+            def create_video(self, *args, **kwargs):
+                t0 = time.perf_counter()
+                n = super().create_video(*args, **kwargs)
+                self.video_s = time.perf_counter() - t0
+                rec.animations.append(self)
+                return n
+
+        def save(detector, scan, det):
+            lb = None if scan.letterbox is None else np.asarray(scan.letterbox)
+            rec.annotated[detector.save_img] = (np.asarray(scan.rgb_size), np.asarray(scan.rgb).shape[1],
+                                                np.asarray(det.boxes).copy(), np.asarray(det.mask).copy(), lb)
+            return rec._real_save(detector, scan, det)
+
+        vis_mod.VisualiseAlignment = Recording
+        ObjectDetector._save_annotated = save
+        return self
+
+    def __exit__(self, *exc):
+        self._vis_mod.VisualiseAlignment = self._real_vis
+        self._detector._save_annotated = self._real_save
+
+
+def hold_annotated_frames(gpu: dict, cpu: dict) -> dict:
+    """The annotated PNGs of the card's and the CPU's runs, directory by
+    directory: a frame whose drawn corners are the same on both is
+    byte-identical once decoded; a frame where a box coordinate straddles an
+    integer between the two (card boxes are within 1e-2 px) is counted,
+    with its differing pixels."""
+    import os
+
+    from tpu3dlm_torch.data.codecs import read_png
+
+    out = {"frames": 0, "straddled_frames": 0, "straddled_pixels": 0}
+    for (g_dir, g_rec), (c_dir, c_rec) in zip(sorted(gpu.items()), sorted(cpu.items())):
+        for f, (a, b) in enumerate(zip(drawn_corners(g_rec), drawn_corners(c_rec), strict=True)):
+            got = read_png(os.path.join(g_dir, f"image_{f}.png"))
+            want = read_png(os.path.join(c_dir, f"image_{f}.png"))
+            differ = int((got != want).any(-1).sum())
+            out["frames"] += 1
+            if a == b:
+                check(differ == 0, (g_dir, f, differ))
+            else:
+                out["straddled_frames"] += 1
+                out["straddled_pixels"] += differ
+    return out
+
+
+def phase_vis_parity(dev, tmp: str) -> dict:
+    """The views of a run on the card against the CPU on the committed
+    capture at ``bench_e2e.py``'s configuration on the staged route (f32,
+    fixture checkpoints), the ICP cut to one iteration a stage (``VIS_CUT``):
+    gold and maintenance with ``view_img``, ``alignment_vis`` and
+    ``comparison_vis`` on, on the card (the launch counts at 0 just before)
+    and on the CPU; the card's maintenance again with them off. Bars: the
+    card's report CSV byte-identical with the switches off and on, and held
+    to the CPU run by ``hold_pipelines``; the annotated PNGs by
+    ``hold_annotated_frames``; the animation's frame count equal to the CPU
+    run's, its frames within 1% of the pixels on another surface
+    (``hold_frames``; the card's ICP steps differ from the CPU's within
+    1e-4); ``frame_view_geometry`` and ``scan_to_pointcloud`` of both scans
+    by ``hold_view_geometry``; B1 and B2 launched."""
+    import os
+
+    from tpu3dlm_torch.data.scan import detections_from_frame_dict
+    from tpu3dlm_torch.mapper.projection import project_detections
+    from tpu3dlm_torch.pipeline import task
+    from tpu3dlm_torch.utils.config import ConfigLoader
+
+    t_phase = time.perf_counter()
+    extra = [("infer_dtype = bf16", "infer_dtype = f32"),
+             ("yolo_weights =", f"yolo_weights = {FIXTURES / 'yolo_synthetic.msgpack'}"),
+             ("beit_weights =", f"beit_weights = {FIXTURES / 'beit_synthetic.msgpack'}")] + VIS_CUT
+    runs, recs, legs_s = {}, {}, {}
+    for name, device in (("cpu", "cpu"), ("gpu", dev)):
+        root = os.path.join(tmp, f"vis_parity_{name}")
+        copy_project(root)
+        cfg_off = write_config(root, PROJECT_PATCH + extra)
+        text = Path(cfg_off).read_text()
+        for old, new in VIS_SWITCHES:
+            text = text.replace(old, new)
+        cfg_on = str(Path(cfg_off).with_name("switches_on.cfg"))
+        Path(cfg_on).write_text(text)
+        t0 = time.perf_counter()
+        with VisRecorder() as rec:
+            if name == "gpu":
+                reset_launches()  # the counts at 0 just before the path
+            runs[name] = run_two_scans(cfg_on, device)
+            if name == "gpu":
+                launches = read_launches()
+        legs_s[name] = time.perf_counter() - t0
+        recs[name] = rec
+        csv_on = Path(runs[name][1].cfg.csv_output).read_bytes()
+        if name == "gpu":  # the same maintenance capture with the switches off
+            cfg_gold = ConfigLoader(cfg_on, "gold_std")
+            off = task.setup_pipeline("maintenance", ConfigLoader(cfg_off, "maintenance"), cfg_gold,
+                                      task.load_gold_std(cfg_gold.pickle_path), device=dev)
+            check(Path(off.cfg.csv_output).read_bytes() == csv_on, "CSV with the switches off and on")
+            check(off.data_to_save["comparison_rows"] == runs[name][1].data_to_save["comparison_rows"], "rows")
+    errs = hold_pipelines(runs["cpu"], runs["gpu"])
+    check(launches["b1"] > 0 and launches["b2"] > 0, launches)
+    png = hold_annotated_frames(recs["gpu"].annotated, recs["cpu"].annotated)
+    check(png["frames"] == 10, png)  # both 5-frame scans, every frame written
+    (g_vis,), (c_vis,) = recs["gpu"].animations, recs["cpu"].animations
+    frames = hold_frames(g_vis.frames, c_vis.frames, bar=0.01)
+    check(frames["frames"] == 20 * len(g_vis.moving_steps(runs["gpu"][1].data_to_save["transformations"])), frames)
+    geometry = {}
+    for folder, p in zip(FOLDERS, runs["gpu"]):
+        scan = capture_scan(folder)
+        det = detections_from_frame_dict(p.data_to_save["predictions"], scan.num_frames)
+        geometry[folder] = hold_view_geometry(dev, scan, project_detections(scan, det, device="cpu"))
+    written = sorted(n for n in os.listdir(os.path.dirname(runs["gpu"][1].cfg.csv_output))
+                     if n.startswith("alignment_animation"))
+    result = {"phase": "vis_parity", "route": "staged", "icp_iterations": 1, "launches_gpu_run": launches,
+              "csv_identical_with_switches_off": True, "max_report_distance_err_m": errs["report_distance_m"],
+              "max_box_err_px": errs["box_px"], "max_step_err": errs["step"],
+              "annotated": png, "animation": {**frames, "file": written,
+                                              "mesh_triangles": [len(g_vis.base_mesh[1]), len(g_vis.comp_mesh[1])]
+                                              if g_vis.uses_mesh else None,
+                                              "video_s": {"gpu": g_vis.video_s, "cpu": c_vis.video_s}},
+              "view_geometry": geometry, "wall_s": legs_s, "seconds": time.perf_counter() - t_phase}
+    emit(result)
+    return result
+
+
+def phase_vis_full_width(dev, staged_root: str, scene) -> dict:
+    """The views at full width. (a) The animation at the compare cell's
+    size: ``compare_full_width``'s capture again (two ~1M-point clouds,
+    ``ann="off"``) for its recorded steps and raw comparison points, then
+    ``VisualiseAlignment`` as the Pipeline makes it (50,000-point seeded
+    subsample, density mesh at span/72, 480 × 640) over the first 5
+    moving steps (100 frames): mesh ms, render ms per frame, write ms (the
+    ``.npz`` where imageio has no encoder), host peak; the whole record's
+    frame count and its time reckoned from those. (b) ``view_img`` on
+    ``staged_full_width``'s 128-frame maintenance capture at 640²: the
+    detect stage (detector + classifier) with and without it, 3 runs each
+    in turns, and the drawing and PNG writing per frame. (c)
+    ``scan_to_pointcloud`` of that scan on the card: ms and points."""
+    import os
+
+    from tpu3dlm_torch.alignment import visualise as vis_mod
+    from tpu3dlm_torch.data import codecs
+    from tpu3dlm_torch.ops.pointcloud import scan_to_pointcloud
+    from tpu3dlm_torch.pipeline import task
+    from tpu3dlm_torch.pipeline.detector import ObjectDetector
+    from tpu3dlm_torch.utils.config import ConfigLoader
+
+    t_phase = time.perf_counter()
+    # (a) the animation of the 1M compare
+    align, _, _ = run_compare(scene, dev, os.path.join(staged_root, "vis_full.csv"))
+    steps = align.transformations
+    t0 = time.perf_counter()
+    vis, host_peak_mesh = host_peak_mb(lambda: vis_mod.VisualiseAlignment(scene[0], align.comparison_points,
+                                                                          device=dev))
+    mesh_ms = (time.perf_counter() - t0) * 1e3
+    check(vis.uses_mesh, "the subsampled clouds meshed")
+    moving = vis.moving_steps(steps)
+    render_ms, write = [], {}
+    real_render, real_write = vis._render, vis_mod.write_video
+
+    def timed_render(*args):
+        t = time.perf_counter()
+        out = real_render(*args)
+        render_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    def timed_write(*args, **kwargs):
+        t = time.perf_counter()
+        write["path"] = real_write(*args, **kwargs)
+        write["ms"] = (time.perf_counter() - t) * 1e3
+        return write["path"]
+
+    vis._render, vis_mod.write_video = timed_render, timed_write
+    try:
+        t0 = time.perf_counter()
+        n, host_peak_video = host_peak_mb(lambda: vis.create_video(
+            moving[:5], os.path.join(staged_root, "alignment_animation.mp4")))
+        video_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        vis_mod.write_video = real_write
+    check(n == 100 and all(np.isfinite(f).all() and f.shape == (480, 640, 3) for f in vis.frames[:1]), n)
+    frame_ms = statistics.median(render_ms)
+    record_frames = 20 * len(moving)
+    animation = {
+        "points": [int(scene[0].shape[0]), int(align.comparison_points.shape[0])],
+        "subsampled_to": [len(vis.base), len(vis.comparison)],
+        "mesh_triangles": [len(vis.base_mesh[1]), len(vis.comp_mesh[1])],
+        "recorded_steps": len(steps), "moving_steps": len(moving), "record_frames": record_frames,
+        "frames_rendered": n, "mesh_ms": mesh_ms, "render_ms_per_frame_median": frame_ms,
+        "render_ms_per_frame_max": max(render_ms), "write_ms": write["ms"], "file": os.path.basename(write["path"]),
+        "file_mb": os.path.getsize(write["path"]) / 1e6, "video_ms": video_ms,
+        "host_peak_mb": max(host_peak_mesh, host_peak_video),
+        "record_reckoned_s": (mesh_ms + record_frames * frame_ms + write["ms"] * record_frames / n) / 1e3,
+    }
+    del vis
+
+    # (b) view_img on the staged 128-frame capture
+    cfg_path = Path(staged_root, "configs", "variables.cfg")
+    on_path = cfg_path.with_name("view_img.cfg")
+    on_path.write_text(cfg_path.read_text().replace("view_img = false", "view_img = true"))
+    p_off = task.Pipeline("maintenance", ConfigLoader(str(cfg_path), "maintenance"), device=dev)
+    p_on = task.Pipeline("maintenance", ConfigLoader(str(on_path), "maintenance"), device=dev)
+    check(p_on.cfg.view_img and not p_off.cfg.view_img, "view_img switch")
+    scan = p_off._extract_images()
+    draw, png = [], []
+    real_save, real_png = ObjectDetector._save_annotated, codecs.write_png
+
+    def timed_save(detector, *args):
+        t = time.perf_counter()
+        real_save(detector, *args)
+        draw.append((time.perf_counter() - t) * 1e3)
+
+    def timed_png(*args):
+        t = time.perf_counter()
+        real_png(*args)
+        png.append((time.perf_counter() - t) * 1e3)
+
+    detect = {"off": [], "on": []}
+    ObjectDetector._save_annotated, codecs.write_png = timed_save, timed_png
+    try:
+        for _ in range(3):
+            for key, p in (("off", p_off), ("on", p_on)):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                p._detect_signs(scan)
+                torch.cuda.synchronize()
+                detect[key].append((time.perf_counter() - t) * 1e3)
+    finally:
+        ObjectDetector._save_annotated, codecs.write_png = real_save, real_png
+    frames = scan.num_frames
+    written = sorted(os.listdir(p_on.cfg.processing_path))
+    check(len(written) == frames == 128 and len(draw) == 3 and len(png) == 3 * frames, (len(written), len(draw)))
+    # per run: the annotation's ms, of which the PNG writes, per frame
+    png_runs = [sum(png[i * frames:(i + 1) * frames]) for i in range(3)]
+    view_img = {"frames": frames, "frame_px": list(np.asarray(scan.rgb).shape[1:3]),
+                "detect_ms_median": {k: statistics.median(v) for k, v in detect.items()},
+                "detect_ms_samples": detect,
+                "annotate_ms_per_frame": statistics.median(draw) / frames,
+                "png_ms_per_frame": statistics.median(png_runs) / frames,
+                "draw_ms_per_frame": statistics.median(d - w for d, w in zip(draw, png_runs)) / frames}
+
+    # (c) the scan's point cloud on the card
+    args = (scan.depth, scan.intrinsics, scan.rgb_size, scan.poses)
+    up = [torch.as_tensor(np.asarray(a), device=dev) for a in args]
+    _, ok = scan_to_pointcloud(*up, device=dev)
+    cloud_ms, _ = host_ms(lambda: scan_to_pointcloud(*up, device=dev), runs=5)
+    cloud = {"frames": frames, "depth_hw": list(scan.depth_hw), "points": int(ok.numel()),
+             "valid_points": int(ok.sum()), "ms_median": cloud_ms,
+             "cuda_ms": cuda_ms(lambda: scan_to_pointcloud(*up, device=dev))}
+    result = {"phase": "vis_full_width", "animation": animation, "view_img": view_img,
+              "scan_to_pointcloud": cloud, "seconds": time.perf_counter() - t_phase}
+    emit(result)
+    return result
+
+
+def phase_envelope_parity(dev) -> dict:
+    """The convergence-envelope sweep on the card
+    (``tpu3dlm_torch.scripts.alignment_envelope``: 3 seeds, 144 cells)
+    against the JAX package's record ``docs/ALIGNMENT_ENVELOPE.json``: each
+    cell's ``success`` and ``flagged`` equal; a cell that differs is printed
+    with its errors and must lie within 0.5° / 0.01 m of the 5° / 0.1 m
+    success line, or (a verdict that differs) within 0.02 of the inlier
+    floor 0.35 or 0.01 m of the rmse ceiling 0.08; ``gate_quality``'s catch
+    and false-alarm rates within 0.05. B2's launches over the sweep (the
+    counts at 0 just before)."""
+    import json
+
+    from tpu3dlm_torch.scripts import alignment_envelope as env
+
+    with open(env.DOCS / "ALIGNMENT_ENVELOPE.json") as f:
+        ref = json.load(f)
+    reset_launches()
+    t0 = time.perf_counter()
+    report = env.run_sweep(False, 3, dev)
+    wall_s = time.perf_counter() - t0
+    launches = read_launches()
+    axes = ("rot_deg", "overlap", "outlier_rate", "noise_m", "init", "seed")
+    check(len(report["cells"]) == len(ref["cells"]) == 144, len(report["cells"]))
+    differ = []
+    for got, want in zip(report["cells"], ref["cells"]):
+        check(all(got[k] == want[k] for k in axes), (got, want))
+        if got["success"] == want["success"] and got["flagged"] == want["flagged"]:
+            continue
+        row = {**{k: got[k] for k in axes}, "card": {k: got[k] for k in ("success", "flagged", "rot_err_deg",
+                                                                          "t_err_m", "inlier", "rmse", "reasons")},
+               "reference": {k: want[k] for k in ("success", "flagged", "rot_err_deg", "t_err_m", "inlier", "rmse",
+                                                  "reasons")}}
+        print(json.dumps({"envelope_cell_differs": row}), flush=True)
+        differ.append(row)
+        if got["success"] != want["success"]:
+            check(any(abs(c["rot_err_deg"] - 5.0) <= 0.5 or abs(c["t_err_m"] - 0.1) <= 0.01 for c in (got, want)),
+                  row)
+        if got["flagged"] != want["flagged"]:
+            check(any((c["inlier"] is not None and abs(c["inlier"] - 0.35) <= 0.02)
+                      or (c["rmse"] is not None and abs(c["rmse"] - 0.08) <= 0.01) for c in (got, want)), row)
+    gq, rq = report["gate_quality"], ref["gate_quality"]
+    for key in ("catch_rate", "false_alarm_rate"):
+        check(abs(gq[key] - rq[key]) <= 0.05, (key, gq, rq))
+    check(launches["b2"] > 0, launches)
+    result = {"phase": "envelope_parity", "cells": len(report["cells"]), "cells_differing": len(differ),
+              "gate_quality": gq, "gate_quality_reference": rq,
+              "success_by_init": {i: sum(c["success"] for c in report["cells"] if c["init"] == i)
+                                  for i in ("centroid", "pca", "auto")},
+              "success_by_init_reference": {i: sum(c["success"] for c in ref["cells"] if c["init"] == i)
+                                            for i in ("centroid", "pca", "auto")},
+              "b2_launches": launches["b2"], "wall_s": wall_s}
+    emit(result)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available; this script needs an NVIDIA GPU",
@@ -3250,6 +3698,9 @@ def main() -> int:
         watch = phase_watch_full_width(dev, tmp)
         phase_mesh_parity(dev, tmp)
         phase_mesh_full_width(dev, tmp)
+        vis = phase_vis_parity(dev, tmp)
+        phase_vis_full_width(dev, staged_root, scene)
+    envelope = phase_envelope_parity(dev)
     int8 = phase_int8_full_width(dev)
     with tempfile.TemporaryDirectory() as tmp:
         evals = phase_eval_parity(dev, tmp)
@@ -3327,6 +3778,9 @@ def main() -> int:
                                             "through DamageDetector, fixture BEiT (2 layers) in f32, "
                                             "2 launches per batch of 64 crops",
             "launches_on_verify": evals["verify"]["b1_launches"],
+            "launches_on_vis": vis["launches_gpu_run"]["b1"],
+            "launches_on_vis_path": "vis_parity: gold and maintenance on the staged route with view_img, "
+                                    "alignment_vis and comparison_vis on (fixture BEiT, f32, attention_simt)",
         },
         {
             "name": "nearest_neighbors", "route": "cuda",
@@ -3351,6 +3805,10 @@ def main() -> int:
                                       "3 maintenance captures (3 compares)",
             "launches_on_verify": evals["verify"]["b2_launches"],
             "launches_on_verify_path": "eval_parity: verify on a fresh make_project (the maintenance compare)",
+            "launches_on_vis": vis["launches_gpu_run"]["b2"],
+            "launches_on_vis_path": "vis_parity: the maintenance compare whose record the animation replays",
+            "launches_on_envelope": envelope["b2_launches"],
+            "launches_on_envelope_path": "envelope_parity: the 144 registrations of the convergence-envelope sweep",
             "ms_by_shape": {f"{c['shape'][0]}x{c['shape'][1]}": {
                 "case": c["case"], **{k: c[k] for k in ("kernel_ms", "plain_ms", "bound_ms", "bound_by")}}
                 for c in b2["checks"] if "kernel_ms" in c},

@@ -653,3 +653,46 @@ def test_int8_beit_on_card_matches_cpu(cuda_device, dtype, tol):
         assert (err > tol).float().mean().item() <= 0.1 and err.max().item() <= 5e-3, err
     else:
         assert err.max().item() <= tol, err
+
+
+def _random_gboxes(frames: int, seed: int = 0):
+    import numpy as np
+
+    from tpu3dlm_torch.mapper.projection import GlobalBoxes
+
+    rng = np.random.default_rng(seed)
+    return GlobalBoxes(corners=rng.normal(0, 1, (frames, 6, 4, 3)).astype(np.float32),
+                       damage=np.zeros((frames, 6), np.int32), conf=np.full((frames, 6), 0.9, np.float32),
+                       label=np.ones((frames, 6), np.int32), mask=rng.random((frames, 6)) < 0.6)
+
+
+@pytest.mark.parametrize("folder", ["gold_std", "maintenance"])
+def test_view_geometry_on_card_matches_cpu(cuda_device, folder):
+    """``frame_view_geometry`` of every frame and ``scan_to_pointcloud`` of
+    the committed capture's scan on the card against the CPU
+    (``chip_smoke.hold_view_geometry``: points and boxes within 1e-5 m,
+    masks and frustum lines identical, frustum points within 1e-6 m)."""
+    import chip_smoke
+
+    scan = chip_smoke.capture_scan(folder)
+    held = chip_smoke.hold_view_geometry(cuda_device, scan, _random_gboxes(scan.num_frames))
+    assert held["boxes"] > 0 and held["scan_points"] > 0
+
+
+def test_scan_to_pointcloud_keeps_the_card(cuda_device):
+    """Tensors already on the card stay there; the result is on the card."""
+    import chip_smoke
+    from tpu3dlm_torch.ops.pointcloud import scan_to_pointcloud
+
+    scan = chip_smoke.capture_scan("gold_std")
+    args = [torch.as_tensor(a, device=cuda_device) for a in (scan.depth, scan.intrinsics, scan.rgb_size, scan.poses)]
+    pts, ok = scan_to_pointcloud(*args, device=cuda_device)
+    assert pts.device.type == ok.device.type == "cuda" and pts.shape[:2] == ok.shape
+
+
+def test_views_of_a_run_on_card_match_cpu(cuda_device, tmp_path):
+    """``view_img``, ``alignment_vis`` and ``comparison_vis`` through the
+    staged Pipeline, card against CPU: chip_smoke.py's vis_parity phase."""
+    import chip_smoke
+
+    chip_smoke.phase_vis_parity(cuda_device, str(tmp_path))

@@ -83,10 +83,23 @@ def test_empty_scan(detectors):
     assert got.boxes.dtype == np.float32 and got.label.dtype == np.int32 and got.mask.dtype == bool
 
 
-def test_save_img_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="A18"):
-        ObjectDetector(save_img=str(tmp_path), device="cpu", **KW)
-    assert not any(tmp_path.iterdir())
+def test_save_img_is_not_ported(tmp_path, detectors):
+    """``save_img`` was refused before the views of a run were ported; now
+    both detectors write each frame annotated, and the PNGs agree outside
+    the labels' text boxes (``test_torch_view_img.hold_annotated``)."""
+    from test_torch_view_img import hold_annotated
+
+    jax_det, port_det = detectors
+    scan = fixture_scan("letterbox")
+    jax_det.save_img, port_det.save_img = str(tmp_path / "jax"), str(tmp_path / "port")
+    try:
+        want, got = jax_det(scan), port_det(port_scan(scan))
+    finally:
+        jax_det.save_img = port_det.save_img = None
+    np.testing.assert_array_equal(got.mask, np.asarray(want.mask))
+    assert sorted(os.listdir(tmp_path / "port")) == [f"image_{f}.png" for f in range(5)]
+    diffs = hold_annotated(str(tmp_path / "port"), str(tmp_path / "jax"), port_scan(scan), got, jax_det.names)
+    assert len(diffs) == int(got.mask.sum()) > 0
 
 
 def test_cuda_is_the_default_device():

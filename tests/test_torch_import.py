@@ -28,7 +28,9 @@ assert {"tpu3dlm_torch.data.scanpack", "tpu3dlm_torch.pipeline.watch", "tpu3dlm_
         "tpu3dlm_torch.mapper.clustering", "tpu3dlm_torch.mapper.meshing", "tpu3dlm_torch.mapper.poisson",
         "tpu3dlm_torch.mapper.mapping", "tpu3dlm_torch.ops.quant", "tpu3dlm_torch.data.synthetic",
         "tpu3dlm_torch.pipeline.metrics", "tpu3dlm_torch.pipeline.evaluate", "tpu3dlm_torch.pipeline.selftrain",
-        "tpu3dlm_torch.pipeline.hardeval", "tpu3dlm_torch.scripts.hard_eval"} <= set(mods), mods
+        "tpu3dlm_torch.pipeline.hardeval", "tpu3dlm_torch.scripts.hard_eval", "tpu3dlm_torch.utils.render",
+        "tpu3dlm_torch.utils.visualisation", "tpu3dlm_torch.utils.transformations", "tpu3dlm_torch.utils.annotate",
+        "tpu3dlm_torch.alignment.visualise", "tpu3dlm_torch.scripts.alignment_envelope"} <= set(mods), mods
 print(len(mods))
 """ % (FORBIDDEN,)
 

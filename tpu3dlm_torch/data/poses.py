@@ -7,6 +7,7 @@ pandas, so ``poses_to_frame`` builds a ``PoseFrame``: the same column names
 (``timestamp``, ``tx`` … ``qw``) with ``timestamp`` as ``datetime64[ns]``
 equal to ``pd.to_datetime(ts, unit="s")``, and the two accessors the
 system uses, ``frame[col]`` and ``frame[cols].to_numpy(dtype=...)``.
+``PoseDataExtractor`` is the reference's reader class over them.
 """
 
 from __future__ import annotations
@@ -66,3 +67,21 @@ def poses_to_frame(timestamps: np.ndarray, poses: np.ndarray) -> PoseFrame:
     cols = {"timestamp": seconds_to_datetime64(timestamps)}
     cols.update({name: poses[:, i] for i, name in enumerate(POSE_COLUMNS)})
     return PoseFrame(cols)
+
+
+class PoseDataExtractor:
+    """The reference's ``PoseDataExtractor``: ``fetch_data`` → PoseFrame;
+    ``plot_pose`` returns the trajectory as a point set ({points}), what
+    the reference returns where Open3D is absent (the port opens no
+    window)."""
+
+    def __init__(self, pose_path: str):
+        self.pose_path = pose_path
+
+    def fetch_data(self) -> PoseFrame:
+        return poses_to_frame(*load_poses(self.pose_path))
+
+    def plot_pose(self, df) -> dict:
+        from tpu3dlm_torch.utils.visualisation import Visualiser
+
+        return Visualiser().overlay_pose(df)

@@ -39,6 +39,10 @@ class Scan:
     def num_frames(self) -> int:
         return int(np.shape(self.depth)[0])
 
+    @property
+    def depth_hw(self) -> tuple[int, int]:
+        return int(np.shape(self.depth)[1]), int(np.shape(self.depth)[2])
+
 
 @dataclasses.dataclass
 class Detections:

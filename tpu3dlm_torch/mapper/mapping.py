@@ -7,8 +7,9 @@ mesh (``make_mesh``: the density shell, or the Poisson surface with normals
 turned toward the camera trajectory's centroid, its FFT solve on
 ``device``). ``box_line_sets`` and ``overlay_geometry`` return the overlays
 the reference draws (optimised boxes, raw boxes, camera positions and view
-directions) as plain arrays. The JAX package also opens an Open3D viewer
-when Open3D is installed; the port draws nothing (ROADMAP A18).
+directions) as plain arrays. The JAX package also opens an interactive
+Open3D window where Open3D imports; the port has no Open3D, so it takes
+the reference's path without it: the same return values, no window.
 
     python -m tpu3dlm_torch.mapper.mapping --data gold_std --model mesh|pc [--device cuda|cpu]
 

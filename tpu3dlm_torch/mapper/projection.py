@@ -5,6 +5,8 @@ from RGB to depth resolution, all four corners share one z (the sampled
 median depth over the box, mm → m), and the camera-frame corners go to the
 world through the pose. The JAX package vmaps a per-box function over boxes
 and frames; ``project_boxes`` writes both axes out as leading dimensions.
+``frame_view_geometry`` gives the geometry of the reference's live 3D view
+of one frame (its cloud, boxes and camera frustum).
 """
 
 from __future__ import annotations
@@ -123,3 +125,44 @@ def project_detections(scan, det, scale_depth: float = 1000.0, median_samples: i
         label=np.asarray(det.label),
         mask=to_numpy(mask)[:F],
     )
+
+
+def frame_view_geometry(scan, gboxes: GlobalBoxes, frame_index: int, depth_buffer: float = 0.03,
+                        frustum_depth: float = 0.3, device: str | torch.device = "cuda") -> dict:
+    """The geometry of the reference's live 3D view of one frame during
+    projection, as host arrays:
+
+      * ``cloud_points`` (N, 3): the frame's depth map unprojected to the
+        world on ``device`` (valid pixels only);
+      * ``boxes``: an (8, 3) box extruded by ``depth_buffer`` for each valid
+        projected box of the frame;
+      * ``frustum``: {points (5, 3), lines} of the camera frustum at the
+        pose (``Visualiser._overlay_camera_frustum``).
+    """
+    import numpy as np
+
+    from tpu3dlm_torch.device import resolve_device
+    from tpu3dlm_torch.ops.pointcloud import depth_to_points
+    from tpu3dlm_torch.utils.visualisation import Visualiser
+
+    dev = resolve_device(device)
+    depth = as_device_tensor(np.asarray(to_numpy(scan.depth)[frame_index], np.float32), dev)
+    wh = np.asarray(to_numpy(scan.rgb_size), np.float32)[frame_index]
+    fx, fy, cx, cy = np.asarray(to_numpy(scan.intrinsics), np.float32)[frame_index]
+    fx_d, fy_d, cx_d, cy_d = G.scale_intrinsics(fx, fy, cx, cy, wh[0], depth.shape[1])
+    pose = as_device_tensor(np.asarray(to_numpy(scan.poses), np.float32)[frame_index], dev)
+
+    pts, valid = depth_to_points(depth, float(fx_d), float(fy_d), float(cx_d), float(cy_d), pose=pose)
+    cloud = to_numpy(pts[valid])
+
+    mask = to_numpy(gboxes.mask)[frame_index]
+    boxes = []
+    if mask.any():
+        quads = as_device_tensor(np.asarray(to_numpy(gboxes.corners), np.float32)[frame_index][mask], dev)
+        boxes = list(to_numpy(G.create_3d_bounding_box(quads, depth_buffer)))
+
+    T = to_numpy(G.pose_to_matrix(pose))
+    frustum = Visualiser()._overlay_camera_frustum(
+        T[:3, 3], T[:3, :3], fx_d, fy_d, depth.shape[1], depth.shape[0], depth=frustum_depth,
+    )
+    return {"cloud_points": cloud, "boxes": boxes, "frustum": frustum}

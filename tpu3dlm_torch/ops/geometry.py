@@ -28,6 +28,33 @@ def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:
     return torch.stack(rows, -2)
 
 
+def rotmat_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """3×3 rotation → (qx, qy, qz, qw): the four-branch construction, every
+    branch computed and the one with the largest pivot selected."""
+    m00, m01, m02 = R[0, 0], R[0, 1], R[0, 2]
+    m10, m11, m12 = R[1, 0], R[1, 1], R[1, 2]
+    m20, m21, m22 = R[2, 0], R[2, 1], R[2, 2]
+    tr = m00 + m11 + m22
+
+    def safe_sqrt(v):
+        return torch.sqrt(torch.clamp(v, min=1e-12))
+
+    sw = safe_sqrt(tr + 1.0) * 2.0
+    qw_b = torch.stack([(m21 - m12) / sw, (m02 - m20) / sw, (m10 - m01) / sw, 0.25 * sw])
+    sx = safe_sqrt(1.0 + m00 - m11 - m22) * 2.0
+    qx_b = torch.stack([0.25 * sx, (m01 + m10) / sx, (m02 + m20) / sx, (m21 - m12) / sx])
+    sy = safe_sqrt(1.0 + m11 - m00 - m22) * 2.0
+    qy_b = torch.stack([(m01 + m10) / sy, 0.25 * sy, (m12 + m21) / sy, (m02 - m20) / sy])
+    sz = safe_sqrt(1.0 + m22 - m00 - m11) * 2.0
+    qz_b = torch.stack([(m02 + m20) / sz, (m12 + m21) / sz, 0.25 * sz, (m10 - m01) / sz])
+
+    use_w = tr > 0.0
+    use_x = (~use_w) & (m00 >= m11) & (m00 >= m22)
+    use_y = (~use_w) & (~use_x) & (m11 >= m22)
+    q = torch.where(use_w, qw_b, torch.where(use_x, qx_b, torch.where(use_y, qy_b, qz_b)))
+    return q / torch.linalg.vector_norm(q)
+
+
 def pose_to_matrix(pose: torch.Tensor) -> torch.Tensor:
     """(..., 7) [tx,ty,tz,qx,qy,qz,qw] → (..., 4, 4) camera→world SE(3)."""
     T = torch.zeros(pose.shape[:-1] + (4, 4), dtype=pose.dtype, device=pose.device)
@@ -163,6 +190,72 @@ def so3_exp(omega: torch.Tensor) -> torch.Tensor:
     eye = torch.eye(3, dtype=omega.dtype, device=omega.device)
     R = eye + torch.sin(theta) * K + (1 - torch.cos(theta)) * (K @ K)
     return torch.where(theta < 1e-8, eye, R)
+
+
+def so3_log(R: torch.Tensor) -> torch.Tensor:
+    """3×3 rotation → axis-angle 3-vector (|ω| = angle), over the whole
+    range: near π (θ > 3) the skew part vanishes, so the axis comes from
+    the dominant column of (R + Rᵀ)/2 − cos θ·I = (1 − cos θ)·uuᵀ, its sign
+    from the skew part."""
+    eye = torch.eye(3, dtype=R.dtype, device=R.device)
+    # the trace summed left to right, as XLA sums it: near π, θ = acos(·)
+    # magnifies one ulp of it about 1/sin θ times
+    cos_theta = torch.clamp(((R[0, 0] + R[1, 1] + R[2, 2]) - 1.0) / 2.0, -1.0, 1.0)
+    theta = torch.arccos(cos_theta)
+    w = torch.stack([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]])
+    scale = torch.where(theta < 1e-6, 0.5, theta / (2.0 * torch.sin(torch.clamp(theta, min=1e-12))))
+    generic = w * scale
+    N = 0.5 * (R + R.T) - cos_theta * eye
+    col = N[:, torch.argmax(torch.linalg.vector_norm(N, dim=0))]
+    axis = col / torch.clamp(torch.linalg.vector_norm(col), min=1e-12)
+    axis = axis * torch.where(torch.dot(axis, w) < 0.0, -1.0, 1.0)
+    return torch.where(theta > 3.0, axis * theta, generic)
+
+
+def _se3_V(om: torch.Tensor) -> torch.Tensor:
+    """The V matrix of the SE(3) logarithm (t = V·ρ), with the series
+    values below 1e-6 rad."""
+    th = torch.linalg.vector_norm(om)
+    safe = torch.clamp(th, min=1e-12)
+    K = skew(om / safe)
+    small = th < 1e-6
+    A = torch.where(small, 0.5, (1 - torch.cos(th)) / safe**2)
+    B = torch.where(small, 1.0 / 6.0, (th - torch.sin(th)) / safe**3)
+    return torch.eye(3, dtype=om.dtype, device=om.device) + A * (K * safe) + B * ((K @ K) * safe**2)
+
+
+def se3_interpolate(T: torch.Tensor, alpha) -> torch.Tensor:
+    """T^α of a 4×4 rigid transform (geodesic interpolation): ω and
+    ρ = V(ω)⁻¹t scaled by α, then mapped back."""
+    omega = so3_log(T[:3, :3])
+    rho = torch.linalg.solve(_se3_V(omega), T[:3, 3])
+    om_a = omega * alpha
+    out = torch.eye(4, dtype=T.dtype, device=T.device)
+    out[:3, :3] = so3_exp(om_a)
+    out[:3, 3] = _se3_V(om_a) @ (rho * alpha)
+    return out
+
+
+def bbox_region_mask(bbox: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """(height, width) mask of the pixels inside [x1, y1, x2, y2], the
+    corners floored and ceiled outward (inclusive)."""
+    ys = torch.arange(height, dtype=torch.float32, device=bbox.device)[:, None]
+    xs = torch.arange(width, dtype=torch.float32, device=bbox.device)[None, :]
+    x1 = torch.floor(torch.minimum(bbox[0], bbox[2]))
+    x2 = torch.ceil(torch.maximum(bbox[0], bbox[2]))
+    y1 = torch.floor(torch.minimum(bbox[1], bbox[3]))
+    y2 = torch.ceil(torch.maximum(bbox[1], bbox[3]))
+    return (xs >= x1) & (xs <= x2) & (ys >= y1) & (ys <= y2)
+
+
+def bbox_median_depth(depth: torch.Tensor, bbox: torch.Tensor,
+                      min_depth: float = 1e-6) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact median of the depth values above ``min_depth`` inside one box
+    of an (H, W) map → (median, valid); one sort of the whole map (the
+    projection uses ``bbox_sampled_median_depth``)."""
+    h, w = depth.shape
+    mask = bbox_region_mask(bbox, h, w) & (depth > min_depth)
+    return masked_median(depth.reshape(-1), mask.reshape(-1))
 
 
 def unproject(px, py, z, fx, fy, cx, cy) -> torch.Tensor:

@@ -3,7 +3,8 @@
 Point-to-point and hybrid point-to-plane ICP with per-iteration increments
 recorded for the animation contract, the batched init scoring, and the host
 numpy helpers that build init candidates and pad targets to power-of-two
-buckets. Every correspondence search is kernel B2
+buckets; ``rotation_about`` builds the (R, center) steps the animation
+replays. Every correspondence search is kernel B2
 (``ops/kernels/pairwise.nearest_neighbors``), except the iterations of a
 solve given an anchor index (``target_index``, ``ops/ann.py``), which use
 the anchored search; the measurement pass stays on B2 either way.
@@ -352,3 +353,11 @@ def pad_target_bucket(points, normals=None, min_bucket: int = 1024):
     npad = np.zeros((bucket - m, 3), normals.dtype)
     npad[:, 2] = 1.0
     return out, np.concatenate([normals, npad])
+
+
+def rotation_about(R: torch.Tensor, center: torch.Tensor) -> torch.Tensor:
+    """4×4 rotating by R about a fixed point (t = c − R·c), on R's device."""
+    T = torch.eye(4, dtype=torch.float32, device=R.device)
+    T[:3, :3] = R
+    T[:3, 3] = center - R @ center
+    return T

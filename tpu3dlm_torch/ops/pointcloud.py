@@ -1,5 +1,10 @@
-"""Per-point normals for point-to-plane ICP and Poisson meshing (port of
-``tpu3dlm/ops/pointcloud.py::estimate_normals_grid``).
+"""Depth maps to point clouds, and per-point normals for point-to-plane ICP
+and Poisson meshing (port of ``tpu3dlm/ops/pointcloud.py``).
+
+``depth_to_points`` unprojects every pixel of one depth map through the
+pinhole model (and a pose, when given) in torch on the map's device;
+``scan_to_pointcloud`` does it for every frame of a scan at once on
+``device``, with the intrinsics scaled from RGB to depth resolution.
 
 ``estimate_normals_grid`` runs the host C++ core that the JAX package's
 default route runs (``csrc/host/normals.cpp``, a copy of
@@ -14,6 +19,45 @@ viewpoint). Nothing on the main path calls the twin.
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from tpu3dlm_torch.device import as_device_tensor, resolve_device
+from tpu3dlm_torch.ops import geometry as G
+
+
+def depth_to_points(depth: torch.Tensor, fx, fy, cx, cy, pose: torch.Tensor | None = None,
+                    scale_depth: float = 1000.0) -> tuple[torch.Tensor, torch.Tensor]:
+    """One (H, W) depth map in ``scale_depth`` units (mm by default) →
+    ((H·W, 3) points, (H·W,) valid mask), camera frame, or world frame
+    through a (7,) camera→world ``pose``. ``fx`` … ``cy`` are scalars or
+    0-d tensors at the map's resolution."""
+    h, w = depth.shape
+    ys = torch.arange(h, dtype=torch.float32, device=depth.device)[:, None].expand(h, w)
+    xs = torch.arange(w, dtype=torch.float32, device=depth.device)[None, :].expand(h, w)
+    pts = G.unproject(xs, ys, depth / scale_depth, fx, fy, cx, cy).reshape(-1, 3)
+    valid = (depth > 1e-6).reshape(-1)
+    if pose is not None:
+        pts = G.transform_points(G.pose_to_matrix(pose), pts)
+    return pts, valid
+
+
+def scan_to_pointcloud(depth, intrinsics, rgb_size, poses, scale_depth: float = 1000.0,
+                       device: str | torch.device = "cuda") -> tuple[torch.Tensor, torch.Tensor]:
+    """A whole scan → ((F, H·W, 3) world points, (F, H·W) valid) on
+    ``device``: depth (F, H, W), intrinsics (F, 4) fx, fy, cx, cy at RGB
+    resolution, rgb_size (F, 2), poses (F, 7)."""
+    dev = resolve_device(device)
+    depth = as_device_tensor(depth, dev, torch.float32)
+    intr = as_device_tensor(intrinsics, dev, torch.float32)
+    wh = as_device_tensor(rgb_size, dev, torch.float32)
+    poses = as_device_tensor(poses, dev, torch.float32)
+    F, h, w = depth.shape
+    fx, fy, cx, cy = (v[:, None, None] for v in G.scale_intrinsics(
+        intr[:, 0], intr[:, 1], intr[:, 2], intr[:, 3], wh[:, 0], w))
+    ys = torch.arange(h, dtype=torch.float32, device=dev)[:, None].expand(h, w)
+    xs = torch.arange(w, dtype=torch.float32, device=dev)[None, :].expand(h, w)
+    pts = G.unproject(xs, ys, depth / scale_depth, fx, fy, cx, cy).reshape(F, -1, 3)
+    return G.transform_points(G.pose_to_matrix(poses), pts), (depth > 1e-6).reshape(F, -1)
 
 
 def estimate_normals_grid(points, voxel: float = 0.08, viewpoint=None) -> np.ndarray:

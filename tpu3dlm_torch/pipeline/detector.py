@@ -9,13 +9,17 @@ the reference). Boxes come back to the host and are mapped from detector
 pixels to original pixels, inverse letterbox or square resize, and clipped
 to the frame, in float32 numpy exactly as the reference does.
 
-Not ported: ``save_img`` (annotated frames drawn with cv2's rectangle and
-font), which raises ``NotImplementedError`` (ROADMAP A18).
+With ``save_img`` (``view_img = true``) each frame is written to that
+directory as ``image_<f>.png``: the stored (detector-square) frame with
+every valid box drawn as cv2's 2-px rectangle would draw it and its class
+name above it (``utils/annotate.py``; a bitmap font in place of cv2's
+Hershey glyphs), in the class's colour from the reference's seeded table.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 
 import numpy as np
 import torch
@@ -47,15 +51,15 @@ class ObjectDetector:
         yolo: YOLOv10 | None = None,
         rng_seed: int = 0,
         dtype: torch.dtype = torch.float32,
-        save_img: str | None = None,
+        save_img: str | None = None,  # directory of the annotated frames
+        names: dict[int, str] | None = None,
         device: str | torch.device = "cuda",
     ):
-        if save_img:
-            raise NotImplementedError(
-                "save_img (view_img = true): annotated frames are drawn with cv2, which the "
-                "port does not use; not ported yet (ROADMAP A18)"
-            )
         self.device = resolve_device(device)
+        self.save_img = save_img
+        self.names = names or {i: f"class_{i}" for i in range(nc)}
+        rng = np.random.default_rng(0)
+        self.colors = {i: tuple(int(c) for c in rng.integers(0, 255, 3)) for i in range(nc)}
         self.conf_thresh = conf_thresh
         self.iou_thresh = iou_thresh
         self.img_size = img_size
@@ -114,10 +118,41 @@ class ObjectDetector:
             )
         boxes[..., [0, 2]] = np.clip(boxes[..., [0, 2]], 0, wh[:, None, 0:1])
         boxes[..., [1, 3]] = np.clip(boxes[..., [1, 3]], 0, wh[:, None, 1:2])
-        return Detections(
+        det = Detections(
             boxes=boxes.astype(np.float32),
             conf=conf.astype(np.float32),
             label=label.astype(np.int32),
             damage=np.full(conf.shape, -1, np.int32),
             mask=conf >= self.conf_thresh,
         )
+        if self.save_img:
+            self._save_annotated(scan, det)
+        return det
+
+    def _save_annotated(self, scan: Scan, det: Detections) -> None:
+        """Each stored frame with its valid boxes and class names drawn,
+        written to ``save_img/image_<f>.png``; boxes go from original pixels
+        back to the stored frame's, as the reference maps them."""
+        from tpu3dlm_torch.data.codecs import write_png
+        from tpu3dlm_torch.utils.annotate import draw_box, draw_label
+
+        os.makedirs(self.save_img, exist_ok=True)
+        rgb = np.asarray(scan.rgb)
+        S = rgb.shape[1]
+        wh = np.asarray(scan.rgb_size)
+        for f in range(rgb.shape[0]):
+            img = np.ascontiguousarray(rgb[f][..., ::-1])  # BGR, cv2's layout
+            for b in range(det.boxes.shape[1]):
+                if not det.mask[f, b]:
+                    continue
+                if scan.letterbox is not None:
+                    s, px, py = np.asarray(scan.letterbox)[f]
+                    x1, y1, x2, y2 = det.boxes[f, b] * s + [px, py, px, py]
+                else:
+                    sx, sy = S / wh[f, 0], S / wh[f, 1]
+                    x1, y1, x2, y2 = det.boxes[f, b] * [sx, sy, sx, sy]
+                lab = int(det.label[f, b])
+                color = self.colors.get(lab, (0, 255, 0))
+                draw_box(img, (int(x1), int(y1)), (int(x2), int(y2)), color)
+                draw_label(img, self.names.get(lab, str(lab)), (int(x1), max(int(y1) - 6, 10)), color)
+            write_png(os.path.join(self.save_img, f"image_{f}.png"), img)

@@ -34,11 +34,20 @@ checkpoint (or the seeded draw) is loaded as float, then quantised
 (``quantize_beit_variables`` on a Flax tree, ``quantize_beit`` on a module),
 as the reference does.
 
+The views of a run follow the reference. ``view_img = true`` writes each
+frame with its boxes and class labels drawn to ``processing_path`` as
+``image_<f>.png`` on the staged route (``ObjectDetector(save_img=...)``);
+the fused route ignores it, as the reference's does. ``alignment_vis =
+true`` replays the maintenance registration from the raw comparison points
+into ``alignment_animation.mp4`` (or ``.npz`` without an mp4 encoder)
+beside the report (``alignment/visualise.py``). ``comparison_vis`` goes to
+``BBoxComparison`` and changes nothing, as in the reference. None of them
+changes the report.
+
 Settings the port cannot honour yet raise ``NotImplementedError`` naming
-their ROADMAP item before any work: ``view_img``, ``alignment_vis`` and
-``comparison_vis`` (A18), ``mesh_devices > 1`` (A22) and ``use_pallas =
-false`` (the port has no plain path on the card). ``icp_ann`` goes to
-``Alignment`` as is.
+their ROADMAP item before any work: ``mesh_devices > 1`` (A22) and
+``use_pallas = false`` (the port has no plain path on the card).
+``icp_ann`` goes to ``Alignment`` as is.
 """
 
 from __future__ import annotations
@@ -84,11 +93,6 @@ def _cached_weights(key, builder):
 def unsupported_settings(cfg) -> list[str]:
     """Each setting of ``cfg`` the port cannot run yet, with its ROADMAP item."""
     out = []
-    if getattr(cfg, "view_img", False):
-        out.append("view_img = true: annotated frames are not ported yet (ROADMAP A18)")
-    for knob in ("alignment_vis", "comparison_vis"):
-        if getattr(cfg, knob, False):
-            out.append(f"{knob} = true: visualisation is not ported yet (ROADMAP A18)")
     if not getattr(cfg, "use_pallas", True):
         out.append("use_pallas = false: the port has no switch that runs plain PyTorch in place "
                    "of its kernels on the card")
@@ -280,6 +284,9 @@ class Pipeline:
         from tpu3dlm_torch.pipeline.detector import ObjectDetector
 
         self.logger.info("Detecting Signs...")
+        save_img = self.cfg.processing_path if getattr(self.cfg, "view_img", False) else None
+        if save_img:
+            os.makedirs(save_img, exist_ok=True)
         detector = ObjectDetector(
             conf_thresh=self.cfg.conf_thresh,
             iou_thresh=self.cfg.iou_thresh,
@@ -290,6 +297,7 @@ class Pipeline:
             variant=getattr(self.cfg, "yolo_variant", "n"),
             yolo=self._load_yolo_weights(),
             dtype=self.dtype,
+            save_img=save_img,
             device=self.device,
         )
         detections = detector(scan)
@@ -389,21 +397,8 @@ class Pipeline:
         except Exception as e:
             self.logger.warning("cloud load failed (%s); aligning on poses+boxes", e)
 
-        align = Alignment(
-            base_pose_df=self.goldstd_var["pose_df"],
-            comparison_pose_df=pose_df,
-            base_bboxes=self.goldstd_var["optimised_bboxes"],
-            comparison_bboxes=optimised_bboxes,
-            base_cloud=base_cloud,
-            comparison_cloud=comp_cloud,
-            max_points=getattr(self.cfg, "icp_max_points", 16384),
-            icp_iterations=getattr(self.cfg, "icp_iterations", 30),
-            global_init=getattr(self.cfg, "icp_global_init", "auto"),
-            ann=getattr(self.cfg, "icp_ann", "auto"),
-            verdict_inlier_floor=getattr(self.cfg, "align_inlier_floor", 0.35),
-            verdict_rmse_ceiling=getattr(self.cfg, "align_rmse_ceiling", 0.08),
-            device=self.device,
-        )
+        align = make_alignment(self.cfg, self.goldstd_var, pose_df, optimised_bboxes, base_cloud, comp_cloud,
+                               self.device)
         aligned_bboxes, transformations, base_map, _ = align.compare(self.data_folder)
         self.data_to_save["transformations"] = transformations
         self.data_to_save["aligned_bboxes"] = aligned_bboxes
@@ -416,11 +411,22 @@ class Pipeline:
             base_map,
             csv_output_file=self.cfg.csv_output,
             id2damage=dict(enumerate(self._labels())),
+            visualise=self.cfg.comparison_vis,
             precomputed_match=align.last_match,
             alignment_verdict=verdict,
             device=self.device,
         )
         self.data_to_save["comparison_rows"] = compare.match_bboxes()
+
+        if self.cfg.alignment_vis:
+            from tpu3dlm_torch.alignment.visualise import VisualiseAlignment
+
+            # the animation replays the recorded transforms, so it starts
+            # from the raw comparison points (base_map's partner is aligned)
+            vis = VisualiseAlignment(base_map, align.comparison_points,
+                                     mesher=getattr(self.cfg, "mesher", "density"), device=self.device)
+            out = os.path.join(os.path.dirname(self.cfg.csv_output) or ".", "alignment_animation.mp4")
+            vis.create_video(transformations, out)
 
     # -- weights ----------------------------------------------------------
 
@@ -498,6 +504,28 @@ class Pipeline:
             return model.to(self.device, self.dtype).eval()
 
         return _cached_weights(self._weights_key("beit", path, cfg), build)
+
+
+def make_alignment(cfg, gold_var: dict, pose_df, optimised_bboxes, base_cloud, comp_cloud,
+                   device: str | torch.device = "cuda") -> Alignment:
+    """The maintenance scan's ``Alignment`` onto the gold scan's record, with
+    the config's registration settings."""
+    return Alignment(
+        base_pose_df=gold_var["pose_df"],
+        comparison_pose_df=pose_df,
+        base_bboxes=gold_var["optimised_bboxes"],
+        comparison_bboxes=optimised_bboxes,
+        visualise=cfg.alignment_vis,
+        base_cloud=base_cloud,
+        comparison_cloud=comp_cloud,
+        max_points=getattr(cfg, "icp_max_points", 16384),
+        icp_iterations=getattr(cfg, "icp_iterations", 30),
+        global_init=getattr(cfg, "icp_global_init", "auto"),
+        ann=getattr(cfg, "icp_ann", "auto"),
+        verdict_inlier_floor=getattr(cfg, "align_inlier_floor", 0.35),
+        verdict_rmse_ceiling=getattr(cfg, "align_rmse_ceiling", 0.08),
+        device=device,
+    )
 
 
 def load_gold_std(pickle_path: str):
