@@ -5,7 +5,7 @@
 
 Builds every CUDA kernel of the port from ``tpu3dlm_torch/csrc`` (into
 ``tpu3dlm_torch/_build``, one ``nvcc`` per source and one ``c++`` for the
-host C++ sources, all at once), then runs thirty-one phases, each printing one
+host C++ sources, all at once), then runs thirty-three phases, each printing one
 JSON line; any failure raises and the script exits non-zero without a result:
 
 1. ``kernel_b1``: kernel B1 (BEiT attention) against its plain PyTorch twin
@@ -231,7 +231,23 @@ JSON line; any failure raises and the script exits non-zero without a result:
     every cell's success and verdict flag equal, or (printed) within 0.5° /
     0.01 m of the success line or near a verdict floor; the verdict's catch
     and false-alarm rates within 0.05; B2's launches and the wall time.
-31. ``kernels``: one line listing every ported kernel (B1 on its two
+31. ``train_parity``: training on the card against the port's CPU run on
+    the same noise drawn once on the CPU and the same Flax-like init:
+    YOLOv10-n at 128 px on 4 frames of the committed capture with the hard
+    recipe's augmentation, 3 steps (losses, step 1's augmented batch, TAL
+    foreground, BatchNorm statistics and gradients, the last also against
+    a float64 run), and the toy BEiT with crop augmentation, 3 steps
+    (losses, the augmented uint8 crops identical, B1 launched);
+    ``phase_train_parity`` states each bar.
+32. ``train_full_width``: ``python -m tpu3dlm_torch.scripts.e2e_accuracy
+    --full-scale`` through its ``main`` (YOLOv10-n at 640², 1500 steps on
+    the 5-frame gold scan; BEiT-base at 224² in f32, 120 steps; ``verify``
+    over both scans) with the counts at 0: ``docs/ACCURACY_FULL_SCALE.json``'s
+    bars, training seconds, each model's median step ms, the first and
+    last loss, the device peak, B1's launches in training and B1's and
+    B2's in ``verify``; then the hard recipe's 640² step (16 sampled
+    frames, erase, cosine, EMA) on 4 corpus scenes: step ms and peak.
+33. ``kernels``: one line listing every ported kernel (B1 on its two
     routes — ``attention_bf16_tma`` counted on the scan step,
     ``attention_simt`` on the finetune step — B2, B3, B4 v1 and v2) with
     its launches, the path they were counted on (``launches_on``), error,
@@ -249,7 +265,9 @@ JSON line; any failure raises and the script exits non-zero without a result:
     eval``, from ``eval_parity``); B1's and B2's in ``verify``
     (``launches_on_verify``); B1's and B2's on the views of a run
     (``launches_on_vis``, from ``vis_parity``) and B2's on the envelope
-    sweep (``launches_on_envelope``).
+    sweep (``launches_on_envelope``); B1's in training (``launches_on_train``)
+    and B1's and B2's in the ``verify`` after it (``launches_on_train_verify``),
+    from ``train_full_width``.
 
 The script's total seconds are printed on the line before the card's name
 and power limit (nvidia-smi), which come before the last line; the last
@@ -3648,6 +3666,333 @@ def phase_envelope_parity(dev) -> dict:
     return result
 
 
+def grad_ratios(got: dict, want: dict) -> dict:
+    """Gradients ``got`` against ``want`` ({name: tensor}), each tensor's
+    max|got − want| over its own max-abs in ``want``: the worst and the
+    median over the tensors, and apart the tensors whose gradient is zero
+    but for rounding (a BatchNorm bias feeding the next BatchNorm through a
+    bias-free conv, whose shift the second one removes), recognised by a
+    max-abs under 1e-6 × the model's largest gradient and measured against
+    that largest gradient."""
+    top = max(float(w.abs().max()) for w in want.values())
+    ratios, zero = {}, {}
+    for name, w in want.items():
+        scale = float(w.abs().max())
+        err = float((got[name] - w).abs().max())
+        if scale > 1e-6 * top:
+            ratios[name] = err / scale
+        else:
+            zero[name] = err / top
+    worst = max(ratios, key=ratios.get)
+    return {"worst": ratios[worst], "worst_tensor": worst, "median": statistics.median(ratios.values()),
+            "tensors": len(ratios), "rounding_zero_tensors": len(zero),
+            "rounding_zero_worst": max(zero.values(), default=0.0)}
+
+
+def fixture_training_arrays(img_size: int, frames: int):
+    """The committed capture's gold scan at ``img_size`` with its
+    ground-truth boxes (``yolo_training_arrays``), its first ``frames``
+    frames, and its ground-truth crops for the toy BEiT."""
+    from tpu3dlm_torch.data.synthetic import load_scene_gt
+    from tpu3dlm_torch.pipeline.hardeval import _load_scan
+    from tpu3dlm_torch.pipeline.selftrain import beit_training_crops, yolo_training_arrays
+
+    scan = _load_scan(str(PROJECT / "data"), "gold_std", img_size)
+    gt = load_scene_gt(str(PROJECT / "data" / "gold_std" / "gt.json"))
+    arrays = [a[:frames] for a in yolo_training_arrays(gt["gt_boxes_2d"], scan)]
+    crops, dmg = beit_training_crops(gt["gt_boxes_2d"], gt["gt_damage_2d"], scan, 32, device="cpu")
+    return arrays, crops, dmg
+
+
+def phase_train_parity(dev) -> dict:
+    """Training on the card against the port's CPU run, on the same
+    injected noise drawn once on the CPU and the same Flax-like init:
+
+    * YOLOv10-n at 128 px, nc 2, on 4 frames of the committed capture's
+      gold scan with their ground-truth boxes, the hard recipe's
+      augmentation (erase on), AdamW at 2e-3, 3 steps: step 1's loss
+      within 1e-4 relative, the later ones within 5e-3 (after an update
+      Adam's normalised step has taken the sign of near-zero gradients the
+      two devices round apart: 8.1e-5 and 1.7e-3 on an NVIDIA H100 80GB
+      HBM3 against its host's CPU; ROADMAP §C); in step 1 the augmented
+      images within 1e-5, both heads' TAL foreground masks identical, the
+      BatchNorm statistics within 1e-4 × max(1, |value|) (8.5e-6 there:
+      batch variances of maps of a few values, as the gradients below),
+      and the gradients (``grad_ratios``) of the card and of the CPU each
+      within 1e-2 × every tensor's max-abs of the gradient of the model in
+      float64 on the CPU's augmented batch (the same foreground), the
+      median tensor within 2e-3, and card against CPU by the same bars. A
+      bar of 1e-4 card against CPU would sit below the f32 rounding of
+      this train-mode network: a CPU's own f32 gradient is off its float64
+      one by 1.1e-3–3.4e-3 × max-abs at worst, 4.0e-4–9.8e-4 at the median
+      (two x86 hosts; ROADMAP §C);
+    * the toy BEiT (``BEIT_KW``) on the capture's ground-truth crops with
+      ``augment=True``, 3 steps: losses within 1e-4 relative, the augmented
+      uint8 crops identical, B1 launched once per layer and step.
+
+    Every bar is evaluated and the phase's line printed before the first
+    failed bar raises."""
+    import copy
+
+    from tpu3dlm_torch.models.beit import BeitClassifier, BeitConfig
+    from tpu3dlm_torch.models.layers import init_like_flax_
+    from tpu3dlm_torch.models.yolov10 import YOLOv10
+    from tpu3dlm_torch.ops.augment import augment_crop_batch, draw_crop_noise
+    from tpu3dlm_torch.ops.kernels.attention import beit_attention_packed
+    from tpu3dlm_torch.parallel.finetune import (
+        adamw,
+        draw_yolo_step_noise,
+        init_finetune,
+        make_beit_train_step,
+        make_yolo_train_step,
+    )
+    from tpu3dlm_torch.pipeline.evaluate import BEIT_KW
+    from tpu3dlm_torch.scripts.hard_eval import HARD_AUGMENT
+
+    t0 = time.perf_counter()
+    img_size, steps = 128, 3
+    (images, boxes, labels, mask), crops, dmg = fixture_training_arrays(img_size, 4)
+    imgs = images.astype(np.float32) / 255.0
+    gen = torch.Generator().manual_seed(SEED + 20)
+    cpu = init_like_flax_(YOLOv10(nc=2, variant="n"), gen)
+    gpu = copy.deepcopy(cpu).to(dev)
+    noise = [draw_yolo_step_noise(len(imgs), gen, HARD_AUGMENT) for _ in range(steps)]
+    yolo_steps = {name: make_yolo_train_step(m, adamw(m.parameters(), 2e-3), img_size=img_size,
+                                             augment=HARD_AUGMENT, device=d)
+                  for name, m, d in (("cpu", cpu, "cpu"), ("gpu", gpu, dev))}
+    exact = copy.deepcopy(cpu).double()
+    exact_step = make_yolo_train_step(exact, adamw(exact.parameters(), 2e-3), img_size=img_size, device="cpu")
+    yolo_losses = {"cpu": [], "gpu": []}
+    out: dict = {}
+    bars = []
+    for i in range(steps):
+        aux = {"cpu": {}, "gpu": {}}
+        for name, step in yolo_steps.items():
+            d = "cpu" if name == "cpu" else dev
+            args = [torch.as_tensor(a, device=d) for a in (imgs, boxes, labels, mask)]
+            yolo_losses[name].append(float(step(*args, noise=noise[i], aux=aux[name])))
+        if i == 0:
+            a, b = aux["cpu"], {k: v.cpu() for k, v in aux["gpu"].items()}
+            exact_aux = {}
+            exact_step(a["images"].double(), a["boxes"], torch.as_tensor(labels), a["mask"], aux=exact_aux)
+            out["fg_flips_cpu_f64_vs_f32"] = {h: int((exact_aux[h] != a[h]).sum()) for h in ("fg_one2many", "fg_one2one")}
+            out["aug_image_max_abs_err"] = float((a["images"] - b["images"]).abs().max())
+            bars.append((out["aug_image_max_abs_err"] <= 1e-5, "augmented images"))
+            bars.append((torch.equal(a["mask"], b["mask"]), "augmented masks"))
+            for head in ("fg_one2many", "fg_one2one"):
+                bars.append((torch.equal(a[head], b[head]), f"{head} differs in step 1"))
+            out["fg_anchors_step1"] = {h: int(a[h].sum()) for h in ("fg_one2many", "fg_one2one")}
+            grads = {"gpu": {n: p.grad.cpu().double() for n, p in gpu.named_parameters()},
+                     "cpu": {n: p.grad.double() for n, p in cpu.named_parameters()},
+                     "cpu_f64": {n: p.grad for n, p in exact.named_parameters()}}
+            out["grad_err_step1"] = {
+                "gpu_vs_cpu_f64": grad_ratios(grads["gpu"], grads["cpu_f64"]),
+                "cpu_vs_cpu_f64": grad_ratios(grads["cpu"], grads["cpu_f64"]),
+                "gpu_vs_cpu": grad_ratios(grads["gpu"], grads["cpu"]),
+            }
+            for key, worst, median in (("gpu_vs_cpu_f64", 1e-2, 2e-3), ("cpu_vs_cpu_f64", 1e-2, 2e-3),
+                                       ("gpu_vs_cpu", 1e-2, 2e-3)):
+                r = out["grad_err_step1"][key]
+                bars.append((r["worst"] <= worst and r["median"] <= median and r["rounding_zero_worst"] <= 1e-4,
+                             f"gradients {key}: {r}"))
+            gsd = gpu.state_dict()
+            stats = {k: (v, gsd[k].cpu()) for k, v in cpu.state_dict().items()
+                     if k.endswith(("running_mean", "running_var"))}
+            out["batch_stats_max_err_step1"] = max(float(((x - y).abs() / y.abs().clamp(min=1.0)).max())
+                                                   for y, x in stats.values())
+            bars.append((out["batch_stats_max_err_step1"] <= 1e-4, "batch_stats after step 1"))
+    rel = [abs(g - c) / abs(c) for c, g in zip(yolo_losses["cpu"], yolo_losses["gpu"])]
+    yolo_rel = max(rel)
+    bars.append((rel[0] <= 1e-4 and max(rel[1:]) <= 5e-3 and all(np.isfinite(yolo_losses["gpu"])),
+                 ("yolo losses", yolo_losses)))
+
+    cfg = BeitConfig(**BEIT_KW)
+    bgen = torch.Generator().manual_seed(SEED + 21)
+    bcpu = init_like_flax_(BeitClassifier(cfg), bgen)
+    bgpu = copy.deepcopy(bcpu)
+    bnoise = [draw_crop_noise(len(crops), bgen) for _ in range(steps)]
+    crop_flips = sum(int((augment_crop_batch(torch.as_tensor(crops), noise=n).cpu()
+                          != augment_crop_batch(torch.as_tensor(crops, device=dev), noise=n).cpu()).sum())
+                     for n in bnoise)
+    bars.append((crop_flips == 0, f"{crop_flips} augmented crop values differ"))
+    beit_steps = {name: make_beit_train_step(m, init_finetune(m, lr=1e-3, device=d), augment={}, device=d)
+                  for name, m, d in (("cpu", bcpu, "cpu"), ("gpu", bgpu, dev))}
+    beit_losses = {"cpu": [], "gpu": []}
+    before = beit_attention_packed.launches
+    for i in range(steps):
+        for name, step in beit_steps.items():
+            d = "cpu" if name == "cpu" else dev
+            beit_losses[name].append(float(step(torch.as_tensor(crops, device=d), torch.as_tensor(dmg, device=d),
+                                                noise=bnoise[i])))
+    b1 = beit_attention_packed.launches - before
+    bars.append((b1 == steps * cfg.num_layers, f"B1 launches {b1}"))
+    beit_rel = max(abs(g - c) / abs(c) for c, g in zip(beit_losses["cpu"], beit_losses["gpu"]))
+    bars.append((beit_rel <= 1e-4 and all(np.isfinite(beit_losses["gpu"])), ("beit losses", beit_losses)))
+    result = {"phase": "train_parity", "yolo": {"img_size": img_size, "frames": len(imgs), "losses": yolo_losses,
+                                                "max_loss_rel_err": yolo_rel, **out},
+              "beit": {"crops": len(crops), "losses": beit_losses, "max_loss_rel_err": beit_rel,
+                       "augmented_crop_values_differing": crop_flips, "b1_launches": b1},
+              "seconds": time.perf_counter() - t0}
+    emit(result)
+    for ok, what in bars:
+        check(ok, what)
+    return result
+
+
+class StepRecorder:
+    """Wraps ``parallel.finetune``'s step makers while it is entered, so the
+    steps an entry point builds record, per step, CUDA-event milliseconds,
+    the loss (a device tensor, read at the end) and B1's launches."""
+
+    def __init__(self):
+        self.steps = {"yolo": [], "beit": []}
+
+    def __enter__(self):
+        from tpu3dlm_torch.ops.kernels.attention import beit_attention_packed
+        from tpu3dlm_torch.parallel import finetune
+
+        self._saved = (finetune.make_yolo_train_step, finetune.make_beit_train_step)
+
+        def wrap(kind, make):
+            def maker(*a, **kw):
+                step = make(*a, **kw)
+
+                def timed(*sa, **skw):
+                    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                    before = beit_attention_packed.launches
+                    start.record()
+                    loss = step(*sa, **skw)
+                    end.record()
+                    self.steps[kind].append((start, end, loss, beit_attention_packed.launches - before))
+                    return loss
+
+                return timed
+
+            return maker
+
+        finetune.make_yolo_train_step = wrap("yolo", self._saved[0])
+        finetune.make_beit_train_step = wrap("beit", self._saved[1])
+        return self
+
+    def __exit__(self, *exc):
+        from tpu3dlm_torch.parallel import finetune
+
+        finetune.make_yolo_train_step, finetune.make_beit_train_step = self._saved
+        return False
+
+    def summary(self, kind: str) -> dict:
+        torch.cuda.synchronize()
+        rows = self.steps[kind]
+        ms = [s.elapsed_time(e) for s, e, _, _ in rows]
+        return {"steps": len(rows), "step_ms_median": statistics.median(ms), "step_ms_max": max(ms),
+                "loss_first": float(rows[0][2]), "loss_last": float(rows[-1][2]),
+                "b1_launches": sum(r[3] for r in rows)}
+
+
+def phase_train_full_width(dev, tmp: str) -> dict:
+    """The training main path at full width, through the entry point a user
+    calls: ``python -m tpu3dlm_torch.scripts.e2e_accuracy --full-scale``
+    (``main``), the reference's own full-scale recipe — YOLOv10-n at 640²,
+    1500 steps from the Flax-like init on the 5-frame gold scan, then
+    BEiT-base at 224² in f32 for 120 steps, then ``verify`` over both scans
+    — with the counts at 0 just before: the bars of
+    ``docs/ACCURACY_FULL_SCALE.json`` (every placement error ≤ its
+    tolerance, the expected missing sign flagged, its row count), training
+    seconds, each model's median step ms (CUDA events), the loss at the
+    first and last step, the device peak, B1's launches in the BEiT steps
+    and B1's and B2's in ``verify``. Then the hard recipe's 640² step
+    (``augment`` with erase, ``sample_batch = 16``, cosine, EMA) on the
+    first 4 ``training_specs`` scenes: 3 warm and 10 timed steps, step ms
+    and peak."""
+    from tpu3dlm_torch.scripts import e2e_accuracy
+
+    t0 = time.perf_counter()
+    ref = json.loads((Path(__file__).resolve().parent / "docs" / "ACCURACY_FULL_SCALE.json").read_text())
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with StepRecorder() as rec:
+        report = e2e_accuracy.main(["--full-scale", "--device", "cuda", "--out-dir", str(Path(tmp, "e2e_ckpt"))])
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    yolo, beit = rec.summary("yolo"), rec.summary("beit")
+    check(yolo["steps"] == 1500 and beit["steps"] == 120, (yolo, beit))
+    errors = report["placement_errors_m"]
+    check(len(errors) == len(ref["placement_errors_m"]), errors)
+    check(all(e <= ref["placement_tolerance_m"] for e in errors.values()), errors)
+    check(report["missing_flagged"] == ref["missing_expected"] and report["rows"] == ref["rows"], report)
+    check(beit["b1_launches"] == 120 * 12, beit)
+    verify_b1 = launches["b1"] - beit["b1_launches"]
+    check(verify_b1 > 0 and launches["b2"] > 0, launches)
+    e2e = {"report": report, "training_seconds": report["training_seconds"],
+           "verify_seconds": report["verify_seconds"], "yolo": yolo, "beit": beit, "peak_mem_gb": peak_gb,
+           "b1_launches_train": beit["b1_launches"], "b1_launches_verify": verify_b1,
+           "b2_launches_verify": launches["b2"], "reference_bars": {
+               "placement_tolerance_m": ref["placement_tolerance_m"], "missing_expected": ref["missing_expected"],
+               "rows": ref["rows"]}}
+    hard = time_hard_recipe_step(dev, tmp)
+    result = {"phase": "train_full_width", "e2e": e2e, "hard_recipe_step": hard,
+              "seconds": time.perf_counter() - t0}
+    emit(result)
+    return result
+
+
+def time_hard_recipe_step(dev, tmp: str, scenes: int = 4) -> dict:
+    """``hard_eval --train --full-scale``'s YOLO step at 640² on the first
+    ``scenes`` corpus scenes: augmentation with erase, 16 sampled frames a
+    step, the cosine schedule and EMA as ``finetune_yolo`` runs them; 3 warm
+    and 10 timed steps (median host ms, each ending in a synchronise)."""
+    from tpu3dlm_torch.data import synthetic
+    from tpu3dlm_torch.data.synthetic import load_scene_gt
+    from tpu3dlm_torch.models.layers import init_like_flax_
+    from tpu3dlm_torch.models.yolov10 import YOLOv10
+    from tpu3dlm_torch.parallel.finetune import (
+        adamw,
+        ema_update,
+        make_yolo_train_step,
+        warmup_cosine_decay_schedule,
+    )
+    from tpu3dlm_torch.pipeline.hardeval import _load_scan
+    from tpu3dlm_torch.pipeline.selftrain import yolo_training_arrays
+    from tpu3dlm_torch.scripts.hard_eval import HARD_AUGMENT, training_specs
+
+    root = str(Path(tmp, "hard_corpus"))
+    arrays = []
+    t0 = time.perf_counter()
+    for i, spec in enumerate(training_specs()[:scenes]):
+        synthetic.generate_scan(root, f"train_{i}", cloud_points_per_m2=800, **spec)
+        gt = load_scene_gt(str(Path(root, f"train_{i}", "gt.json")))
+        arrays.append(yolo_training_arrays(gt["gt_boxes_2d"], _load_scan(root, f"train_{i}", 640)))
+    corpus_s = time.perf_counter() - t0
+    images, boxes, labels, mask = (np.concatenate([a[k] for a in arrays]) for k in range(4))
+    yolo = init_like_flax_(YOLOv10(nc=2, variant="n"), torch.Generator().manual_seed(SEED + 22)).to(dev)
+    opt = adamw(yolo.parameters(), 2e-3)
+    sched = warmup_cosine_decay_schedule(0.0, 2e-3, 400, 4000, 2e-3 * 0.05)
+    step = make_yolo_train_step(yolo, opt, img_size=640, augment=HARD_AUGMENT, sample_batch=16, device=dev,
+                                generator=torch.Generator().manual_seed(SEED + 23))
+    ema = [p.detach().clone() for p in yolo.parameters()]
+    imgs = torch.as_tensor(images.astype(np.float32) / 255.0, device=dev)
+    gt = [torch.as_tensor(a, device=dev) for a in (boxes, labels, mask)]
+    count = [0]
+    losses = []
+
+    def one():
+        for group in opt.param_groups:
+            group["lr"] = sched(count[0])
+        losses.append(step(imgs, *gt))
+        ema_update(ema, yolo.parameters(), 0.995)
+        count[0] += 1
+
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(3):
+        one()
+    step_ms, samples = host_ms(one, runs=10)
+    losses = [float(x) for x in losses]
+    check(all(np.isfinite(losses)), losses)
+    return {"scenes": scenes, "frames": int(images.shape[0]), "sample_batch": 16, "img_size": 640,
+            "corpus_seconds": corpus_s, "step_ms": step_ms, "step_ms_samples": samples,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "losses": losses}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available; this script needs an NVIDIA GPU",
@@ -3705,6 +4050,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         evals = phase_eval_parity(dev, tmp)
         phase_eval_full_width(dev, tmp, evals)
+    phase_train_parity(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        train = phase_train_full_width(dev, tmp)
     from tpu3dlm_torch.ops.kernels.nn_variants import VARIANTS
 
     b4_rows = []
@@ -3781,6 +4129,10 @@ def main() -> int:
             "launches_on_vis": vis["launches_gpu_run"]["b1"],
             "launches_on_vis_path": "vis_parity: gold and maintenance on the staged route with view_img, "
                                     "alignment_vis and comparison_vis on (fixture BEiT, f32, attention_simt)",
+            "launches_on_train": train["e2e"]["b1_launches_train"],
+            "launches_on_train_path": "train_full_width: e2e_accuracy --full-scale, the 120 BEiT-base f32 "
+                                      "training steps (forward; the backward is the plain recompute)",
+            "launches_on_train_verify": train["e2e"]["b1_launches_verify"],
         },
         {
             "name": "nearest_neighbors", "route": "cuda",
@@ -3809,6 +4161,9 @@ def main() -> int:
             "launches_on_vis_path": "vis_parity: the maintenance compare whose record the animation replays",
             "launches_on_envelope": envelope["b2_launches"],
             "launches_on_envelope_path": "envelope_parity: the 144 registrations of the convergence-envelope sweep",
+            "launches_on_train_verify": train["e2e"]["b2_launches_verify"],
+            "launches_on_train_verify_path": "train_full_width: verify after e2e_accuracy --full-scale's "
+                                             "training (the maintenance compare at 640²)",
             "ms_by_shape": {f"{c['shape'][0]}x{c['shape'][1]}": {
                 "case": c["case"], **{k: c[k] for k in ("kernel_ms", "plain_ms", "bound_ms", "bound_by")}}
                 for c in b2["checks"] if "kernel_ms" in c},

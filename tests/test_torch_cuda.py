@@ -696,3 +696,76 @@ def test_views_of_a_run_on_card_match_cpu(cuda_device, tmp_path):
     import chip_smoke
 
     chip_smoke.phase_vis_parity(cuda_device, str(tmp_path))
+
+
+def test_augmented_yolo_step_on_card_matches_cpu(cuda_device):
+    """One YOLOv10-n step at 128 px on 4 frames of the committed capture,
+    the hard recipe's augmentation (erase on) on the same noise drawn on
+    the CPU, from the same Flax-like init: the loss within 1e-4 relative,
+    the augmented batch within 1e-5, both heads' foreground identical, the
+    BatchNorm statistics within 1e-4 × max(1, |value|) (batch variances
+    of maps of a few values round apart by ~1e-5 between the devices;
+    chip_smoke.py's train_parity holds three steps and the gradients)."""
+    import copy
+
+    import numpy as np
+
+    import chip_smoke
+    from tpu3dlm_torch.models.layers import init_like_flax_
+    from tpu3dlm_torch.models.yolov10 import YOLOv10
+    from tpu3dlm_torch.parallel.finetune import adamw, draw_yolo_step_noise, make_yolo_train_step
+    from tpu3dlm_torch.scripts.hard_eval import HARD_AUGMENT
+
+    (images, boxes, labels, mask), _, _ = chip_smoke.fixture_training_arrays(128, 4)
+    imgs = images.astype(np.float32) / 255.0
+    gen = torch.Generator().manual_seed(3)
+    cpu = init_like_flax_(YOLOv10(nc=2), gen)
+    gpu = copy.deepcopy(cpu).to(cuda_device)
+    noise = draw_yolo_step_noise(len(imgs), gen, HARD_AUGMENT)
+    out = {}
+    for name, model, dev in (("cpu", cpu, torch.device("cpu")), ("gpu", gpu, cuda_device)):
+        step = make_yolo_train_step(model, adamw(model.parameters(), 2e-3), img_size=128, augment=HARD_AUGMENT,
+                                    device=dev)
+        aux = {}
+        loss = step(*(torch.as_tensor(a, device=dev) for a in (imgs, boxes, labels, mask)), noise=noise, aux=aux)
+        out[name] = (float(loss), {k: v.cpu() for k, v in aux.items()}, {k: v.cpu() for k, v in model.state_dict().items()})
+    (lc, ac, sc), (lg, ag, sg) = out["cpu"], out["gpu"]
+    assert abs(lg - lc) <= 1e-4 * abs(lc)
+    assert (ag["images"] - ac["images"]).abs().max() <= 1e-5 and torch.equal(ag["mask"], ac["mask"])
+    assert torch.equal(ag["fg_one2many"], ac["fg_one2many"]) and torch.equal(ag["fg_one2one"], ac["fg_one2one"])
+    stats = [k for k in sc if k.endswith(("running_mean", "running_var"))]
+    err = {k: float(((sg[k] - sc[k]).abs() / sc[k].abs().clamp(min=1.0)).max()) for k in stats}
+    worst = max(err, key=err.get)
+    assert err[worst] <= 1e-4, (worst, err[worst])
+
+
+def test_augmented_beit_step_on_card_matches_cpu(cuda_device):
+    """One toy-BEiT step with crop augmentation on the capture's
+    ground-truth crops, same noise and init: the augmented uint8 crops
+    identical, the loss within 1e-4 relative, B1 launched once per layer."""
+    import copy
+
+    from tpu3dlm_torch.models.beit import BeitClassifier, BeitConfig
+    from tpu3dlm_torch.models.layers import init_like_flax_
+    from tpu3dlm_torch.ops.augment import augment_crop_batch, draw_crop_noise
+    from tpu3dlm_torch.parallel.finetune import init_finetune, make_beit_train_step
+    from tpu3dlm_torch.pipeline.evaluate import BEIT_KW
+
+    import chip_smoke
+
+    _, crops, dmg = chip_smoke.fixture_training_arrays(128, 4)
+    gen = torch.Generator().manual_seed(4)
+    cfg = BeitConfig(**BEIT_KW)
+    cpu = init_like_flax_(BeitClassifier(cfg), gen)
+    gpu = copy.deepcopy(cpu)
+    noise = draw_crop_noise(len(crops), gen)
+    assert torch.equal(augment_crop_batch(torch.as_tensor(crops, device=cuda_device), noise=noise).cpu(),
+                       augment_crop_batch(torch.as_tensor(crops), noise=noise))
+    losses = {}
+    for name, model, dev in (("cpu", cpu, torch.device("cpu")), ("gpu", gpu, cuda_device)):
+        step = make_beit_train_step(model, init_finetune(model, lr=1e-3, device=dev), augment={}, device=dev)
+        before = beit_attention_packed.launches
+        losses[name] = float(step(torch.as_tensor(crops, device=dev), torch.as_tensor(dmg, device=dev), noise=noise))
+        launched = beit_attention_packed.launches - before
+    assert launched == cfg.num_layers
+    assert abs(losses["gpu"] - losses["cpu"]) <= 1e-4 * abs(losses["cpu"])

@@ -154,12 +154,17 @@ def test_three_steps_match_jax(setup):
 
 
 def test_step_refuses_what_is_not_ported(setup):
-    """``augment`` (A19) and a mesh (A22) raise, and so does the CUDA
-    default without a card."""
+    """A mesh (A22) raises, and so does the CUDA default without a card.
+    ``augment`` is ported (A19): the step augments on its given noise, or
+    draws it from its generator, and refuses to run with neither."""
     port = beit_from_flax(setup[1])
     opt = init_finetune(port, device="cpu")
-    with pytest.raises(NotImplementedError):
-        make_beit_train_step(port, opt, augment={}, device="cpu")
+    crops, labels = setup[4], setup[5]
+    step = make_beit_train_step(port, opt, augment={}, device="cpu")
+    with pytest.raises(ValueError):
+        step(crops, labels)
+    seeded = make_beit_train_step(port, opt, augment={}, device="cpu", generator=torch.Generator().manual_seed(0))
+    assert np.isfinite(float(seeded(crops, labels)))
     with pytest.raises(NotImplementedError):
         make_beit_train_step(port, opt, mesh=object(), device="cpu")
     if not torch.cuda.is_available():

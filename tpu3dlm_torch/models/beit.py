@@ -159,6 +159,7 @@ class BeitLayer(nn.Module):
     def __init__(self, cfg: BeitConfig):
         super().__init__()
         c = cfg
+        self.layer_scale_init_value = c.layer_scale_init_value  # for models.layers.init_like_flax_
         self.lambda_1 = nn.Parameter(torch.full((c.hidden_size,), c.layer_scale_init_value))
         self.lambda_2 = nn.Parameter(torch.full((c.hidden_size,), c.layer_scale_init_value))
         self.ln1 = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps)

@@ -1,5 +1,6 @@
-"""Flax msgpack checkpoints without flax or msgpack (the reading half of
-``tpu3dlm/models/weights.py::load_flax_checkpoint``).
+"""Flax msgpack checkpoints without flax or msgpack (the port of
+``tpu3dlm/models/weights.py::load_flax_checkpoint`` and
+``save_flax_checkpoint``).
 
 ``flax.serialization.msgpack_serialize`` writes a msgpack map of maps whose
 array leaves are ext type 1: a nested msgpack array ``(shape, dtype name,
@@ -9,6 +10,8 @@ written as ``{"__msgpack_chunked_array__": True, "shape": {...}, "chunks":
 {"0": ..., ...}}`` and joined back here. ``read_flax_msgpack`` returns the
 tree ``msgpack_restore`` returns — nested dicts of numpy arrays — which
 ``models.weights.yolov10_from_flax`` / ``beit_from_flax`` take as is.
+``write_flax_msgpack`` writes such a tree back, byte for byte what
+``flax.serialization.to_bytes`` writes for it.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import numpy as np
 
 _EXT_NDARRAY, _EXT_COMPLEX, _EXT_NPSCALAR = 1, 2, 3
 _CHUNKED = "__msgpack_chunked_array__"
+MAX_CHUNK_SIZE = 2**30  # flax.serialization's: arrays above it are chunked
 
 
 class _Reader:
@@ -142,3 +146,133 @@ def read_flax_msgpack(path: str):
         return restore_flax_msgpack(data)
     except (ValueError, struct.error) as e:
         raise ValueError(f"unreadable flax checkpoint {path}: {e}") from None
+
+
+class _Writer:
+    """A msgpack encoder for what a flax checkpoint holds: maps with string
+    keys, numpy arrays / scalars as ext types 1 / 3, and inside those and
+    the chunked form lists, strings, bytes, bools and ints (the smallest
+    encoding of each, as msgpack-python's ``packb(use_bin_type=True)``)."""
+
+    def __init__(self):
+        self.out = bytearray()
+
+    def header(self, n: int, fix: int, fix_max: int, b16: int, b32: int) -> None:
+        if n <= fix_max:
+            self.out.append(fix | n)
+        elif n < 1 << 16:
+            self.out += struct.pack(">BH", b16, n)
+        else:
+            self.out += struct.pack(">BI", b32, n)
+
+    def sized(self, n: int, codes: tuple) -> None:
+        if n < 1 << 8:
+            self.out += struct.pack(">BB", codes[0], n)
+        elif n < 1 << 16:
+            self.out += struct.pack(">BH", codes[1], n)
+        else:
+            self.out += struct.pack(">BI", codes[2], n)
+
+    def int(self, v: int) -> None:
+        if 0 <= v <= 0x7F:
+            self.out.append(v)
+        elif -32 <= v < 0:
+            self.out.append(v & 0xFF)
+        elif v >= 0:
+            for code, fmt, lim in ((0xCC, ">BB", 1 << 8), (0xCD, ">BH", 1 << 16), (0xCE, ">BI", 1 << 32),
+                                   (0xCF, ">BQ", 1 << 64)):
+                if v < lim:
+                    self.out += struct.pack(fmt, code, v)
+                    return
+            raise ValueError(f"integer {v} too large for msgpack")
+        else:
+            for code, fmt, lim in ((0xD0, ">Bb", 1 << 7), (0xD1, ">Bh", 1 << 15), (0xD2, ">Bi", 1 << 31),
+                                   (0xD3, ">Bq", 1 << 63)):
+                if v >= -lim:
+                    self.out += struct.pack(fmt, code, v)
+                    return
+            raise ValueError(f"integer {v} too small for msgpack")
+
+    def ext(self, code: int, payload: bytes) -> None:
+        n = len(payload)
+        fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+        if n in fixed:
+            self.out += struct.pack(">Bb", fixed[n], code)
+        else:
+            self.sized(n, (0xC7, 0xC8, 0xC9))
+            self.out += struct.pack(">b", code)
+        self.out += payload
+
+    def value(self, v) -> None:
+        if v is True or v is False:
+            self.out.append(0xC3 if v else 0xC2)
+        elif isinstance(v, np.ndarray):
+            self.ext(_EXT_NDARRAY, _ndarray_bytes(v))
+        elif isinstance(v, np.generic):
+            self.ext(_EXT_NPSCALAR, _ndarray_bytes(np.asarray(v)))
+        elif isinstance(v, int):
+            self.int(v)
+        elif isinstance(v, str):
+            b = v.encode("utf-8")
+            if len(b) <= 31:
+                self.out.append(0xA0 | len(b))
+            else:
+                self.sized(len(b), (0xD9, 0xDA, 0xDB))
+            self.out += b
+        elif isinstance(v, bytes):
+            self.sized(len(v), (0xC4, 0xC5, 0xC6))
+            self.out += v
+        elif isinstance(v, (list, tuple)):
+            self.header(len(v), 0x90, 15, 0xDC, 0xDD)
+            for x in v:
+                self.value(x)
+        elif isinstance(v, dict):
+            self.header(len(v), 0x80, 15, 0xDE, 0xDF)
+            for k, x in v.items():
+                if not isinstance(k, str):
+                    raise TypeError(f"checkpoint keys must be strings, got {k!r}")
+                self.value(k)
+                self.value(x)
+        else:
+            raise TypeError(f"cannot write {type(v).__name__} into a flax checkpoint")
+
+
+def _ndarray_bytes(arr: np.ndarray) -> bytes:
+    """flax's array payload: msgpack of (shape, dtype name, C-order bytes)."""
+    if arr.dtype.hasobject or arr.dtype.isalignedstruct:
+        raise ValueError("object and structured dtypes cannot be written")
+    w = _Writer()
+    w.value([list(arr.shape), arr.dtype.name, arr.tobytes("C")])
+    return bytes(w.out)
+
+
+def _chunk(tree):
+    """Arrays above ``MAX_CHUNK_SIZE`` bytes → flax's chunked form."""
+    if isinstance(tree, dict):
+        return {k: _chunk(v) for k, v in tree.items()}
+    if isinstance(tree, np.ndarray) and tree.size * tree.dtype.itemsize > MAX_CHUNK_SIZE:
+        size = max(1, MAX_CHUNK_SIZE // tree.dtype.itemsize)
+        flat = tree.reshape(-1)
+        chunks = [flat[i:i + size] for i in range(0, flat.size, size)]
+        return {_CHUNKED: True, "shape": {str(i): d for i, d in enumerate(tree.shape)},
+                "chunks": {str(i): c for i, c in enumerate(chunks)}}
+    return tree
+
+
+def serialize_flax_msgpack(tree) -> bytes:
+    """``flax.serialization.msgpack_serialize`` of a tree of dicts (string
+    keys, in their order) with numpy leaves."""
+    w = _Writer()
+    w.value(_chunk(tree))
+    return bytes(w.out)
+
+
+def write_flax_msgpack(path: str, tree) -> None:
+    """Write ``tree`` (e.g. ``models.weights.yolov10_to_flax``'s) as a flax
+    ``.msgpack`` checkpoint, which ``read_flax_msgpack`` and the JAX
+    package's ``load_flax_checkpoint`` read back."""
+    if not str(path).endswith(".msgpack"):
+        raise ValueError(f"{path}: flax checkpoints are written as .msgpack")
+    data = serialize_flax_msgpack(tree)
+    with open(path, "wb") as f:
+        f.write(data)

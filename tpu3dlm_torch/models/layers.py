@@ -3,7 +3,9 @@
 NCHW modules with ultralytics' module layout and attribute names, so the
 state-dict keys are the ultralytics ones ("model.2.m.0.cv1.conv.weight")
 and Flax variables map onto them mechanically (models/weights.py).
-BatchNorm uses eps 1e-3 as in the reference; convs pad k//2.
+BatchNorm uses eps 1e-3 as in the reference and, in train mode, Flax's
+statistics (``FlaxBatchNorm2d``); convs pad k//2. ``init_like_flax_``
+draws the reference's initialisation, from which training starts.
 """
 
 from __future__ import annotations
@@ -15,6 +17,35 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 
+class FlaxBatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose train mode is Flax's ``nn.BatchNorm``
+    (``tpu3dlm/models/layers.py:48-53``, momentum 0.97): the batch is
+    normalised by its biased variance, as in torch, but the running
+    statistics are updated with that same biased variance, taken as Flax
+    takes it (E[x²] − E[x]², clipped at 0, in f32), where torch would use
+    the unbiased one: ``ra ← 0.97·ra + (1 − 0.97)·batch``. ``momentum``
+    keeps torch's meaning (the weight of the batch, 0.03 here); ``None``
+    is torch's cumulative average. Eval mode is ``nn.BatchNorm2d``'s."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        if self.track_running_stats:
+            with torch.no_grad():
+                x32 = x.float()
+                mean = x32.mean(dim=(0, 2, 3))
+                var = torch.clamp((x32 * x32).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+                self.num_batches_tracked += 1
+                if self.momentum is None:
+                    keep = 1.0 - 1.0 / float(self.num_batches_tracked)
+                else:
+                    keep = 1.0 - self.momentum
+                self.running_mean.copy_(keep * self.running_mean + (1 - keep) * mean)
+                self.running_var.copy_(keep * self.running_var + (1 - keep) * var)
+        return y
+
+
 class ConvBN(nn.Module):
     """Conv2d (no bias) + BatchNorm (eps 1e-3) + optional SiLU — the
     ultralytics ``Conv``."""
@@ -22,7 +53,7 @@ class ConvBN(nn.Module):
     def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, g: int = 1, act: bool = True):
         super().__init__()
         self.conv = nn.Conv2d(c1, c2, k, s, k // 2, groups=g, bias=False)
-        self.bn = nn.BatchNorm2d(c2, eps=1e-3, momentum=0.03)
+        self.bn = FlaxBatchNorm2d(c2, eps=1e-3, momentum=0.03)
         self.act = act
 
     def forward(self, x):
@@ -223,6 +254,47 @@ def init_seeded_(module: nn.Module, generator: torch.Generator) -> nn.Module:
             m.running_var.copy_(
                 torch.rand(m.running_var.shape, generator=generator) + 0.5
             )
+    return module
+
+
+# 1 / the standard deviation of a standard normal truncated to [-2, 2]:
+# Flax's variance_scaling divides by it so the truncated draw keeps the
+# asked variance
+_TRUNC_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def init_like_flax_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """The reference's initialisation, drawn on the CPU from ``generator``:
+    Flax's defaults for its ``nn.Conv`` / ``nn.Dense`` kernels
+    (``lecun_normal``: a normal truncated to ±2 standard deviations, scaled
+    to variance 1/fan_in) and zero biases; BatchNorm scale 1, bias 0,
+    mean 0, var 1; LayerNorm scale 1, bias 0; BEiT's layer scales at the
+    layer's ``layer_scale_init_value`` and its relative-position tables and
+    cls token at 0 (``tpu3dlm/models/beit.py:193, 245-250, 284``). The
+    values are Flax's in distribution, not in draw (JAX's PRNG is not
+    reproduced). A parameter of another kind raises."""
+
+    def fill(p, value):
+        p.copy_(torch.full(p.shape, float(value), dtype=p.dtype))
+
+    for m in module.modules():
+        for name, p in m.named_parameters(recurse=False):
+            if isinstance(m, (nn.Conv2d, nn.Linear)) and name == "weight":
+                fan_in = math.prod(p.shape[1:])
+                w = torch.empty(p.shape, dtype=torch.float32)
+                nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
+                p.copy_((w * (math.sqrt(1.0 / fan_in) / _TRUNC_STD)).to(p.dtype))
+            elif name == "bias" or name in ("relative_position_bias_table", "cls_token"):
+                fill(p, 0.0)
+            elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm)) and name == "weight":
+                fill(p, 1.0)
+            elif name.startswith("lambda_"):
+                fill(p, m.layer_scale_init_value)
+            else:
+                raise ValueError(f"init_like_flax_: no Flax initialiser for {type(m).__name__}.{name}")
+        if isinstance(m, nn.BatchNorm2d):
+            m.reset_running_stats()
     return module
 
 

@@ -21,6 +21,11 @@ Conv ``(kh, kw, in/g, out)`` → ``(out, in/g, kh, kw)``; Dense ``(in, out)``
 ``weight/bias/running_mean/running_var``; LayerNorm ``scale`` → ``weight``.
 Every port parameter must be covered and every Flax leaf used, or the
 loader raises.
+
+The way back, for checkpoints the port trains: ``yolov10_to_flax`` and
+``beit_to_flax`` give the Flax trees (keys sorted, as a JAX tree map
+leaves them) that ``models/checkpoint.py::write_flax_msgpack`` writes and
+the JAX package's ``load_flax_checkpoint`` reads.
 """
 
 from __future__ import annotations
@@ -327,13 +332,95 @@ def yolov10_from_flax(variables: Mapping, variant: str = "n", nc: int | None = N
     params = variables["params"]
     if nc is None:
         nc = int(np.shape(params["detect_o2o"]["cv3_0_2"]["kernel"])[-1])
-    model = YOLOv10(nc=nc, variant=variant)
+    stem = "s2d" if np.shape(params["m0"]["conv"]["kernel"])[2] == 12 else "conv"
+    model = YOLOv10(nc=nc, variant=variant, stem=stem)
     sd = {}
     for collection in ("params", "batch_stats"):
         for path, v in _leaves(variables[collection]):
             sd[_yolo_key(path, collection)] = _torch_value(path[-1], v)
     _load_exact(model, sd)
     return model.eval()
+
+
+def _flax_scope(name: str) -> list[str]:
+    """A port module path's tokens → Flax names: each name takes the
+    indices that follow it ('m.0' → 'm_0', 'cv3.0.1.0' → 'cv3_0_1_0')."""
+    out: list[str] = []
+    for t in name.split("."):
+        if t.isdigit() and out:
+            out[-1] += f"_{t}"
+        else:
+            out.append(t)
+    return out
+
+
+def _flax_value(module: torch.nn.Module, leaf: str, t: torch.Tensor) -> tuple[str, np.ndarray]:
+    """A port parameter → (Flax leaf name, Flax layout) by module type."""
+    v = t.detach().float().cpu().numpy()
+    if leaf == "weight" and isinstance(module, torch.nn.Conv2d):
+        return "kernel", np.ascontiguousarray(np.transpose(v, (2, 3, 1, 0)))
+    if leaf == "weight" and isinstance(module, torch.nn.Linear):
+        return "kernel", np.ascontiguousarray(v.T)
+    if leaf == "weight" and isinstance(module, (torch.nn.BatchNorm2d, torch.nn.LayerNorm)):
+        return "scale", v
+    return leaf, v
+
+
+def _set_path(tree: dict, path: list[str], v) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    if path[-1] in tree:
+        raise ValueError(f"two port tensors map to the Flax leaf {'/'.join(path)}")
+    tree[path[-1]] = v
+
+
+def _sorted_tree(tree: dict) -> dict:
+    return {k: _sorted_tree(v) if isinstance(v, dict) else v for k, v in sorted(tree.items())}
+
+
+def yolov10_to_flax(model: YOLOv10) -> dict:
+    """The port's ``YOLOv10`` → Flax ``{"params", "batch_stats"}`` of
+    ``tpu3dlm.models.yolov10.YOLOv10`` (numpy f32): the inverse of
+    ``yolov10_from_flax``. Layer i is scope ``m{i}``, the head's one-to-many
+    and one-to-one branches ``detect_o2m`` / ``detect_o2o``."""
+    params: dict = {}
+    stats: dict = {}
+    for name, module in model.named_modules():
+        toks = name.split(".")
+        if len(toks) < 3 or toks[0] != "model":
+            continue
+        if int(toks[1]) == _DETECT_LAYER:
+            head = toks[2]
+            branch, head = ("detect_o2o", head[len("one2one_"):]) if head.startswith("one2one_") else ("detect_o2m", head)
+            scope = [branch] + _flax_scope(".".join([head] + toks[3:]))
+        else:
+            scope = [f"m{toks[1]}"] + _flax_scope(".".join(toks[2:]))
+        for leaf, t in module.named_parameters(recurse=False):
+            key, v = _flax_value(module, leaf, t)
+            _set_path(params, scope + [key], v)
+        if isinstance(module, torch.nn.BatchNorm2d):
+            _set_path(stats, scope + ["mean"], module.running_mean.detach().float().cpu().numpy())
+            _set_path(stats, scope + ["var"], module.running_var.detach().float().cpu().numpy())
+    return {"params": _sorted_tree(params), "batch_stats": _sorted_tree(stats)}
+
+
+def beit_to_flax(model: BeitClassifier) -> dict:
+    """The port's float ``BeitClassifier`` → Flax ``{"params": ...}`` of
+    ``tpu3dlm.models.beit.BeitClassifier`` (numpy f32), the tree the
+    reference's ``finetune_beit`` checkpoints: the inverse of
+    ``beit_from_flax``. An int8 model raises (train and save the float one;
+    ``quantize_beit_variables`` quantises a tree)."""
+    if model.cfg.quant != "none":
+        raise ValueError("beit_to_flax: only a float BEiT converts (quantise the Flax tree after)")
+    params: dict = {}
+    for name, module in model.named_modules():
+        toks = name.split(".") if name else []
+        if toks[:1] == ["layers"] and len(toks) > 1:
+            toks = [f"layer{toks[1]}"] + toks[2:]
+        for leaf, t in module.named_parameters(recurse=False):
+            key, v = _flax_value(module, leaf, t)
+            _set_path(params, toks + [key], v)
+    return {"params": _sorted_tree(params)}
 
 
 # ---------------------------------------------------------------------------

@@ -9,6 +9,13 @@ Public layouts follow the JAX package: ``YOLOv10.forward`` takes NHWC
 (B, S, S, 3) floats in [0, 1] and returns the raw head maps NHWC. Inside,
 the convs run NCHW-indexed on channels_last memory, so the NHWC↔NCHW
 permutes at the boundary are free views.
+
+Train mode (``module.train()``) is the reference's ``train=True``: the
+BatchNorms use batch statistics (``layers.FlaxBatchNorm2d``), both heads
+run, and the one-to-one head reads detached features, so only the
+one-to-many loss shapes the backbone (``tpu3dlm/models/yolov10.py:228-231``).
+``make_anchors`` and ``decode_raw`` are the training loss's decode
+(``models/yolo_loss.py``).
 """
 
 from __future__ import annotations
@@ -126,18 +133,31 @@ class V10Detect(nn.Module):
         self.one2one_cv3 = copy.deepcopy(self.cv3)
 
     def forward(self, feats, one2many: bool = False):
+        """Both heads in train mode, where the one-to-one head reads the
+        features detached; in eval mode the one-to-one head, and the
+        one-to-many head when ``one2many``."""
         nhwc = lambda t: t.permute(0, 2, 3, 1)  # noqa: E731
+        o2o_feats = [x.detach() for x in feats] if self.training else feats
         out = {
             "one2one_split": [
                 (nhwc(self.one2one_cv2[i](x)), nhwc(self.one2one_cv3[i](x)))
-                for i, x in enumerate(feats)
+                for i, x in enumerate(o2o_feats)
             ]
         }
-        if one2many:
+        if one2many or self.training:
             out["one2many_split"] = [
                 (nhwc(self.cv2[i](x)), nhwc(self.cv3[i](x))) for i, x in enumerate(feats)
             ]
         return out
+
+
+def space_to_depth(x: torch.Tensor, block: int = 2) -> torch.Tensor:
+    """(B, H, W, C) → (B, H/b, W/b, C·b²): fold spatial blocks into
+    channels, ordered (row in block, column in block, channel) as the
+    reference's ``space_to_depth``."""
+    B, H, W, C = x.shape
+    x = x.reshape(B, H // block, block, W // block, block, C)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(B, H // block, W // block, C * block * block)
 
 
 class YOLOv10(nn.Module):
@@ -145,13 +165,21 @@ class YOLOv10(nn.Module):
 
     ``forward(x)`` takes (B, S, S, 3) NHWC floats in [0, 1] (cast to the
     module's dtype) and returns ``{"one2one_split": [(box, cls), ...]}``
-    with NHWC maps per level (and ``one2many_split`` when asked).
+    with NHWC maps per level (and ``one2many_split`` when asked, and always
+    in train mode).
+
+    ``stem="s2d"`` replaces the stride-2 stem conv with space-to-depth and
+    a stride-1 conv over 12 channels (the reference's ``stem="s2d"``);
+    ultralytics checkpoints need the default ``"conv"``.
     """
 
-    def __init__(self, nc: int = 80, variant: str = "n"):
+    def __init__(self, nc: int = 80, variant: str = "n", stem: str = "conv"):
         super().__init__()
+        if stem not in ("conv", "s2d"):
+            raise ValueError(f"stem must be 'conv' or 's2d', got {stem!r}")
         self.nc = nc
         self.variant = variant
+        self.stem = stem
         self._spec = spec_for_variant(variant)
         v = yolov10_variant(variant)
         ch = lambda c: L.scale_channels(c, v.width, v.max_channels)  # noqa: E731
@@ -170,7 +198,9 @@ class YOLOv10(nn.Module):
                 out_ch.append(cin)
                 continue
             c2 = ch(args[0])
-            if mod == "Conv":
+            if mod == "Conv" and not mods and stem == "s2d":
+                mods.append(L.ConvBN(cin * args[2] ** 2, c2, args[1], 1))
+            elif mod == "Conv":
                 mods.append(L.ConvBN(cin, c2, args[1], args[2]))
             elif mod == "C2f":
                 mods.append(L.C2f(cin, c2, dp(n), shortcut=bool(args[1]) if len(args) > 1 else False))
@@ -193,6 +223,8 @@ class YOLOv10(nn.Module):
 
     def forward(self, x: torch.Tensor, one2many: bool = False) -> dict:
         dtype = self.model[0].conv.weight.dtype
+        if self.stem == "s2d":
+            x = space_to_depth(x, self._spec[0][3][2])
         x = x.to(dtype).permute(0, 3, 1, 2)  # NHWC memory → channels_last NCHW
         outputs: list[torch.Tensor] = []
         for i, (frm, _n, mod, _args) in enumerate(self._spec):
@@ -205,8 +237,55 @@ class YOLOv10(nn.Module):
 
 
 # ---------------------------------------------------------------------------
-# NMS-free postprocess
+# Decode and NMS-free postprocess
 # ---------------------------------------------------------------------------
+
+
+def make_anchors(img_size: int, device="cpu") -> tuple[torch.Tensor, torch.Tensor]:
+    """Anchor centres (A, 2) in feature-cell units (x, y; cell + 0.5) and
+    each anchor's stride (A,), level by level, row-major."""
+    if img_size % 32:
+        raise ValueError(f"img_size must be a multiple of 32, got {img_size}")
+    pts, strs = [], []
+    for s in STRIDES:
+        h = w = img_size // s
+        ys, xs = torch.meshgrid(
+            torch.arange(h, dtype=torch.float32, device=device) + 0.5,
+            torch.arange(w, dtype=torch.float32, device=device) + 0.5,
+            indexing="ij",
+        )
+        pts.append(torch.stack([xs.reshape(-1), ys.reshape(-1)], -1))
+        strs.append(torch.full((h * w,), float(s), device=device))
+    return torch.cat(pts), torch.cat(strs)
+
+
+def flatten_raw(raw) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-level head maps → (box logits (B, A, 4, REG_MAX), class logits
+    (B, A, nc)). ``raw`` is the split form ``[(box, cls), ...]`` or the
+    reference's concatenated maps ``[(B, H, W, 4·REG_MAX + nc), ...]``."""
+    if isinstance(raw[0], (tuple, list)):
+        B = raw[0][0].shape[0]
+        box = torch.cat([b.reshape(B, -1, 4 * REG_MAX) for b, _ in raw], 1)
+        cls = torch.cat([c.reshape(B, -1, c.shape[-1]) for _, c in raw], 1)
+    else:
+        B = raw[0].shape[0]
+        flat = torch.cat([r.reshape(B, -1, r.shape[-1]) for r in raw], 1)
+        box, cls = flat[..., : 4 * REG_MAX], flat[..., 4 * REG_MAX:]
+    return box.reshape(B, box.shape[1], 4, REG_MAX), cls
+
+
+def decode_raw(raw, img_size: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-level head maps → (boxes xyxy (B, A, 4) px, class logits
+    (B, A, nc)), differentiable. DFL: softmax over REG_MAX bins in f32 →
+    the expected distance of each side (l, t, r, b) in strides."""
+    box_logits, cls_logits = flatten_raw(raw)
+    dev = box_logits.device
+    bins = torch.arange(REG_MAX, dtype=torch.float32, device=dev)
+    dist = torch.softmax(box_logits.float(), dim=-1) @ bins  # (B, A, 4)
+    anchors, strides = make_anchors(img_size, dev)
+    x1y1 = (anchors[None] - dist[..., :2]) * strides[None, :, None]
+    x2y2 = (anchors[None] + dist[..., 2:]) * strides[None, :, None]
+    return torch.cat([x1y1, x2y2], -1), cls_logits
 
 
 def topk_stable(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:

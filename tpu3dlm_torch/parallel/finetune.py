@@ -1,8 +1,9 @@
-"""BEiT classifier finetuning on one device (port of
-``tpu3dlm/parallel/finetune.py::init_finetune`` and
-``make_beit_train_step``).
+"""Finetuning steps on one device (port of ``tpu3dlm/parallel/finetune.py``):
+the BEiT classifier's (``init_finetune``, ``make_beit_train_step``) and the
+YOLOv10 detector's (``make_yolo_train_step``), the parameter EMA
+(``ema_update``) and optax's warmup + cosine schedule.
 
-The step is the reference's: ``loss = mean(cross_entropy(model(
+The BEiT step is the reference's: ``loss = mean(cross_entropy(model(
 preprocess_crops(crops_u8)), labels))`` (optax's
 ``softmax_cross_entropy_with_integer_labels`` then ``.mean()``), its
 gradient through the whole BEiT — attention included: kernel B1 is a
@@ -16,19 +17,43 @@ module holds the parameters, the optimizer its moments, and
 ``train_step(crops_u8, labels)`` updates both in place and returns the
 loss. After a step every parameter's ``.grad`` holds that step's gradient.
 
-Not ported: ``augment`` (in-step crop augmentation draws from JAX PRNG
-streams, ROADMAP A19) and data parallelism over a mesh (A22); both raise
-``NotImplementedError``. The YOLO step (``make_yolo_train_step``) waits for
-the TAL loss (A19).
+The YOLO step runs the model in train mode (Flax's BatchNorm statistics,
+the one-to-one head on detached features), ``models/yolo_loss.py::
+yolov10_loss`` and one AdamW update; the BatchNorm running statistics are
+updated by the forward, as the reference's mutated ``batch_stats``.
+
+With ``augment`` (the options of ``ops/augment.py``'s batch function,
+``{}`` for its defaults) a step augments its batch on the device first.
+Its noise is an argument (``step(..., noise=...)``), drawn from the
+step's ``generator`` when absent: JAX's PRNG streams cannot be matched,
+so the tests feed both packages the reference's draws. With
+``sample_batch`` the YOLO step trains on that many frames of the corpus,
+sampled without replacement (the noise's ``batch_idx``).
+
+A schedule is the caller's: set each parameter group's ``lr`` before the
+step (``warmup_cosine_decay_schedule`` gives optax's values). As optax,
+``torch.optim.AdamW`` scales the weight decay by that rate too.
+
+Not ported: data parallelism over a mesh (ROADMAP A22); ``mesh`` raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from tpu3dlm_torch.device import as_device_tensor, resolve_device
 from tpu3dlm_torch.models.beit import BeitClassifier, preprocess_crops
+from tpu3dlm_torch.ops.augment import (
+    augment_crop_batch,
+    augment_detection_batch,
+    draw_crop_noise,
+    draw_detection_noise,
+)
 
 # optax.adamw's defaults besides the learning rate; its weight decay (1e-4)
 # is not torch's (1e-2), and optax decays every parameter (mask=None)
@@ -65,33 +90,53 @@ def beit_loss(beit: BeitClassifier, crops_u8: torch.Tensor, labels: torch.Tensor
     return F.cross_entropy(logits.float(), labels.long())
 
 
+def _step_device(module: torch.nn.Module, mesh, device) -> torch.device:
+    """The step's device, where ``module`` must already be."""
+    if mesh is not None:
+        raise NotImplementedError("data-parallel finetuning over a mesh is not ported yet (ROADMAP A22)")
+    dev = resolve_device(device)
+    devices = {p.device for p in module.parameters()}
+    if len(devices) > 1:
+        raise NotImplementedError(f"parameters on {len(devices)} devices: one device only (ROADMAP A22)")
+    if devices != {dev}:
+        raise ValueError(f"the module is on {devices.pop()}, the step on {dev}; move it first")
+    return dev
+
+
+def _generator(generator: torch.Generator | None) -> torch.Generator:
+    if generator is None:
+        raise ValueError("an augmenting step needs its noise or a generator to draw it from")
+    return generator
+
+
 def make_beit_train_step(
     beit: BeitClassifier,
     optimizer: torch.optim.Optimizer,
     mesh=None,
     augment: dict | None = None,
     device: str | torch.device = "cuda",
+    generator: torch.Generator | None = None,
 ):
-    """Returns ``train_step(crops_u8, labels) → loss``: one forward,
-    backward and optimizer update of ``beit`` on ``device`` (where the
-    module must already be, see ``init_finetune``). ``crops_u8`` is
+    """Returns ``train_step(crops_u8, labels, noise=None) → loss``: one
+    forward, backward and optimizer update of ``beit`` on ``device`` (where
+    the module must already be, see ``init_finetune``). ``crops_u8`` is
     (B, S, S, 3) uint8 and ``labels`` (B,) integer, numpy or tensors on
-    ``device``; the loss comes back as a 0-d f32 tensor on ``device``."""
-    if augment is not None:
-        raise NotImplementedError("crop augmentation in the step is not ported yet (ROADMAP A19)")
-    if mesh is not None:
-        raise NotImplementedError("data-parallel finetuning over a mesh is not ported yet (ROADMAP A22)")
-    dev = resolve_device(device)
-    devices = {p.device for p in beit.parameters()}
-    if len(devices) > 1:
-        raise NotImplementedError(f"parameters on {len(devices)} devices: one device only (ROADMAP A22)")
-    if devices != {dev}:
-        raise ValueError(f"the module is on {devices.pop()}, the step on {dev}; call init_finetune")
+    ``device``; the loss comes back as a 0-d f32 tensor on ``device``.
 
-    def train_step(crops_u8, labels) -> torch.Tensor:
+    With ``augment`` (``ops/augment.py::augment_crop_batch``'s options,
+    ``{}`` for its defaults) the crops are augmented on the device first,
+    with ``noise`` (``draw_crop_noise``'s dict) or, when it is absent, noise
+    drawn from ``generator``."""
+    dev = _step_device(beit, mesh, device)
+
+    def train_step(crops_u8, labels, noise: dict | None = None) -> torch.Tensor:
         crops = as_device_tensor(crops_u8, dev)
         if crops.dtype != torch.uint8:
             raise ValueError(f"crops must be uint8, got {crops.dtype}")
+        if augment is not None:
+            if noise is None:
+                noise = draw_crop_noise(crops.shape[0], _generator(generator), **augment)
+            crops = augment_crop_batch(crops, noise=noise)
         optimizer.zero_grad(set_to_none=True)
         loss = beit_loss(beit, crops, as_device_tensor(labels, dev))
         loss.backward()
@@ -99,3 +144,117 @@ def make_beit_train_step(
         return loss.detach()
 
     return train_step
+
+
+def draw_yolo_step_noise(n_frames: int, generator: torch.Generator, augment: dict,
+                         sample_batch: int | None = None) -> dict:
+    """One YOLO step's noise, on the CPU: ``batch_idx`` (``sample_batch``
+    frames of ``n_frames``, without replacement) when sampling, and the
+    detection noise of the batch."""
+    noise = {}
+    if sample_batch is not None:
+        if sample_batch > n_frames:
+            raise ValueError(f"sample_batch {sample_batch} > {n_frames} frames (sampling without replacement)")
+        noise["batch_idx"] = torch.randperm(n_frames, generator=generator)[:sample_batch]
+        n_frames = sample_batch
+    noise.update(draw_detection_noise(n_frames, generator, **augment))
+    return noise
+
+
+def make_yolo_train_step(
+    yolo,
+    optimizer: torch.optim.Optimizer,
+    mesh=None,
+    img_size: int = 640,
+    augment: dict | None = None,
+    sample_batch: int | None = None,
+    device: str | torch.device = "cuda",
+    generator: torch.Generator | None = None,
+):
+    """Detection finetune step (the YOLOv10 dual-assignment loss).
+
+    Returns ``train_step(images, gt_boxes, gt_labels, gt_mask, noise=None,
+    aux=None) → loss``: ``images`` (F, S, S, 3) float32 in [0, 1],
+    ``gt_boxes`` (F, G, 4) xyxy px, ``gt_labels`` (F, G), ``gt_mask``
+    (F, G) bool, numpy or tensors on ``device``. One train-mode forward of
+    ``yolo`` (which updates its BatchNorm running statistics), the loss, its
+    gradient (left in ``.grad``) and one ``optimizer`` step.
+
+    With ``augment`` (``augment_detection_batch``'s options) the batch is
+    augmented on the device first, with ``noise`` (``draw_yolo_step_noise``'s
+    dict) or noise drawn from ``generator``; ``sample_batch`` (needs
+    ``augment``, as in the reference) trains each step on that many sampled
+    frames. ``aux``, when given, receives the step's (augmented) images,
+    boxes and mask and each head's foreground mask."""
+    if sample_batch is not None and augment is None:
+        raise ValueError("sample_batch requires augment (the step needs a key)")
+    from tpu3dlm_torch.models.yolo_loss import yolov10_loss
+
+    dev = _step_device(yolo, mesh, device)
+
+    def train_step(images, gt_boxes, gt_labels, gt_mask, noise: dict | None = None,
+                   aux: dict | None = None) -> torch.Tensor:
+        images = as_device_tensor(images, dev, torch.float32)
+        gt_boxes = as_device_tensor(gt_boxes, dev, torch.float32)
+        gt_labels = as_device_tensor(gt_labels, dev)
+        gt_mask = as_device_tensor(gt_mask, dev, torch.bool)
+        if augment is not None:
+            if noise is None:
+                noise = draw_yolo_step_noise(images.shape[0], _generator(generator), augment, sample_batch)
+            if sample_batch is not None:
+                idx = noise["batch_idx"].to(dev, non_blocking=True)
+                images, gt_boxes, gt_labels, gt_mask = images[idx], gt_boxes[idx], gt_labels[idx], gt_mask[idx]
+            det = {k: v for k, v in noise.items() if k != "batch_idx"}
+            images, gt_boxes, gt_mask = augment_detection_batch(images, gt_boxes, gt_mask, noise=det)
+        yolo.train()
+        optimizer.zero_grad(set_to_none=True)
+        loss = yolov10_loss(yolo(images), gt_boxes, gt_labels, gt_mask, img_size, aux=aux)
+        loss.backward()
+        optimizer.step()
+        if aux is not None:
+            aux.update(images=images, boxes=gt_boxes, mask=gt_mask)
+        return loss.detach()
+
+    return train_step
+
+
+@torch.no_grad()
+def ema_update(ema_params: list, params, decay: float) -> list:
+    """One exponential-moving-average step, in place: ``e ← e·decay +
+    p·(1 − decay)`` for each pair, with ``decay`` and ``1 − decay`` in f32 as
+    the reference's traced ``decay``, and rounded as XLA compiles it: one
+    fused multiply-add of ``e·decay`` onto the rounded ``p·(1 − decay)``
+    (emulated in f64, where the product of two f32 is exact). Parameters
+    only: BatchNorm statistics come from the live model. Returns
+    ``ema_params``."""
+    d = torch.tensor(decay, dtype=torch.float32)
+    one_minus = 1.0 - d
+    for e, p in zip(ema_params, params, strict=True):
+        scaled = (p.detach().to(e.dtype) * one_minus.to(e.device)).double()
+        e.copy_((e.double() * d.double().to(e.device) + scaled).to(e.dtype))
+    return ema_params
+
+
+def warmup_cosine_decay_schedule(init_value: float, peak_value: float, warmup_steps: int,
+                                 decay_steps: int, end_value: float = 0.0, exponent: float = 1.0):
+    """optax's ``warmup_cosine_decay_schedule``: ``count → lr``, linear from
+    ``init_value`` to ``peak_value`` over ``warmup_steps``, then cosine decay
+    to ``end_value`` at ``decay_steps`` (warmup included). Evaluated in f32
+    step by step as optax's jitted schedule, so the rates are optax's to
+    f32 rounding. ``count`` is the number of updates made before."""
+    f32 = np.float32
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+    cos_steps = decay_steps - warmup_steps
+    if cos_steps <= 0:
+        raise ValueError(f"the cosine part needs positive decay_steps - warmup_steps, got {cos_steps}")
+
+    def schedule(count: int) -> float:
+        if count < warmup_steps:
+            frac = f32(1) - f32(min(max(count, 0), warmup_steps)) / f32(warmup_steps)
+            return float(f32(init_value - peak_value) * frac + f32(peak_value))
+        c = f32(min(count - warmup_steps, cos_steps))
+        cosine = f32(0.5) * (f32(1) + np.cos(f32(math.pi) * c / f32(cos_steps)))
+        decayed = f32(1 - alpha) * cosine ** f32(exponent) + f32(alpha)
+        return float(f32(peak_value) * decayed)
+
+    return schedule
