@@ -1497,6 +1497,19 @@ def phase_finetune_full_width(dev) -> dict:
     return result
 
 
+# kernel B4's variants before its Hopper redesign (mma.sync m16n8k8, 64
+# queries a block): ms at 16384 x 1,048,576, measured by this script on an
+# NVIDIA H100 80GB HBM3 at 700.00 W
+B4_MS_BEFORE_REDESIGN = {"v1": 5.536, "v2": 3.795, "v3": 4.747, "v4": 8.367}
+
+
+def nn_variant_padded_floor_ms(n: int, m: int) -> float:
+    """The redesigned B4's own floor: its wgmmas pad the cross term's depth
+    from 3 to 16 (x, y, z, three limbs of |b|², zeros), 2·16 flops a pair
+    at the bf16 tensor-core rate."""
+    return 2.0 * 16 * n * m / PEAK_BF16_FLOPS * 1e3
+
+
 def nn_variant_bound_ms(n: int, m: int, mem_rate: float) -> tuple[float, str]:
     """Least time for the probe's function: one compare per pair at the
     f32 instruction rate (67 TFLOP/s of FMA counted as 2 flops, so 33.5 T
@@ -1592,6 +1605,7 @@ def phase_kernel_b4(dev, mem_rate) -> dict:
     result = {"phase": "kernel_b4", "checks": checks, "verify": verified, "shape": [n, m],
               "ms": ms, "launches_on_probe": launches, "plain_ms": plain_ms,
               "bound_ms": bound_ms, "bound_by": bound_by,
+              "padded_mma_floor_ms": nn_variant_padded_floor_ms(n, m),
               "max_abs_err": {v: max(c["max_abs_err"] for c in checks if c["variant"] == v)
                               for v in VARIANTS}}
     emit(result)
@@ -4071,6 +4085,9 @@ def main() -> int:
             "plain_ms": b4["plain_ms"], "bound_ms": b4["bound_ms"], "bound_by": b4["bound_by"],
             # no single PyTorch call computes this function; kernel B2 is the yardstick
             "library_ms": None, "b2_yardstick_ms": b4["ms"]["v0_production"],
+            "redesigned": "for Hopper: wgmma over a TMA ring of packed targets",
+            "padded_mma_floor_ms": b4["padded_mma_floor_ms"],
+            "variant_ms_before_redesign": {x: B4_MS_BEFORE_REDESIGN[x] for x in variants},
         })
     emit({"kernels": [
         {

@@ -18,7 +18,13 @@ from tpu3dlm_torch.ops.kernels.attention import (
     beit_attention_reference,
     kernel_route,
 )
-from tpu3dlm_torch.ops.kernels.nn_variants import VARIANTS, nn_variant, nn_variant_reference
+from tpu3dlm_torch.ops.kernels.nn_variants import (
+    VARIANTS,
+    nn_variant,
+    nn_variant_reference,
+    pack_targets,
+    pack_targets_kernel,
+)
 from tpu3dlm_torch.ops.kernels.pairwise import nearest_neighbors, nearest_neighbors_reference
 
 pytestmark = pytest.mark.cuda
@@ -177,6 +183,69 @@ def test_b4_variant_passes_the_bf16_gate(cuda_device, variant):
     picked = ((a64 - b64[idx.cpu()]) ** 2).sum(1)
     band = 2.0 ** -7 * a64.norm(dim=1) * b64.norm(dim=1).max() + 1e-6
     assert (picked - true <= band).all()
+
+
+def _hold_b4(a, b, idx, d2):
+    """The bf16 gate of test_b4_variant_passes_the_bf16_gate on (idx, d2)."""
+    ri, rd2 = nn_variant_reference(a, b, "bf16")
+    assert (idx == ri).float().mean() >= 0.999
+    assert (d2 - rd2).abs().max() <= 1e-4
+    differ = idx != ri
+    if differ.any():
+        assert (d2[differ] - rd2[differ]).abs().max() <= 1e-5
+    a64, b64 = a.double().cpu(), b.double().cpu()
+    true = ((a64[:, None] - b64[None]) ** 2).sum(-1).min(1).values
+    picked = ((a64 - b64[idx.cpu()]) ** 2).sum(1)
+    band = 2.0 ** -7 * a64.norm(dim=1) * b64.norm(dim=1).max() + 1e-6
+    assert (picked - true <= band).all()
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+@pytest.mark.parametrize("n,m", [(1, 1), (1, 300), (65, 100), (300, 511), (257, 513), (1000, 3001)])
+def test_b4_ragged_shapes(cuda_device, variant, n, m):
+    """Ragged edges on the card: one query, one target, fewer targets than a
+    ring stage (512) or a TMA box (256), m one past a stage, n not a
+    multiple of 64: the padded target rows never win and the padded query
+    rows are never written."""
+    g = torch.Generator().manual_seed(n * 7919 + m)
+    a = (torch.rand(n, 3, generator=g) * 5 - 2).to(cuda_device)
+    b = (torch.rand(m, 3, generator=g) * 5 - 2).to(cuda_device)
+    idx, d2 = nn_variant(a, b, variant)
+    torch.cuda.synchronize()
+    assert idx.shape == (n,) and d2.shape == (n,) and bool(torch.isfinite(d2).all())
+    assert bool((idx >= 0).all() and (idx < m).all())
+    _hold_b4(a, b, idx, d2)
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+@pytest.mark.parametrize("period", [256, 512, 700])
+def test_b4_ties_across_boxes_and_splits(cuda_device, variant, period):
+    """Every target three times, `period` apart: copies on the other side of
+    a TMA box (256 rows), a ring stage (512) and, for v3, a target split
+    (whole stages) have the same dp bit for bit, and every variant keeps
+    the first copy; all variants agree with v1 bit for bit."""
+    g = torch.Generator().manual_seed(period)
+    a = (torch.rand(777, 3, generator=g) * 5 - 2).to(cuda_device)
+    base = torch.rand(period, 3, generator=g) * 5 - 2
+    b = torch.cat([base, base, base]).to(cuda_device)
+    idx, d2 = nn_variant(a, b, variant)
+    torch.cuda.synchronize()
+    assert bool((idx < period).all())
+    _hold_b4(a, b, idx, d2)
+    i1, d1 = nn_variant(a, b, "v1")
+    assert torch.equal(idx, i1) and torch.equal(d2, d1)
+
+
+@pytest.mark.parametrize("m", [1, 513, 3001])
+def test_b4_pack_kernel_matches_twin(cuda_device, m):
+    """nn_pack_kernel writes pack_targets' bits: bf16 coordinates, the three
+    limbs of the twin's b2, zeros, and the +inf rows past m."""
+    g = torch.Generator().manual_seed(m)
+    b = ((torch.rand(m, 3, generator=g) * 6 - 3) * 10.0 ** (torch.rand(m, 1, generator=g) * 6 - 3)).to(cuda_device)
+    got = pack_targets_kernel(b)
+    torch.cuda.synchronize()
+    want = pack_targets(b)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
 
 
 def test_finetune_step_on_card_matches_cpu(cuda_device):

@@ -2,9 +2,11 @@
 plain twin against the JAX probe's ``nn_variant`` (scripts/
 bench_nn_variants.py, loaded from its path; its Pallas kernels run in
 interpret mode, as the JAX package's CPU tests run theirs), the bf16 twin
-against the reference's f64 gate through the port's probe, and the
-wrapper's dispatch and input checks. The CUDA kernels are held against the
-twin on the card by tests/test_torch_cuda.py and chip_smoke.py."""
+against the reference's f64 gate through the port's probe, the
+wrapper's dispatch and input checks, the target packing (the pack
+kernel's plain twin) and the launch plan. The CUDA kernels are held
+against the twins on the card by tests/test_torch_cuda.py and
+chip_smoke.py."""
 
 import importlib.util
 from pathlib import Path
@@ -15,7 +17,16 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
-from tpu3dlm_torch.ops.kernels.nn_variants import VARIANTS, nn_variant, nn_variant_reference
+from tpu3dlm_torch.ops.kernels.nn_variants import (
+    CONSUMERS,
+    PACK_WIDTH,
+    STAGE_TARGETS,
+    VARIANTS,
+    launch_plan,
+    nn_variant,
+    nn_variant_reference,
+    pack_targets,
+)
 from tpu3dlm_torch.ops.kernels.pairwise import nearest_neighbors_reference
 from tpu3dlm_torch.scripts import bench_nn_variants as port_probe
 
@@ -113,3 +124,64 @@ def test_rejects_what_the_kernel_does_not_take(case):
             nn_variant(a[:, :2].contiguous(), b, "v1")
         else:
             nn_variant_reference(a, b, cross="tf32")
+
+
+@pytest.mark.parametrize("m", [1, 300, STAGE_TARGETS, STAGE_TARGETS + 1, 3001])
+def test_pack_targets_holds_the_twins_operands(m):
+    """The kernels' B operand: bf16 coordinates equal to the twin's
+    ``b.bfloat16()``, three limbs whose exact (f64) sum is the twin's f32
+    ``(b * b).sum(1)`` bit for bit — coordinates over six decades, so the
+    limbs span all of b2's significand — zeros beyond, and rows past m
+    (up to whole ring stages) that never win: L1 = +inf, all else zero."""
+    rng = np.random.default_rng(m)
+    b = (rng.uniform(-3, 3, (m, 3)) * 10.0 ** rng.uniform(-3, 3, (m, 1))).astype(np.float32)
+    bt = torch.from_numpy(b)
+    packed = pack_targets(bt)
+    m_pad = -(-m // STAGE_TARGETS) * STAGE_TARGETS
+    assert packed.shape == (m_pad, PACK_WIDTH) and packed.dtype == torch.bfloat16
+    assert torch.equal(packed[:m, :3], bt.bfloat16())
+    b2 = (bt * bt).sum(1)
+    limbs = packed[:m, 3:6].double()
+    assert torch.equal(limbs.sum(1), b2.double())
+    assert torch.equal(limbs[:, 0] + limbs[:, 1] + limbs[:, 2], b2.double())
+    assert (packed[:m, 6:] == 0).all()
+    pad = packed[m:].float()
+    assert torch.isinf(pad[:, 3]).all() and (pad[:, 3] > 0).all()
+    assert (pad[:, [0, 1, 2, *range(4, PACK_WIDTH)]] == 0).all()
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+@pytest.mark.parametrize("n,m,sm_count", [
+    (1, 1, 132), (1, 300, 132), (300, 100, 132), (65, 3001, 132), (1000, 1000, 1),
+    (512, 4096, 132), (777, 3000, 132), (16384, 1 << 20, 132), (16384, 1 << 20, 114),
+    (200_000, 1 << 20, 132), (16384, 1_000_003, 132),
+])
+def test_launch_plan_covers_every_pair_once(variant, n, m, sm_count):
+    """The launch plan is a pure function of (n, m, SM count): CTAs of
+    CONSUMERS × 64 × rows queries cover n; m_pad is m rounded up to whole
+    ring stages; splits are whole stages, cover m_pad, and none is empty
+    (the kernel's sweep runs at least one stage); the grid stays within
+    CUDA's y limit."""
+    _, rows, split = VARIANTS[variant]
+    plan = launch_plan(n, m, sm_count, rows, split)
+    assert plan == launch_plan(n, m, sm_count, rows, split)
+    qpb = plan.queries_per_block
+    assert qpb == CONSUMERS * 64 * rows
+    q_blocks, splits = plan.grid
+    assert splits == plan.splits and (q_blocks - 1) * qpb < n <= q_blocks * qpb
+    assert plan.m_pad % STAGE_TARGETS == 0 and plan.m_pad - STAGE_TARGETS < m <= plan.m_pad
+    assert plan.per_split % STAGE_TARGETS == 0
+    assert (splits - 1) * plan.per_split < plan.m_pad <= splits * plan.per_split
+    assert 1 <= splits <= 65535
+
+
+def test_launch_plan_fills_the_card_at_the_probe_shape():
+    """At 16384 × 1,048,576 on 132 SMs: v1, v2 and v4 put about one CTA on
+    every SM (at least 128), v3 about WAVES; v4's CTAs take twice v1's
+    queries."""
+    plans = {v: launch_plan(16384, 1 << 20, 132, rows, split) for v, (_, rows, split) in VARIANTS.items()}
+    for v in ("v1", "v2", "v4"):
+        ctas = plans[v].grid[0] * plans[v].grid[1]
+        assert 128 <= ctas <= 132, (v, plans[v])
+    assert plans["v3"].grid[0] * plans["v3"].grid[1] >= 7 * 132
+    assert plans["v4"].queries_per_block == 2 * plans["v1"].queries_per_block

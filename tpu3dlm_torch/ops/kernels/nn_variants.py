@@ -15,44 +15,102 @@ of the TPU's matrix unit: operands rounded to bf16, products summed in
 f32), ``idx = argmin dp`` (ties to the lowest index) and
 ``d2 = max(min dp + |a|², 0)``. The variants are the reference's:
 
-* ``v1``: running (min, argmin) per query, 64 queries per block;
+* ``v1``: running (min, argmin) per accumulator element, 256 queries per
+  CTA;
 * ``v2``: the two-level minimum (the chunk's minimum first, then the lowest
   index that attains it where it beats the running one);
-* ``v3``: v1 with the target axis split across blocks (the TPU's megacore
-  hint), folded in split order as B2 is;
-* ``v4``: v1 with 128 queries per block (the TPU's 2048-row tiles).
+* ``v3``: v1 with the target axis split into about ``WAVES`` CTAs per SM
+  (the TPU's megacore hint), folded in split order as B2 is;
+* ``v4``: v1 with twice the queries per CTA (the TPU's 2048-row tiles).
 
 So there are two CUDA kernels, ``nn_v1`` (variants v1, v3, v4) and
 ``nn_v2`` (variant v2); ``nn_variant.launches`` counts each one's launches
-under its own name.
+under its own name. Each launch packs the targets once on the card
+(``nn_pack_kernel``, whose plain twin is ``pack_targets``: bf16 coordinates
+and three bf16 limbs of b2 in one 32-byte row, the MMA's B operand) before
+the sweep; ``launch_plan`` cuts the work.
 
 CUDA tensors launch the kernel (a refused launch raises; there is no
 fallback); CPU tensors run the plain twin ``nn_variant_reference``.
 
 Bound on an H100 SXM at 16384 × 1,048,576: one compare per pair at the f32
-instruction rate, 0.51 ms (see the source).
+instruction rate, 0.51 ms; the kernels' MMAs, padded to depth 16, take
+0.56 ms at the bf16 tensor-core rate (see the source).
 """
 
 from __future__ import annotations
 
 import ctypes
 import threading
+from typing import NamedTuple
 
 import torch
 
 from tpu3dlm_torch.kernels.build import load_library
-from tpu3dlm_torch.ops.kernels.pairwise import CHUNK, CHUNK_B, _check, device_split_plan
+from tpu3dlm_torch.ops.kernels.pairwise import CHUNK, CHUNK_B, WAVES, _check
 
 # the CUDA kernels by name → the C launcher's kernel number
 KERNELS = {"nn_v1": 1, "nn_v2": 2}
-# variant → (kernel: nn_v1 = running min, nn_v2 = two-level; query row
-# tiles per warp; split the target axis)
+# variant → (kernel: nn_v1 = running min, nn_v2 = two-level; 64-query row
+# tiles per consumer warpgroup; split the target axis into WAVES CTAs per SM)
 VARIANTS = {
     "v1": ("nn_v1", 1, False),
     "v2": ("nn_v2", 1, False),
     "v3": ("nn_v1", 1, True),
     "v4": ("nn_v1", 2, False),
 }
+PACK_WIDTH = 16  # bf16 per packed target row: the MMA depth
+STAGE_TARGETS = 512  # targets per stage of the kernels' ring; the split granularity
+CONSUMERS = 4  # consumer warpgroups per CTA, one CTA per SM
+
+
+class Plan(NamedTuple):
+    queries_per_block: int
+    q_blocks: int
+    splits: int
+    per_split: int  # targets per split, a multiple of STAGE_TARGETS
+    m_pad: int  # rows of the packed targets: m rounded up to STAGE_TARGETS
+
+    @property
+    def grid(self) -> tuple[int, int]:
+        return self.q_blocks, self.splits
+
+
+def launch_plan(n: int, m: int, sm_count: int, rows: int, split: bool) -> Plan:
+    """How a launch cuts ``n`` ≥ 1 queries by ``m`` ≥ 1 targets: CTAs of
+    ``CONSUMERS × 64 × rows`` queries, and the target axis (whole stages of
+    ``STAGE_TARGETS``) split so that the grid holds about one CTA per SM
+    (v1, v2, v4) or ``WAVES`` per SM (``split``: v3), but never a split
+    without targets."""
+    queries_per_block = CONSUMERS * 64 * rows
+    q_blocks = -(-n // queries_per_block)
+    stages = -(-m // STAGE_TARGETS)
+    waves = WAVES if split else 1
+    splits = max(1, min(stages, (waves * sm_count + q_blocks // 2) // q_blocks, 65535))
+    per_split = -(-stages // splits)
+    splits = -(-stages // per_split)
+    return Plan(queries_per_block, q_blocks, splits, per_split * STAGE_TARGETS, stages * STAGE_TARGETS)
+
+
+def pack_targets(b: torch.Tensor) -> torch.Tensor:
+    """The kernels' B operand, plain PyTorch (the twin of
+    ``nn_pack_kernel``), on ``b``'s device: (m_pad, 16) bf16 rows
+    ``(bf16(x), bf16(y), bf16(z), L1, L2, L3, 0, …)`` with ``b2 = |b|²`` in
+    f32 as the twin computes it and ``L1 + L2 + L3 = b2`` exactly (each
+    limb the bf16 rounding of what the ones before leave; three bf16 hold
+    f32's 24-bit significand while b2 is normal). Rows past m, up to a whole
+    stage, are zero with ``L1 = +inf``: their dp is +inf and never wins."""
+    m = b.shape[0]
+    m_pad = -(-m // STAGE_TARGETS) * STAGE_TARGETS
+    b2 = (b * b).sum(1)
+    l1 = b2.bfloat16().float()
+    r1 = b2 - l1
+    l2 = r1.bfloat16().float()
+    packed = torch.zeros(m_pad, PACK_WIDTH, dtype=torch.bfloat16, device=b.device)
+    packed[:m, :6] = torch.cat([b, l1[:, None], l2[:, None], (r1 - l2)[:, None]], 1)
+    packed[m:, 3] = float("inf")
+    return packed
+
 
 _fn = None
 
@@ -61,15 +119,38 @@ def _kernel():
     global _fn
     if _fn is None:
         lib = load_library("nn_variants")
+        for name in ("nnv_queries_per_block", "nnv_stage_targets"):
+            getattr(lib, name).restype = ctypes.c_int
         lib.nnv_queries_per_block.argtypes = [ctypes.c_int]
-        lib.nnv_queries_per_block.restype = ctypes.c_int
-        lib.nnv_tile.argtypes = []
-        lib.nnv_tile.restype = ctypes.c_int
+        lib.nnv_stage_targets.argtypes = []
+        if (lib.nnv_stage_targets(), lib.nnv_queries_per_block(1)) != (STAGE_TARGETS, CONSUMERS * 64):
+            raise RuntimeError("csrc/nn_variants.cu and launch_plan disagree on the stage or CTA size")
+        lib.nnv_pack.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+        lib.nnv_pack.restype = ctypes.c_int
         fn = lib.nnv_launch
-        fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5
+        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p] * 5)
         fn.restype = ctypes.c_int
-        _fn = (fn, lib.nnv_queries_per_block, lib.nnv_tile())
+        _fn = (fn, lib.nnv_pack)
     return _fn
+
+
+def pack_targets_kernel(b: torch.Tensor) -> torch.Tensor:
+    """``pack_targets`` by the CUDA pack kernel (``nn_pack_kernel``) that
+    ``nn_variant`` launches before each sweep; ``b`` on a card."""
+    if b.device.type != "cuda":
+        raise ValueError(f"the pack kernel takes a CUDA tensor, got {b.device}")
+    _check(b, b)  # (m, 3) float32, contiguous
+    m = b.shape[0]
+    b2 = (b * b).sum(1)
+    packed = torch.empty(-(-m // STAGE_TARGETS) * STAGE_TARGETS, PACK_WIDTH, dtype=torch.bfloat16,
+                         device=b.device)
+    with torch.cuda.device(b.device):
+        err = _kernel()[1](b.data_ptr(), b2.data_ptr(), m, packed.shape[0], packed.data_ptr(),
+                           torch.cuda.current_stream(b.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"nn_pack_kernel launch failed: cudaError {err}")
+    return packed
 
 
 def nn_variant_reference(
@@ -122,23 +203,24 @@ def nn_variant(a: torch.Tensor, b: torch.Tensor, variant: str) -> tuple[torch.Te
         return nn_variant_reference(a, b, "bf16")
     if a.device.type != "cuda":
         raise ValueError(f"unsupported device {a.device}")
-    kernel, qt, split = VARIANTS[variant]
-    fn, queries_per_block, tile = _kernel()
+    kernel, rows, split = VARIANTS[variant]
+    fn = _kernel()[0]
     n, m = a.shape[0], b.shape[0]
     idx = torch.empty(n, dtype=torch.int64, device=a.device)
     d2 = torch.empty(n, dtype=torch.float32, device=a.device)
     if n == 0:
         return idx, d2
-    splits, per_split = 1, -(-m // tile) * tile
-    if split:
-        splits, per_split = device_split_plan(a.device, n, m, queries_per_block(qt), tile)
-    part_d = torch.empty(splits * n, dtype=torch.float32, device=a.device)
-    part_i = torch.empty(splits * n, dtype=torch.int32, device=a.device)
+    sm_count = torch.cuda.get_device_properties(a.device).multi_processor_count
+    plan = launch_plan(n, m, sm_count, rows, split)
+    b2 = (b * b).sum(1)  # the twin's b2, bit for bit
+    packed = torch.empty(plan.m_pad, PACK_WIDTH, dtype=torch.bfloat16, device=a.device)
+    part_d = torch.empty(plan.splits * n, dtype=torch.float32, device=a.device)
+    part_i = torch.empty(plan.splits * n, dtype=torch.int32, device=a.device)
     with torch.cuda.device(a.device):
         err = fn(
-            KERNELS[kernel], qt, a.data_ptr(), b.data_ptr(), n, m, splits, per_split,
-            part_d.data_ptr(), part_i.data_ptr(), idx.data_ptr(), d2.data_ptr(),
-            torch.cuda.current_stream(a.device).cuda_stream,
+            KERNELS[kernel], rows, a.data_ptr(), b.data_ptr(), b2.data_ptr(), packed.data_ptr(), n, m,
+            plan.m_pad, plan.splits, plan.per_split, part_d.data_ptr(), part_i.data_ptr(),
+            idx.data_ptr(), d2.data_ptr(), torch.cuda.current_stream(a.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"nn_variant {variant} launch failed: cudaError {err}")
