@@ -23,7 +23,7 @@ from tpu3dlm_torch.ops.kernels.nn_variants import (
     nn_variant,
     nn_variant_reference,
     pack_targets,
-    pack_targets_kernel,
+    pack_targets_reference,
 )
 from tpu3dlm_torch.ops.kernels.pairwise import nearest_neighbors, nearest_neighbors_reference
 
@@ -238,13 +238,14 @@ def test_b4_ties_across_boxes_and_splits(cuda_device, variant, period):
 
 @pytest.mark.parametrize("m", [1, 513, 3001])
 def test_b4_pack_kernel_matches_twin(cuda_device, m):
-    """nn_pack_kernel writes pack_targets' bits: bf16 coordinates, the three
-    limbs of the twin's b2, zeros, and the +inf rows past m."""
+    """nn_pack_kernel, by the pack_targets that nn_variant sweeps, writes
+    the twin's bits: bf16 coordinates, the three limbs of the twin's b2,
+    zeros, and the +inf rows past m."""
     g = torch.Generator().manual_seed(m)
     b = ((torch.rand(m, 3, generator=g) * 6 - 3) * 10.0 ** (torch.rand(m, 1, generator=g) * 6 - 3)).to(cuda_device)
-    got = pack_targets_kernel(b)
+    got = pack_targets(b)
     torch.cuda.synchronize()
-    want = pack_targets(b)
+    want = pack_targets_reference(b)
     assert torch.equal(got.view(torch.int16), want.view(torch.int16))
 
 

@@ -26,8 +26,9 @@ from tpu3dlm_torch.ops.kernels.nn_variants import (
     nn_variant,
     nn_variant_reference,
     pack_targets,
+    pack_targets_reference,
 )
-from tpu3dlm_torch.ops.kernels.pairwise import nearest_neighbors_reference
+from tpu3dlm_torch.ops.kernels.pairwise import WAVES, nearest_neighbors_reference, split_plan
 from tpu3dlm_torch.scripts import bench_nn_variants as port_probe
 
 torch.set_num_threads(1)
@@ -148,6 +149,42 @@ def test_pack_targets_holds_the_twins_operands(m):
     pad = packed[m:].float()
     assert torch.isinf(pad[:, 3]).all() and (pad[:, 3] > 0).all()
     assert (pad[:, [0, 1, 2, *range(4, PACK_WIDTH)]] == 0).all()
+
+
+@pytest.mark.parametrize("case", ["cpu", "float64", "shape", "empty"])
+def test_pack_targets_runs_twin_on_cpu_and_checks_its_input(case):
+    """``pack_targets`` (the one way to the pack kernel, which
+    ``nn_variant`` sweeps) runs the plain twin on a CPU tensor and refuses
+    what the kernel does not take."""
+    b = torch.from_numpy(sparse_instance(6, 1, 700)[1])
+    if case == "cpu":
+        assert torch.equal(pack_targets(b).view(torch.int16), pack_targets_reference(b).view(torch.int16))
+        return
+    bad = {"float64": b.double(), "shape": b[:, :2].contiguous(), "empty": b[:0]}[case]
+    with pytest.raises(ValueError):
+        pack_targets(bad)
+
+
+@pytest.mark.parametrize("n,m,sm_count", [
+    (1, 1, 132), (300, 100, 132), (65, 3001, 132), (1000, 1000, 1), (16384, 1 << 20, 132),
+    (16384, 1 << 20, 114), (3000, 1 << 20, 132), (200_000, 1 << 20, 132), (16384, 1_000_003, 132),
+])
+def test_launch_plan_and_b2_share_one_split_plan(n, m, sm_count):
+    """B4's plan cuts the target axis with B2's ``split_plan``: about one
+    CTA per SM (``WAVES`` for v3), the count of splits rounded to the
+    nearest, where B2 (the defaults) still rounds up to ``WAVES`` per SM.
+    Both written out here as plain arithmetic."""
+    def cut(qpb, tile, waves, nearest):
+        q_blocks, tiles = -(-n // qpb), -(-m // tile)
+        want = (waves * sm_count + q_blocks // 2) // q_blocks if nearest else -(-waves * sm_count // q_blocks)
+        per = -(-tiles // max(1, min(tiles, want, 65535)))
+        return -(-tiles // per), per * tile
+
+    for variant, (_, rows, split) in VARIANTS.items():
+        plan = launch_plan(n, m, sm_count, rows, split)
+        want = cut(CONSUMERS * 64 * rows, STAGE_TARGETS, WAVES if split else 1, True)
+        assert (plan.splits, plan.per_split) == want, variant
+    assert split_plan(n, m, sm_count, 1024, 1024) == cut(1024, 1024, WAVES, False)
 
 
 @pytest.mark.parametrize("variant", sorted(VARIANTS))

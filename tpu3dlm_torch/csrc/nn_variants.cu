@@ -19,9 +19,12 @@
 // pair at 989 TFLOP/s (0.10 ms) and the 12.8 MB of inputs and outputs
 // (4 us at 3.35 TB/s): bound by operations. This design pads the MMA depth
 // to 16, so its tensor work is 2 * 16 flops per pair, 5.5e14 flop = 0.56 ms
-// at 989 TFLOP/s: its own floor, above the bound. On an H100 the tensor
-// work and the CUDA-core minimum add rather than overlap (PERF.md), so
-// their sum, not the larger, is what this design can approach.
+// at 989 TFLOP/s: its own floor, above the bound. Measured on an H100
+// 80GB HBM3 at 700 W (PERF.md §6, by scripts/nn_variants_ablation.py):
+// without its minimum the sweep takes 0.60-0.64 ms, near that floor;
+// without its MMAs v2's takes 0.60 ms and v1's 3.72, against 1.90 and 2.38
+// for the whole. The parts do not add up to the whole, and what takes the
+// rest is an open question (PERF.md §7).
 //
 // The design, against the four causes that held the mma.sync form of this
 // kernel at 9-14% of the bound:
@@ -76,6 +79,14 @@
 // the same operands, so every variant's picks and d^2 are bit-identical.
 // The probe's v3 and v4 are launch configurations of v1 (more target
 // splits; two row tiles per warpgroup), not kernels.
+//
+// Column tiles (N) and row tiles (R) per variant: v1 and v3 N = 32, R = 1;
+// v2 N = 64, R = 1; v4 N = 16, R = 2. Seventeen warps a CTA put five on
+// one SM sub-partition, so a thread has at most 96 registers. v1 keeps a
+// running (min, index) per accumulator element, so two accumulator sets
+// and its minima need 2 * N (R = 1) or 4 * N (R = 2) registers: at v2's
+// N = 64, or at v1's N = 32 with R = 2, they spill. v2 keeps two minima a
+// row tile and takes N = 64, which halves its warp votes per target.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -84,6 +95,23 @@
 #include <stdint.h>
 
 #include "nn_fold.cuh"
+
+// Each kernel's column tile (the wgmma's N), set here; the defaults are the
+// shipped ones. NNV_SKIP builds a diagnostic copy without a part of the
+// sweep: 1 leaves out the minimum, 2 the MMAs. Neither changes the shipped
+// build; tpu3dlm_torch/scripts/nn_variants_ablation.py builds and times them.
+#ifndef NNV_V1_N
+#define NNV_V1_N 32  // v1, v3
+#endif
+#ifndef NNV_V2_N
+#define NNV_V2_N 64
+#endif
+#ifndef NNV_V4_N
+#define NNV_V4_N 16
+#endif
+#ifndef NNV_SKIP
+#define NNV_SKIP 0
+#endif
 
 namespace {
 
@@ -240,8 +268,10 @@ __device__ __forceinline__ void issue_tile(float (&acc)[R][N / 2], uint32_t a_ti
 #pragma unroll
   for (int r = 0; r < R; ++r) fence_acc<N / 2>(acc[r]);
   wgmma_fence();
+#if NNV_SKIP != 2
 #pragma unroll
   for (int r = 0; r < R; ++r) wgmma_ss<N>(acc[r], smem_desc(a_tile + r * kATileBytes), db);
+#endif
   wgmma_commit();
 }
 
@@ -258,7 +288,9 @@ __device__ __forceinline__ void retire_tile(float (&acc)[R][N / 2], int jt, floa
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     fence_acc<kAcc>(acc[r]);
-    if constexpr (!TWO_LEVEL) {
+    if constexpr (NNV_SKIP == 1) {
+      continue;
+    } else if constexpr (!TWO_LEVEL) {
 #pragma unroll
       for (int e = 0; e < kAcc; ++e) keep_min(best[r][e], best_j[r][e], acc[r][e], jt, zero);
     } else {
@@ -464,7 +496,7 @@ nn_variant_kernel(const __grid_constant__ CUtensorMap map_b, const float* __rest
 // The kernels' B operand: row j < m_pad of packed is bf16 (x, y, z, L1, L2,
 // L3, 0 x 10) with L1 = bf16(b2), L2 = bf16(b2 - L1), L3 = bf16(b2 - L1 -
 // L2) (each subtraction exact), so L1 + L2 + L3 = b2; rows past m are zero
-// but L1 = +inf. The same bits as the wrapper's plain pack_targets.
+// but L1 = +inf. The same bits as the wrapper's pack_targets_reference.
 __global__ void nn_pack_kernel(const float* __restrict__ b, const float* __restrict__ b2, int m,
                                int m_pad, uint4* __restrict__ packed) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
@@ -550,30 +582,27 @@ int nnv_pack(const float* b, const float* b2, int m, int m_pad, void* packed, vo
   return (int)cudaGetLastError();
 }
 
-// kernel 1 (v1) or 2 (v2), rows 1 or 2 (v1 only): packs b into `packed`
-// ((m_pad, 16) bf16 scratch; b2 (m,) is |b|^2 in f32), then the sweep, then
-// the fold. a (n, 3) and b (m, 3) f32 row-major on the device; part_d /
-// part_i hold splits * n scratch values each; idx (n,) int64 and d2 (n,)
-// f32 are the results; split s covers targets [s * per_split, min(m_pad,
-// (s + 1) * per_split)), none empty. Returns the CUDA error of the launches.
-int nnv_launch(int kernel, int rows, const float* a, const float* b, const float* b2, void* packed,
-               int n, int m, int m_pad, int splits, int per_split, float* part_d, int* part_i,
-               int64_t* idx, float* d2, void* stream) {
+// kernel 1 (v1) or 2 (v2), rows 1 or 2 (v1 only): the sweep over the
+// packed targets (nnv_pack's (m_pad, 16) bf16 rows), then the fold. a
+// (n, 3) f32 row-major on the device; part_d / part_i hold splits * n
+// scratch values each; idx (n,) int64 and d2 (n,) f32 are the results;
+// split s covers targets [s * per_split, min(m_pad, (s + 1) * per_split)),
+// none empty. Returns the CUDA error of the launches.
+int nnv_sweep(int kernel, int rows, const float* a, const void* packed, int n, int m_pad, int splits,
+              int per_split, float* part_d, int* part_i, int64_t* idx, float* d2, void* stream) {
   if (n <= 0) return 0;
   using Launch = cudaError_t (*)(const CUtensorMap&, const float*, int, int, int, int, float*, int*,
                                  cudaStream_t);
   Launch partial = nullptr;
-  if (kernel == 1 && rows == 1) partial = launch_partial<32, 1, false>;
-  else if (kernel == 1 && rows == 2) partial = launch_partial<16, 2, false>;
-  else if (kernel == 2 && rows == 1) partial = launch_partial<64, 1, true>;
-  if (partial == nullptr || m <= 0 || m_pad < m || m_pad % kStageTargets != 0 || splits <= 0 ||
+  if (kernel == 1 && rows == 1) partial = launch_partial<NNV_V1_N, 1, false>;
+  else if (kernel == 1 && rows == 2) partial = launch_partial<NNV_V4_N, 2, false>;
+  else if (kernel == 2 && rows == 1) partial = launch_partial<NNV_V2_N, 1, true>;
+  if (partial == nullptr || m_pad <= 0 || m_pad % kStageTargets != 0 || splits <= 0 ||
       splits > 65535 || per_split <= 0 || per_split % kStageTargets != 0 ||
       (long long)splits * per_split < m_pad || (long long)(splits - 1) * per_split >= m_pad)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaError_t(nnv_pack(b, b2, m, m_pad, packed, stream));
-  if (err != cudaSuccess) return (int)err;
   CUtensorMap map;
-  err = encode_map(&map, packed, m_pad);
+  cudaError_t err = encode_map(&map, packed, m_pad);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   err = partial(map, a, n, m_pad, splits, per_split, part_d, part_i, s);

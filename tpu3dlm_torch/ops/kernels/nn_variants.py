@@ -25,10 +25,10 @@ f32), ``idx = argmin dp`` (ties to the lowest index) and
 
 So there are two CUDA kernels, ``nn_v1`` (variants v1, v3, v4) and
 ``nn_v2`` (variant v2); ``nn_variant.launches`` counts each one's launches
-under its own name. Each launch packs the targets once on the card
-(``nn_pack_kernel``, whose plain twin is ``pack_targets``: bf16 coordinates
-and three bf16 limbs of b2 in one 32-byte row, the MMA's B operand) before
-the sweep; ``launch_plan`` cuts the work.
+under its own name. A call is ``pack_targets`` (on the card the pack kernel
+``nn_pack_kernel``, once per call: bf16 coordinates and three bf16 limbs of
+b2 in one 32-byte row, the MMA's B operand) and then ``sweep`` over the
+packed rows, cut by ``launch_plan``.
 
 CUDA tensors launch the kernel (a refused launch raises; there is no
 fallback); CPU tensors run the plain twin ``nn_variant_reference``.
@@ -47,7 +47,7 @@ from typing import NamedTuple
 import torch
 
 from tpu3dlm_torch.kernels.build import load_library
-from tpu3dlm_torch.ops.kernels.pairwise import CHUNK, CHUNK_B, WAVES, _check
+from tpu3dlm_torch.ops.kernels.pairwise import CHUNK, CHUNK_B, WAVES, _check, sm_count, split_plan
 
 # the CUDA kernels by name → the C launcher's kernel number
 KERNELS = {"nn_v1": 1, "nn_v2": 2}
@@ -79,20 +79,18 @@ class Plan(NamedTuple):
 def launch_plan(n: int, m: int, sm_count: int, rows: int, split: bool) -> Plan:
     """How a launch cuts ``n`` ≥ 1 queries by ``m`` ≥ 1 targets: CTAs of
     ``CONSUMERS × 64 × rows`` queries, and the target axis (whole stages of
-    ``STAGE_TARGETS``) split so that the grid holds about one CTA per SM
-    (v1, v2, v4) or ``WAVES`` per SM (``split``: v3), but never a split
-    without targets."""
+    ``STAGE_TARGETS``) cut by B2's ``split_plan`` so that the grid holds
+    about one CTA per SM (v1, v2, v4) or ``WAVES`` per SM (``split``: v3),
+    the count of splits rounded to the nearest, never a split without
+    targets."""
     queries_per_block = CONSUMERS * 64 * rows
-    q_blocks = -(-n // queries_per_block)
-    stages = -(-m // STAGE_TARGETS)
-    waves = WAVES if split else 1
-    splits = max(1, min(stages, (waves * sm_count + q_blocks // 2) // q_blocks, 65535))
-    per_split = -(-stages // splits)
-    splits = -(-stages // per_split)
-    return Plan(queries_per_block, q_blocks, splits, per_split * STAGE_TARGETS, stages * STAGE_TARGETS)
+    splits, per_split = split_plan(n, m, sm_count, queries_per_block, STAGE_TARGETS,
+                                   waves=WAVES if split else 1, round_nearest=True)
+    m_pad = -(-m // STAGE_TARGETS) * STAGE_TARGETS
+    return Plan(queries_per_block, -(-n // queries_per_block), splits, per_split, m_pad)
 
 
-def pack_targets(b: torch.Tensor) -> torch.Tensor:
+def pack_targets_reference(b: torch.Tensor) -> torch.Tensor:
     """The kernels' B operand, plain PyTorch (the twin of
     ``nn_pack_kernel``), on ``b``'s device: (m_pad, 16) bf16 rows
     ``(bf16(x), bf16(y), bf16(z), L1, L2, L3, 0, …)`` with ``b2 = |b|²`` in
@@ -112,45 +110,79 @@ def pack_targets(b: torch.Tensor) -> torch.Tensor:
     return packed
 
 
-_fn = None
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Sets the C signatures on a loaded build of ``csrc/nn_variants.cu``
+    and checks its stage and CTA sizes against ``launch_plan``'s."""
+    for name in ("nnv_queries_per_block", "nnv_stage_targets"):
+        getattr(lib, name).restype = ctypes.c_int
+    lib.nnv_queries_per_block.argtypes = [ctypes.c_int]
+    lib.nnv_stage_targets.argtypes = []
+    if (lib.nnv_stage_targets(), lib.nnv_queries_per_block(1)) != (STAGE_TARGETS, CONSUMERS * 64):
+        raise RuntimeError("csrc/nn_variants.cu and launch_plan disagree on the stage or CTA size")
+    lib.nnv_pack.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+    lib.nnv_pack.restype = ctypes.c_int
+    lib.nnv_sweep.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4
+                              + [ctypes.c_void_p] * 5)
+    lib.nnv_sweep.restype = ctypes.c_int
+    return lib
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        lib = load_library("nn_variants")
-        for name in ("nnv_queries_per_block", "nnv_stage_targets"):
-            getattr(lib, name).restype = ctypes.c_int
-        lib.nnv_queries_per_block.argtypes = [ctypes.c_int]
-        lib.nnv_stage_targets.argtypes = []
-        if (lib.nnv_stage_targets(), lib.nnv_queries_per_block(1)) != (STAGE_TARGETS, CONSUMERS * 64):
-            raise RuntimeError("csrc/nn_variants.cu and launch_plan disagree on the stage or CTA size")
-        lib.nnv_pack.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
-        lib.nnv_pack.restype = ctypes.c_int
-        fn = lib.nnv_launch
-        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                       + [ctypes.c_void_p] * 5)
-        fn.restype = ctypes.c_int
-        _fn = (fn, lib.nnv_pack)
-    return _fn
+_lib = None
 
 
-def pack_targets_kernel(b: torch.Tensor) -> torch.Tensor:
-    """``pack_targets`` by the CUDA pack kernel (``nn_pack_kernel``) that
-    ``nn_variant`` launches before each sweep; ``b`` on a card."""
+def _library() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        _lib = bind(load_library("nn_variants"))
+    return _lib
+
+
+def pack_targets(b: torch.Tensor) -> torch.Tensor:
+    """``pack_targets_reference``'s (m_pad, 16) bf16 rows: on a card by
+    the pack kernel ``nn_pack_kernel``, the rows ``nn_variant`` sweeps;
+    for a CPU tensor by the plain twin."""
+    _check(b, b)  # (m, 3) float32, contiguous, m ≥ 1
+    if b.device.type == "cpu":
+        return pack_targets_reference(b)
     if b.device.type != "cuda":
-        raise ValueError(f"the pack kernel takes a CUDA tensor, got {b.device}")
-    _check(b, b)  # (m, 3) float32, contiguous
+        raise ValueError(f"unsupported device {b.device}")
     m = b.shape[0]
-    b2 = (b * b).sum(1)
+    b2 = (b * b).sum(1)  # the twin's b2, bit for bit
     packed = torch.empty(-(-m // STAGE_TARGETS) * STAGE_TARGETS, PACK_WIDTH, dtype=torch.bfloat16,
                          device=b.device)
     with torch.cuda.device(b.device):
-        err = _kernel()[1](b.data_ptr(), b2.data_ptr(), m, packed.shape[0], packed.data_ptr(),
-                           torch.cuda.current_stream(b.device).cuda_stream)
+        err = _library().nnv_pack(b.data_ptr(), b2.data_ptr(), m, packed.shape[0], packed.data_ptr(),
+                                  torch.cuda.current_stream(b.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"nn_pack_kernel launch failed: cudaError {err}")
     return packed
+
+
+def sweep(a: torch.Tensor, packed: torch.Tensor, m: int, variant: str,
+          lib: ctypes.CDLL | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(idx, d2) of the queries ``a`` (n ≥ 1, on a card) against ``m``
+    targets packed by ``pack_targets``: the sweep kernel of ``variant``,
+    then the fold of its splits, from ``lib`` (a ``bind``-ed build of
+    ``csrc/nn_variants.cu``; by default the library ``nn_variant``
+    launches). Counts nothing."""
+    kernel, rows, split = VARIANTS[variant]
+    n = a.shape[0]
+    plan = launch_plan(n, m, sm_count(a.device), rows, split)
+    if packed.shape != (plan.m_pad, PACK_WIDTH) or packed.dtype != torch.bfloat16:
+        raise ValueError(f"packed must be ({plan.m_pad}, {PACK_WIDTH}) bf16, got {tuple(packed.shape)}")
+    idx = torch.empty(n, dtype=torch.int64, device=a.device)
+    d2 = torch.empty(n, dtype=torch.float32, device=a.device)
+    part_d = torch.empty(plan.splits * n, dtype=torch.float32, device=a.device)
+    part_i = torch.empty(plan.splits * n, dtype=torch.int32, device=a.device)
+    with torch.cuda.device(a.device):
+        err = (lib if lib is not None else _library()).nnv_sweep(
+            KERNELS[kernel], rows, a.data_ptr(), packed.data_ptr(), n, plan.m_pad, plan.splits,
+            plan.per_split, part_d.data_ptr(), part_i.data_ptr(), idx.data_ptr(), d2.data_ptr(),
+            torch.cuda.current_stream(a.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"nn_variant {variant} launch failed: cudaError {err}")
+    return idx, d2
 
 
 def nn_variant_reference(
@@ -203,27 +235,12 @@ def nn_variant(a: torch.Tensor, b: torch.Tensor, variant: str) -> tuple[torch.Te
         return nn_variant_reference(a, b, "bf16")
     if a.device.type != "cuda":
         raise ValueError(f"unsupported device {a.device}")
-    kernel, rows, split = VARIANTS[variant]
-    fn = _kernel()[0]
-    n, m = a.shape[0], b.shape[0]
-    idx = torch.empty(n, dtype=torch.int64, device=a.device)
-    d2 = torch.empty(n, dtype=torch.float32, device=a.device)
+    n = a.shape[0]
     if n == 0:
-        return idx, d2
-    sm_count = torch.cuda.get_device_properties(a.device).multi_processor_count
-    plan = launch_plan(n, m, sm_count, rows, split)
-    b2 = (b * b).sum(1)  # the twin's b2, bit for bit
-    packed = torch.empty(plan.m_pad, PACK_WIDTH, dtype=torch.bfloat16, device=a.device)
-    part_d = torch.empty(plan.splits * n, dtype=torch.float32, device=a.device)
-    part_i = torch.empty(plan.splits * n, dtype=torch.int32, device=a.device)
-    with torch.cuda.device(a.device):
-        err = fn(
-            KERNELS[kernel], rows, a.data_ptr(), b.data_ptr(), b2.data_ptr(), packed.data_ptr(), n, m,
-            plan.m_pad, plan.splits, plan.per_split, part_d.data_ptr(), part_i.data_ptr(),
-            idx.data_ptr(), d2.data_ptr(), torch.cuda.current_stream(a.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"nn_variant {variant} launch failed: cudaError {err}")
+        return (torch.empty(0, dtype=torch.int64, device=a.device),
+                torch.empty(0, dtype=torch.float32, device=a.device))
+    idx, d2 = sweep(a, pack_targets(b), b.shape[0], variant)
+    kernel = VARIANTS[variant][0]
     with _COUNT_LOCK:
         nn_variant.launches[kernel] += 1
     return idx, d2

@@ -69,24 +69,33 @@ def _check(a: torch.Tensor, b: torch.Tensor) -> None:
         raise ValueError("more than 2**31 / 3 rows")
 
 
-def split_plan(n: int, m: int, sm_count: int, queries_per_block: int, tile: int) -> tuple[int, int]:
+def split_plan(n: int, m: int, sm_count: int, queries_per_block: int, tile: int,
+               waves: int = WAVES, round_nearest: bool = False) -> tuple[int, int]:
     """(splits, targets_per_split): how the target axis is cut so that
-    about ``WAVES`` blocks run per SM. Every split but the last covers a
-    whole number of tiles."""
+    about ``waves`` blocks run per SM (the count of splits rounded up, or
+    to the nearest with ``round_nearest``). Every split but the last covers
+    a whole number of tiles, and none is empty."""
     q_blocks = -(-n // queries_per_block)
     tiles = -(-m // tile)
-    splits = max(1, min(tiles, -(-WAVES * sm_count // q_blocks), 65535))
+    per_sm = waves * sm_count
+    want = (per_sm + q_blocks // 2) // q_blocks if round_nearest else -(-per_sm // q_blocks)
+    splits = max(1, min(tiles, want, 65535))
     tiles_per_split = -(-tiles // splits)
     return -(-tiles // tiles_per_split), tiles_per_split * tile
+
+
+def sm_count(device: torch.device) -> int:
+    """The SM count of a CUDA ``device``, read once per device."""
+    dev = device.index if device.index is not None else torch.cuda.current_device()
+    if dev not in _sm_count:
+        _sm_count[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _sm_count[dev]
 
 
 def device_split_plan(device: torch.device, n: int, m: int, queries_per_block: int,
                       tile: int) -> tuple[int, int]:
     """``split_plan`` for the SM count of ``device``."""
-    dev = device.index if device.index is not None else torch.cuda.current_device()
-    if dev not in _sm_count:
-        _sm_count[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
-    return split_plan(n, m, _sm_count[dev], queries_per_block, tile)
+    return split_plan(n, m, sm_count(device), queries_per_block, tile)
 
 
 def nearest_neighbors_reference(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
