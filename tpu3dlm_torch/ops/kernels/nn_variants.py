@@ -47,7 +47,7 @@ from typing import NamedTuple
 import torch
 
 from tpu3dlm_torch.kernels.build import load_library
-from tpu3dlm_torch.ops.kernels.pairwise import CHUNK, CHUNK_B, WAVES, _check, sm_count, split_plan
+from tpu3dlm_torch.ops.kernels.pairwise import CHUNK, CHUNK_B, WAVES, _check, device_sm_count, split_plan
 
 # the CUDA kernels by name → the C launcher's kernel number
 KERNELS = {"nn_v1": 1, "nn_v2": 2}
@@ -167,7 +167,7 @@ def sweep(a: torch.Tensor, packed: torch.Tensor, m: int, variant: str,
     launches). Counts nothing."""
     kernel, rows, split = VARIANTS[variant]
     n = a.shape[0]
-    plan = launch_plan(n, m, sm_count(a.device), rows, split)
+    plan = launch_plan(n, m, device_sm_count(a.device), rows, split)
     if packed.shape != (plan.m_pad, PACK_WIDTH) or packed.dtype != torch.bfloat16:
         raise ValueError(f"packed must be ({plan.m_pad}, {PACK_WIDTH}) bf16, got {tuple(packed.shape)}")
     idx = torch.empty(n, dtype=torch.int64, device=a.device)

@@ -84,7 +84,7 @@ def split_plan(n: int, m: int, sm_count: int, queries_per_block: int, tile: int,
     return -(-tiles // tiles_per_split), tiles_per_split * tile
 
 
-def sm_count(device: torch.device) -> int:
+def device_sm_count(device: torch.device) -> int:
     """The SM count of a CUDA ``device``, read once per device."""
     dev = device.index if device.index is not None else torch.cuda.current_device()
     if dev not in _sm_count:
@@ -95,7 +95,7 @@ def sm_count(device: torch.device) -> int:
 def device_split_plan(device: torch.device, n: int, m: int, queries_per_block: int,
                       tile: int) -> tuple[int, int]:
     """``split_plan`` for the SM count of ``device``."""
-    return split_plan(n, m, sm_count(device), queries_per_block, tile)
+    return split_plan(n, m, device_sm_count(device), queries_per_block, tile)
 
 
 def nearest_neighbors_reference(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
