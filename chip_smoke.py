@@ -5,7 +5,7 @@
 
 Builds every CUDA kernel of the port from ``tpu3dlm_torch/csrc`` (into
 ``tpu3dlm_torch/_build``, one ``nvcc`` per source and one ``c++`` for the
-host C++ sources, all at once), then runs thirty-three phases, each printing one
+host C++ sources, all at once), then runs thirty-five phases, each printing one
 JSON line; any failure raises and the script exits non-zero without a result:
 
 1. ``kernel_b1``: kernel B1 (BEiT attention) against its plain PyTorch twin
@@ -219,8 +219,8 @@ JSON line; any failure raises and the script exits non-zero without a result:
     and B2 launched.
 29. ``vis_full_width``: (a) the animation of ``compare_full_width``'s
     capture (two ~1M-point clouds, subsampled to 50,000 as the Pipeline
-    does, density mesh at span/72, 480 × 640) over its first 5 moving
-    steps (100 frames): mesh, render per frame, write, host peak, and the
+    does, density mesh at span/72, 480 × 640) over its first 2 moving
+    steps (40 frames): mesh, render per frame, write, host peak, and the
     whole record's frame count and reckoned time; (b) ``view_img`` on
     ``staged_full_width``'s 128-frame maintenance capture at 640²: the
     detect stage with and without it, the drawing and PNG ms per frame; (c)
@@ -247,7 +247,18 @@ JSON line; any failure raises and the script exits non-zero without a result:
     last loss, the device peak, B1's launches in training and B1's and
     B2's in ``verify``; then the hard recipe's 640² step (16 sampled
     frames, erase, cosine, EMA) on 4 corpus scenes: step ms and peak.
-33. ``kernels``: one line listing every ported kernel (B1 on its two
+33. ``dist_full_width``: the world of ranks (``tpu3dlm_torch/parallel``)
+    at full width in a real 1-rank NCCL world on the card: the sharded
+    scan step (``fused_full_width``'s shape), ``target_sharded_nn`` at
+    16384 × 1,048,576, the data-parallel BEiT-base f32 step at batch 64 and
+    the data-parallel YOLOv10-n step at 640², each held to its unsharded
+    twin (``phase_dist_full_width`` states the bars) and timed beside it in
+    turns: the collectives' own cost at world 1.
+34. ``dist_parity``: ``python -m tpu3dlm_torch.scripts.distributed_smoke
+    --procs 2 --backend gloo``, two ranks sharing the card, the four legs
+    held against one device, B1 and B2 launched on every rank; over NCCL
+    too when two cards are visible (a line says when that does not apply).
+35. ``kernels``: one line listing every ported kernel (B1 on its two
     routes — ``attention_bf16_tma`` counted on the scan step,
     ``attention_simt`` on the finetune step — B2, B3, B4 v1 and v2) with
     its launches, the path they were counted on (``launches_on``), error,
@@ -267,7 +278,9 @@ JSON line; any failure raises and the script exits non-zero without a result:
     (``launches_on_vis``, from ``vis_parity``) and B2's on the envelope
     sweep (``launches_on_envelope``); B1's in training (``launches_on_train``)
     and B1's and B2's in the ``verify`` after it (``launches_on_train_verify``),
-    from ``train_full_width``.
+    from ``train_full_width``; B1's and B2's on the world's paths
+    (``launches_on_dist``, from ``dist_full_width`` and, by rank,
+    ``dist_parity``).
 
 The script's total seconds are printed on the line before the card's name
 and power limit (nvidia-smi), which come before the last line; the last
@@ -3495,8 +3508,8 @@ def phase_vis_full_width(dev, staged_root: str, scene) -> dict:
     size: ``compare_full_width``'s capture again (two ~1M-point clouds,
     ``ann="off"``) for its recorded steps and raw comparison points, then
     ``VisualiseAlignment`` as the Pipeline makes it (50,000-point seeded
-    subsample, density mesh at span/72, 480 × 640) over the first 5
-    moving steps (100 frames): mesh ms, render ms per frame, write ms (the
+    subsample, density mesh at span/72, 480 × 640) over the first 2
+    moving steps (40 frames; cut from 5 to keep the script's time): mesh ms, render ms per frame, write ms (the
     ``.npz`` where imageio has no encoder), host peak; the whole record's
     frame count and its time reckoned from those. (b) ``view_img`` on
     ``staged_full_width``'s 128-frame maintenance capture at 640²: the
@@ -3541,11 +3554,11 @@ def phase_vis_full_width(dev, staged_root: str, scene) -> dict:
     try:
         t0 = time.perf_counter()
         n, host_peak_video = host_peak_mb(lambda: vis.create_video(
-            moving[:5], os.path.join(staged_root, "alignment_animation.mp4")))
+            moving[:2], os.path.join(staged_root, "alignment_animation.mp4")))
         video_ms = (time.perf_counter() - t0) * 1e3
     finally:
         vis_mod.write_video = real_write
-    check(n == 100 and all(np.isfinite(f).all() and f.shape == (480, 640, 3) for f in vis.frames[:1]), n)
+    check(n == 40 and all(np.isfinite(f).all() and f.shape == (480, 640, 3) for f in vis.frames[:1]), n)
     frame_ms = statistics.median(render_ms)
     record_frames = 20 * len(moving)
     animation = {
@@ -4002,6 +4015,209 @@ def time_hard_recipe_step(dev, tmp: str, scenes: int = 4) -> dict:
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "losses": losses}
 
 
+# ---------------------------------------------------------------------------
+# The world of ranks (A22): collectives on the card
+# ---------------------------------------------------------------------------
+
+
+def in_turns(plain, sharded, runs: int = 5) -> dict:
+    """Median wall ms (``host_ms``) of the plain and the sharded call, run in
+    turns (plain, sharded, sharded, plain), and the difference: what the
+    world's collectives cost at this size."""
+    a, sa = host_ms(plain, runs)
+    b, sb = host_ms(sharded, runs)
+    c, sc = host_ms(sharded, runs)
+    d, sd = host_ms(plain, runs)
+    p, q = statistics.median(sa + sd), statistics.median(sb + sc)
+    return {"plain_ms": p, "sharded_ms": q, "overhead_ms": q - p, "plain_samples": sa + sd,
+            "sharded_samples": sb + sc}
+
+
+def phase_dist_full_width(dev) -> dict:
+    """The world's paths at full width in a real 1-rank NCCL world on this
+    card (``make_mesh(1, backend="nccl")``), each held to its unsharded twin
+    on the same card and timed beside it in turns (the difference is the
+    collectives' own cost at world 1):
+
+    * ``sharded_full_scan_step`` (YOLOv10-n at 640², BEiT-base bf16, 128
+      frames, crop budget 384, ``fused_full_width``'s scan) against
+      ``full_scan_step``: masks, labels and damage equal, boxes within
+      1e-2 px, corners within 1e-4 m; B1 launched once per layer;
+    * ``target_sharded_nn`` at 16384 × 1,048,576 against B2: indices
+      identical, d² equal; one B2 launch;
+    * the data-parallel BEiT-base f32 step at batch 64 against the plain
+      step (``finetune_full_width``'s task) on copies of one model: the
+      loss within 1e-5, every gradient within 1e-5 (``finetune_parity``'s
+      bars), B1 launched once per layer;
+    * the data-parallel YOLOv10-n step at 640² (8 frames, 4 random boxes
+      each, AdamW 2e-3) against the plain step: the loss within 1e-5
+      relative, the gradients by ``grad_ratios`` within 1e-2 × max-abs
+      (median 2e-3) and the BatchNorm statistics within 1e-4 × max(1,
+      |value|) (``train_parity``'s bars).
+
+    The world is torn down (and its store removed) however the phase ends."""
+    from tpu3dlm_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(1, device=dev, backend="nccl")
+    try:
+        result = {"phase": "dist_full_width", "world": repr(mesh), **_dist_full_width(dev, mesh)}
+    finally:
+        mesh.close()
+    check(not torch.distributed.is_initialized(), "the world is torn down")
+    emit(result)
+    return result
+
+
+def _dist_full_width(dev, mesh, frames: int = 128, img: int = 640, nn_shape: tuple = (16384, 1 << 20),
+                     beit_cfg=None, batch: int = 64, yolo_frames: int = 8) -> dict:
+    """``phase_dist_full_width``'s work at its widths (smaller ones rehearse
+    it on the CPU)."""
+    import copy
+
+    from tpu3dlm_torch.models.beit import BeitConfig
+    from tpu3dlm_torch.models.layers import calibrate_batchnorm_, init_like_flax_
+    from tpu3dlm_torch.models.yolov10 import YOLOv10
+    from tpu3dlm_torch.ops.kernels.pairwise import nearest_neighbors
+    from tpu3dlm_torch.parallel.finetune import adamw, init_finetune, make_beit_train_step, make_yolo_train_step
+    from tpu3dlm_torch.parallel.inference import full_scan_step, sharded_full_scan_step, square_box_affine
+    from tpu3dlm_torch.parallel.mesh import shard_batch
+    from tpu3dlm_torch.parallel.nn import target_sharded_nn
+    from tpu3dlm_torch.pipeline.fused import FusedScanRunner
+
+    out = {}
+    # the sharded scan step
+    F, crop_budget = frames, 384
+    cfg = beit_cfg or BeitConfig()  # BEiT-base by default
+    runner = FusedScanRunner(img_size=img, conf_thresh=0.25, max_det=64, nc=80, variant="n", beit_config=cfg,
+                             dtype=torch.bfloat16, crop_budget=crop_budget, rng_seed=SEED, device=dev)
+    scan = synthetic_scan(F, img, (192, 256), SEED + 2)
+    calibrate_batchnorm_(runner.yolo, torch.as_tensor(scan.rgb[:16], device=dev).float() / 255.0)
+    args = (scan.rgb, scan.depth, scan.intrinsics, scan.rgb_size, scan.poses, square_box_affine(scan.rgb_size, img))
+    kw = dict(img_size=img, max_det=64, conf_thresh=0.25, crop_budget=crop_budget)
+    reset_launches()
+    got = sharded_full_scan_step(mesh, runner.yolo, runner.beit, *args, **kw)
+    torch.cuda.synchronize()
+    step_launches = read_launches()
+    want = full_scan_step(runner.yolo, runner.beit, *args, device=dev, **kw)
+    got, want = ({k: v.float().cpu().numpy() if v.is_floating_point() else v.cpu().numpy() for k, v in o.items()}
+                 for o in (got, want))
+    for k in ("mask", "label", "damage"):
+        check(np.array_equal(got[k], want[k]), f"sharded step {k}")
+    m = want["mask"]
+    box_err = float(np.abs(got["boxes"] - want["boxes"]).max())
+    corner_err = float(np.abs(got["corners"][m] - want["corners"][m]).max()) if m.any() else 0.0
+    check(m.any() and box_err <= 1e-2 and corner_err <= 1e-4, (int(m.sum()), box_err, corner_err))
+    check(step_launches["b1"] == cfg.num_layers and step_launches["b2"] == 0, step_launches)
+    out["scan_step"] = {
+        "frames": F, "crop_budget": crop_budget, "detections": int(m.sum()), "max_box_err_px": box_err,
+        "max_corner_err_m": corner_err, "b1_launches": step_launches["b1"],
+        "b1_launches_by_kernel": step_launches["b1_by_kernel"],
+        **in_turns(lambda: full_scan_step(runner.yolo, runner.beit, *args, device=dev, **kw),
+                   lambda: sharded_full_scan_step(mesh, runner.yolo, runner.beit, *args, **kw)),
+    }
+    del runner
+
+    # the target-sharded nearest neighbour
+    rng = np.random.default_rng(SEED + 20)
+    a = torch.as_tensor(rng.uniform(-3, 3, (nn_shape[0], 3)).astype(np.float32), device=dev)
+    b = torch.as_tensor(rng.uniform(-3, 3, (nn_shape[1], 3)).astype(np.float32), device=dev)
+    nn = target_sharded_nn(mesh)
+    b_local = shard_batch(b, mesh)
+    reset_launches()
+    idx, d2 = nn(a, b_local)
+    torch.cuda.synchronize()
+    nn_launches = read_launches()["b2"]
+    want_idx, want_d2 = nearest_neighbors(a, b)
+    check(torch.equal(idx, want_idx) and torch.equal(d2, want_d2), "target-sharded NN equals B2")
+    check(nn_launches == 1, nn_launches)
+    plain_ms, sharded_ms = cuda_ms(lambda: nearest_neighbors(a, b)), cuda_ms(lambda: nn(a, b_local))
+    out["target_sharded_nn"] = {"shape": list(nn_shape), "b2_launches": nn_launches, "plain_ms": plain_ms,
+                                "sharded_ms": sharded_ms, "overhead_ms": sharded_ms - plain_ms,
+                                "timing": "CUDA events, 10 calls after 2"}
+    del a, b, b_local
+
+    # the data-parallel BEiT-base step
+    model = seeded_beit(cfg, SEED + 9)
+    twin = copy.deepcopy(model)
+    dp = make_beit_train_step(model, init_finetune(model, lr=1e-4, device=dev), mesh=mesh)
+    plain = make_beit_train_step(twin, init_finetune(twin, lr=1e-4, device=dev), device=dev)
+    crops, labels = bright_dark_crops(batch, cfg.image_size, cfg.num_labels, SEED + 10)
+    crops, labels = torch.as_tensor(crops, device=dev), torch.as_tensor(labels, device=dev)
+    reset_launches()
+    loss_dp = float(dp(crops, labels))
+    beit_launches = read_launches()
+    loss_plain = float(plain(crops, labels))
+    grad_err = max(float((p.grad - q.grad).abs().max()) for p, q in zip(model.parameters(), twin.parameters()))
+    check(abs(loss_dp - loss_plain) <= 1e-5 and grad_err <= 1e-5, (loss_dp, loss_plain, grad_err))
+    check(beit_launches["b1"] == cfg.num_layers, beit_launches)
+    out["dp_beit_step"] = {"batch": batch, "dtype": "float32", "loss": loss_dp, "loss_err": abs(loss_dp - loss_plain),
+                           "max_grad_err": grad_err, "b1_launches": beit_launches["b1"],
+                           "b1_launches_by_kernel": beit_launches["b1_by_kernel"],
+                           **in_turns(lambda: plain(crops, labels), lambda: dp(crops, labels))}
+    del model, twin, dp, plain, crops, labels
+
+    # the data-parallel YOLOv10-n step at 640²
+    frames = yolo_frames
+    images = torch.as_tensor(synthetic_scan(frames, img, (48, 64), SEED + 21).rgb, device=dev).float() / 255.0
+    xy = rng.uniform(0, img * 0.6, (frames, 4, 2))
+    wh = rng.uniform(img / 8, img * 0.4, (frames, 4, 2))
+    boxes = torch.as_tensor(np.concatenate([xy, xy + wh], -1).astype(np.float32), device=dev)
+    glabels = torch.as_tensor(rng.integers(0, 2, (frames, 4)).astype(np.int32), device=dev)
+    gmask = torch.ones((frames, 4), dtype=torch.bool, device=dev)
+    yolo = init_like_flax_(YOLOv10(nc=2), torch.Generator().manual_seed(SEED)).to(dev).train()
+    ytwin = copy.deepcopy(yolo)
+    ydp = make_yolo_train_step(yolo, adamw(yolo.parameters(), 2e-3), mesh, img)
+    yplain = make_yolo_train_step(ytwin, adamw(ytwin.parameters(), 2e-3), None, img, device=dev)
+    loss_dp = float(ydp(images, boxes, glabels, gmask))
+    loss_plain = float(yplain(images, boxes, glabels, gmask))
+    ratios = grad_ratios({n: p.grad for n, p in yolo.named_parameters()},
+                         {n: p.grad for n, p in ytwin.named_parameters()})
+    sd, sd_twin = yolo.state_dict(), ytwin.state_dict()
+    stats_err = max(float(((sd[k] - sd_twin[k]).abs() / sd_twin[k].abs().clamp(min=1)).max())
+                    for k in sd if k.endswith(("running_mean", "running_var")))
+    check(abs(loss_dp - loss_plain) <= 1e-5 * abs(loss_plain), (loss_dp, loss_plain))
+    check(ratios["worst"] <= 1e-2 and ratios["median"] <= 2e-3 and stats_err <= 1e-4, (ratios, stats_err))
+    out["dp_yolo_step"] = {"frames": frames, "img_size": img, "loss": loss_dp, "loss_err": abs(loss_dp - loss_plain),
+                           "grad_ratios": ratios, "max_stats_err": stats_err,
+                           **in_turns(lambda: yplain(images, boxes, glabels, gmask),
+                                      lambda: ydp(images, boxes, glabels, gmask)),
+                           "profile_plain": profile_capture(lambda: yplain(images, boxes, glabels, gmask)),
+                           "profile_sharded": profile_capture(lambda: ydp(images, boxes, glabels, gmask))}
+    return out
+
+
+def phase_dist_parity(dev) -> dict:
+    """``python -m tpu3dlm_torch.scripts.distributed_smoke --procs 2 --backend
+    gloo``: two spawned ranks sharing this card, the four legs at a small
+    width held against one device by the script's bars, and B1 and B2
+    launched on every rank. With two cards or more, the same over NCCL,
+    one card a rank; with one card that leg does not apply (a line says
+    so). The rank processes end before the script returns."""
+    repo = Path(__file__).resolve().parent
+
+    def smoke(backend: str) -> dict:
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", "tpu3dlm_torch.scripts.distributed_smoke", "--procs", "2",
+                              "--backend", backend], cwd=repo, capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        check(out.returncode == 0, f"distributed_smoke ({backend}) rc {out.returncode}: {out.stderr[-3000:]}"
+              f"{out.stdout[-2000:]}")
+        rec = json.loads(out.stdout.strip().splitlines()[-1])
+        check(rec["ok"] and min(rec["b1_launches_by_rank"]) > 0 and min(rec["b2_launches_by_rank"]) > 0, rec)
+        return {**rec, "seconds": seconds}
+
+    result = {"phase": "dist_parity", "gloo_two_ranks_one_card": smoke("gloo"),
+              "note": "two ranks share one card: not a scaling measurement"}
+    if torch.cuda.device_count() >= 2:
+        result["nccl_two_cards"] = smoke("nccl")
+    else:
+        print("dist_parity: the NCCL leg over two cards does not apply "
+              f"({torch.cuda.device_count()} card visible)", flush=True)
+        result["nccl_two_cards"] = "does not apply: one card"
+    emit(result)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available; this script needs an NVIDIA GPU",
@@ -4062,6 +4278,10 @@ def main() -> int:
     phase_train_parity(dev)
     with tempfile.TemporaryDirectory() as tmp:
         train = phase_train_full_width(dev, tmp)
+    t_dist = time.perf_counter()
+    dist = phase_dist_full_width(dev)
+    dist_parity = phase_dist_parity(dev)
+    emit({"phase": "dist_seconds", "seconds": time.perf_counter() - t_dist})
     from tpu3dlm_torch.ops.kernels.nn_variants import VARIANTS
 
     b4_rows = []
@@ -4118,6 +4338,14 @@ def main() -> int:
             "launches_on_int8_path": "int8_full_width: one forward of the int8 BEiT-base (bf16 activations) "
                                      f"on 384 crops, beside {int8['int8_gemms_per_forward']} int8 GEMMs",
             "launches_on_int8_step": int8["fused_step"]["b1_launches_int8_step"],
+            "launches_on_dist": {
+                "sharded_scan_step": dist["scan_step"]["b1_launches"],
+                "dp_beit_step": dist["dp_beit_step"]["b1_launches"],
+                "two_ranks_by_rank": dist_parity["gloo_two_ranks_one_card"]["b1_launches_by_rank"],
+            },
+            "launches_on_dist_path": "dist_full_width: the sharded scan step (bf16) and the data-parallel "
+                                     "BEiT-base f32 step in a 1-rank NCCL world; dist_parity: each of two "
+                                     "gloo ranks on one card, its scan step and finetune step run twice",
         },
         {
             # B1's other route: every f32 shape and the bf16 shapes past the
@@ -4176,6 +4404,13 @@ def main() -> int:
             "launches_on_train_verify": train["e2e"]["b2_launches_verify"],
             "launches_on_train_verify_path": "train_full_width: verify after e2e_accuracy --full-scale's "
                                              "training (the maintenance compare at 640²)",
+            "launches_on_dist": {
+                "target_sharded_nn": dist["target_sharded_nn"]["b2_launches"],
+                "two_ranks_by_rank": dist_parity["gloo_two_ranks_one_card"]["b2_launches_by_rank"],
+            },
+            "launches_on_dist_path": "dist_full_width: target_sharded_nn at 16384 x 1,048,576 in a 1-rank "
+                                     "NCCL world; dist_parity: each of two gloo ranks on one card, its "
+                                     "query-sharded compare and target-sharded NN run twice",
             "ms_by_shape": {f"{c['shape'][0]}x{c['shape'][1]}": {
                 "case": c["case"], **{k: c[k] for k in ("kernel_ms", "plain_ms", "bound_ms", "bound_by")}}
                 for c in b2["checks"] if "kernel_ms" in c},

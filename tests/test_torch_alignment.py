@@ -219,13 +219,30 @@ def test_index_for_engages_like_the_reference(monkeypatch):
     PA._ANN_INDEX_CACHE.clear()
 
 
-def test_unported_settings_raise():
+def test_unported_settings_raise(runs):
+    """Unknown ``ann`` and ``global_init`` raise. A mesh (A22) is ported: a
+    mesh larger than the world raises, and the scene's compare over a real
+    1-rank gloo world gives the compare without one (every ICP step equal;
+    tests/test_torch_parallel.py runs 2 ranks)."""
+    from tpu3dlm_torch.parallel.mesh import make_mesh
+
     with pytest.raises(ValueError, match="ann"):
         PA.Alignment(POSES, POSES, {}, {}, ann="nope", device="cpu")
-    with pytest.raises(NotImplementedError, match="A22"):
-        PA.Alignment(POSES, POSES, {}, {}, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="global_init"):
         PA.Alignment(POSES, POSES, {}, {}, global_init="nope", device="cpu")
+    with pytest.raises(ValueError, match="world"):
+        make_mesh(2, device="cpu")
+    base, comp, bb, cb, _ = runs["scene"]
+    mesh = make_mesh(1, device="cpu")
+    try:
+        pa = PA.Alignment(POSES, POSES, bb, cb, base_cloud=base, comparison_cloud=comp, mesh=mesh, **KW)
+        pa.compare("test")
+    finally:
+        mesh.close()
+    assert not torch.distributed.is_initialized()
+    np.testing.assert_array_equal(pa.final_transform, runs["pa"].final_transform)
+    steps_close(pa.transformations, runs["pa"].transformations, 0.0)
+    np.testing.assert_array_equal(pa.last_match["assign"], runs["pa"].last_match["assign"])
 
 
 def test_cuda_is_the_default_device():

@@ -839,3 +839,44 @@ def test_augmented_beit_step_on_card_matches_cpu(cuda_device):
         launched = beit_attention_packed.launches - before
     assert launched == cfg.num_layers
     assert abs(losses["gpu"] - losses["cpu"]) <= 1e-4 * abs(losses["cpu"])
+
+
+def _nn_on_one_rank(mesh, n: int, m: int) -> dict:
+    """Rank body of ``test_target_sharded_nn_on_two_gloo_ranks``."""
+    import numpy as np
+
+    from tpu3dlm_torch.parallel.mesh import shard_batch
+    from tpu3dlm_torch.parallel.nn import target_sharded_nn
+
+    rng = np.random.default_rng(5)
+    a = torch.as_tensor(rng.uniform(-2, 2, (n, 3)).astype(np.float32), device=mesh.device)
+    b = torch.as_tensor(rng.uniform(-2, 2, (m, 3)).astype(np.float32), device=mesh.device)
+    before = nearest_neighbors.launches
+    idx, d2 = target_sharded_nn(mesh)(a, shard_batch(b, mesh))
+    want_idx, want_d2 = nearest_neighbors(a, b)
+    return dict(same=bool(torch.equal(idx, want_idx) and torch.equal(d2, want_d2)),
+                launches=nearest_neighbors.launches - before)
+
+
+def test_target_sharded_nn_on_a_one_rank_nccl_world(cuda_device):
+    """``target_sharded_nn`` in a real 1-rank NCCL world on the card equals
+    B2 on the whole target (indices and d²); the world is torn down."""
+    from tpu3dlm_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(1, device=cuda_device, backend="nccl")
+    try:
+        got = _nn_on_one_rank(mesh, 4096, 1 << 18)
+    finally:
+        mesh.close()
+    assert got == {"same": True, "launches": 2}
+    assert not torch.distributed.is_initialized()
+
+
+def test_target_sharded_nn_on_two_gloo_ranks(cuda_device):
+    """Two spawned ranks sharing the card over gloo: each rank's
+    target-sharded result equals B2 on the whole target, and each launched
+    B2 (its shard, then the check)."""
+    from tpu3dlm_torch.parallel.mesh import spawn_world
+
+    ranks = spawn_world(_nn_on_one_rank, 2, device="cuda", backend="gloo", args=(3000, 40000))
+    assert ranks == [{"same": True, "launches": 2}] * 2

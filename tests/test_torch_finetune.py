@@ -35,6 +35,10 @@ STEPS = 3
 
 @pytest.fixture(scope="module")
 def setup():
+    return beit_finetune_setup()
+
+
+def beit_finetune_setup():
     """Seeded Flax weights in the shapes of the reference's init (taken by
     ``jax.eval_shape``, so nothing compiles), off every init value (a zero
     cls token would put LayerNorm at eps = 1e-12 and scale its gradient by
@@ -154,9 +158,14 @@ def test_three_steps_match_jax(setup):
 
 
 def test_step_refuses_what_is_not_ported(setup):
-    """A mesh (A22) raises, and so does the CUDA default without a card.
-    ``augment`` is ported (A19): the step augments on its given noise, or
-    draws it from its generator, and refuses to run with neither."""
+    """The CUDA default raises without a card. ``augment`` is ported (A19):
+    the step augments on its given noise, or draws it from its generator,
+    and refuses to run with neither. A mesh (A22) is ported: a step over a
+    real 1-rank gloo world runs and equals the step without one (the
+    collectives of one rank change nothing), while a mesh larger than the
+    world raises (tests/test_torch_parallel_train.py runs 2 ranks)."""
+    from tpu3dlm_torch.parallel.mesh import make_mesh
+
     port = beit_from_flax(setup[1])
     opt = init_finetune(port, device="cpu")
     crops, labels = setup[4], setup[5]
@@ -165,8 +174,19 @@ def test_step_refuses_what_is_not_ported(setup):
         step(crops, labels)
     seeded = make_beit_train_step(port, opt, augment={}, device="cpu", generator=torch.Generator().manual_seed(0))
     assert np.isfinite(float(seeded(crops, labels)))
-    with pytest.raises(NotImplementedError):
-        make_beit_train_step(port, opt, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="world"):
+        make_mesh(2, device="cpu")
+    plain, meshed = beit_from_flax(setup[1]), beit_from_flax(setup[1])
+    want = make_beit_train_step(plain, init_finetune(plain, device="cpu"), device="cpu")(crops, labels)
+    mesh = make_mesh(1, device="cpu")
+    try:
+        got = make_beit_train_step(meshed, init_finetune(meshed, device="cpu"), mesh=mesh)(crops, labels)
+    finally:
+        mesh.close()
+    assert not torch.distributed.is_initialized()
+    assert torch.equal(got, want)
+    for p, q in zip(meshed.parameters(), plain.parameters()):
+        assert torch.equal(p, q) and torch.equal(p.grad, q.grad)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             make_beit_train_step(port, opt)

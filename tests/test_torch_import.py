@@ -32,7 +32,8 @@ assert {"tpu3dlm_torch.data.scanpack", "tpu3dlm_torch.pipeline.watch", "tpu3dlm_
         "tpu3dlm_torch.utils.visualisation", "tpu3dlm_torch.utils.transformations", "tpu3dlm_torch.utils.annotate",
         "tpu3dlm_torch.alignment.visualise", "tpu3dlm_torch.scripts.alignment_envelope",
         "tpu3dlm_torch.models.yolo_loss", "tpu3dlm_torch.ops.augment",
-        "tpu3dlm_torch.scripts.e2e_accuracy"} <= set(mods), mods
+        "tpu3dlm_torch.scripts.e2e_accuracy", "tpu3dlm_torch.parallel.mesh", "tpu3dlm_torch.parallel.nn",
+        "tpu3dlm_torch.scripts.distributed_smoke"} <= set(mods), mods
 print(len(mods))
 """ % (FORBIDDEN,)
 
@@ -42,7 +43,7 @@ def test_port_imports_without_jax_or_tpu3dlm():
         [sys.executable, "-c", _PROBE], cwd=REPO, capture_output=True, text=True, timeout=120
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 73  # every module of the ten slices was imported
+    assert int(out.stdout.strip()) >= 77  # every module of the twelve slices was imported
 
 
 def test_cli_imports_none_of_the_forbidden_packages():

@@ -215,7 +215,11 @@ def test_cli_mode_logic(tmp_path, monkeypatch):
 def test_unported_settings_raise_before_work(tmp_path, line, item):
     """The settings the port cannot run raise before any work. The three
     views of a run (A18) are ported now: they no longer raise, and are not
-    listed by ``unsupported_settings``."""
+    listed by ``unsupported_settings``. So is ``mesh_devices > 1`` (A22):
+    it is not listed, and the Pipeline joins the running world of that many
+    ranks; with none running (a world smaller than asked) it raises
+    ``ValueError`` before any work. tests/test_torch_parallel_pipeline.py
+    runs it, through the CLI, on 2 ranks."""
     change = {"view_img = false": "view_img = true",
               "alignment_vis = false": "alignment_vis = true", "comparison_vis = false": "comparison_vis = true",
               "use_pallas = true": "use_pallas = false",
@@ -226,6 +230,13 @@ def test_unported_settings_raise_before_work(tmp_path, line, item):
     if item == "A18":
         assert PT.unsupported_settings(c) == [] and getattr(c, line.split()[0])
         PT.Pipeline("gold_std", c, device="cpu")
+        return
+    if item == "A22":
+        assert PT.unsupported_settings(c) == [] and c.mesh_devices == 2
+        with pytest.raises(ValueError, match="no world is running"):
+            PT.setup_pipeline("gold_std", c, None, device="cpu")
+        assert not os.path.exists(c.pickle_path) and not os.path.exists(c.depth_image_dir)
+        assert not torch.distributed.is_initialized()
         return
     with pytest.raises(NotImplementedError, match=item):
         PT.setup_pipeline("gold_std", c, None, device="cpu")

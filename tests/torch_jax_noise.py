@@ -78,13 +78,17 @@ def crop_noise(key, n: int, **kw) -> dict:
     return _stack(per)
 
 
-def yolo_step_noise(key, n_frames: int, augment: dict, sample_batch: int | None = None) -> dict:
-    """One ``make_yolo_train_step`` step's draws on a one-device mesh: the
-    key folded with shard 0, the sampled frames (``batch_idx``) when
-    ``sample_batch``, then the detection noise of the batch."""
-    key = jax.random.fold_in(key, 0)
+def yolo_step_noise(key, n_frames: int, augment: dict, sample_batch: int | None = None, rank: int = 0,
+                    n_dev: int = 1) -> dict:
+    """One ``make_yolo_train_step`` step's draws for shard ``rank`` of an
+    ``n_dev``-device mesh (``n_frames`` the shard's frames): the key folded
+    with the shard, the sampled frames (``batch_idx``, ``sample_batch //
+    n_dev`` of them) when ``sample_batch``, then the detection noise of the
+    batch."""
+    key = jax.random.fold_in(key, rank)
     out = {}
     if sample_batch is not None:
+        sample_batch = max(1, sample_batch // n_dev)
         ks, key = jax.random.split(key)
         idx = jax.random.choice(ks, n_frames, (sample_batch,), replace=False)
         out["batch_idx"] = torch.from_numpy(np.asarray(idx).astype(np.int64))
@@ -93,10 +97,10 @@ def yolo_step_noise(key, n_frames: int, augment: dict, sample_batch: int | None 
     return out
 
 
-def beit_step_noise(key, n_crops: int, augment: dict) -> dict:
-    """One ``make_beit_train_step(augment=...)`` step's draws on a
-    one-device mesh."""
-    return crop_noise(jax.random.fold_in(key, 0), n_crops, **augment)
+def beit_step_noise(key, n_crops: int, augment: dict, rank: int = 0) -> dict:
+    """One ``make_beit_train_step(augment=...)`` step's draws for shard
+    ``rank`` (``n_crops`` the shard's crops)."""
+    return crop_noise(jax.random.fold_in(key, rank), n_crops, **augment)
 
 
 def finetune_keys(seed: int, steps: int) -> list:

@@ -19,10 +19,19 @@ nearest-neighbour search in it is kernel B2. The gold side (normals,
 padded target, init subsample, moments) is cached across calls, keyed by
 the gold cloud's content.
 
-Not ported: the anchor-bucketed NN index (``ann`` settings that would build
-one raise, ROADMAP A14), the device mesh (``mesh`` raises, A22), and the
-reference's ``use_pallas`` switch, which put the plain NN on the
-accelerator: the port has no switch to a twin on its main path.
+With a ``mesh`` (``parallel/mesh.py``; every rank of the world calls
+``compare`` on the same inputs) the ICP query axis shards over the ranks,
+as the reference's ``_place_query`` shards it over its mesh: each stage's
+query and the init-scoring subsample are padded to a multiple of the world
+size by repeating their first rows (a repeated point only double-counts an
+existing constraint) and each rank takes its contiguous block; the target
+and its normals replicate. Every NN search stays B2 on the rank's own rows;
+every reduction is summed across the ranks (``ops/icp.py``), so all ranks
+hold the same transform. The box matching runs on rank 0 alone, which
+keeps ``last_match``. The gold and index caches key on the world.
+
+Not ported: the reference's ``use_pallas`` switch, which put the plain NN
+on the accelerator: the port has no switch to a twin on its main path.
 """
 
 from __future__ import annotations
@@ -49,6 +58,7 @@ from tpu3dlm_torch.ops.icp import (
 )
 from tpu3dlm_torch.ops.matching import auction_assign
 from tpu3dlm_torch.ops.pointcloud import estimate_normals_grid
+from tpu3dlm_torch.parallel.mesh import shard_batch
 from tpu3dlm_torch.utils.shapes import next_bucket
 
 # Gold-target cache: in serving every capture registers against the same
@@ -207,6 +217,7 @@ def _compare_program(
     global_init: str,
     dists: tuple,
     iterations: int,
+    mesh=None,
 ) -> dict:
     """The whole compare on the device, the reference's
     ``_fused_compare_program`` as one plain function. The tensors stay on
@@ -216,12 +227,14 @@ def _compare_program(
     init_use_pca — when global_init != "centroid"; match_assign,
     match_matched — when ``match`` is given. Non-final ICP stages skip
     their measurement sweep (the reference's compiler drops it as unused).
+    With a ``mesh`` the queries (``score_q`` and each stage's) are this
+    rank's rows and the solvers reduce across the ranks.
     """
     out = {}
     if global_init == "centroid":
         T = T_cands[0]
     else:
-        res = init_residuals_batched(score_q, score_t, T_cands)
+        res = init_residuals_batched(score_q, score_t, T_cands, mesh)
         if anchors is not None:
             res = res + _box_anchor_residuals(T_cands, *anchors)
         best = torch.argmin(res[1:])
@@ -242,6 +255,7 @@ def _compare_program(
             max_correspondence_dist=float(d),
             iterations=iterations,
             target_index=t_index,
+            mesh=mesh,
             _measure=si == len(stages) - 1,
         )
         if nj is not None:
@@ -292,7 +306,8 @@ class Alignment:
 
     The constructor takes the reference's arguments, without ``use_pallas``
     and with ``device`` (default "cuda"; raises without CUDA unless "cpu"
-    is passed)."""
+    is passed). ``mesh`` (a ``parallel.mesh.Mesh``) shards the ICP query
+    axis over its ranks, which then run on the mesh's device."""
 
     def __init__(
         self,
@@ -321,15 +336,12 @@ class Alignment:
         verdict_init_margin_min: float = 1.15,
         device: str | torch.device = "cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh: multi-GPU alignment is not ported yet (ROADMAP A22)"
-            )
         if global_init not in ("centroid", "pca", "auto"):
             raise ValueError(f"unknown global_init {global_init!r}")
         if ann not in ("auto", "on", "off"):
             raise ValueError(f"unknown ann {ann!r}")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.base_poses = _poses_to_array(base_pose_df)
         self.comparison_poses = _poses_to_array(comparison_pose_df)
         self.base_records = _boxes_to_records(base_bboxes)
@@ -452,6 +464,21 @@ class Alignment:
             return None
         return torch.as_tensor(np.ascontiguousarray(x, np.float32), device=self.device)
 
+    def _place_query(self, q: np.ndarray) -> torch.Tensor:
+        """Query rows on the device; with a mesh, padded to a multiple of
+        the world size by repeating the first rows, then this rank's
+        contiguous block."""
+        if self.mesh is not None:
+            extra = (-q.shape[0]) % self.mesh.size
+            if extra:
+                q = np.concatenate([q, q[:extra]])
+            q = shard_batch(q, self.mesh)
+        return self._place(q)
+
+    @property
+    def _world_key(self):
+        return str(self.device) if self.mesh is None else self.mesh.key
+
     def _gold_entry(self, base_s: np.ndarray, normals_wanted: bool) -> dict:
         """Fetch-or-build the gold-target state on the device:
           fp      — content fingerprint of the unpadded target
@@ -461,7 +488,7 @@ class Alignment:
           coarse  — ((points, normals), fp) of the coarse-stage target,
                     filled on first need"""
         fp = _target_fingerprint(base_s)
-        key = (fp, str(self.device), self.coarse_target_cap, normals_wanted)
+        key = (fp, self._world_key, self.coarse_target_cap, normals_wanted)
         with _CACHE_LOCK:
             entry = _GOLD_CACHE.get(key)
             if entry is not None:
@@ -515,7 +542,7 @@ class Alignment:
         c, b = default_index_shape(m)
         if c > m:
             return None
-        key = (fp, m, c, b, str(self.device))
+        key = (fp, m, c, b, self._world_key)
         with _CACHE_LOCK:
             index = _ANN_INDEX_CACHE.get(key)
             if index is not None:
@@ -562,7 +589,7 @@ class Alignment:
         T_cands, angles, init_pending = self._init_candidates(comp_s, base_s, gold)
         score_q = score_t = None
         if self.global_init != "centroid":
-            score_q = self._place(_subsample(comp_s, 2048))
+            score_q = self._place_query(_subsample(comp_s, 2048))
             score_t = gold["init_t"]
         box_arrays = None
         if self.base_records and self.comparison_records:
@@ -581,9 +608,9 @@ class Alignment:
         if use_coarse:
             (tj_c, nj_c), fp_c = self._gold_coarse(gold, base_s)
             q_c = _subsample(comp_s, min(self.coarse_query_cap, comp_s.shape[0]))
-            coarse = ((self._place(q_c), tj_c, nj_c), fp_c)
+            coarse = ((self._place_query(q_c), tj_c, nj_c), fp_c)
         tj_f, nj_f = gold["full"]
-        full = ((self._place(comp_s), tj_f, nj_f), gold["fp"])
+        full = ((self._place_query(comp_s), tj_f, nj_f), gold["fp"])
         indices: dict = {}  # id(stage target) → AnchorIndex | None
         stages = []
         for si in range(len(dists)):
@@ -593,7 +620,8 @@ class Alignment:
             stages.append((qj, tj, nj, indices[id(tj)]))
 
         match_args = None
-        if self.match_dist_threshold is not None and box_arrays is not None:
+        on_rank0 = self.mesh is None or self.mesh.rank == 0
+        if self.match_dist_threshold is not None and box_arrays is not None and on_rank0:
             match_args = (*box_arrays[0], *box_arrays[1], float(self.match_dist_threshold))
 
         out = _compare_program(
@@ -607,6 +635,7 @@ class Alignment:
             global_init=self.global_init,
             dists=dists,
             iterations=self.icp_iterations,
+            mesh=self.mesh,
         )
         host = _to_host(out)
 

@@ -22,6 +22,15 @@ README's Quick start), then runs as above:
 
     python -m tpu3dlm_torch.cli --data gold_std --setup
     python -m tpu3dlm_torch.cli --data maintenance --setup
+
+With ``mesh_devices = N > 1`` in the config the run is data parallel over
+N ranks (``parallel/mesh.py``). With no world running, the CLI starts the N
+ranks itself (spawned processes, one card each, NCCL; ``--dist-backend
+gloo`` lets them share a card) and each runs the same command; a rank that
+fails fails the run. Under ``torchrun --nproc-per-node N -m
+tpu3dlm_torch.cli ...`` it joins the world torchrun started. Rank 0 alone
+writes files. ``--watch`` runs in one process and needs ``mesh_devices =
+1``.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ from __future__ import annotations
 import argparse
 import logging
 import os
+import sys
 
 
 def main(argv=None):
@@ -55,27 +65,49 @@ def main(argv=None):
                         help="--watch: stop after N processed scans (default: run forever).")
     parser.add_argument("--watch-concurrency", type=int, default=1,
                         help="--watch: captures processed at once (gold_std always runs alone).")
+    parser.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
+                        help="mesh_devices > 1: the ranks' backend (default nccl on cuda, gloo on cpu; "
+                        "gloo lets several ranks share a card).")
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parser.parse_args(argv)
 
+    import torch.distributed as dist
+
     from tpu3dlm_torch.device import resolve_device
+    from tpu3dlm_torch.parallel.mesh import distributed_init, spawn_world
     from tpu3dlm_torch.pipeline.task import load_gold_std, setup_pipeline
     from tpu3dlm_torch.utils.config import ConfigLoader, write_default_config
 
     device = resolve_device(args.device)
+    rank0 = not dist.is_initialized() or dist.get_rank() == 0
     config_path = args.config or os.path.join("configs", "variables.cfg")
-    if not os.path.exists(config_path):
+    if not os.path.exists(config_path) and rank0:
         logging.info("No config at %s — writing defaults.", config_path)
         write_default_config(config_path)
+    _barrier()
 
     cfg = ConfigLoader(config_path, args.data)
     cfg_goldstd = ConfigLoader(config_path, "gold_std")
+
+    n = getattr(cfg, "mesh_devices", 1)
+    if n > 1 and args.watch:
+        raise ValueError("--watch runs in one process: set mesh_devices = 1")
+    if n > 1 and not dist.is_initialized():
+        if "WORLD_SIZE" in os.environ:  # torchrun's world
+            distributed_init("env://", device=device, backend=args.dist_backend)
+        else:
+            spawn_world(_rank_main, n, device=device, backend=args.dist_backend, args=(argv,))
+            return
+        rank0 = dist.get_rank() == 0
 
     if args.setup:
         from tpu3dlm_torch.data.synthetic import generate_scan
 
         data_root = os.path.dirname(os.path.dirname(cfg.pose_path))
-        logging.info("Generating synthetic scan under %s/%s", data_root, args.data)
-        generate_scan(data_root, args.data)
+        if rank0:
+            logging.info("Generating synthetic scan under %s/%s", data_root, args.data)
+            generate_scan(data_root, args.data)
+        _barrier()
 
     if args.watch:
         from tpu3dlm_torch.pipeline.watch import ScanWatcher
@@ -87,6 +119,8 @@ def main(argv=None):
     if args.data == "gold_std":
         setup_pipeline(args.data, cfg_goldstd, None, device=device)
         return
+    # every rank reaches this check together, and Pipeline.run returns only
+    # once rank 0's pickle is written, so the ranks take the same branches
     if not os.path.exists(cfg_goldstd.pickle_path):
         logging.info("Performing setup before maintenance check.")
         setup_pipeline("gold_std", cfg_goldstd, None, device=device)
@@ -107,6 +141,19 @@ def main(argv=None):
     logging.info("Fetched Gold-Std. Data.")
     logging.info("Executing maintenance check.")
     setup_pipeline(args.data, cfg, cfg_goldstd, goldstd_var=goldstd_var, device=device)
+
+
+def _barrier() -> None:
+    """Wait for the other ranks, inside a world."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.barrier()
+
+
+def _rank_main(mesh, argv: list) -> None:
+    """One rank of a world the CLI started: the same command, in the world."""
+    main(argv)
 
 
 if __name__ == "__main__":

@@ -15,6 +15,13 @@ Here the loop runs eagerly: after each iteration the host reads one scalar,
 whether the increment fell below ``early_stop_tol``, and from then on
 appends identity increments without sweeping. The tensors stay on the
 device of the inputs; only that flag crosses to the host.
+
+Query-sharded (``mesh``, a ``parallel.mesh.Mesh``): each rank passes its
+own rows of the source (the init scoring's queries likewise) and the whole
+target; every reduction over the source rows (the Kabsch means and
+covariance, the 6×6 normal equations, the measurement's sums, the init
+residuals) is the rank's local sum plus an ``all_reduce``, so every rank
+solves the same system and holds the same transform.
 """
 
 from __future__ import annotations
@@ -30,15 +37,23 @@ from tpu3dlm_torch.ops.geometry import so3_exp
 from tpu3dlm_torch.ops.kernels.pairwise import nearest_neighbors
 
 
-def kabsch(src: torch.Tensor, dst: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+def _total(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``x``, summed over the ranks when a mesh is given."""
+    return x if mesh is None else mesh.all_reduce(x)
+
+
+def kabsch(src: torch.Tensor, dst: torch.Tensor, weights: torch.Tensor, mesh=None) -> torch.Tensor:
     """Weighted rigid solve: the 4×4 T minimising Σ w‖T·src − dst‖², with
-    the reflection guard."""
-    w = weights / torch.clamp(weights.sum(), min=1e-12)
+    the reflection guard. With a ``mesh`` the rows are this rank's and the
+    sums run over every rank's."""
+    w = weights / torch.clamp(_total(weights.sum(), mesh), min=1e-12)
     mu_s = (src * w[:, None]).sum(0)
     mu_d = (dst * w[:, None]).sum(0)
+    if mesh is not None:
+        mu_s, mu_d = mesh.all_reduce(torch.stack([mu_s, mu_d]))
     sc = src - mu_s
     dc = dst - mu_d
-    H = (sc * w[:, None]).T @ dc  # (3, 3) covariance
+    H = _total((sc * w[:, None]).T @ dc, mesh)  # (3, 3) covariance
     U, _, Vh = torch.linalg.svd(H)
     det = torch.linalg.det(Vh.T @ U.T)
     D = torch.diag(torch.stack([torch.ones_like(det), torch.ones_like(det), det]))
@@ -110,6 +125,20 @@ def _init_T(init_transform, like: torch.Tensor) -> torch.Tensor:
     return init_transform.to(torch.float32)
 
 
+def _measurement(w: torch.Tensor, sq: torch.Tensor, mesh) -> tuple[torch.Tensor, torch.Tensor]:
+    """(rmse of the squared residuals ``sq`` over the inliers ``w`` — inf
+    when none — and the inlier fraction), over every rank's rows."""
+    if mesh is None:
+        sw, num, frac = w.sum(), (sq * w).sum(), w.mean()
+    else:
+        sw, num = mesh.all_reduce(torch.stack([w.sum(), (sq * w).sum()]))
+        frac = sw / (w.shape[0] * mesh.size)
+    rmse = torch.where(
+        sw > 0, torch.sqrt(num / torch.clamp(sw, min=1.0)), torch.full_like(sw, float("inf")),
+    )
+    return rmse, frac
+
+
 def icp(
     source: torch.Tensor,  # (N, 3) — cloud to move
     target: torch.Tensor,  # (M, 3) — fixed cloud
@@ -119,6 +148,7 @@ def icp(
     early_stop_tol: float = 1e-5,
     target_index: AnchorIndex | None = None,
     ann_top_p: int = 4,
+    mesh=None,
     *,
     _measure: bool = True,
 ) -> ICPResult:
@@ -129,6 +159,7 @@ def icp(
     0 disables. ``target_index``: an ``ops.ann.AnchorIndex`` over
     ``target``; the iterations then use the anchored search over the top
     ``ann_top_p`` buckets, and the measurement stays exact.
+    ``mesh``: ``source`` is this rank's rows (the module docstring).
     ``_measure=False`` skips the final measurement sweep (the compare
     program's non-final stages, whose rmse nobody reads)."""
     src0 = source.to(torch.float32)
@@ -140,17 +171,12 @@ def icp(
         moved = _moved(src0, T)
         idx, d2 = nn(moved, tgt)
         w = (d2 <= max_d2).to(torch.float32)
-        return kabsch(moved, tgt[idx], w)
+        return kabsch(moved, tgt[idx], w, mesh)
 
     def measure(T):
         _, d2 = nearest_neighbors(_moved(src0, T), tgt)
         w = (d2 <= max_d2).to(torch.float32)
-        sw = w.sum()
-        rmse = torch.where(
-            sw > 0, torch.sqrt((d2 * w).sum() / torch.clamp(sw, min=1.0)),
-            torch.full_like(sw, float("inf")),
-        )
-        return rmse, w.mean()
+        return _measurement(w, d2, mesh)
 
     return _run_icp_loop(
         live_inc, measure if _measure else None, _init_T(init_transform, src0), iterations,
@@ -170,6 +196,7 @@ def icp_point_to_plane(
     early_stop_tol: float = 1e-5,
     target_index: AnchorIndex | None = None,
     ann_top_p: int = 4,
+    mesh=None,
     *,
     _measure: bool = True,
 ) -> ICPResult:
@@ -180,8 +207,8 @@ def icp_point_to_plane(
     plane-parallel directions. Per iteration: NN correspondences (kernel
     B2), a damped 6×6 normal-equation solve over both residuals
     (``solve_ex``: no hidden host sync), increment exp(ω) and t composed
-    onto T. ``target_index``, ``ann_top_p`` and ``_measure`` as in ``icp``;
-    rmse is the plane residual's."""
+    onto T. ``target_index``, ``ann_top_p``, ``mesh`` and ``_measure`` as in
+    ``icp``; rmse is the plane residual's."""
     src0 = source.to(torch.float32)
     tgt = target.to(torch.float32)
     nrm = target_normals.to(torch.float32)
@@ -216,8 +243,14 @@ def icp_point_to_plane(
         ], dim=1)  # (N, 3, 3) = [p]×
         Jp = torch.cat([-skew, eye3.expand_as(skew)], dim=2)  # (N, 3, 6)
         Jpw = Jp * w[:, None, None]
-        H = H + point_weight * torch.einsum("nij,nik->jk", Jpw, Jp)
-        g = g + point_weight * torch.einsum("nij,ni->j", Jpw, e)
+        Hp = torch.einsum("nij,nik->jk", Jpw, Jp)
+        gp = torch.einsum("nij,ni->j", Jpw, e)
+        if mesh is not None:
+            # each term summed over the ranks, then combined as on one device
+            parts = mesh.all_reduce(torch.cat([H.reshape(-1), g, Hp.reshape(-1), gp]))
+            H, g, Hp, gp = parts[:36].view(6, 6), parts[36:42], parts[42:78].view(6, 6), parts[78:]
+        H = H + point_weight * Hp
+        g = g + point_weight * gp
 
         lam = damping * torch.trace(H) + 1e-12
         xi = torch.linalg.solve_ex(H + lam * eye6, -g).result
@@ -231,12 +264,7 @@ def icp_point_to_plane(
         idx, d2 = nearest_neighbors(moved, tgt)
         r = ((moved - tgt[idx]) * nrm[idx]).sum(-1)
         w = (d2 <= max_d2).to(torch.float32)
-        sw = w.sum()
-        rmse = torch.where(
-            sw > 0, torch.sqrt((r * r * w).sum() / torch.clamp(sw, min=1.0)),
-            torch.full_like(sw, float("inf")),
-        )
-        return rmse, w.mean()
+        return _measurement(w, r * r, mesh)
 
     return _run_icp_loop(
         live_inc, measure if _measure else None, _init_T(init_transform, src0), iterations,
@@ -248,18 +276,23 @@ def init_residuals_batched(
     source: torch.Tensor,  # (N, 3)
     target: torch.Tensor,  # (M, 3)
     Ts: torch.Tensor,  # (K, 4, 4) candidate inits
+    mesh=None,
 ) -> torch.Tensor:
     """(K,) clipped-mean NN distance of each T·source into target, in ONE
     NN sweep over the K·N stacked queries. The clip (5% of the target bbox
-    diagonal) bounds the non-overlapping tail of partial scans."""
+    diagonal) bounds the non-overlapping tail of partial scans. With a
+    ``mesh`` ``source`` is this rank's rows and the means run over every
+    rank's."""
     tgt = target.to(torch.float32)
     src = source.to(torch.float32)
     Ts = Ts.to(torch.float32)
     moved = src[None] @ Ts[:, :3, :3].transpose(1, 2) + Ts[:, None, :3, 3]  # (K, N, 3)
     _, d2 = nearest_neighbors(moved.reshape(-1, 3), tgt)
     diag = torch.linalg.vector_norm(tgt.max(0).values - tgt.min(0).values)
-    clipped = torch.minimum(torch.sqrt(d2), 0.05 * diag)
-    return clipped.reshape(Ts.shape[0], -1).mean(1)
+    clipped = torch.minimum(torch.sqrt(d2), 0.05 * diag).reshape(Ts.shape[0], -1)
+    if mesh is None:
+        return clipped.mean(1)
+    return mesh.all_reduce(clipped.sum(1)) / (clipped.shape[1] * mesh.size)
 
 
 # Host numpy, copied from the reference so the same seeds give the same

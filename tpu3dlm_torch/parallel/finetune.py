@@ -34,8 +34,20 @@ A schedule is the caller's: set each parameter group's ``lr`` before the
 step (``warmup_cosine_decay_schedule`` gives optax's values). As optax,
 ``torch.optim.AdamW`` scales the weight decay by that rate too.
 
-Not ported: data parallelism over a mesh (ROADMAP A22); ``mesh`` raises
-``NotImplementedError``.
+Data parallel over a ``mesh`` (``parallel/mesh.py``), the reference's
+``shard_map`` with ``pmean``: every rank builds the step over its own copy
+of the module, whose parameters and buffers are first broadcast from rank
+0, and passes the whole batch to each step; the step takes the rank's
+contiguous block of it, runs the forward and backward there, and averages
+the gradients and the loss over the ranks (a sum, then a division by the
+world size, as ``pmean``) before the update, so the ranks stay identical.
+The YOLO step averages the BatchNorm running statistics the same way: each
+rank's train-mode forward updates them with its own batch statistics, then
+they are averaged (the reference's ``pmean`` of the mutated
+``batch_stats``, not a synchronised BatchNorm). Noise is drawn per rank,
+as the reference folds the rank into its key: ``noise`` is this rank's
+draw for its own block of the batch, and ``sample_batch`` draws
+``sample_batch // world size`` of the rank's frames.
 """
 
 from __future__ import annotations
@@ -54,6 +66,7 @@ from tpu3dlm_torch.ops.augment import (
     draw_crop_noise,
     draw_detection_noise,
 )
+from tpu3dlm_torch.parallel.mesh import Mesh, replicate, shard_batch
 
 # optax.adamw's defaults besides the learning rate; its weight decay (1e-4)
 # is not torch's (1e-2), and optax decays every parameter (mask=None)
@@ -90,17 +103,33 @@ def beit_loss(beit: BeitClassifier, crops_u8: torch.Tensor, labels: torch.Tensor
     return F.cross_entropy(logits.float(), labels.long())
 
 
-def _step_device(module: torch.nn.Module, mesh, device) -> torch.device:
-    """The step's device, where ``module`` must already be."""
-    if mesh is not None:
-        raise NotImplementedError("data-parallel finetuning over a mesh is not ported yet (ROADMAP A22)")
-    dev = resolve_device(device)
+def _step_device(module: torch.nn.Module, mesh: Mesh | None, device) -> torch.device:
+    """The step's device (the mesh's on a mesh), where ``module`` must
+    already be; on a mesh, rank 0's parameters and buffers are broadcast."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
     devices = {p.device for p in module.parameters()}
     if len(devices) > 1:
-        raise NotImplementedError(f"parameters on {len(devices)} devices: one device only (ROADMAP A22)")
+        raise ValueError(f"parameters on {len(devices)} devices: a step runs on one device (a rank)")
     if devices != {dev}:
         raise ValueError(f"the module is on {devices.pop()}, the step on {dev}; move it first")
+    if mesh is not None:
+        replicate(module, mesh)
     return dev
+
+
+@torch.no_grad()
+def pmean_(mesh: Mesh, tensors: list) -> None:
+    """Each tensor (all of one dtype) replaced, in place, by its mean over
+    the ranks: one ``all_reduce`` of them all packed in one buffer, a
+    division by the world size, and one multi-tensor copy back."""
+    flat = mesh.all_reduce(torch.cat([t.reshape(-1) for t in tensors]))
+    flat /= mesh.size
+    parts = flat.split([t.numel() for t in tensors])
+    torch._foreach_copy_(tensors, [p.view_as(t) for p, t in zip(parts, tensors)])
+
+
+def _grads(module: torch.nn.Module) -> list:
+    return [p.grad for p in module.parameters() if p.grad is not None]
 
 
 def _generator(generator: torch.Generator | None) -> torch.Generator:
@@ -126,10 +155,16 @@ def make_beit_train_step(
     With ``augment`` (``ops/augment.py::augment_crop_batch``'s options,
     ``{}`` for its defaults) the crops are augmented on the device first,
     with ``noise`` (``draw_crop_noise``'s dict) or, when it is absent, noise
-    drawn from ``generator``."""
+    drawn from ``generator``.
+
+    On a ``mesh`` (data parallel, the module docstring) each step takes the
+    rank's block of the batch, whose length the world size must divide;
+    ``noise`` covers that block and the loss is the mean over the ranks."""
     dev = _step_device(beit, mesh, device)
 
     def train_step(crops_u8, labels, noise: dict | None = None) -> torch.Tensor:
+        if mesh is not None:
+            crops_u8, labels = shard_batch((crops_u8, labels), mesh)
         crops = as_device_tensor(crops_u8, dev)
         if crops.dtype != torch.uint8:
             raise ValueError(f"crops must be uint8, got {crops.dtype}")
@@ -140,8 +175,11 @@ def make_beit_train_step(
         optimizer.zero_grad(set_to_none=True)
         loss = beit_loss(beit, crops, as_device_tensor(labels, dev))
         loss.backward()
+        loss = loss.detach()
+        if mesh is not None:
+            pmean_(mesh, _grads(beit) + [loss])
         optimizer.step()
-        return loss.detach()
+        return loss
 
     return train_step
 
@@ -185,22 +223,33 @@ def make_yolo_train_step(
     dict) or noise drawn from ``generator``; ``sample_batch`` (needs
     ``augment``, as in the reference) trains each step on that many sampled
     frames. ``aux``, when given, receives the step's (augmented) images,
-    boxes and mask and each head's foreground mask."""
+    boxes and mask and each head's foreground mask.
+
+    On a ``mesh`` each step takes the rank's block of the frames (the world
+    size must divide their count), ``noise`` is the rank's draw for it
+    (``sample_batch // world size`` of its frames when sampling), and the
+    loss, the gradients and the BatchNorm running statistics are averaged
+    over the ranks."""
     if sample_batch is not None and augment is None:
         raise ValueError("sample_batch requires augment (the step needs a key)")
     from tpu3dlm_torch.models.yolo_loss import yolov10_loss
 
     dev = _step_device(yolo, mesh, device)
+    local_sample = sample_batch
+    if mesh is not None and sample_batch is not None:
+        local_sample = max(1, sample_batch // mesh.size)
 
     def train_step(images, gt_boxes, gt_labels, gt_mask, noise: dict | None = None,
                    aux: dict | None = None) -> torch.Tensor:
+        if mesh is not None:
+            images, gt_boxes, gt_labels, gt_mask = shard_batch((images, gt_boxes, gt_labels, gt_mask), mesh)
         images = as_device_tensor(images, dev, torch.float32)
         gt_boxes = as_device_tensor(gt_boxes, dev, torch.float32)
         gt_labels = as_device_tensor(gt_labels, dev)
         gt_mask = as_device_tensor(gt_mask, dev, torch.bool)
         if augment is not None:
             if noise is None:
-                noise = draw_yolo_step_noise(images.shape[0], _generator(generator), augment, sample_batch)
+                noise = draw_yolo_step_noise(images.shape[0], _generator(generator), augment, local_sample)
             if sample_batch is not None:
                 idx = noise["batch_idx"].to(dev, non_blocking=True)
                 images, gt_boxes, gt_labels, gt_mask = images[idx], gt_boxes[idx], gt_labels[idx], gt_mask[idx]
@@ -210,10 +259,13 @@ def make_yolo_train_step(
         optimizer.zero_grad(set_to_none=True)
         loss = yolov10_loss(yolo(images), gt_boxes, gt_labels, gt_mask, img_size, aux=aux)
         loss.backward()
+        loss = loss.detach()
+        if mesh is not None:  # the BatchNorm running statistics with the gradients
+            pmean_(mesh, _grads(yolo) + [loss] + [b for b in yolo.buffers() if b.is_floating_point()])
         optimizer.step()
         if aux is not None:
             aux.update(images=images, boxes=gt_boxes, mask=gt_mask)
-        return loss.detach()
+        return loss
 
     return train_step
 

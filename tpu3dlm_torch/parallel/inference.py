@@ -1,6 +1,6 @@
 """The fused scan step: detect → rectify → classify → project in one call
-(port of ``tpu3dlm/parallel/inference.py::full_scan_step_fn`` for one
-device; the mesh/``shard_map`` form is not ported yet).
+(port of ``tpu3dlm/parallel/inference.py``: ``full_scan_step_fn`` on one
+device, ``sharded_full_scan_step`` over a world of ranks).
 
 Stages, all on one device with no host round trip between them:
 YOLOv10 forward and NMS-free postprocess; boxes mapped back to original
@@ -9,6 +9,15 @@ top-``crop_budget`` boxes by confidence rectified to the classifier's input
 and classified by BEiT (attention through kernel B1); damage scattered back
 with -1 for unselected or below-threshold slots; boxes projected to world
 quads with the 16×16 sampled depth median.
+
+Sharded over a world (``mesh``), frames split contiguously over the ranks
+and each rank detects, rectifies and projects its own. The crop selection
+stays global: the ranks gather every candidate confidence, and the
+rank-major gather is the single-device flat index, so each rank takes the
+same top ``crop_budget`` and classifies (kernel B1) the selected crops in
+its own frames. A crop's logits do not depend on its batch, so the damage
+equals the single-device step's. The outputs are gathered to every rank
+in frame order.
 """
 
 from __future__ import annotations
@@ -21,6 +30,7 @@ from tpu3dlm_torch.mapper.projection import project_boxes
 from tpu3dlm_torch.models.beit import BeitClassifier, preprocess_crops
 from tpu3dlm_torch.models.yolov10 import YOLOv10, postprocess, topk_stable
 from tpu3dlm_torch.ops.image import rectify_crops
+from tpu3dlm_torch.parallel.mesh import Mesh, shard_batch
 
 
 def detect(yolo: YOLOv10, x: torch.Tensor, img_size: int, max_det: int) -> dict:
@@ -67,21 +77,30 @@ def classify_top_crops(
     mask: torch.Tensor,  # (F, D) conf ≥ thresh
     conf_thresh: float,
     crop_budget: int,
+    mesh: Mesh | None = None,
 ) -> torch.Tensor:
     """Classify the global top-``crop_budget`` boxes by confidence →
-    (F, D) int32 damage, -1 where not selected or below threshold."""
+    (F, D) int32 damage, -1 where not selected or below threshold. With a
+    ``mesh`` the inputs are this rank's frames and the top k is taken over
+    every rank's boxes; this rank classifies the selected ones among its
+    own (possibly none)."""
     F, D = conf.shape
     size = beit.cfg.image_size
-    k = min(crop_budget, F * D)
     flat_conf = torch.where(mask, conf, torch.full_like(conf, -1.0)).reshape(F * D)
-    top_conf, top_idx = topk_stable(flat_conf, k)
-    sel_boxes = boxes_rect.reshape(F * D, 4)[top_idx]
-    crops = rectify_crops(x[top_idx // D], sel_boxes, (size, size))
-    sel = (crops * 255.0).to(torch.uint8)  # the reference's u8 round trip
-    ids = beit(preprocess_crops(sel)).argmax(dim=-1).to(torch.int32)
-    minus1 = torch.full_like(ids, -1)
+    if mesh is not None:
+        flat_conf = mesh.all_gather(flat_conf)  # rank-major: the single-device flat index
+    top_conf, top_idx = topk_stable(flat_conf, min(crop_budget, flat_conf.shape[0]))
+    if mesh is not None:
+        top_idx = top_idx - mesh.rank * F * D
+        mine = (top_idx >= 0) & (top_idx < F * D)
+        top_conf, top_idx = top_conf[mine], top_idx[mine]
     damage = torch.full((F * D,), -1, dtype=torch.int32, device=conf.device)
-    damage[top_idx] = torch.where(top_conf >= conf_thresh, ids, minus1)
+    if top_idx.numel():
+        sel_boxes = boxes_rect.reshape(F * D, 4)[top_idx]
+        crops = rectify_crops(x[top_idx // D], sel_boxes, (size, size))
+        sel = (crops * 255.0).to(torch.uint8)  # the reference's u8 round trip
+        ids = beit(preprocess_crops(sel)).argmax(dim=-1).to(torch.int32)
+        damage[top_idx] = torch.where(top_conf >= conf_thresh, ids, torch.full_like(ids, -1))
     return damage.reshape(F, D)
 
 
@@ -100,12 +119,15 @@ def full_scan_step(
     conf_thresh: float,
     crop_budget: int = 128,
     device: str | torch.device = "cuda",
+    mesh: Mesh | None = None,
 ) -> dict[str, torch.Tensor]:
     """One fused step over a frame batch on ``device``. Inputs may be numpy
     (uploaded) or tensors already on ``device``; both models must live
     there. Returns device tensors: boxes (F, D, 4) original pixels, conf,
     label, damage, mask (box valid AND valid median depth), corners
-    (F, D, 4, 3) world metres."""
+    (F, D, 4, 3) world metres. With a ``mesh`` the inputs are this rank's
+    frames (the same count on every rank) and the outputs every rank's, in
+    rank order (``sharded_full_scan_step`` shards a whole batch)."""
     dev = resolve_device(device)
     for name, m in (("yolo", yolo), ("beit", beit)):
         if module_device(m) != dev:
@@ -123,11 +145,11 @@ def full_scan_step(
     det = detect(yolo, x, img_size, max_det)
     mask = det["conf"] >= conf_thresh
     boxes_px, boxes_rect = boxes_to_original(det["boxes"], box_affine, rgb_size)
-    damage = classify_top_crops(beit, x, boxes_rect, det["conf"], mask, conf_thresh, crop_budget)
+    damage = classify_top_crops(beit, x, boxes_rect, det["conf"], mask, conf_thresh, crop_budget, mesh)
     corners, valid = project_boxes(
         boxes_px, mask, depth, intrinsics, rgb_size, poses, median_samples=16
     )
-    return {
+    out = {
         "boxes": boxes_px,
         "conf": det["conf"],
         "label": det["label"],
@@ -135,6 +157,30 @@ def full_scan_step(
         "mask": valid,
         "corners": corners,
     }
+    if mesh is not None:
+        out = {k: mesh.all_gather(v) for k, v in out.items()}
+    return out
+
+
+def sharded_full_scan_step(
+    mesh: Mesh,
+    yolo: YOLOv10,
+    beit: BeitClassifier,
+    rgb_u8, depth, intrinsics, rgb_size, poses, box_affine,
+    img_size: int,
+    max_det: int = 32,
+    conf_thresh: float = 0.25,
+    crop_budget: int = 128,
+) -> dict[str, torch.Tensor]:
+    """``full_scan_step`` with the frame axis sharded over the world: every
+    rank passes the whole batch (numpy or tensors on its device; the world
+    size must divide the frame count, ``parallel.mesh.pad_to_devices``
+    pads), uploads only its contiguous block of frames, runs the step on
+    it with the models on ``mesh.device``, and gets every frame's outputs
+    on its device, equal to the single-device step's."""
+    local = shard_batch((rgb_u8, depth, intrinsics, rgb_size, poses, box_affine), mesh)
+    return full_scan_step(yolo, beit, *local, img_size=img_size, max_det=max_det, conf_thresh=conf_thresh,
+                          crop_budget=crop_budget, device=mesh.device, mesh=mesh)
 
 
 def square_box_affine(rgb_size, img_size: int) -> np.ndarray:

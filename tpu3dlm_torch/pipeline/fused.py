@@ -6,8 +6,15 @@ axis to a bucket with inert frames exactly as the reference does, runs
 ``parallel.inference.full_scan_step`` on the whole scan and returns host
 records trimmed to the real frames. ``run_stream`` runs the same step over
 a stream of fixed-shape chunks (``data.dataset.iter_scan_chunks``) with at
-most ``max_inflight`` chunks on the device. Not ported yet:
-``mesh_devices > 1`` (raises ``NotImplementedError``, ROADMAP A22).
+most ``max_inflight`` chunks on the device.
+
+With ``mesh_devices = n > 1`` the runner joins the running world of n
+ranks (``parallel/mesh.py::make_mesh``; each rank builds its own runner
+over the same scan) and its models are broadcast from rank 0. Each call
+pads the frames with inert zero frames to a multiple of n
+(``pad_to_devices``), runs ``parallel.inference.sharded_full_scan_step``
+(each rank its block of frames, the crop selection global) and trims
+the padding in ``_finalize``; every rank gets every frame's records.
 """
 
 from __future__ import annotations
@@ -24,7 +31,8 @@ from tpu3dlm_torch.mapper.projection import GlobalBoxes
 from tpu3dlm_torch.models.beit import BeitClassifier, BeitConfig, seeded_beit
 from tpu3dlm_torch.models.layers import init_seeded_
 from tpu3dlm_torch.models.yolov10 import YOLOv10
-from tpu3dlm_torch.parallel.inference import full_scan_step, square_box_affine
+from tpu3dlm_torch.parallel.inference import full_scan_step, sharded_full_scan_step, square_box_affine
+from tpu3dlm_torch.parallel.mesh import make_mesh, pad_to_devices, replicate
 from tpu3dlm_torch.utils.shapes import next_bucket, pad_axis0, pad_poses
 
 
@@ -53,7 +61,8 @@ def _pad_scan_frames(scan: Scan) -> Scan:
 
 
 class FusedScanRunner:
-    """Whole-scan fused inference on one device.
+    """Whole-scan fused inference on one device, or sharded over the world
+    of ``mesh_devices`` ranks (each on its own device of ``device``'s type).
 
     ``yolo`` / ``beit`` are port modules (e.g. from ``models.weights.
     yolov10_from_flax``); when absent they are built from ``rng_seed`` with
@@ -77,9 +86,8 @@ class FusedScanRunner:
         crop_budget: int = 128,
         device: str | torch.device = "cuda",
     ):
-        if mesh_devices != 1:
-            raise NotImplementedError("multi-GPU fused inference is not ported yet (ROADMAP A22)")
-        self.device = resolve_device(device)
+        self.mesh = make_mesh(mesh_devices, device=device) if mesh_devices > 1 else None
+        self.device = self.mesh.device if self.mesh is not None else resolve_device(device)
         self.img_size = img_size
         self.conf_thresh = conf_thresh
         self.max_det = max_det
@@ -90,6 +98,9 @@ class FusedScanRunner:
             beit = seeded_beit(beit_config, torch.Generator().manual_seed(rng_seed + 1))
         self.yolo = yolo.to(self.device, dtype).to(memory_format=torch.channels_last).eval()
         self.beit = beit.to(self.device, dtype).eval()
+        if self.mesh is not None:
+            replicate(self.yolo, self.mesh)
+            replicate(self.beit, self.mesh)
 
     def _dispatch(self, scan: Scan) -> dict[str, torch.Tensor]:
         """Run the fused step on one scan; returns device tensors."""
@@ -98,14 +109,18 @@ class FusedScanRunner:
             affine = np.stack([lb[:, 0], lb[:, 0], lb[:, 1], lb[:, 2]], axis=-1)
         else:
             affine = square_box_affine(scan.rgb_size, self.img_size)
-        return full_scan_step(
-            self.yolo, self.beit,
+        args = (
             np.asarray(scan.rgb), np.asarray(scan.depth, np.float32),
             np.asarray(scan.intrinsics, np.float32), np.asarray(scan.rgb_size, np.float32),
             np.asarray(scan.poses, np.float32), affine,
-            img_size=self.img_size, max_det=self.max_det, conf_thresh=self.conf_thresh,
-            crop_budget=self.crop_budget, device=self.device,
         )
+        kw = dict(img_size=self.img_size, max_det=self.max_det, conf_thresh=self.conf_thresh,
+                  crop_budget=self.crop_budget)
+        if self.mesh is not None:
+            # zero frames are inert (no box clears conf_thresh); _finalize trims them
+            args, _ = pad_to_devices(args, self.mesh)
+            return sharded_full_scan_step(self.mesh, self.yolo, self.beit, *args, **kw)
+        return full_scan_step(self.yolo, self.beit, *args, device=self.device, **kw)
 
     def _finalize(self, out: dict, n_frames: int) -> tuple[Detections, GlobalBoxes]:
         """Device outputs → host records of the first ``n_frames`` frames."""

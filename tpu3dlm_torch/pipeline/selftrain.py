@@ -10,8 +10,14 @@ Pipeline loads through ``yolo_weights`` / ``beit_weights``.
 Training starts from the reference's initialisation
 (``models.layers.init_like_flax_``, drawn from ``seed``) or from given Flax
 variables (``init``); the augmentation noise of step i is drawn from a
-generator seeded ``seed + 1``, or taken from ``noise[i]``. On one device
-the reference's mesh padding is the identity.
+generator seeded ``seed + 1`` (per rank on a mesh: ``rank_seed``), or taken
+from ``noise[i]`` (this rank's draw).
+
+With a ``mesh`` (``parallel/mesh.py``; every rank calls with the same
+arrays) training is data parallel as the reference's: frames pad with
+zeros (empty ground truth, pure background) and crops by cycling the real
+ones to a multiple of the world size, each rank trains on its block with
+the gradients averaged, and rank 0 alone writes the checkpoints.
 
 Usage (CLI):
     python -m tpu3dlm_torch.pipeline.selftrain --data-dir <scan folder> \\
@@ -148,6 +154,13 @@ def _noise_at(noise, i: int):
     return None if noise is None else noise[i]
 
 
+def rank_seed(seed: int, mesh) -> int:
+    """The seed of a rank's noise generator: ``seed + 1`` on one device;
+    on a mesh each rank draws its own stream, as the reference folds the
+    rank into its key."""
+    return seed + 1 if mesh is None else (seed + 1) * 1_000_003 + mesh.rank
+
+
 def finetune_yolo(
     images_u8: np.ndarray,
     gt_boxes: np.ndarray,
@@ -186,7 +199,8 @@ def finetune_yolo(
 
     ``init`` (Flax variables) replaces the seeded initialisation; ``noise``
     (a sequence of ``draw_yolo_step_noise`` dicts, one per step) replaces
-    the seeded draws."""
+    the seeded draws. With a ``mesh`` (data parallel) the frames pad to a
+    multiple of the world size and the model lives on the mesh's device."""
     from tpu3dlm_torch.device import resolve_device
     from tpu3dlm_torch.models.layers import init_like_flax_
     from tpu3dlm_torch.models.weights import yolov10_from_flax
@@ -198,16 +212,15 @@ def finetune_yolo(
         warmup_cosine_decay_schedule,
     )
 
-    if mesh is not None:
-        raise NotImplementedError("data-parallel finetuning over a mesh is not ported yet (ROADMAP A22)")
     if schedule not in ("const", "cosine"):
         raise ValueError(f"unknown schedule {schedule!r} (const|cosine)")
     aug_kw = _augment_kwargs(augment)
     if noise is not None and aug_kw is None:
         raise ValueError("noise is given but augmentation is off")
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     images_u8, gt_boxes, gt_labels, gt_mask = _pad_batch(
-        [np.asarray(images_u8), np.asarray(gt_boxes), np.asarray(gt_labels), np.asarray(gt_mask)], 1)
+        [np.asarray(images_u8), np.asarray(gt_boxes), np.asarray(gt_labels), np.asarray(gt_mask)],
+        1 if mesh is None else mesh.size)
 
     if init is None:
         yolo = init_like_flax_(YOLOv10(nc=nc, variant=variant), torch.Generator().manual_seed(seed))
@@ -219,8 +232,8 @@ def finetune_yolo(
     if schedule == "cosine":
         sched = warmup_cosine_decay_schedule(0.0, lr, max(int(steps * warmup_frac), 1), max(steps, 2),
                                              lr * 0.05)
-    step = make_yolo_train_step(yolo, opt, None, img_size, augment=aug_kw, sample_batch=sample_batch,
-                                device=dev, generator=torch.Generator().manual_seed(seed + 1))
+    step = make_yolo_train_step(yolo, opt, mesh, img_size, augment=aug_kw, sample_batch=sample_batch,
+                                device=dev, generator=torch.Generator().manual_seed(rank_seed(seed, mesh)))
 
     imgs = torch.from_numpy(images_u8.astype(np.float32) / 255.0).to(dev)
     gb, gl, gm = (torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (gt_boxes, gt_labels, gt_mask))
@@ -271,15 +284,14 @@ def finetune_beit(
     """Finetune the BEiT damage classifier on labelled crops → the trained
     ``BeitClassifier`` (eval mode, on ``device``). ``augment`` (``True`` or
     ``augment_crop_batch``'s options) augments each step's crops on the
-    device. ``init`` and ``noise`` as ``finetune_yolo``'s (``noise[i]``: a
-    ``draw_crop_noise`` dict)."""
+    device. ``init``, ``noise`` and ``mesh`` as ``finetune_yolo``'s
+    (``noise[i]``: a ``draw_crop_noise`` dict); on a mesh the crops pad by
+    cycling."""
     from tpu3dlm_torch.models.beit import BeitClassifier
     from tpu3dlm_torch.models.layers import init_like_flax_
     from tpu3dlm_torch.models.weights import beit_from_flax
     from tpu3dlm_torch.parallel.finetune import init_finetune, make_beit_train_step
 
-    if mesh is not None:
-        raise NotImplementedError("data-parallel finetuning over a mesh is not ported yet (ROADMAP A22)")
     if len(labels) == 0:
         # an empty batch makes the mean loss NaN and would write a NaN
         # checkpoint: fail loudly instead
@@ -287,7 +299,7 @@ def finetune_beit(
     aug_kw = _augment_kwargs(augment)
     if noise is not None and aug_kw is None:
         raise ValueError("noise is given but augmentation is off")
-    n_dev = 1
+    n_dev = 1 if mesh is None else mesh.size
     # pad by cycling the real crops up to a device multiple, as the
     # reference (keeps every padded slot on-distribution)
     idx = np.arange(-(-max(len(labels), n_dev) // n_dev) * n_dev) % len(labels)
@@ -299,9 +311,9 @@ def finetune_beit(
     else:
         beit = beit_from_flax(init, config)
     beit.train()
-    opt = init_finetune(beit, lr=lr, device=device)
-    step = make_beit_train_step(beit, opt, augment=aug_kw, device=device,
-                                generator=torch.Generator().manual_seed(seed + 1))
+    opt = init_finetune(beit, lr=lr, device=device if mesh is None else mesh.device)
+    step = make_beit_train_step(beit, opt, mesh, augment=aug_kw, device=device,
+                                generator=torch.Generator().manual_seed(rank_seed(seed, mesh)))
     dev = next(beit.parameters()).device
     c = torch.from_numpy(np.ascontiguousarray(crops_u8)).to(dev)
     y = torch.from_numpy(np.ascontiguousarray(labels)).to(dev)
@@ -327,9 +339,10 @@ def finetune_synthetic(
     resize_mode: str = "square",
     device="cuda",
 ) -> tuple[str, str]:
-    """Train both models from a scan folder's ``gt.json`` on ``device``;
-    write Flax msgpack checkpoints (``yolo.msgpack``, ``beit.msgpack``) into
-    ``out_dir``. Returns their paths."""
+    """Train both models from a scan folder's ``gt.json`` on ``device``
+    (data parallel over a ``mesh``); write Flax msgpack checkpoints
+    (``yolo.msgpack``, ``beit.msgpack``) into ``out_dir``, on rank 0 alone
+    under a mesh. Returns their paths."""
     from tpu3dlm_torch.data.dataset import load_scan
     from tpu3dlm_torch.data.synthetic import load_scene_gt
     from tpu3dlm_torch.models.beit import BeitConfig
@@ -355,12 +368,15 @@ def finetune_synthetic(
                                      device=device)
     beit = finetune_beit(crops, dmg, beit_config, steps=beit_steps, lr=beit_lr, mesh=mesh, device=device)
 
-    os.makedirs(out_dir, exist_ok=True)
     yolo_path = os.path.join(out_dir, "yolo.msgpack")
     beit_path = os.path.join(out_dir, "beit.msgpack")
-    write_flax_msgpack(yolo_path, yolov10_to_flax(yolo))
-    write_flax_msgpack(beit_path, beit_to_flax(beit))
-    logger.info("checkpoints written: %s %s", yolo_path, beit_path)
+    if mesh is None or mesh.rank == 0:
+        os.makedirs(out_dir, exist_ok=True)
+        write_flax_msgpack(yolo_path, yolov10_to_flax(yolo))
+        write_flax_msgpack(beit_path, beit_to_flax(beit))
+        logger.info("checkpoints written: %s %s", yolo_path, beit_path)
+    if mesh is not None:
+        mesh.barrier()  # the files exist on every rank's return
     return yolo_path, beit_path
 
 

@@ -44,9 +44,18 @@ beside the report (``alignment/visualise.py``). ``comparison_vis`` goes to
 ``BBoxComparison`` and changes nothing, as in the reference. None of them
 changes the report.
 
-Settings the port cannot honour yet raise ``NotImplementedError`` naming
-their ROADMAP item before any work: ``mesh_devices > 1`` (A22) and
-``use_pallas = false`` (the port has no plain path on the card).
+``mesh_devices = n > 1`` runs the Pipeline on every rank of a running
+world of n ranks (``parallel/mesh.py``; ``python -m tpu3dlm_torch.cli``
+starts them): every rank reads the capture (rank 0 first extracts the
+database and writes the scanpack), the fused route shards its frames
+(``FusedScanRunner(mesh_devices=n)``), the staged route ignores the mesh
+for detection as the reference does, and the compare shards its ICP
+queries (``Alignment(mesh=...)``). Rank 0 alone writes the pickle, the
+CSV, the map and the views; ``run`` returns on every rank once they are
+written. Without a world of n ranks the Pipeline raises ``ValueError``.
+
+Settings the port cannot honour yet raise ``NotImplementedError`` before
+any work: ``use_pallas = false`` (the port has no plain path on the card).
 ``icp_ann`` goes to ``Alignment`` as is.
 """
 
@@ -74,6 +83,7 @@ from tpu3dlm_torch.mapper.projection import project_detections
 from tpu3dlm_torch.models.beit import BeitClassifier, BeitConfig, quantize_beit, seeded_beit
 from tpu3dlm_torch.models.layers import init_seeded_
 from tpu3dlm_torch.models.yolov10 import YOLOv10
+from tpu3dlm_torch.parallel.mesh import make_mesh
 
 _WEIGHTS: dict = {}
 _WEIGHTS_LOCK = threading.Lock()
@@ -91,13 +101,11 @@ def _cached_weights(key, builder):
 
 
 def unsupported_settings(cfg) -> list[str]:
-    """Each setting of ``cfg`` the port cannot run yet, with its ROADMAP item."""
+    """Each setting of ``cfg`` the port cannot run yet, and why."""
     out = []
     if not getattr(cfg, "use_pallas", True):
         out.append("use_pallas = false: the port has no switch that runs plain PyTorch in place "
                    "of its kernels on the card")
-    if getattr(cfg, "mesh_devices", 1) > 1:
-        out.append("mesh_devices > 1: multi-GPU runs are not ported yet (ROADMAP A22)")
     return out
 
 
@@ -107,7 +115,9 @@ class Pipeline:
         problems = unsupported_settings(cfg)
         if problems:
             raise NotImplementedError("; ".join(problems))
-        self.device = resolve_device(device)
+        n = getattr(cfg, "mesh_devices", 1)
+        self.mesh = make_mesh(n, device=device) if n > 1 else None
+        self.device = self.mesh.device if self.mesh is not None else resolve_device(device)
         self.cfg = cfg
         self.cfg_goldstd = cfg_goldstd
         self.data_folder = data_folder
@@ -120,6 +130,20 @@ class Pipeline:
     @property
     def dtype(self) -> torch.dtype:
         return torch.bfloat16 if getattr(self.cfg, "infer_dtype", "bf16") == "bf16" else torch.float32
+
+    @property
+    def _rank0(self) -> bool:
+        """Whether this process writes the run's files (always on one device)."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _rank0_first(self, fn):
+        """``fn()`` on rank 0, then on the other ranks once it has finished
+        (what it writes, the others then read)."""
+        if self.mesh is None:
+            return fn()
+        out = fn() if self._rank0 else None
+        self.mesh.barrier()
+        return out if self._rank0 else fn()
 
     def _labels(self) -> list[str]:
         return getattr(self.cfg, "damage_labels", "undamaged,damaged").split(",")
@@ -179,17 +203,18 @@ class Pipeline:
             "stage_times": dict(self.stage_times),
         }
         try:
-            os.makedirs(os.path.dirname(self.cfg.pickle_path) or ".", exist_ok=True)
-            # atomic write: a crash mid-dump must not leave a truncated pickle
-            tmp = self.cfg.pickle_path + f".tmp{os.getpid()}"
-            with open(tmp, "wb") as f:
-                pickle.dump(self.data_to_save, f)
-            os.replace(tmp, self.cfg.pickle_path)
-            self.logger.info("Variables stored to pickle file.")
+            if self._rank0:
+                os.makedirs(os.path.dirname(self.cfg.pickle_path) or ".", exist_ok=True)
+                # atomic write: a crash mid-dump must not leave a truncated pickle
+                tmp = self.cfg.pickle_path + f".tmp{os.getpid()}"
+                with open(tmp, "wb") as f:
+                    pickle.dump(self.data_to_save, f)
+                os.replace(tmp, self.cfg.pickle_path)
+                self.logger.info("Variables stored to pickle file.")
         except Exception as e:
             self.logger.info(f"Failed to write to file: {e}")
 
-        if self.cfg.visualise:
+        if self.cfg.visualise and self._rank0:
             if use_stream:
                 self.logger.warning(
                     "visualise skipped: streaming ingestion keeps no frames in memory "
@@ -204,6 +229,8 @@ class Pipeline:
                 self.data_to_save["optimised_bboxes"],
             )
 
+        if self.mesh is not None:
+            self.mesh.barrier()  # rank 0's files are written when run returns
         frames = scan.num_frames
         core = self.stage_times.get("detect", 0) + self.stage_times.get("map", 0)
         if core > 0:
@@ -221,8 +248,13 @@ class Pipeline:
 
     def _extract_images(self) -> Scan:
         self.logger.info("Extracting frames...")
+        scan = self._rank0_first(self._load_scan)
+        self.logger.info("Frames extracted.")
+        return scan
+
+    def _load_scan(self) -> Scan:
         self._fetch_from_db()
-        scan = load_scan(
+        return load_scan(
             image_dir=self.cfg.image_dir,
             depth_image_dir=self.cfg.depth_image_dir,
             calibration_dir=self.cfg.calibration_dir,
@@ -233,15 +265,13 @@ class Pipeline:
             cache=getattr(self.cfg, "scan_cache", False),
             workers=getattr(self.cfg, "decode_workers", 0),
         )
-        self.logger.info("Frames extracted.")
-        return scan
 
     def _extract_light(self) -> Scan:
         """Streaming extract: the database to files as usual, but only the
         poses and the frame count come into memory; the frames stay on disk
         for ``iter_scan_chunks`` to decode chunk by chunk."""
         self.logger.info("Extracting frames (streaming mode)...")
-        self._fetch_from_db()
+        self._rank0_first(self._fetch_from_db)
         pairs = _pair_filenames(self.cfg.image_dir, self.cfg.depth_image_dir)
         ts, poses = load_poses(self.cfg.pose_path)
         pairs, pose_rows = _pose_rows_for_pairs(pairs, poses.shape[0])
@@ -272,7 +302,8 @@ class Pipeline:
             img_size=self.cfg.img_size,
             depth_width=self.cfg.depth_width,
             depth_height=self.cfg.depth_height,
-            cache=getattr(self.cfg, "scan_cache", False),
+            # the stream writes its scanpack as it goes: rank 0 alone does
+            cache=getattr(self.cfg, "scan_cache", False) and self._rank0,
             workers=getattr(self.cfg, "decode_workers", 0),
         )
         return self._make_fused_runner().run_stream(chunks)
@@ -284,7 +315,7 @@ class Pipeline:
         from tpu3dlm_torch.pipeline.detector import ObjectDetector
 
         self.logger.info("Detecting Signs...")
-        save_img = self.cfg.processing_path if getattr(self.cfg, "view_img", False) else None
+        save_img = self.cfg.processing_path if getattr(self.cfg, "view_img", False) and self._rank0 else None
         if save_img:
             os.makedirs(save_img, exist_ok=True)
         detector = ObjectDetector(
@@ -398,12 +429,14 @@ class Pipeline:
             self.logger.warning("cloud load failed (%s); aligning on poses+boxes", e)
 
         align = make_alignment(self.cfg, self.goldstd_var, pose_df, optimised_bboxes, base_cloud, comp_cloud,
-                               self.device)
+                               self.device, self.mesh)
         aligned_bboxes, transformations, base_map, _ = align.compare(self.data_folder)
         self.data_to_save["transformations"] = transformations
         self.data_to_save["aligned_bboxes"] = aligned_bboxes
         verdict = align.last_verdict.to_dict() if align.last_verdict else None
         self.data_to_save["alignment_verdict"] = verdict
+        if not self._rank0:
+            return  # the report and the animation are rank 0's
 
         compare = BBoxComparison(
             self.goldstd_var["optimised_bboxes"],
@@ -507,9 +540,10 @@ class Pipeline:
 
 
 def make_alignment(cfg, gold_var: dict, pose_df, optimised_bboxes, base_cloud, comp_cloud,
-                   device: str | torch.device = "cuda") -> Alignment:
+                   device: str | torch.device = "cuda", mesh=None) -> Alignment:
     """The maintenance scan's ``Alignment`` onto the gold scan's record, with
-    the config's registration settings."""
+    the config's registration settings (its ICP queries sharded over
+    ``mesh`` when given)."""
     return Alignment(
         base_pose_df=gold_var["pose_df"],
         comparison_pose_df=pose_df,
@@ -524,6 +558,7 @@ def make_alignment(cfg, gold_var: dict, pose_df, optimised_bboxes, base_cloud, c
         ann=getattr(cfg, "icp_ann", "auto"),
         verdict_inlier_floor=getattr(cfg, "align_inlier_floor", 0.35),
         verdict_rmse_ceiling=getattr(cfg, "align_rmse_ceiling", 0.08),
+        mesh=mesh,
         device=device,
     )
 
