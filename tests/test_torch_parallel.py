@@ -70,7 +70,13 @@ def inputs():
 
 
 @pytest.fixture(scope="module")
-def world(inputs):
+def cli_config(tmp_path_factory):
+    """Where the CLI leg finds no config (and its rank 0 writes one)."""
+    return str(tmp_path_factory.mktemp("cli") / "configs" / "variables.cfg")
+
+
+@pytest.fixture(scope="module")
+def world(inputs, cli_config):
     """Every leg in one 2-rank gloo world → each rank's results."""
     yv, bv, batch = inputs["step"]
     base, comp, bb, cb = inputs["icp"]
@@ -80,6 +86,7 @@ def world(inputs):
         "scan_step": dict(yolo_vars=yv, beit_vars=bv, batch=batch,
                           kw=dict(img_size=S, max_det=D, conf_thresh=0.0, crop_budget=BUDGET)),
         "icp_compare": dict(base=base, comp=comp, base_boxes=bb, comp_boxes=cb, kw=ICP_KW),
+        "cli_default_config": dict(config=cli_config),
     }
     return PM.spawn_world(legs.run, 2, device="cpu", args=(todo,))
 
@@ -260,6 +267,19 @@ def test_query_sharded_compare_matches_jax(world, jax_side):
         assert abs(r0["verdict"][k] - jv[k]) <= 1e-5, k
     assert r1["match"] is None
     np.testing.assert_array_equal(r0["match"]["assign"], ja.last_match["assign"])
+
+
+def test_cli_in_a_world_writes_the_default_config_on_rank_0(world, cli_config):
+    """The CLI run by every rank of a world (as under ``torchrun``) with no
+    config at ``--config``: rank 0 alone writes the defaults, and every
+    rank reads them after the barrier and runs."""
+    from tpu3dlm_torch.utils.config import DEFAULT_CONFIG
+
+    for r, res in enumerate(world):
+        got = res["cli_default_config"]
+        assert got["wrote"] == ([cli_config] if r == 0 else [])
+        assert got["ran"] == [("gold_std", 1)]
+    assert open(cli_config).read() == DEFAULT_CONFIG
 
 
 def test_a_failed_or_hung_rank_fails_the_world(tmp_path, monkeypatch):

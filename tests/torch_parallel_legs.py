@@ -138,8 +138,76 @@ def finetune_beit(mesh, args, opts, init, noise) -> dict:
     return dict(losses=losses, params=beit_to_flax(model))
 
 
+def pipeline_walk(mesh, argv) -> dict:
+    """The CLI's run of ``argv`` in this world, with every compare's ICP
+    walk (``Alignment.transformations``) and final transform kept; rank
+    0's report CSV."""
+    from tpu3dlm_torch import cli
+    from tpu3dlm_torch.alignment import align as PA
+    from tpu3dlm_torch.utils.config import ConfigLoader
+
+    walks = []
+    real = PA.Alignment.compare
+
+    def compare(self, *a, **kw):
+        out = real(self, *a, **kw)
+        walks.append(([np.asarray(s) for s in self.transformations], np.asarray(self.final_transform)))
+        return out
+
+    PA.Alignment.compare = compare
+    try:
+        cli.main(argv)
+    finally:
+        PA.Alignment.compare = real
+    cfg = ConfigLoader(argv[argv.index("--config") + 1], argv[argv.index("--data") + 1])
+    return dict(walks=walks, csv=open(cfg.csv_output).read() if mesh.rank == 0 else None)
+
+
+def cli_default_config(mesh, config) -> dict:
+    """``python -m tpu3dlm_torch.cli --config <missing>`` on this rank of a
+    running world, the Pipeline itself stubbed: whether this rank wrote the
+    default config, and the config every rank then read."""
+    from tpu3dlm_torch import cli
+    from tpu3dlm_torch.pipeline import task
+    from tpu3dlm_torch.utils import config as C
+
+    wrote, ran = [], []
+    real_write, real_setup = C.write_default_config, task.setup_pipeline
+    C.write_default_config = lambda path: wrote.append(path) or real_write(path)
+    task.setup_pipeline = lambda folder, cfg, *a, **kw: ran.append((folder, cfg.mesh_devices))
+    try:
+        cli.main(["--data", "gold_std", "--config", config, "--device", "cpu"])
+    finally:
+        C.write_default_config, task.setup_pipeline = real_write, real_setup
+    return dict(wrote=wrote, ran=ran)
+
+
+def icp_steps(mesh, stages, starts) -> dict:
+    """One point-to-plane ICP iteration from each of ``starts`` ((stage,
+    4×4 transform) pairs); ``stages[s]`` is stage s's (query, target,
+    normals, max distance), the query sharded over the world, and also
+    whole on this rank alone (one device)."""
+    from tpu3dlm_torch.ops.icp import icp_point_to_plane
+    from tpu3dlm_torch.parallel.mesh import shard_batch
+
+    out = {}
+    for name, m in (("world", mesh), ("one", None)):
+        incs = []
+        for s, T in starts:
+            q, t, n, d = stages[s]
+            q = q if m is None else shard_batch(q, m)
+            r = icp_point_to_plane(torch.from_numpy(q.copy()), torch.from_numpy(t.copy()), torch.from_numpy(n.copy()),
+                                   init_transform=torch.from_numpy(T), max_correspondence_dist=d, iterations=1,
+                                   early_stop_tol=0.0, mesh=m, _measure=False)
+            incs.append(r.step_transforms[0].numpy())
+        out[name] = incs
+    return out
+
+
 LEGS = dict(collectives=collectives, target_nn=target_nn, scan_step=scan_step, icp_compare=icp_compare,
-            beit_step=beit_step, yolo_step=yolo_step, finetune_yolo=finetune_yolo, finetune_beit=finetune_beit)
+            beit_step=beit_step, yolo_step=yolo_step, finetune_yolo=finetune_yolo, finetune_beit=finetune_beit,
+            pipeline_walk=pipeline_walk, icp_steps=icp_steps,
+            cli_default_config=cli_default_config)
 
 
 def run(mesh, legs: dict) -> dict:

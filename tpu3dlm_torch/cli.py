@@ -25,12 +25,12 @@ README's Quick start), then runs as above:
 
 With ``mesh_devices = N > 1`` in the config the run is data parallel over
 N ranks (``parallel/mesh.py``). With no world running, the CLI starts the N
-ranks itself (spawned processes, one card each, NCCL; ``--dist-backend
-gloo`` lets them share a card) and each runs the same command; a rank that
-fails fails the run. Under ``torchrun --nproc-per-node N -m
-tpu3dlm_torch.cli ...`` it joins the world torchrun started. Rank 0 alone
-writes files. ``--watch`` runs in one process and needs ``mesh_devices =
-1``.
+ranks itself (spawned processes, one device each: NCCL over the cards,
+gloo on the CPU) and each runs the same command; a rank that fails fails
+the run. Under ``torchrun --nproc-per-node N -m tpu3dlm_torch.cli ...`` it
+first joins the world torchrun started. Rank 0 alone writes files, the
+default config included. ``--watch`` runs in one process and needs
+``mesh_devices = 1``.
 """
 
 from __future__ import annotations
@@ -65,9 +65,6 @@ def main(argv=None):
                         help="--watch: stop after N processed scans (default: run forever).")
     parser.add_argument("--watch-concurrency", type=int, default=1,
                         help="--watch: captures processed at once (gold_std always runs alone).")
-    parser.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
-                        help="mesh_devices > 1: the ranks' backend (default nccl on cuda, gloo on cpu; "
-                        "gloo lets several ranks share a card).")
     argv = sys.argv[1:] if argv is None else list(argv)
     args = parser.parse_args(argv)
 
@@ -79,6 +76,8 @@ def main(argv=None):
     from tpu3dlm_torch.utils.config import ConfigLoader, write_default_config
 
     device = resolve_device(args.device)
+    if "WORLD_SIZE" in os.environ and not dist.is_initialized():  # torchrun's world
+        distributed_init("env://", device=device)
     rank0 = not dist.is_initialized() or dist.get_rank() == 0
     config_path = args.config or os.path.join("configs", "variables.cfg")
     if not os.path.exists(config_path) and rank0:
@@ -93,12 +92,8 @@ def main(argv=None):
     if n > 1 and args.watch:
         raise ValueError("--watch runs in one process: set mesh_devices = 1")
     if n > 1 and not dist.is_initialized():
-        if "WORLD_SIZE" in os.environ:  # torchrun's world
-            distributed_init("env://", device=device, backend=args.dist_backend)
-        else:
-            spawn_world(_rank_main, n, device=device, backend=args.dist_backend, args=(argv,))
-            return
-        rank0 = dist.get_rank() == 0
+        spawn_world(_rank_main, n, device=device, args=(argv,))
+        return
 
     if args.setup:
         from tpu3dlm_torch.data.synthetic import generate_scan
