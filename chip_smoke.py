@@ -5,7 +5,7 @@
 
 Builds every CUDA kernel of the port from ``tpu3dlm_torch/csrc`` (into
 ``tpu3dlm_torch/_build``, one ``nvcc`` per source and one ``c++`` for the
-host C++ sources, all at once), then runs thirty-five phases, each printing one
+host C++ sources, all at once), then runs thirty-seven phases, each printing one
 JSON line; any failure raises and the script exits non-zero without a result:
 
 1. ``kernel_b1``: kernel B1 (BEiT attention) against its plain PyTorch twin
@@ -28,7 +28,10 @@ JSON line; any failure raises and the script exits non-zero without a result:
 4. ``fused_full_width``: the scan-step main path — ``FusedScanRunner``
    (YOLOv10-n at 640², BEiT-base at 224, bf16, 128 frames, crop budget 384)
    and ``suppress_bboxes`` — once with the launch counts set to 0, then
-   timed over warm runs, with a per-stage split.
+   timed over warm runs, with a per-stage split; and A8, the bf16 run held
+   against the same weights in f32 on the same frames
+   (``hold_bf16_against_f32``: the same top-1 on every decisive crop held,
+   the detection, label, damage and box agreement measured).
 5. ``kernel_b2``: kernel B2 (nearest neighbour) against its twin at the
    compare's shapes (16384 × 1,048,576 with sentinel padding, 10240 ×
    65,536, 4096 × 262,144), the Pipeline's (16384 and 4096 × 65,536), the
@@ -258,7 +261,17 @@ JSON line; any failure raises and the script exits non-zero without a result:
     --procs 2 --backend gloo``, two ranks sharing the card, the four legs
     held against one device, B1 and B2 launched on every rank; over NCCL
     too when two cards are visible (a line says when that does not apply).
-35. ``kernels``: one line listing every ported kernel (B1 on its two
+35. ``bench_port``: the port's three benches (``tpu3dlm_torch/scripts/
+    bench.py``, ``bench_align.py``, ``bench_e2e.py``) through ``run()`` at
+    their defaults with ``cpu_baseline="off"`` (2 windows; 3 warm
+    captures on ``two_scan_scene(1_000_000)``, which is their scene): each
+    JSON line, the sanity flags, finite values, 0 < ``mfu_vs_bf16_peak`` ≤
+    1, B1's and B2's launches by bench.
+36. ``plain_route_parity``: ``use_pallas = false`` through the Pipeline
+    against ``use_pallas = true`` on ``pipeline_parity``'s configuration:
+    no B1 or B2 launch on the plain run, ``hold_pipelines``' bars; a bf16
+    einsum BEiT-base forward, card against CPU, by the A8 rule.
+37. ``kernels``: one line listing every ported kernel (B1 on its two
     routes — ``attention_bf16_tma`` counted on the scan step,
     ``attention_simt`` on the finetune step — B2, B3, B4 v1 and v2) with
     its launches, the path they were counted on (``launches_on``), error,
@@ -280,7 +293,9 @@ JSON line; any failure raises and the script exits non-zero without a result:
     and B1's and B2's in the ``verify`` after it (``launches_on_train_verify``),
     from ``train_full_width``; B1's and B2's on the world's paths
     (``launches_on_dist``, from ``dist_full_width`` and, by rank,
-    ``dist_parity``).
+    ``dist_parity``); B1's and B2's on the benches (``launches_on_bench``,
+    from ``bench_port``) and on ``use_pallas = false``
+    (``launches_on_plain_route``: 0).
 
 The script's total seconds are printed on the line before the card's name
 and power limit (nvidia-smi), which come before the last line; the last
@@ -508,7 +523,9 @@ def phase_fused_full_width(dev) -> dict:
     scan = synthetic_scan(F, 640, (192, 256), SEED + 2)
     calibrate_batchnorm_(runner.yolo, torch.as_tensor(scan.rgb[:16], device=dev).float() / 255.0)
     crops_seen: list[int] = []
-    runner.beit.register_forward_pre_hook(lambda mod, args: crops_seen.append(args[0].shape[0]))
+    crops_in: list[torch.Tensor] = []  # the main path's classifier input, for the A8 check
+    hook = runner.beit.register_forward_pre_hook(
+        lambda mod, args: crops_seen.append(args[0].shape[0]) or crops_in.append(args[0]))
 
     # the main path, once, with the counts at 0
     beit_attention_packed.launches = 0
@@ -527,6 +544,8 @@ def phase_fused_full_width(dev) -> dict:
           "finite boxes and corners for the kept detections")
     check(set(np.unique(det.damage)) <= {-1, 0, 1}, np.unique(det.damage))
     check(kept.mask.sum() <= m.sum(), "3D NMS keeps a subset")
+    hook.remove()
+    bf16_vs_f32 = hold_bf16_against_f32(runner, scan, det, crops_in[0], dev)
 
     # warm timings of the same entry points
     torch.cuda.reset_peak_memory_stats()
@@ -560,65 +579,101 @@ def phase_fused_full_width(dev) -> dict:
         "frames_per_s": F / (step_ms / 1e3),
         "nms_ms": nms_ms, "nms_ms_samples": nms_samples,
         "stage_ms": {"detect": detect_ms, "rectify_classify": classify_ms, "project": project_ms},
-        "peak_mem_gb": peak_gb,
+        "peak_mem_gb": peak_gb, "bf16_vs_f32": bf16_vs_f32,
     }
     emit(result)
     return result
+
+
+def match_boxes(a, b, iou_floor: float = 0.5) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Pairs of kept detections of two runs on the same frames: in each
+    frame, a box of ``a`` and a box of ``b`` that are each other's best IoU,
+    at least ``iou_floor``. Returns (frame, slot in a, slot in b) arrays."""
+    fs, ia, ib = [], [], []
+    for f in range(a.mask.shape[0]):
+        sa, sb = np.flatnonzero(a.mask[f]), np.flatnonzero(b.mask[f])
+        if not len(sa) or not len(sb):
+            continue
+        x, y = a.boxes[f, sa][:, None], b.boxes[f, sb][None]
+        lo, hi = np.maximum(x[..., :2], y[..., :2]), np.minimum(x[..., 2:], y[..., 2:])
+        inter = np.clip(hi - lo, 0, None).prod(-1)
+        area = lambda t: np.clip(t[..., 2:] - t[..., :2], 0, None).prod(-1)  # noqa: E731
+        iou = inter / np.maximum(area(x) + area(y) - inter, 1e-9)
+        for i, j in enumerate(iou.argmax(1)):
+            if iou[:, j].argmax() == i and iou[i, j] >= iou_floor:
+                fs.append(f)
+                ia.append(sa[i])
+                ib.append(sb[j])
+    return np.array(fs, int), np.array(ia, int), np.array(ib, int)
+
+
+def hold_bf16_against_f32(runner, scan, det16, crops, dev) -> dict:
+    """A8: the scan step in bf16 (``det16``, the main path's run) against
+    the same runner's seeded weights held in f32 on the same frames. Kept
+    detections are paired by IoU (``match_boxes``); reported: the share of
+    detections both dtypes keep, label agreement on the pairs, damage
+    agreement on the pairs both classified, the largest box gap (px); and
+    BEiT on the bf16 run's crops (``crops``, its classifier input) fed to
+    the bf16 and the f32 model: the softmax drift and top-1 agreement on
+    the decisive crops (margin > 2·drift·max|logit|, the rule of
+    ``tests/test_models.py::test_bf16_fast_path_tracks_f32``), held: every
+    decisive crop agrees. The other numbers are measured, not held; with
+    seeded weights near-ties in conf and in logits are expected (ROADMAP
+    §C states what they mean)."""
+    import copy
+
+    from tpu3dlm_torch.pipeline.fused import FusedScanRunner
+
+    f32 = FusedScanRunner(img_size=runner.img_size, conf_thresh=runner.conf_thresh, max_det=runner.max_det,
+                          yolo=copy.deepcopy(runner.yolo).float(), beit=copy.deepcopy(runner.beit).float(),
+                          dtype=torch.float32, crop_budget=runner.crop_budget, device=dev)
+    det32, _ = f32(scan)
+    fr, i16, i32 = match_boxes(det16, det32)
+    n16, n32 = int(det16.mask.sum()), int(det32.mask.sum())
+    both_classified = (det16.damage[fr, i16] >= 0) & (det32.damage[fr, i32] >= 0)
+    with torch.inference_mode():
+        logits16 = runner.beit(crops).float().cpu().numpy()
+        logits32 = f32.beit(crops.float()).cpu().numpy()
+    p16, p32 = (np.exp(x - x.max(-1, keepdims=True)) for x in (logits16, logits32))
+    p16, p32 = p16 / p16.sum(-1, keepdims=True), p32 / p32.sum(-1, keepdims=True)
+    drift = float(np.abs(p16 - p32).max())
+    top = np.sort(logits32, -1)
+    decisive = (top[:, -1] - top[:, -2]) > 2 * drift * np.abs(logits32).max()
+    agree = logits16.argmax(-1) == logits32.argmax(-1)
+    check(decisive.any() and agree[decisive].all(),
+          f"bf16 flipped a decisive top-1: {int((~agree & decisive).sum())} of {int(decisive.sum())}")
+    return {
+        "detections_bf16": n16, "detections_f32": n32, "paired": int(len(fr)),
+        "kept_by_both_share": len(fr) / max(n16 + n32 - len(fr), 1),
+        "label_agreement": float((det16.label[fr, i16] == det32.label[fr, i32]).mean()) if len(fr) else None,
+        "classified_by_both": int(both_classified.sum()),
+        "damage_agreement": float((det16.damage[fr, i16] == det32.damage[fr, i32])[both_classified].mean())
+        if both_classified.any() else None,
+        "max_box_gap_px": float(np.abs(det16.boxes[fr, i16] - det32.boxes[fr, i32]).max()) if len(fr) else None,
+        "median_box_gap_px": float(np.median(np.abs(det16.boxes[fr, i16] - det32.boxes[fr, i32]).max(-1)))
+        if len(fr) else None,
+        "crops": int(crops.shape[0]), "beit_softmax_drift": drift,
+        "decisive_crops": int(decisive.sum()), "decisive_top1_agree": int((agree & decisive).sum()),
+        "top1_agreement_all_crops": float(agree.mean()),
+    }
 
 
 # ---------------------------------------------------------------------------
 # The two-scan compare (kernel B2)
 # ---------------------------------------------------------------------------
 
-# The signs of the synthetic gold scan: (x0, y0, x1, y1, z, label, damage),
-# rectangles on the wall at z = 3 m.
-SIGNS = [
-    (-0.6, -0.4, -0.2, 0.1, 2.8, 0, 0),
-    (0.3, -0.5, 0.8, 0.0, 2.85, 1, 1),
-    (1.2, 0.1, 1.7, 0.55, 2.8, 0, 0),
-]
-
-
 def two_scan_scene(n_target: int, seed: int = SEED):
-    """Two clouds of ~``n_target`` points related by a known SE(3), made
-    with numpy: a 4 × 2.5 m wall at z = 3 with sign rectangles in front of
-    it (sampled at twice the density), a perpendicular floor and a side
-    wall. The maintenance scan misses the last sign and is moved by ``Tw``
-    (12° about z, [0.4, −0.25, 0.15] m). Returns (base, comp, base_boxes,
-    comp_boxes, Tw); boxes in the reference's dict-of-frames shape."""
-    per_m2 = max(1000, int(n_target / 21.0))  # wall 10 + floor 6 + side 3.75 m² + signs
+    """Two clouds of ~``n_target`` points related by a known SE(3):
+    ``bench_align.py``'s scene, from the port's copy
+    (``tpu3dlm_torch/scripts/bench_align.py::build_clouds``). A 4 × 2.5 m
+    wall at z = 3 with sign rectangles in front of it (sampled at twice the
+    density), a perpendicular floor and a side wall; the maintenance scan
+    misses the last sign and is moved by ``Tw`` (12° about z, [0.4, −0.25,
+    0.15] m). Returns (base, comp, base_boxes, comp_boxes, Tw); boxes in the
+    reference's dict-of-frames shape."""
+    from tpu3dlm_torch.scripts.bench_align import build_clouds
 
-    def scene(signs, rng):
-        n_wall = int(4.0 * 2.5 * per_m2)
-        parts = [np.stack([rng.uniform(-1.5, 2.5, n_wall), rng.uniform(-1.25, 1.25, n_wall),
-                           np.full(n_wall, 3.0)], 1)]
-        for x0, y0, x1, y1, z, _, _ in signs:
-            k = max(50, int((x1 - x0) * (y1 - y0) * per_m2 * 2))
-            parts.append(np.stack([rng.uniform(x0, x1, k), rng.uniform(y0, y1, k),
-                                   np.full(k, z)], 1))
-        n_floor, n_side = int(6.0 * per_m2), int(3.75 * per_m2)
-        parts.append(np.stack([rng.uniform(-1.5, 2.5, n_floor), np.full(n_floor, 1.25),
-                               rng.uniform(1.5, 3.0, n_floor)], 1))
-        parts.append(np.stack([np.full(n_side, -1.5), rng.uniform(-1.25, 1.25, n_side),
-                               rng.uniform(1.5, 3.0, n_side)], 1))
-        return np.concatenate(parts).astype(np.float32)
-
-    def boxes(signs, T=None):
-        rows = []
-        for x0, y0, x1, y1, z, label, damage in signs:
-            c = np.array([[x0, y0, z], [x0, y1, z], [x1, y1, z], [x1, y0, z]], np.float32)
-            if T is not None:
-                c = c @ T[:3, :3].T + T[:3, 3]
-            rows.append([c[0], c[1], c[2], c[3], damage, 0.9, label])
-        return {0: rows}
-
-    ang = 0.12
-    Tw = np.eye(4, dtype=np.float32)
-    Tw[:3, :3] = [[np.cos(ang), -np.sin(ang), 0], [np.sin(ang), np.cos(ang), 0], [0, 0, 1]]
-    Tw[:3, 3] = [0.4, -0.25, 0.15]
-    base = scene(SIGNS, np.random.default_rng(seed))
-    comp = scene(SIGNS[:-1], np.random.default_rng(seed + 1)) @ Tw[:3, :3].T + Tw[:3, 3]
-    return base, comp.astype(np.float32), boxes(SIGNS), boxes(SIGNS[:-1], Tw), Tw
+    return build_clouds(n_target, seed)
 
 
 IDENTITY_POSES = np.tile(np.array([0, 0, 0, 0, 0, 0, 1], np.float32), (4, 1))
@@ -1115,10 +1170,10 @@ def phase_compare_full_width_ann(dev, tmp, scene, off_transform) -> dict:
     build_ms = {}  # "rows x anchors" → ms, in the order the stages built them
     real_build = align_mod.build_anchor_index
 
-    def timed_build(tj, n_anchors, bucket_cap):
+    def timed_build(tj, n_anchors, bucket_cap, **kw):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = real_build(tj, n_anchors=n_anchors, bucket_cap=bucket_cap)
+        out = real_build(tj, n_anchors=n_anchors, bucket_cap=bucket_cap, **kw)
         torch.cuda.synchronize()
         build_ms[f"{tj.shape[0]}x{n_anchors}"] = (time.perf_counter() - t0) * 1e3
         return out
@@ -4218,6 +4273,108 @@ def phase_dist_parity(dev) -> dict:
     return result
 
 
+def phase_bench_port(dev, scene) -> dict:
+    """The port's three benches (``tpu3dlm_torch/scripts/bench*.py``) through
+    their ``run()`` at their default configurations on the card, with
+    ``cpu_baseline="off"`` and shorter windows: ``bench`` 2 windows of 40
+    steps, ``bench_align`` 3 warm captures on ``scene`` (its own
+    ``build_clouds(1_000_000)``), ``bench_e2e`` as the reference runs it.
+    Each JSON line is printed; held: the sanity flags (``bench_align``:
+    transform error ≤ 0.15 and one missing sign; ``bench_e2e``: one missing
+    sign), finite values, and 0 < ``mfu_vs_bf16_peak`` ≤ 1. B1's and B2's
+    launches by bench (none on ``bench``: it runs no classify and no NN)."""
+    from tpu3dlm_torch.scripts import bench, bench_align, bench_e2e
+
+    recs, launches, seconds = {}, {}, {}
+    for name, call in (("bench", lambda: bench.run(reps=2, cpu_baseline="off", device=dev)),
+                       ("bench_align", lambda: bench_align.run(reps=3, cpu_baseline="off", device=dev,
+                                                               scene=scene)),
+                       ("bench_e2e", lambda: bench_e2e.run(cpu_baseline="off", device=dev))):
+        reset_launches()
+        t0 = time.perf_counter()
+        recs[name] = call()
+        seconds[name] = time.perf_counter() - t0
+        launches[name] = read_launches()
+        emit(recs[name])
+        check(np.isfinite(recs[name]["value"]) and recs[name]["value"] > 0, (name, recs[name]["value"]))
+    mfu = recs["bench"].get("mfu_vs_bf16_peak")
+    check(mfu is not None and 0 < mfu <= 1, ("mfu_vs_bf16_peak", mfu))
+    check(launches["bench"]["b1"] == 0 and launches["bench"]["b2"] == 0, launches["bench"])
+    check(recs["bench_align"]["sanity_ok"], recs["bench_align"])
+    check(launches["bench_align"]["b2"] > 0, launches["bench_align"])
+    check(recs["bench_e2e"]["sanity"]["missing"] == 1, recs["bench_e2e"]["sanity"])
+    check(launches["bench_e2e"]["b1"] > 0 and launches["bench_e2e"]["b2"] > 0, launches["bench_e2e"])
+    result = {"phase": "bench_port", "seconds": seconds,
+              "values": {k: (r["value"], r["unit"]) for k, r in recs.items()},
+              "launches": {k: {"b1": v["b1"], "b2": v["b2"]} for k, v in launches.items()}}
+    emit(result)
+    return result
+
+
+def phase_plain_route_parity(dev, tmp: str) -> dict:
+    """``use_pallas = false`` (the reference's escape hatch from its
+    kernels) on the card: ``pipeline_parity``'s configuration (the
+    committed capture, make_project's config, fixture checkpoints, f32,
+    fused route) through the Pipeline twice, with ``use_pallas = false`` and
+    ``true``. On the plain run neither B1 nor B2 is launched (einsum
+    attention, B2's twin); the two runs are held by ``hold_pipelines``
+    (masks, labels and damage equal, boxes within 1e-2 px, the report CSV
+    identical but the 0.1 mm-rounded distance within 2e-4 m). Then a bf16
+    BEiT-base forward on the einsum route (seeded, 16 crops) on the card
+    against the CPU, held by the A8 rule (softmax drift < 0.05, the same
+    top-1 on every decisive crop), no B1 launch; its largest logit gap is
+    reported."""
+    import os
+
+    from tpu3dlm_torch.models.beit import BeitConfig, preprocess_crops, seeded_beit
+
+    extra = [("infer_dtype = bf16", "infer_dtype = f32"),
+             ("yolo_weights =", f"yolo_weights = {FIXTURES / 'yolo_synthetic.msgpack'}"),
+             ("beit_weights =", f"beit_weights = {FIXTURES / 'beit_synthetic.msgpack'}")]
+    runs, launches, wall = {}, {}, {}
+    for name, switch in (("plain", [("use_pallas = true", "use_pallas = false")]), ("kernels", [])):
+        root = os.path.join(tmp, f"plain_route_{name}")
+        copy_project(root)
+        cfg = pipeline_config(root, extra + switch)
+        reset_launches()
+        t0 = time.perf_counter()
+        runs[name] = run_two_scans(cfg, dev)
+        wall[name] = time.perf_counter() - t0
+        launches[name] = read_launches()
+    check(launches["plain"]["b1"] == 0 and launches["plain"]["b2"] == 0, launches["plain"])
+    check(launches["kernels"]["b1"] > 0 and launches["kernels"]["b2"] > 0, launches["kernels"])
+    errs = hold_pipelines(runs["kernels"], runs["plain"])
+
+    cfg = BeitConfig(num_labels=3, attn_impl="einsum")
+    beit = seeded_beit(cfg, torch.Generator().manual_seed(SEED + 31)).eval()
+    crops = preprocess_crops(torch.from_numpy(
+        np.random.default_rng(SEED + 32).integers(0, 256, (16, 224, 224, 3), dtype=np.uint8)))
+    with torch.inference_mode():
+        want = beit.to(torch.bfloat16)(crops).float().numpy()
+        reset_launches()
+        got = beit.to(dev)(crops.to(dev)).float().cpu().numpy()
+        einsum_b1 = read_launches()["b1"]
+    check(einsum_b1 == 0, einsum_b1)
+    p_got, p_want = (np.exp(x - x.max(-1, keepdims=True)) for x in (got, want))
+    p_got, p_want = p_got / p_got.sum(-1, keepdims=True), p_want / p_want.sum(-1, keepdims=True)
+    drift = float(np.abs(p_got - p_want).max())
+    top = np.sort(want, -1)
+    decisive = (top[:, -1] - top[:, -2]) > 2 * drift * np.abs(want).max()
+    agree = got.argmax(-1) == want.argmax(-1)
+    check(drift < 0.05 and decisive.any() and agree[decisive].all(), (drift, decisive, agree))
+    g = runs["plain"][1].data_to_save
+    result = {"phase": "plain_route_parity", "launches_plain_run": {k: launches["plain"][k] for k in ("b1", "b2")},
+              "launches_kernel_run": {k: launches["kernels"][k] for k in ("b1", "b2")},
+              "max_box_err_px": errs["box_px"], "max_corner_err_m": errs["corner_m"],
+              "max_step_err": errs["step"], "max_report_distance_err_m": errs["report_distance_m"],
+              "missing": sum(r["status"] == "missing" for r in g["comparison_rows"]), "wall_s": wall,
+              "einsum_bf16_beit_base": {"crops": 16, "max_logit_gap": float(np.abs(got - want).max()),
+                                        "softmax_drift": drift, "decisive": int(decisive.sum()),
+                                        "top1_agree_all": float(agree.mean()), "b1_launches": einsum_b1}}
+    emit(result)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available; this script needs an NVIDIA GPU",
@@ -4282,6 +4439,11 @@ def main() -> int:
     dist = phase_dist_full_width(dev)
     dist_parity = phase_dist_parity(dev)
     emit({"phase": "dist_seconds", "seconds": time.perf_counter() - t_dist})
+    t_new = time.perf_counter()
+    benches = phase_bench_port(dev, scene)
+    with tempfile.TemporaryDirectory() as tmp:
+        plain = phase_plain_route_parity(dev, tmp)
+    emit({"phase": "bench_and_plain_route_seconds", "seconds": time.perf_counter() - t_new})
     from tpu3dlm_torch.ops.kernels.nn_variants import VARIANTS
 
     b4_rows = []
@@ -4373,6 +4535,11 @@ def main() -> int:
             "launches_on_train_path": "train_full_width: e2e_accuracy --full-scale, the 120 BEiT-base f32 "
                                       "training steps (forward; the backward is the plain recompute)",
             "launches_on_train_verify": train["e2e"]["b1_launches_verify"],
+            "launches_on_bench": benches["launches"]["bench_e2e"]["b1"],
+            "launches_on_bench_path": "bench_port: tpu3dlm_torch.scripts.bench_e2e (warm-up, measured and two "
+                                      "steady two-scan runs on the fixture checkpoints, f32, attention_simt); "
+                                      "bench and bench_align launch no B1",
+            "launches_on_plain_route": plain["launches_plain_run"]["b1"],
         },
         {
             "name": "nearest_neighbors", "route": "cuda",
@@ -4411,6 +4578,10 @@ def main() -> int:
             "launches_on_dist_path": "dist_full_width: target_sharded_nn at 16384 x 1,048,576 in a 1-rank "
                                      "NCCL world; dist_parity: each of two gloo ranks on one card, its "
                                      "query-sharded compare and target-sharded NN run twice",
+            "launches_on_bench": {k: benches["launches"][k]["b2"] for k in ("bench_align", "bench_e2e")},
+            "launches_on_bench_path": "bench_port: tpu3dlm_torch.scripts.bench_align (warm-up, cold and 3 warm "
+                                      "captures at 1M points, ann='auto') and bench_e2e (four two-scan runs)",
+            "launches_on_plain_route": plain["launches_plain_run"]["b2"],
             "ms_by_shape": {f"{c['shape'][0]}x{c['shape'][1]}": {
                 "case": c["case"], **{k: c[k] for k in ("kernel_ms", "plain_ms", "bound_ms", "bound_by")}}
                 for c in b2["checks"] if "kernel_ms" in c},

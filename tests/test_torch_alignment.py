@@ -199,10 +199,11 @@ def test_compare_with_the_anchor_index_matches_jax(tmp_path, monkeypatch):
 
 def test_index_for_engages_like_the_reference(monkeypatch):
     """"off" never, "auto" from 131,072 padded points, "on" always; one
-    build per (content, size, shape, device), an LRU of 4."""
-    built = []
-    monkeypatch.setattr(PA, "build_anchor_index", lambda tj, n_anchors, bucket_cap: built.append(
-        (int(tj.shape[0]), n_anchors, bucket_cap)) or object())
+    build per (content, size, shape, use_pallas, device), an LRU of 4; the
+    build gets the Alignment's ``use_pallas`` (True by default)."""
+    built, routes = [], []
+    monkeypatch.setattr(PA, "build_anchor_index", lambda tj, n_anchors, bucket_cap, use_pallas: built.append(
+        (int(tj.shape[0]), n_anchors, bucket_cap)) or routes.append(use_pallas) or object())
     PA._ANN_INDEX_CACHE.clear()
     align = lambda ann: PA.Alignment(POSES, POSES, {}, {}, ann=ann, device="cpu")  # noqa: E731
     small, big = torch.zeros(131_071, 3), torch.zeros(131_072, 3)
@@ -216,6 +217,9 @@ def test_index_for_engages_like_the_reference(monkeypatch):
         align("on")._index_for(torch.zeros(1024, 3), (f"fp{i}",))
     assert len(PA._ANN_INDEX_CACHE) == 4 and len(built) == 6
     assert align("auto")._index_for(big, ("fp",)) is not first  # evicted, rebuilt
+    plain = PA.Alignment(POSES, POSES, {}, {}, ann="auto", use_pallas=False, device="cpu")
+    assert plain._index_for(big, ("fp",)) is not None and len(built) == 8  # its own cache entry
+    assert routes == [True] * 7 + [False]
     PA._ANN_INDEX_CACHE.clear()
 
 

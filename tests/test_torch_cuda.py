@@ -880,3 +880,99 @@ def test_target_sharded_nn_on_two_gloo_ranks(cuda_device):
 
     ranks = spawn_world(_nn_on_one_rank, 2, device="cuda", backend="gloo", args=(3000, 40000))
     assert ranks == [{"same": True, "launches": 2}] * 2
+
+
+A8_BEIT = dict(image_size=32, patch_size=16, hidden_size=64, num_layers=2, num_heads=4, intermediate_size=128,
+               num_labels=3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_einsum_beit_on_card_matches_cpu(cuda_device, dtype):
+    """``attn_impl="einsum"`` (the reference's attention, what ``use_pallas
+    = false`` runs) on the card against the CPU, seeded weights and 16
+    crops (``tests/test_models.py``'s bf16 setting): no B1 launch; f32
+    logits within 1e-4 (cuBLAS against the CPU's GEMMs, TF32 off); bf16 by
+    the A8 rule: softmax drift < 0.05 and the same top-1 on every decisive
+    crop."""
+    import numpy as np
+
+    from tpu3dlm_torch.models.beit import BeitConfig, preprocess_crops, seeded_beit
+
+    beit = seeded_beit(BeitConfig(**A8_BEIT, attn_impl="einsum"), torch.Generator().manual_seed(3)).eval()
+    x = preprocess_crops(torch.from_numpy(np.random.default_rng(3).integers(0, 256, (16, 32, 32, 3), np.uint8)))
+    with torch.inference_mode():
+        want = beit.to(dtype)(x).float()
+        before = beit_attention_packed.launches
+        got = beit.to(cuda_device)(x.to(cuda_device)).float().cpu()
+        torch.cuda.synchronize()
+    assert beit_attention_packed.launches == before
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+        return
+    drift = (got.softmax(-1) - want.softmax(-1)).abs().max().item()
+    top = want.sort(-1).values
+    decisive = (top[:, -1] - top[:, -2]) > 2 * drift * want.abs().max()
+    assert drift < 0.05 and decisive.any()
+    assert torch.equal(got.argmax(-1)[decisive], want.argmax(-1)[decisive])
+
+
+def test_plain_route_on_card_launches_no_b2(cuda_device):
+    """``use_pallas=False`` on CUDA tensors: ICP (both solvers), the init
+    scoring, the anchor index and ``target_sharded_nn`` run B2's twin on
+    the card, so B2's count does not move; the NN results equal the twin's
+    on the same tensors, and the solvers equal their CPU run within the
+    compare's card bars (transform 1e-4)."""
+    import numpy as np
+
+    from tpu3dlm_torch.ops import ann, icp
+    from tpu3dlm_torch.parallel.mesh import make_mesh, shard_batch
+    from tpu3dlm_torch.parallel.nn import target_sharded_nn
+
+    rng = np.random.default_rng(4)
+    tgt_np = rng.uniform([0, 0, 0], [8, 5, 3], (8192, 3)).astype(np.float32)
+    tgt_np[:4096, 1] = rng.normal(0, 0.01, 4096)  # a wall
+    src_np = (tgt_np[::4] + np.array([0.05, -0.03, 0.02], np.float32)).copy()
+    nrm_np = np.tile(np.array([[0, 1, 0]], np.float32), (8192, 1))
+    before = nearest_neighbors.launches
+    out = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        src, tgt, nrm = (torch.from_numpy(a).to(dev) for a in (src_np, tgt_np, nrm_np))
+        out[dev.type] = (icp.icp(src, tgt, iterations=5, use_pallas=False).transform.cpu(),
+                         icp.icp_point_to_plane(src, tgt, nrm, iterations=5, use_pallas=False).transform.cpu(),
+                         icp.init_residuals_batched(src, tgt, torch.eye(4, device=dev)[None], use_pallas=False).cpu())
+    index = ann.build_anchor_index(torch.from_numpy(tgt_np).to(cuda_device), 64, 256, use_pallas=False)
+    mesh = make_mesh(1, device=cuda_device, backend="nccl")
+    try:
+        a = torch.from_numpy(src_np).to(cuda_device)
+        b_shard = torch.from_numpy(shard_batch(tgt_np, mesh)).to(cuda_device)
+        idx, d2 = target_sharded_nn(mesh, use_pallas=False)(a, b_shard)
+    finally:
+        mesh.close()
+    torch.cuda.synchronize()
+    assert nearest_neighbors.launches == before
+    want_idx, want_d2 = nearest_neighbors_reference(a, torch.from_numpy(tgt_np).to(cuda_device))
+    assert torch.equal(idx, want_idx) and torch.equal(d2, want_d2)
+    cpu_index = ann.build_anchor_index(torch.from_numpy(tgt_np), 64, 256, use_pallas=False)
+    assert torch.equal(index.anchors.cpu(), cpu_index.anchors) and index.buckets.shape == (64, 256, 3)
+    for got, want in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+def test_postprocess_concat_path_bit_identical_on_card(cuda_device):
+    """``postprocess(per_level=False)`` on the card gives the per-level
+    result bit for bit, from the split and the concatenated maps, as on the
+    CPU."""
+    from tpu3dlm_torch.models.layers import init_seeded_
+    from tpu3dlm_torch.models.yolov10 import YOLOv10, postprocess
+
+    yolo = init_seeded_(YOLOv10(nc=8), torch.Generator().manual_seed(5)).to(cuda_device).eval()
+    x = torch.rand(2, 128, 128, 3, generator=torch.Generator().manual_seed(6)).to(cuda_device)
+    with torch.inference_mode():
+        split = yolo(x)["one2one_split"]
+        concat = [torch.cat(bc, -1) for bc in split]
+        want = postprocess(split, img_size=128, max_det=20)
+        for raw in (split, concat):
+            for per_level in (True, False):
+                got = postprocess(raw, img_size=128, max_det=20, per_level=per_level)
+                for k in ("boxes", "conf", "label"):
+                    assert torch.equal(got[k], want[k]), (k, per_level)

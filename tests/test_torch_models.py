@@ -12,6 +12,7 @@ from tpu3dlm.mapper.nms3d import nms3d_mask as jax_nms3d_mask
 from tpu3dlm.mapper.projection import project_boxes as jax_project_boxes
 from tpu3dlm.models.beit import BeitClassifier as JaxBeit
 from tpu3dlm.models.beit import BeitConfig as JaxBeitConfig
+from tpu3dlm.models.beit import preprocess_crops as jax_preprocess_crops
 from tpu3dlm.models.beit import relative_position_index as jax_rel_index
 from tpu3dlm.models.yolov10 import YOLOv10 as JaxYOLOv10
 from tpu3dlm.models.yolov10 import postprocess as jax_postprocess
@@ -21,7 +22,7 @@ from tpu3dlm.utils import shapes as jax_shapes
 from tpu3dlm_torch.data import scan as port_scan
 from tpu3dlm_torch.mapper.nms3d import nms3d_mask
 from tpu3dlm_torch.mapper.projection import project_boxes
-from tpu3dlm_torch.models.beit import relative_position_index
+from tpu3dlm_torch.models.beit import BeitConfig, preprocess_crops, relative_position_index
 from tpu3dlm_torch.models.weights import beit_from_flax, yolov10_from_flax
 from tpu3dlm_torch.models.yolov10 import postprocess
 from tpu3dlm_torch.ops import geometry as G
@@ -99,6 +100,29 @@ class TestYOLOv10:
             got["boxes"].numpy(), np.asarray(want["boxes"]), rtol=1e-6, atol=1e-5
         )
 
+    @pytest.mark.parametrize("form", ["split", "concatenated"])
+    def test_postprocess_concat_path_bit_identical(self, yolo_pair, form):
+        """``per_level=False`` (the reference's A/B baseline: concatenate,
+        decode, sigmoid over every class, then max/argmax) gives the
+        per-level result bit for bit, from the split maps and from the
+        concatenated ones, as the reference pins its own pair; and it
+        equals the reference's ``per_level=False`` as the per-level path
+        does (labels identical, conf 1e-6, boxes rtol 1e-6)."""
+        _, _, raw = yolo_pair
+        split = [(t(b), t(c)) for b, c in raw["one2one_split"]]
+        port_in = split if form == "split" else [torch.cat(bc, -1) for bc in split]
+        jax_in = raw["one2one_split"] if form == "split" else raw["one2one"]
+        per_level = postprocess(split, img_size=64, max_det=20)
+        got = postprocess(port_in, img_size=64, max_det=20, per_level=False)
+        also = postprocess(port_in, img_size=64, max_det=20, per_level=True)
+        for k in ("boxes", "conf", "label"):
+            np.testing.assert_array_equal(got[k].numpy(), per_level[k].numpy(), err_msg=k)
+            np.testing.assert_array_equal(also[k].numpy(), per_level[k].numpy(), err_msg=k)
+        want = jax_postprocess(jax_in, img_size=64, max_det=20, per_level=False)
+        np.testing.assert_array_equal(got["label"].numpy(), np.asarray(want["label"]))
+        np.testing.assert_allclose(got["conf"].numpy(), np.asarray(want["conf"]), atol=1e-6)
+        np.testing.assert_allclose(got["boxes"].numpy(), np.asarray(want["boxes"]), rtol=1e-6, atol=1e-5)
+
     def test_postprocess_ties_keep_lower_index(self):
         """Equal confidences: the lower anchor index comes first, as in
         jax.lax.top_k."""
@@ -146,6 +170,88 @@ def test_beit_logits_match_flax_past_the_old_attention_limits(image_size, hidden
         got = port(t(x)).numpy()
     assert got.shape == (2, 2)
     np.testing.assert_allclose(got, want, atol=1e-4)
+
+
+A8_CFG = dict(image_size=32, patch_size=16, hidden_size=64, num_layers=2, num_heads=4,
+              intermediate_size=128, num_labels=3)
+
+
+def softmax_np(logits):
+    e = np.exp(logits - logits.max(-1, keepdims=True))
+    return e / e.sum(-1, keepdims=True)
+
+
+@pytest.fixture(scope="module")
+def a8_setting():
+    """``tests/test_models.py::test_bf16_fast_path_tracks_f32``'s setting:
+    JAX's PRNGKey(0) init of the 2-layer BEiT, every leaf perturbed by
+    0.05·N(0, 1) from PRNGKey(1), 16 uint8 crops from default_rng(3); with
+    the reference's own f32 and bf16 logits (its einsum attention, the
+    route ``attn_impl="auto"`` takes off the TPU)."""
+    cfg = JaxBeitConfig(**A8_CFG)
+    f32 = JaxBeit(cfg, dtype=jnp.float32)
+    variables = f32.init(jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3)))
+    leaves, treedef = jax.tree.flatten(variables)
+    keys = jax.random.split(jax.random.PRNGKey(1), len(leaves))
+    variables = jax.tree.unflatten(
+        treedef, [leaf + 0.05 * jax.random.normal(k, leaf.shape, leaf.dtype) for leaf, k in zip(leaves, keys)])
+    crops = np.random.default_rng(3).integers(0, 256, size=(16, 32, 32, 3), dtype=np.uint8)
+    x = jax_preprocess_crops(jnp.asarray(crops))
+    jax_logits = {
+        "f32": np.asarray(f32.apply(variables, x), np.float32),
+        "bf16": np.asarray(JaxBeit(cfg, dtype=jnp.bfloat16).apply(variables, x), np.float32),
+    }
+    return variables, preprocess_crops(torch.from_numpy(crops)), jax_logits
+
+
+def port_logits(setting, attn_impl: str, dtype: torch.dtype) -> np.ndarray:
+    variables, x, _ = setting
+    model = beit_from_flax(variables, BeitConfig(**A8_CFG, attn_impl=attn_impl)).to(dtype)
+    with torch.no_grad():
+        return model(x).float().numpy()
+
+
+@pytest.mark.parametrize("attn_impl", ["auto", "einsum"], ids=["b1_twin", "einsum"])
+def test_bf16_tracks_f32(a8_setting, attn_impl):
+    """A8: the port's bf16 BEiT against its f32 BEiT at the reference's
+    setting and bars (``tests/test_models.py::test_bf16_fast_path_tracks_
+    f32``), on both attention routes: softmax drift < 0.05, some crops
+    decisive (top-1 margin > 2·drift·max|logit|), and the same top-1 on
+    every decisive crop. Measured on the CPU: drift 0.0030 on B1's twin
+    (scores f32), 0.0055 on the einsum route (scores bf16); all 16 crops
+    decisive."""
+    logits32 = port_logits(a8_setting, attn_impl, torch.float32)
+    logits16 = port_logits(a8_setting, attn_impl, torch.bfloat16)
+    drift = float(np.abs(softmax_np(logits32) - softmax_np(logits16)).max())
+    assert drift < 0.05, f"softmax drift {drift}"
+    top = np.sort(logits32, axis=-1)
+    margin = top[:, -1] - top[:, -2]
+    decisive = margin > 2 * drift * np.abs(logits32).max()
+    assert decisive.any()  # the check below must bite
+    agree = logits32.argmax(-1) == logits16.argmax(-1)
+    assert agree[decisive].all(), f"bf16 flipped a decisive top-1: margins {margin[~agree]}"
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_einsum_beit_matches_jax_einsum(a8_setting, dtype):
+    """``attn_impl="einsum"`` against the reference's einsum route on the
+    same variables and crops. f32: logits within 1e-5 (measured 1.5e-6).
+    bf16: logits within 2 bf16 ulps at their scale (|logit| < 4, an ulp
+    0.0156: 0.03125; measured one ulp), softmax within 0.01 (measured
+    0.0053), and the same top-1 on every crop whose f32 margin exceeds
+    that logit bar."""
+    got = port_logits(a8_setting, "einsum", torch.float32 if dtype == "f32" else torch.bfloat16)
+    want = a8_setting[2][dtype]
+    if dtype == "f32":
+        np.testing.assert_allclose(got, want, atol=1e-5)
+        return
+    assert np.abs(want).max() < 4.0
+    np.testing.assert_allclose(got, want, atol=0.03125)
+    assert np.abs(softmax_np(got) - softmax_np(want)).max() <= 0.01
+    top = np.sort(a8_setting[2]["f32"], axis=-1)
+    clear = top[:, -1] - top[:, -2] > 0.03125
+    assert clear.any()
+    np.testing.assert_array_equal(got.argmax(-1)[clear], want.argmax(-1)[clear])
 
 
 def test_relative_position_index_equal():

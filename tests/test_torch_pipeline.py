@@ -213,13 +213,15 @@ def test_cli_mode_logic(tmp_path, monkeypatch):
     ("mesh_devices = 1", "A22"),
 ])
 def test_unported_settings_raise_before_work(tmp_path, line, item):
-    """The settings the port cannot run raise before any work. The three
-    views of a run (A18) are ported now: they no longer raise, and are not
-    listed by ``unsupported_settings``. So is ``mesh_devices > 1`` (A22):
-    it is not listed, and the Pipeline joins the running world of that many
-    ranks; with none running (a world smaller than asked) it raises
-    ``ValueError`` before any work. tests/test_torch_parallel_pipeline.py
-    runs it, through the CLI, on 2 ranks."""
+    """No setting of the config is refused any more. The three views of a
+    run (A18) build a Pipeline that honours them. ``use_pallas = false``
+    builds one whose compare runs the plain NN (``Alignment(use_pallas=
+    False)``) and whose BEiT takes the einsum attention; test_torch_plain_
+    route.py runs it against JAX's. ``mesh_devices > 1`` (A22) joins the
+    running world of that many ranks; with none running (a world smaller
+    than asked) it raises ``ValueError`` before any work.
+    tests/test_torch_parallel_pipeline.py runs it, through the CLI, on 2
+    ranks."""
     change = {"view_img = false": "view_img = true",
               "alignment_vis = false": "alignment_vis = true", "comparison_vis = false": "comparison_vis = true",
               "use_pallas = true": "use_pallas = false",
@@ -227,20 +229,21 @@ def test_unported_settings_raise_before_work(tmp_path, line, item):
     cfg = chip_smoke.write_config(str(tmp_path), [("fused_inference = false", "fused_inference = true"),
                                                  (line, change)])
     c = PCfg(cfg, "gold_std")
-    if item == "A18":
-        assert PT.unsupported_settings(c) == [] and getattr(c, line.split()[0])
-        PT.Pipeline("gold_std", c, device="cpu")
-        return
     if item == "A22":
-        assert PT.unsupported_settings(c) == [] and c.mesh_devices == 2
+        assert c.mesh_devices == 2
         with pytest.raises(ValueError, match="no world is running"):
             PT.setup_pipeline("gold_std", c, None, device="cpu")
         assert not os.path.exists(c.pickle_path) and not os.path.exists(c.depth_image_dir)
         assert not torch.distributed.is_initialized()
         return
-    with pytest.raises(NotImplementedError, match=item):
-        PT.setup_pipeline("gold_std", c, None, device="cpu")
-    assert not os.path.exists(c.pickle_path) and not os.path.exists(c.depth_image_dir)
+    p = PT.Pipeline("gold_std", c, device="cpu")
+    if item == "A18":
+        assert getattr(c, line.split()[0])
+        return
+    assert not c.use_pallas and p._beit_config(2).attn_impl == "einsum"
+    gold = {"pose_df": np.zeros((1, 7), np.float32), "optimised_bboxes": {}}
+    align = PT.make_alignment(c, gold, np.zeros((1, 7), np.float32), {}, None, None, device="cpu")
+    assert align.use_pallas is False
 
 
 def test_streaming_chunk_is_ignored_on_the_staged_route(tmp_path, caplog):

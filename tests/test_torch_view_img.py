@@ -158,7 +158,6 @@ def route(request, tmp_path_factory):
     gold_cfg, on_cfg, off_cfg = PCfg(cfg_on, "gold_std"), PCfg(cfg_on, "maintenance"), PCfg(cfg_off, "maintenance")
     assert off_cfg.csv_output == on_cfg.csv_output and not off_cfg.view_img
     assert on_cfg.view_img and on_cfg.alignment_vis and on_cfg.comparison_vis
-    assert PT.unsupported_settings(on_cfg) == []
     with mock.patch.object(PV, "VisualiseAlignment", SMALL_ANIMATION):
         gold = PT.setup_pipeline("gold_std", gold_cfg, None, device="cpu")
         gold_var = PT.load_gold_std(gold_cfg.pickle_path)

@@ -15,7 +15,9 @@ program (``_compare_program``) on the device: init scoring and selection,
 three coarse-to-fine ICP stages (point-to-plane against grid-PCA normals
 when the target is a real cloud), the exact final measurement, and the
 auction box matching, with ONE readback of its results at the end. Every
-nearest-neighbour search in it is kernel B2. The gold side (normals,
+exact nearest-neighbour search in it is kernel B2, or B2's plain twin on any
+device with ``use_pallas=False`` (the reference's escape hatch from its
+kernels, which the Pipeline passes for ``use_pallas = false``). The gold side (normals,
 padded target, init subsample, moments) is cached across calls, keyed by
 the gold cloud's content.
 
@@ -28,10 +30,8 @@ existing constraint) and each rank takes its contiguous block; the target
 and its normals replicate. Every NN search stays B2 on the rank's own rows;
 every reduction is summed across the ranks (``ops/icp.py``), so all ranks
 hold the same transform. The box matching runs on rank 0 alone, which
-keeps ``last_match``. The gold and index caches key on the world.
-
-Not ported: the reference's ``use_pallas`` switch, which put the plain NN
-on the accelerator: the port has no switch to a twin on its main path.
+keeps ``last_match``. The gold and index caches key on the world and on
+``use_pallas``.
 """
 
 from __future__ import annotations
@@ -218,6 +218,7 @@ def _compare_program(
     dists: tuple,
     iterations: int,
     mesh=None,
+    use_pallas: bool = True,
 ) -> dict:
     """The whole compare on the device, the reference's
     ``_fused_compare_program`` as one plain function. The tensors stay on
@@ -228,13 +229,14 @@ def _compare_program(
     match_matched — when ``match`` is given. Non-final ICP stages skip
     their measurement sweep (the reference's compiler drops it as unused).
     With a ``mesh`` the queries (``score_q`` and each stage's) are this
-    rank's rows and the solvers reduce across the ranks.
+    rank's rows and the solvers reduce across the ranks. ``use_pallas=False``
+    runs every exact search on B2's twin.
     """
     out = {}
     if global_init == "centroid":
         T = T_cands[0]
     else:
-        res = init_residuals_batched(score_q, score_t, T_cands, mesh)
+        res = init_residuals_batched(score_q, score_t, T_cands, mesh, use_pallas=use_pallas)
         if anchors is not None:
             res = res + _box_anchor_residuals(T_cands, *anchors)
         best = torch.argmin(res[1:])
@@ -256,6 +258,7 @@ def _compare_program(
             iterations=iterations,
             target_index=t_index,
             mesh=mesh,
+            use_pallas=use_pallas,
             _measure=si == len(stages) - 1,
         )
         if nj is not None:
@@ -304,10 +307,12 @@ def _subsample(points: np.ndarray, n: int, seed: int = 0) -> np.ndarray:
 class Alignment:
     """Aligns the comparison (maintenance) map onto the base (gold-std) map.
 
-    The constructor takes the reference's arguments, without ``use_pallas``
-    and with ``device`` (default "cuda"; raises without CUDA unless "cpu"
-    is passed). ``mesh`` (a ``parallel.mesh.Mesh``) shards the ICP query
-    axis over its ranks, which then run on the mesh's device."""
+    The constructor takes the reference's arguments and ``device`` (default
+    "cuda"; raises without CUDA unless "cpu" is passed). ``mesh`` (a
+    ``parallel.mesh.Mesh``) shards the ICP query axis over its ranks, which
+    then run on the mesh's device. ``use_pallas``: None or True run kernel
+    B2 on CUDA tensors (its twin on CPU tensors); False runs the twin
+    everywhere, the kernel never."""
 
     def __init__(
         self,
@@ -334,6 +339,7 @@ class Alignment:
         verdict_rmse_ceiling: float = 0.08,
         verdict_planarity_floor: float = 1e-4,
         verdict_init_margin_min: float = 1.15,
+        use_pallas: bool | None = None,
         device: str | torch.device = "cuda",
     ):
         if global_init not in ("centroid", "pca", "auto"):
@@ -342,6 +348,7 @@ class Alignment:
             raise ValueError(f"unknown ann {ann!r}")
         self.mesh = mesh
         self.device = mesh.device if mesh is not None else resolve_device(device)
+        self.use_pallas = use_pallas is not False
         self.base_poses = _poses_to_array(base_pose_df)
         self.comparison_poses = _poses_to_array(comparison_pose_df)
         self.base_records = _boxes_to_records(base_bboxes)
@@ -488,7 +495,7 @@ class Alignment:
           coarse  — ((points, normals), fp) of the coarse-stage target,
                     filled on first need"""
         fp = _target_fingerprint(base_s)
-        key = (fp, self._world_key, self.coarse_target_cap, normals_wanted)
+        key = (fp, self._world_key, self.coarse_target_cap, normals_wanted, self.use_pallas)
         with _CACHE_LOCK:
             entry = _GOLD_CACHE.get(key)
             if entry is not None:
@@ -542,13 +549,13 @@ class Alignment:
         c, b = default_index_shape(m)
         if c > m:
             return None
-        key = (fp, m, c, b, self._world_key)
+        key = (fp, m, c, b, self.use_pallas, self._world_key)
         with _CACHE_LOCK:
             index = _ANN_INDEX_CACHE.get(key)
             if index is not None:
                 _ANN_INDEX_CACHE.move_to_end(key)
                 return index
-            index = build_anchor_index(tj, n_anchors=c, bucket_cap=b)
+            index = build_anchor_index(tj, n_anchors=c, bucket_cap=b, use_pallas=self.use_pallas)
             _ANN_INDEX_CACHE[key] = index
             while len(_ANN_INDEX_CACHE) > _ANN_CACHE_MAX:
                 _ANN_INDEX_CACHE.popitem(last=False)
@@ -636,6 +643,7 @@ class Alignment:
             dists=dists,
             iterations=self.icp_iterations,
             mesh=self.mesh,
+            use_pallas=self.use_pallas,
         )
         host = _to_host(out)
 

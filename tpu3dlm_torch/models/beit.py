@@ -6,14 +6,20 @@ variables load mechanically (models/weights.py): patch embed, per-layer
 relative position bias, k-bias-free QKV, layer-scale residuals, mean
 pooling + ``pool_ln``. LayerNorm eps 1e-12, exact GELU.
 
-Attention runs through kernel B1 (``ops/kernels/attention.py``): the CUDA
-kernel for CUDA tensors, its plain twin for CPU tensors.
+Attention takes the route ``BeitConfig.attn_impl`` names. ``"auto"`` (the
+default) and ``"pallas"`` run kernel B1 (``ops/kernels/attention.py``): the
+CUDA kernel for CUDA tensors, its plain twin for CPU tensors; scores stay
+f32. ``"einsum"`` runs the reference's einsum attention in plain PyTorch on
+any device, with its numerics: scores, the 1/√d scale and the bias add in
+the compute dtype, the softmax in f32 cast back to v's dtype, the product
+with v in the compute dtype. The Pipeline picks ``"einsum"`` under
+``use_pallas = false``, as the reference's does.
 
 ``BeitConfig(quant="int8")`` makes every encoder projection (attention
 q/k/v/output, fc1, fc2) an ``Int8Dense`` (``ops/quant.py``: per-row int8
 activations, an int8 product, f32 dequantisation), as the JAX package's
 ``_encoder_dense`` does; patch embed, LayerNorms, the pooling and the head
-stay float, and attention stays on B1 in the module's dtype. Int8 weights
+stay float, and attention takes its route in the module's dtype. Int8 weights
 come from a float model or checkpoint: ``quantize_beit`` here, or
 ``models/weights.py::quantize_beit_variables`` on a Flax tree.
 """
@@ -45,14 +51,16 @@ class BeitConfig:
     layer_norm_eps: float = 1e-12
     layer_scale_init_value: float = 0.1
     use_mean_pooling: bool = True
-    # kept for config parity with the JAX package; the port has one
-    # attention path (kernel B1 on the card, its twin on the CPU)
+    # "auto" or "pallas": kernel B1 (its twin on the CPU); "einsum": the
+    # reference's einsum attention in plain PyTorch (module docstring)
     attn_impl: str = "auto"
     quant: str = "none"  # "int8": int8 encoder projections (Int8Dense)
 
     def __post_init__(self):
         if self.quant not in ("none", "int8"):
             raise ValueError(f"BeitConfig.quant must be 'none' or 'int8', got {self.quant!r}")
+        if self.attn_impl not in ("auto", "pallas", "einsum"):
+            raise ValueError(f"BeitConfig.attn_impl must be 'auto', 'pallas' or 'einsum', got {self.attn_impl!r}")
 
     @property
     def grid(self) -> int:
@@ -133,11 +141,31 @@ def _encoder_dense(cfg: BeitConfig, in_features: int, out_features: int, bias: b
     return nn.Linear(in_features, out_features, bias=bias)
 
 
+def einsum_attention(q, k, v, bias, num_heads: int) -> torch.Tensor:
+    """The reference's einsum attention (``tpu3dlm/models/beit.py``, the
+    ``attn_impl="einsum"`` branch) on packed (B, N, h·d) q, k, v and the
+    (h, N, N) bias: scores, ``/ sqrt(d)`` and the bias add in q's dtype,
+    softmax in f32 cast to v's dtype, then the product with v."""
+    B, N, H = q.shape
+    hd = H // num_heads
+
+    def split(t):
+        return t.reshape(B, N, num_heads, hd).transpose(1, 2)
+
+    q, k, v = split(q), split(k), split(v)
+    attn = q @ k.transpose(-1, -2)
+    attn = attn / torch.tensor(float(hd), dtype=torch.float32).sqrt().to(attn.dtype)
+    attn = attn + bias[None].to(attn.dtype)
+    attn = torch.softmax(attn.float(), dim=-1).to(v.dtype)
+    return (attn @ v).transpose(1, 2).reshape(B, N, H)
+
+
 class BeitAttention(nn.Module):
     def __init__(self, cfg: BeitConfig):
         super().__init__()
         c = cfg
         self.num_heads = c.num_heads
+        self.einsum = c.attn_impl == "einsum"
         self.query = _encoder_dense(c, c.hidden_size, c.hidden_size)
         self.key = _encoder_dense(c, c.hidden_size, c.hidden_size, bias=False)  # BEiT: no k bias
         self.value = _encoder_dense(c, c.hidden_size, c.hidden_size)
@@ -150,8 +178,9 @@ class BeitAttention(nn.Module):
     def forward(self, x):
         B, N, _ = x.shape
         bias = self.relative_position_bias_table[self.rel_index]  # (N·N, h)
-        bias = bias.reshape(N, N, self.num_heads).permute(2, 0, 1).float().contiguous()
-        out = beit_attention_packed(self.query(x), self.key(x), self.value(x), bias, self.num_heads)
+        bias = bias.reshape(N, N, self.num_heads).permute(2, 0, 1)
+        attend = einsum_attention if self.einsum else beit_attention_packed
+        out = attend(self.query(x), self.key(x), self.value(x), bias.float().contiguous(), self.num_heads)
         return self.output(out)
 
 

@@ -296,41 +296,62 @@ def topk_stable(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
-def postprocess(raw_split, img_size: int, max_det: int = 300) -> dict[str, torch.Tensor]:
+def postprocess(raw, img_size: int, max_det: int = 300, per_level: bool = True) -> dict[str, torch.Tensor]:
     """One-to-one head maps → top-``max_det`` boxes per image.
 
-    Per level (reductions before any concatenation, as the reference's
-    per-level path): max class logit → one sigmoid → conf, argmax → label,
-    DFL softmax expectation → box in pixels. Returns boxes (B, D, 4),
-    conf (B, D), label (B, D) int32, in descending conf order.
+    ``raw`` is the split form ``[(box, cls), ...]`` (``one2one_split``) or
+    the reference's concatenated maps ``[(B, H, W, 4·REG_MAX + nc), ...]``;
+    both give the same result. Per level (``per_level=True``, reductions
+    before any concatenation, as the reference's per-level path): max class
+    logit → one sigmoid → conf, argmax → label, DFL softmax expectation →
+    box in pixels. ``per_level=False`` is the reference's A/B baseline, bit
+    for bit the same result: the maps concatenated, ``decode_raw``, then
+    sigmoid over every class logit and the max and argmax of those. Returns
+    boxes (B, D, 4), conf (B, D), label (B, D) int32, in descending conf
+    order.
     """
     if img_size % 32:
         raise ValueError(f"img_size must be a multiple of 32, got {img_size}")
-    dev = raw_split[0][0].device
-    bins = torch.arange(REG_MAX, dtype=torch.float32, device=dev)
-    conf_l, label_l, boxes_l = [], [], []
-    for (box_map, cls_map), s in zip(raw_split, STRIDES):
-        B = box_map.shape[0]
-        box_logits = box_map.reshape(B, -1, 4, REG_MAX)
-        n = box_logits.shape[1]
-        logits32 = cls_map.reshape(B, n, -1).float()
-        mx, arg = logits32.max(dim=-1)
-        conf_l.append(torch.sigmoid(mx))
-        label_l.append(arg.to(torch.int32))
-        dist = torch.softmax(box_logits.float(), dim=-1) @ bins  # (B, n, 4)
-        h = w = img_size // s
-        ys, xs = torch.meshgrid(
-            torch.arange(h, dtype=torch.float32, device=dev) + 0.5,
-            torch.arange(w, dtype=torch.float32, device=dev) + 0.5,
-            indexing="ij",
-        )
-        a = torch.stack([xs.reshape(-1), ys.reshape(-1)], -1)
-        x1y1 = (a[None] - dist[..., :2]) * float(s)
-        x2y2 = (a[None] + dist[..., 2:]) * float(s)
-        boxes_l.append(torch.cat([x1y1, x2y2], -1))
-    conf = torch.cat(conf_l, 1)
-    label = torch.cat(label_l, 1)
-    boxes = torch.cat(boxes_l, 1)
+    split_in = isinstance(raw[0], (tuple, list))
+    if not per_level:
+        boxes, cls_logits = decode_raw(raw, img_size)
+        # contiguous: the CPU's sigmoid over a strided slice of the
+        # concatenated maps takes a scalar loop that rounds otherwise than
+        # the vector one the per-level path gets, by an ulp
+        conf, label = torch.sigmoid(cls_logits.float().contiguous()).max(dim=-1)
+        label = label.to(torch.int32)
+    else:
+        dev = raw[0][0].device if split_in else raw[0].device
+        bins = torch.arange(REG_MAX, dtype=torch.float32, device=dev)
+        conf_l, label_l, boxes_l = [], [], []
+        for r, s in zip(raw, STRIDES):
+            if split_in:
+                box_map, cls_map = r
+                B = box_map.shape[0]
+                box_logits = box_map.reshape(B, -1, 4, REG_MAX)
+                cls_logits = cls_map.reshape(B, box_logits.shape[1], -1)
+            else:
+                B = r.shape[0]
+                flat = r.reshape(B, -1, r.shape[-1])
+                box_logits = flat[..., : 4 * REG_MAX].reshape(B, flat.shape[1], 4, REG_MAX)
+                cls_logits = flat[..., 4 * REG_MAX:]
+            mx, arg = cls_logits.float().max(dim=-1)
+            conf_l.append(torch.sigmoid(mx))
+            label_l.append(arg.to(torch.int32))
+            dist = torch.softmax(box_logits.float(), dim=-1) @ bins  # (B, n, 4)
+            h = w = img_size // s
+            ys, xs = torch.meshgrid(
+                torch.arange(h, dtype=torch.float32, device=dev) + 0.5,
+                torch.arange(w, dtype=torch.float32, device=dev) + 0.5,
+                indexing="ij",
+            )
+            a = torch.stack([xs.reshape(-1), ys.reshape(-1)], -1)
+            x1y1 = (a[None] - dist[..., :2]) * float(s)
+            x2y2 = (a[None] + dist[..., 2:]) * float(s)
+            boxes_l.append(torch.cat([x1y1, x2y2], -1))
+        conf = torch.cat(conf_l, 1)
+        label = torch.cat(label_l, 1)
+        boxes = torch.cat(boxes_l, 1)
     k = min(max_det, boxes.shape[1])
     top_conf, idx = topk_stable(conf, k)
     top_boxes = torch.gather(boxes, 1, idx[..., None].expand(-1, -1, 4))

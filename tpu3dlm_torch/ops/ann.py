@@ -20,7 +20,8 @@ transform it returns.
 
 The JAX package computes the query outside any Pallas kernel, so here it is
 plain PyTorch; the build's assignment sweep is kernel B2 on CUDA tensors
-and its twin on CPU tensors (``ops/kernels/pairwise.nearest_neighbors``).
+and its twin on CPU tensors (``ops/kernels/pairwise.nearest_neighbors``),
+or the twin on any device with ``use_pallas=False``.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from typing import NamedTuple
 
 import torch
 
-from tpu3dlm_torch.ops.kernels.pairwise import nearest_neighbors
+from tpu3dlm_torch.ops.kernels.pairwise import nearest_neighbors, nearest_neighbors_reference
 
 # coordinate of an empty bucket slot: beyond any scan and beyond the 1e6
 # target padding of ops/icp.pad_target_bucket, so an empty slot never wins
@@ -89,17 +90,19 @@ def build_anchor_index(
     n_anchors: int,
     bucket_cap: int,
     seed: int = 0,
+    use_pallas: bool = True,
 ) -> AnchorIndex:
     """Sample the anchors, assign every target point to its nearest one
-    (kernel B2 on a CUDA target), and bucket the points by anchor in target
-    order, dropping those past ``bucket_cap``."""
+    (kernel B2 on a CUDA target; the twin with ``use_pallas=False``), and
+    bucket the points by anchor in target order, dropping those past
+    ``bucket_cap``."""
     tgt = target.to(torch.float32).contiguous()
     m = tgt.shape[0]
     c, b = n_anchors, bucket_cap
     if c > m:
         raise ValueError(f"n_anchors {c} > target size {m}")
     anchors = tgt[sample_anchor_ids(m, c, seed).to(tgt.device)].contiguous()
-    assign, _ = nearest_neighbors(tgt, anchors)
+    assign, _ = (nearest_neighbors if use_pallas else nearest_neighbors_reference)(tgt, anchors)
 
     order = torch.argsort(assign, stable=True)  # ids stay in target order per anchor
     sorted_assign = assign[order]

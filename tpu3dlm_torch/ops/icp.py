@@ -7,7 +7,10 @@ buckets; ``rotation_about`` builds the (R, center) steps the animation
 replays. Every correspondence search is kernel B2
 (``ops/kernels/pairwise.nearest_neighbors``), except the iterations of a
 solve given an anchor index (``target_index``, ``ops/ann.py``), which use
-the anchored search; the measurement pass stays on B2 either way.
+the anchored search; the measurement pass stays on B2 either way. Every
+solver and the init scoring take ``use_pallas`` (default True):
+``False`` runs each exact search on B2's plain twin on any device, as the
+reference's ``use_pallas=False`` runs ``nearest_neighbors_xla``.
 
 The reference runs each solver as one ``lax.scan`` whose iterations turn
 into identity increments once converged (``lax.cond`` skips the NN sweep).
@@ -34,7 +37,7 @@ import torch
 
 from tpu3dlm_torch.ops.ann import AnchorIndex, nn_anchored
 from tpu3dlm_torch.ops.geometry import so3_exp
-from tpu3dlm_torch.ops.kernels.pairwise import nearest_neighbors
+from tpu3dlm_torch.ops.kernels.pairwise import nearest_neighbors, nearest_neighbors_reference
 
 
 def _total(x: torch.Tensor, mesh) -> torch.Tensor:
@@ -110,12 +113,18 @@ def _moved(src: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
     return src @ T[:3, :3].T + T[:3, 3]
 
 
-def _iteration_nn(target_index: AnchorIndex | None, ann_top_p: int) -> Callable:
+def _exact_nn(use_pallas: bool) -> Callable:
+    """Kernel B2 (the twin on CPU tensors), or with ``use_pallas=False``
+    the twin on any device."""
+    return nearest_neighbors if use_pallas else nearest_neighbors_reference
+
+
+def _iteration_nn(target_index: AnchorIndex | None, ann_top_p: int, use_pallas: bool) -> Callable:
     """The per-iteration correspondence search: the anchored search when
-    an index over the target is given, else kernel B2. (The measurement
-    pass always calls B2.)"""
+    an index over the target is given, else the exact search ``use_pallas``
+    names (kernel B2 or its twin). (The measurement pass is always exact.)"""
     if target_index is None:
-        return nearest_neighbors
+        return _exact_nn(use_pallas)
     return lambda q, _tgt: nn_anchored(q, target_index, top_p=ann_top_p)
 
 
@@ -149,6 +158,7 @@ def icp(
     target_index: AnchorIndex | None = None,
     ann_top_p: int = 4,
     mesh=None,
+    use_pallas: bool = True,
     *,
     _measure: bool = True,
 ) -> ICPResult:
@@ -160,12 +170,14 @@ def icp(
     ``target``; the iterations then use the anchored search over the top
     ``ann_top_p`` buckets, and the measurement stays exact.
     ``mesh``: ``source`` is this rank's rows (the module docstring).
+    ``use_pallas=False``: every exact search on B2's twin, on any device.
     ``_measure=False`` skips the final measurement sweep (the compare
     program's non-final stages, whose rmse nobody reads)."""
     src0 = source.to(torch.float32)
     tgt = target.to(torch.float32)
     max_d2 = max_correspondence_dist ** 2
-    nn = _iteration_nn(target_index, ann_top_p)
+    nn = _iteration_nn(target_index, ann_top_p, use_pallas)
+    exact = _exact_nn(use_pallas)
 
     def live_inc(T):
         moved = _moved(src0, T)
@@ -174,7 +186,7 @@ def icp(
         return kabsch(moved, tgt[idx], w, mesh)
 
     def measure(T):
-        _, d2 = nearest_neighbors(_moved(src0, T), tgt)
+        _, d2 = exact(_moved(src0, T), tgt)
         w = (d2 <= max_d2).to(torch.float32)
         return _measurement(w, d2, mesh)
 
@@ -197,6 +209,7 @@ def icp_point_to_plane(
     target_index: AnchorIndex | None = None,
     ann_top_p: int = 4,
     mesh=None,
+    use_pallas: bool = True,
     *,
     _measure: bool = True,
 ) -> ICPResult:
@@ -207,13 +220,14 @@ def icp_point_to_plane(
     plane-parallel directions. Per iteration: NN correspondences (kernel
     B2), a damped 6×6 normal-equation solve over both residuals
     (``solve_ex``: no hidden host sync), increment exp(ω) and t composed
-    onto T. ``target_index``, ``ann_top_p``, ``mesh`` and ``_measure`` as in
-    ``icp``; rmse is the plane residual's."""
+    onto T. ``target_index``, ``ann_top_p``, ``mesh``, ``use_pallas`` and
+    ``_measure`` as in ``icp``; rmse is the plane residual's."""
     src0 = source.to(torch.float32)
     tgt = target.to(torch.float32)
     nrm = target_normals.to(torch.float32)
     max_d2 = max_correspondence_dist ** 2
-    nn = _iteration_nn(target_index, ann_top_p)
+    nn = _iteration_nn(target_index, ann_top_p, use_pallas)
+    exact = _exact_nn(use_pallas)
     dev = src0.device
     eye3 = torch.eye(3, dtype=torch.float32, device=dev)
     eye6 = torch.eye(6, dtype=torch.float32, device=dev)
@@ -261,7 +275,7 @@ def icp_point_to_plane(
 
     def measure(T):
         moved = _moved(src0, T)
-        idx, d2 = nearest_neighbors(moved, tgt)
+        idx, d2 = exact(moved, tgt)
         r = ((moved - tgt[idx]) * nrm[idx]).sum(-1)
         w = (d2 <= max_d2).to(torch.float32)
         return _measurement(w, r * r, mesh)
@@ -277,17 +291,18 @@ def init_residuals_batched(
     target: torch.Tensor,  # (M, 3)
     Ts: torch.Tensor,  # (K, 4, 4) candidate inits
     mesh=None,
+    use_pallas: bool = True,
 ) -> torch.Tensor:
     """(K,) clipped-mean NN distance of each T·source into target, in ONE
     NN sweep over the K·N stacked queries. The clip (5% of the target bbox
     diagonal) bounds the non-overlapping tail of partial scans. With a
     ``mesh`` ``source`` is this rank's rows and the means run over every
-    rank's."""
+    rank's; ``use_pallas=False`` sweeps on B2's twin."""
     tgt = target.to(torch.float32)
     src = source.to(torch.float32)
     Ts = Ts.to(torch.float32)
     moved = src[None] @ Ts[:, :3, :3].transpose(1, 2) + Ts[:, None, :3, 3]  # (K, N, 3)
-    _, d2 = nearest_neighbors(moved.reshape(-1, 3), tgt)
+    _, d2 = _exact_nn(use_pallas)(moved.reshape(-1, 3), tgt)
     diag = torch.linalg.vector_norm(tgt.max(0).values - tgt.min(0).values)
     clipped = torch.minimum(torch.sqrt(d2), 0.05 * diag).reshape(Ts.shape[0], -1)
     if mesh is None:

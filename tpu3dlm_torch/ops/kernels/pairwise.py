@@ -14,7 +14,9 @@ CUDA tensors launch the kernel (a refused launch raises; there is no
 fallback); CPU tensors run the plain PyTorch twin
 ``nearest_neighbors_reference``, a chunked copy of the reference's
 ``nearest_neighbors_xla``, which the CPU tests hold against the JAX package
-and ``chip_smoke.py`` holds the kernel against on the card.
+and ``chip_smoke.py`` holds the kernel against on the card. Callers given
+``use_pallas=False`` (the user's ``use_pallas = false``) call the twin
+itself, on any device, and the kernel is never launched.
 
 Bound on an H100 SXM: three f32 FMAs (6 flops) per query-target pair at
 67 TFLOP/s, e.g. 1.54 ms at 16384 × 1,048,576; the inputs are a few MB, so

@@ -1,6 +1,7 @@
 """Nearest neighbour over the world of ranks (port of
 ``tpu3dlm/parallel/nn.py``). Every search is kernel B2
-(``ops/kernels/pairwise.py``), on the card, or its twin on the CPU.
+(``ops/kernels/pairwise.py``), on the card, or its twin on the CPU, or the
+twin on any device where the caller passes ``use_pallas=False``.
 
 * **query-sharded**: the (N, 3) queries shard over the ranks and the target
   replicates; each rank searches its own rows with no collective.
@@ -17,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from tpu3dlm_torch.ops.kernels.pairwise import nearest_neighbors
+from tpu3dlm_torch.ops.kernels.pairwise import nearest_neighbors, nearest_neighbors_reference
 from tpu3dlm_torch.parallel.mesh import Mesh, shard_batch
 
 
@@ -31,15 +32,17 @@ def shard_queries(mesh: Mesh, a, b) -> tuple[torch.Tensor, torch.Tensor]:
     return place(shard_batch(a, mesh)), place(b)
 
 
-def target_sharded_nn(mesh: Mesh):
+def target_sharded_nn(mesh: Mesh, use_pallas: bool = True):
     """Returns ``nn(a, b_shard) → (idx (N,) int64, d2 (N,) f32)``: ``a``
     is every query (the same on each rank), ``b_shard`` this rank's
     contiguous block of a target whose length the world size divides
     (``shard_batch``). Every rank gets the single-device B2 result over
-    the whole target, with global indices."""
+    the whole target, with global indices; ``use_pallas=False`` searches
+    each shard on B2's twin."""
+    base_nn = nearest_neighbors if use_pallas else nearest_neighbors_reference
 
     def nn(a: torch.Tensor, b_shard: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        idx, d2 = nearest_neighbors(a, b_shard)
+        idx, d2 = base_nn(a, b_shard)
         gidx = idx + mesh.rank * b_shard.shape[0]
         d2_all = mesh.all_gather(d2[None])  # (ranks, N), rank-major
         idx_all = mesh.all_gather(gidx[None])

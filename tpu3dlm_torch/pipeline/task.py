@@ -54,9 +54,12 @@ queries (``Alignment(mesh=...)``). Rank 0 alone writes the pickle, the
 CSV, the map and the views; ``run`` returns on every rank once they are
 written. Without a world of n ranks the Pipeline raises ``ValueError``.
 
-Settings the port cannot honour yet raise ``NotImplementedError`` before
-any work: ``use_pallas = false`` (the port has no plain path on the card).
-``icp_ann`` goes to ``Alignment`` as is.
+``use_pallas = false`` is the reference's escape hatch from its kernels,
+and the port's: the compare runs every nearest-neighbour search on the
+plain twin (``Alignment(use_pallas=False)``) and BEiT takes the reference's
+einsum attention (``attn_impl = "einsum"``), on every route and device, so
+neither kernel B1 nor B2 is launched. ``icp_ann`` goes to ``Alignment`` as
+is.
 """
 
 from __future__ import annotations
@@ -100,21 +103,9 @@ def _cached_weights(key, builder):
         return _WEIGHTS[key]
 
 
-def unsupported_settings(cfg) -> list[str]:
-    """Each setting of ``cfg`` the port cannot run yet, and why."""
-    out = []
-    if not getattr(cfg, "use_pallas", True):
-        out.append("use_pallas = false: the port has no switch that runs plain PyTorch in place "
-                   "of its kernels on the card")
-    return out
-
-
 class Pipeline:
     def __init__(self, data_folder, cfg, cfg_goldstd=None, goldstd_var=None,
                  device: str | torch.device = "cuda"):
-        problems = unsupported_settings(cfg)
-        if problems:
-            raise NotImplementedError("; ".join(problems))
         n = getattr(cfg, "mesh_devices", 1)
         self.mesh = make_mesh(n, device=device) if n > 1 else None
         self.device = self.mesh.device if self.mesh is not None else resolve_device(device)
@@ -465,7 +456,7 @@ class Pipeline:
 
     def _beit_config(self, num_labels: int) -> BeitConfig:
         """BeitConfig from the cfg's beit_* architecture knobs (BEiT-base
-        defaults)."""
+        defaults); ``use_pallas = false`` selects the einsum attention."""
         base = BeitConfig()
         return BeitConfig(
             image_size=getattr(self.cfg, "beit_image_size", base.image_size),
@@ -476,6 +467,7 @@ class Pipeline:
             intermediate_size=getattr(self.cfg, "beit_intermediate_size", base.intermediate_size),
             num_labels=num_labels,
             quant=getattr(self.cfg, "beit_quant", "none"),
+            attn_impl="auto" if getattr(self.cfg, "use_pallas", True) else "einsum",
         )
 
     def _weights_key(self, kind: str, path: str, model_cfg) -> tuple:
@@ -543,7 +535,8 @@ def make_alignment(cfg, gold_var: dict, pose_df, optimised_bboxes, base_cloud, c
                    device: str | torch.device = "cuda", mesh=None) -> Alignment:
     """The maintenance scan's ``Alignment`` onto the gold scan's record, with
     the config's registration settings (its ICP queries sharded over
-    ``mesh`` when given)."""
+    ``mesh`` when given; every NN search on the plain twin under
+    ``use_pallas = false``)."""
     return Alignment(
         base_pose_df=gold_var["pose_df"],
         comparison_pose_df=pose_df,
@@ -559,6 +552,7 @@ def make_alignment(cfg, gold_var: dict, pose_df, optimised_bboxes, base_cloud, c
         verdict_inlier_floor=getattr(cfg, "align_inlier_floor", 0.35),
         verdict_rmse_ceiling=getattr(cfg, "align_rmse_ceiling", 0.08),
         mesh=mesh,
+        use_pallas=None if getattr(cfg, "use_pallas", True) else False,
         device=device,
     )
 
