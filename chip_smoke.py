@@ -5,7 +5,7 @@
 
 Builds every CUDA kernel of the port from ``tpu3dlm_torch/csrc`` (into
 ``tpu3dlm_torch/_build``, one ``nvcc`` per source and one ``c++`` for the
-host C++ sources, all at once), then runs thirty-seven phases, each printing one
+host C++ sources, all at once), then runs thirty-eight phases, each printing one
 JSON line; any failure raises and the script exits non-zero without a result:
 
 1. ``kernel_b1``: kernel B1 (BEiT attention) against its plain PyTorch twin
@@ -243,8 +243,8 @@ JSON line; any failure raises and the script exits non-zero without a result:
     (losses, the augmented uint8 crops identical, B1 launched);
     ``phase_train_parity`` states each bar.
 32. ``train_full_width``: ``python -m tpu3dlm_torch.scripts.e2e_accuracy
-    --full-scale`` through its ``main`` (YOLOv10-n at 640², 1500 steps on
-    the 5-frame gold scan; BEiT-base at 224² in f32, 120 steps; ``verify``
+    --full-scale --steps 800`` through its ``main`` (YOLOv10-n at 640², 800
+    of the recipe's 1500 steps on the 5-frame gold scan, for the time limit; BEiT-base at 224² in f32, 120 steps; ``verify``
     over both scans) with the counts at 0: ``docs/ACCURACY_FULL_SCALE.json``'s
     bars, training seconds, each model's median step ms, the first and
     last loss, the device peak, B1's launches in training and B1's and
@@ -271,7 +271,17 @@ JSON line; any failure raises and the script exits non-zero without a result:
     against ``use_pallas = true`` on ``pipeline_parity``'s configuration:
     no B1 or B2 launch on the plain run, ``hold_pipelines``' bars; a bf16
     einsum BEiT-base forward, card against CPU, by the A8 rule.
-37. ``kernels``: one line listing every ported kernel (B1 on its two
+37. ``watch_world``: the watcher over a world of ranks (``serve_world``):
+    gold + 3 maintenance captures of 128 frames at 640² (fused route,
+    fixture YOLOv10-n, seeded BEiT-base bf16) in a 1-rank NCCL world, in
+    turns with the one-process watcher, twice each: every report row equal
+    but the distance (within 2e-4 m), B1 and B2 launched as often as in the
+    one-process run, captures a minute of both; gold + 2 at the parity
+    configuration on two gloo ranks sharing the card against the same on
+    the CPU (distance within 5e-4 m, B1 and B2 on both card ranks); and
+    ``ops/image.py`` and the device ICP initialisers, card against CPU
+    (``hold_image_and_init_ops`` states the bars).
+38. ``kernels``: one line listing every ported kernel (B1 on its two
     routes — ``attention_bf16_tma`` counted on the scan step,
     ``attention_simt`` on the finetune step — B2, B3, B4 v1 and v2) with
     its launches, the path they were counted on (``launches_on``), error,
@@ -295,7 +305,8 @@ JSON line; any failure raises and the script exits non-zero without a result:
     (``launches_on_dist``, from ``dist_full_width`` and, by rank,
     ``dist_parity``); B1's and B2's on the benches (``launches_on_bench``,
     from ``bench_port``) and on ``use_pallas = false``
-    (``launches_on_plain_route``: 0).
+    (``launches_on_plain_route``: 0); B1's and B2's on the watcher over a
+    world (``launches_on_watch_world``, from ``watch_world``).
 
 The script's total seconds are printed on the line before the card's name
 and power limit (nvidia-smi), which come before the last line; the last
@@ -324,7 +335,14 @@ PORT_KERNELS = ("attention_bf16_tma", "attention_simt", "nn_partial_kernel", "nn
                 "nn_variant_kernel")
 
 
+_T_IMPORT = time.perf_counter()
+
+
 def emit(obj: dict) -> None:
+    """One JSON line; a phase's line also carries the seconds since the
+    script started (``elapsed_s``), so each phase's share can be read off."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - _T_IMPORT}
     print(json.dumps(obj), flush=True)
 
 
@@ -2004,9 +2022,20 @@ def hold_pipelines(a: tuple, b: tuple) -> dict:
     return errs
 
 
+# the parity phases' compare at 4096 ICP query points a stage (30
+# iterations, as configured): their CPU side sweeps on B2's twin, whose 92
+# sweeps at the config's 16384 queries are nearly all of such a phase's
+# time, four phases over; the card's compare at full size is held by
+# compare_full_width and pipeline_full_width. Smaller cuts part the card's
+# walk from the CPU's past the bars: 1024 points, the 1e-4 step bar
+# (2.03e-4); 4096 points at 10 iterations, the 2e-4 m report bar (2e-4).
+PARITY_ICP_CUT = [("icp_max_points = 16384", "icp_max_points = 4096")]
+
+
 def phase_pipeline_parity(dev, tmp: str, fused: bool = True, stream: int = 0) -> dict:
     """``bench_e2e.py``'s flow on the committed capture (make_project's
-    config, fixture checkpoints, f32), on the fused route
+    config, fixture checkpoints, f32, the compare at 4096 ICP query points:
+    ``PARITY_ICP_CUT``), on the fused route
     (``pipeline_parity``), on the staged route under the default
     ``fused_inference = false`` (``fused=False``: ``staged_parity``, as
     ``BENCH_E2E_FUSED=0`` runs it), or on the fused route streamed in
@@ -2028,7 +2057,7 @@ def phase_pipeline_parity(dev, tmp: str, fused: bool = True, stream: int = 0) ->
     phase = "stream_parity" if stream else "pipeline_parity" if fused else "staged_parity"
     extra = [("infer_dtype = bf16", "infer_dtype = f32"),
              ("yolo_weights =", f"yolo_weights = {FIXTURES / 'yolo_synthetic.msgpack'}"),
-             ("beit_weights =", f"beit_weights = {FIXTURES / 'beit_synthetic.msgpack'}")]
+             ("beit_weights =", f"beit_weights = {FIXTURES / 'beit_synthetic.msgpack'}")] + PARITY_ICP_CUT
     legs = [("cpu", "cpu", stream), ("gpu", dev, stream)] + ([("gpu_whole", dev, 0)] if stream else [])
     runs, launches, streams = {}, {}, {}
     for name, device, chunk in legs:
@@ -3484,7 +3513,8 @@ def hold_annotated_frames(gpu: dict, cpu: dict) -> dict:
 def phase_vis_parity(dev, tmp: str) -> dict:
     """The views of a run on the card against the CPU on the committed
     capture at ``bench_e2e.py``'s configuration on the staged route (f32,
-    fixture checkpoints), the ICP cut to one iteration a stage (``VIS_CUT``):
+    fixture checkpoints), the ICP cut to one iteration a stage (``VIS_CUT``)
+    at 4096 query points (``PARITY_ICP_CUT``):
     gold and maintenance with ``view_img``, ``alignment_vis`` and
     ``comparison_vis`` on, on the card (the launch counts at 0 just before)
     and on the CPU; the card's maintenance again with them off. Bars: the
@@ -3505,7 +3535,7 @@ def phase_vis_parity(dev, tmp: str) -> dict:
     t_phase = time.perf_counter()
     extra = [("infer_dtype = bf16", "infer_dtype = f32"),
              ("yolo_weights =", f"yolo_weights = {FIXTURES / 'yolo_synthetic.msgpack'}"),
-             ("beit_weights =", f"beit_weights = {FIXTURES / 'beit_synthetic.msgpack'}")] + VIS_CUT
+             ("beit_weights =", f"beit_weights = {FIXTURES / 'beit_synthetic.msgpack'}")] + VIS_CUT + PARITY_ICP_CUT
     runs, recs, legs_s = {}, {}, {}
     for name, device in (("cpu", "cpu"), ("gpu", dev)):
         root = os.path.join(tmp, f"vis_parity_{name}")
@@ -3966,11 +3996,18 @@ class StepRecorder:
                 "b1_launches": sum(r[3] for r in rows)}
 
 
+# YOLO steps of the full-scale recipe here: its 1500 took 206 of the
+# script's seconds on a slow card host, and the accuracy bars held at 600
+# (placement errors 0.061 / 0.0014 / 0.080 m, one missing sign, 3 rows)
+E2E_STEPS = 800
+
+
 def phase_train_full_width(dev, tmp: str) -> dict:
     """The training main path at full width, through the entry point a user
-    calls: ``python -m tpu3dlm_torch.scripts.e2e_accuracy --full-scale``
-    (``main``), the reference's own full-scale recipe — YOLOv10-n at 640²,
-    1500 steps from the Flax-like init on the 5-frame gold scan, then
+    calls: ``python -m tpu3dlm_torch.scripts.e2e_accuracy --full-scale
+    --steps 800`` (``main``), the reference's own full-scale recipe cut to
+    ``E2E_STEPS`` — YOLOv10-n at 640², 800 of its 1500 steps from the
+    Flax-like init on the 5-frame gold scan, then
     BEiT-base at 224² in f32 for 120 steps, then ``verify`` over both scans
     — with the counts at 0 just before: the bars of
     ``docs/ACCURACY_FULL_SCALE.json`` (every placement error ≤ its
@@ -3988,11 +4025,12 @@ def phase_train_full_width(dev, tmp: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     with StepRecorder() as rec:
-        report = e2e_accuracy.main(["--full-scale", "--device", "cuda", "--out-dir", str(Path(tmp, "e2e_ckpt"))])
+        report = e2e_accuracy.main(["--full-scale", "--steps", str(E2E_STEPS), "--device", "cuda",
+                                    "--out-dir", str(Path(tmp, "e2e_ckpt"))])
     launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     yolo, beit = rec.summary("yolo"), rec.summary("beit")
-    check(yolo["steps"] == 1500 and beit["steps"] == 120, (yolo, beit))
+    check(yolo["steps"] == E2E_STEPS and beit["steps"] == 120, (yolo, beit))
     errors = report["placement_errors_m"]
     check(len(errors) == len(ref["placement_errors_m"]), errors)
     check(all(e <= ref["placement_tolerance_m"] for e in errors.values()), errors)
@@ -4375,6 +4413,288 @@ def phase_plain_route_parity(dev, tmp: str) -> dict:
     return result
 
 
+
+# ---------------------------------------------------------------------------
+# Slice 14: the watcher over a world of ranks, ops/image.py, the device ICP
+# initialisers
+# ---------------------------------------------------------------------------
+
+WATCH_WORLD_ICP_CUT = [("icp_max_points = 16384", "icp_max_points = 1024"),
+                       ("icp_iterations = 30", "icp_iterations = 5")]
+
+
+def watched_root(root: str, patches: list, frames: int | None = None, extra: int = 2) -> tuple[str, str]:
+    """A data root to watch: the committed capture (tiled to ``frames``
+    frames a scan and without maintenance's red sign when ``frames`` is
+    given) with ``extra`` copies of maintenance beside it, and the default
+    config with ``patches``. Returns (config path, data root)."""
+    import os
+    import shutil
+
+    data = copy_project(root, frames=frames, dropped_sign=frames is not None)
+    for k in range(2, extra + 2):
+        shutil.copytree(os.path.join(data, "maintenance"), os.path.join(data, f"maintenance_{k}"))
+    return write_config(root, patches), data
+
+
+def unwatch(data: str) -> None:
+    """A watched root as before its first run: every capture's sentinel,
+    pickle and report removed (the frames are extracted again)."""
+    import os
+
+    for f in os.listdir(data):
+        for name in (".tpu3dlm_done", ".tpu3dlm_failed", ".tpu3dlm_alignment_suspect", "variables.pkl",
+                     "comparison_output.csv"):
+            path = os.path.join(data, f, name)
+            if os.path.exists(path):
+                os.remove(path)
+
+
+def watched_reports(data: str) -> dict:
+    """{capture: report rows} of every maintenance capture of a watched root."""
+    import os
+
+    return {f: _read_csv(os.path.join(data, f, "comparison_output.csv"))[1]
+            for f in sorted(os.listdir(data)) if f.startswith("maintenance")}
+
+
+def _watch_world_rank(mesh, config: str, watch_kw: dict) -> dict:
+    """One rank of a spawned world: the watcher over it
+    (``serve_world``), with this rank's B1 and B2 launches. A rank on the
+    CPU runs one thread, so two ranks do not oversubscribe the host."""
+    from tpu3dlm_torch.pipeline.watch import serve_world
+
+    if mesh.device.type == "cpu":
+        torch.set_num_threads(1)
+    reset_launches()
+    out = serve_world(config, device=mesh.device, **watch_kw)
+    launches = read_launches()
+    return {"rank": mesh.rank, "device": str(mesh.device), "b1": launches["b1"], "b2": launches["b2"],
+            "captures": out.processed if mesh.rank == 0 else out}
+
+
+def gloo_watch_legs(dev, tmp: str, patches: list) -> dict:
+    """Gold + 2 maintenance captures watched by two gloo ranks spawned on
+    ``dev`` and, beside them, by two spawned on the CPU (their worlds share
+    nothing): {"card" | "cpu": seconds, each rank's ``_watch_world_rank``
+    record, the reports}. Raises what either leg raised."""
+    import os
+    import threading
+
+    from tpu3dlm_torch.parallel.mesh import spawn_world
+
+    parity, errors = {}, []
+
+    def leg(where: str, device: str) -> None:
+        try:
+            cfg, data = watched_root(os.path.join(tmp, f"watch_world_gloo_{where}"), patches, extra=1)
+            t0 = time.perf_counter()
+            ranks = spawn_world(_watch_world_rank, 2, device=device, backend="gloo",
+                                args=(cfg, dict(poll_interval=0.05, max_scans=3)))
+            parity[where] = {"seconds": time.perf_counter() - t0, "ranks": ranks, "reports": watched_reports(data)}
+        except BaseException as e:  # noqa: BLE001 - handed to the caller's thread below
+            errors.append(e)
+
+    cpu = threading.Thread(target=leg, args=("cpu", "cpu"))
+    cpu.start()
+    leg("card", dev.type)
+    cpu.join()
+    if errors:
+        raise errors[0]
+    return parity
+
+
+def hold_image_and_init_ops(dev) -> dict:
+    """Every function of ``tpu3dlm_torch/ops/image.py`` and the device ICP
+    initialisers on the card against the CPU, on a frame of the committed
+    capture at 640 × 480 (f32, 0–1): pixels and interpolation weights
+    within 1e-4 (PyTorch divides by a constant on the card as a product
+    with its reciprocal, so a sample coordinate can land one f32 ulp away,
+    6.1e-5 px at 640 px, and a pixel step of at most 1 carries that into
+    the value); the homography within 1e-5 of its largest entry; the
+    centroid translation within 1e-5 m; the PCA candidates as a set within
+    1e-4 (the card's eigenvectors may take other signs, which permutes the
+    four); ``init_residual`` within 1e-3 relative (the clipped mean of
+    sqrt(d²): where a query sits on its target, as the scene's overlapping
+    scans put it, d² by expansion cancels to ~1e-6 m² in f32 on either
+    device and the square root makes that ~1 mm; 7.2e-5 measured), equal to
+    ``init_residuals_batched``'s first entry on the card, with one B2
+    launch there. Returns the largest gaps."""
+    from tpu3dlm_torch.data import codecs
+    from tpu3dlm_torch.ops import icp
+    from tpu3dlm_torch.ops import image as im
+
+    frame = codecs.read_jpeg(str(PROJECT / "data" / "gold_std" / "rtabmap_extract" / "data_rgb" / "1.jpg"))
+    img = torch.from_numpy(frame.astype(np.float32) / 255.0)
+    rng = np.random.default_rng(SEED + 41)
+    x1, y1 = rng.uniform(-8, 600, (4, 16)), rng.uniform(-8, 440, (4, 16))
+    boxes = torch.from_numpy(np.stack([x1, y1, x1 + rng.uniform(8, 200, (4, 16)), y1 + rng.uniform(8, 200, (4, 16))],
+                                      -1).astype(np.float32))
+    frames4 = torch.stack([img, img.flip(0), img.flip(1), img.flip(0).flip(1)])
+    xs = torch.from_numpy(rng.uniform(-10, 650, (256, 256)).astype(np.float32))
+    ys = torch.from_numpy(rng.uniform(-10, 490, (256, 256)).astype(np.float32))
+    quad = torch.tensor([[40.0, 30.0], [600.0, 55.0], [590.0, 450.0], [25.0, 420.0]])
+    corners = torch.tensor([[0.0, 0.0], [639.0, 0.0], [639.0, 479.0], [0.0, 479.0]])
+    Hm = im.solve_homography_4pt(quad, corners)
+    cases = {
+        "bilinear_sample": lambda d: im.bilinear_sample(img.to(d), xs.to(d), ys.to(d)),
+        "resize_bilinear": lambda d: im.resize_bilinear(img.to(d), (640, 640)),
+        "warp_homography": lambda d: im.warp_homography(img.to(d), Hm.to(d), (480, 640)),
+        "letterbox": lambda d: im.letterbox(img.to(d), 640)[0],
+        "_rectify_one": lambda d: im._rectify_one(img.to(d), boxes[0, 0].to(d), (224, 224)),
+        "rectify_crops": lambda d: im.rectify_crops(frames4.to(d), boxes.to(d), (224, 224)),
+        "_rectify_one_mxu": lambda d: im._rectify_one_mxu(img.to(d), boxes[0, 0].to(d), (224, 224)),
+        "rectify_crops_mxu": lambda d: im.rectify_crops_mxu(frames4.to(d), boxes.to(d), (224, 224)),
+        "_interp_matrix": lambda d: im._interp_matrix(boxes[..., 0].to(d), boxes[..., 2].to(d), 224, 640),
+    }
+    gaps = {}
+    for name, fn in cases.items():
+        got, want = fn(dev).cpu(), fn(torch.device("cpu"))
+        check(got.shape == want.shape and got.dtype == want.dtype == torch.float32, (name, got.shape, want.shape))
+        gaps[name] = float((got - want).abs().max())
+    h_got = im.solve_homography_4pt(quad.to(dev), corners.to(dev)).cpu()
+    gaps["solve_homography_4pt_rel"] = float((h_got - Hm).abs().max() / Hm.abs().max())
+    check(all(gaps[name] <= 1e-4 for name in cases) and gaps["solve_homography_4pt_rel"] <= 1e-5, gaps)
+
+    scene = two_scan_scene(20000, SEED + 2)
+    src, tgt = (torch.from_numpy(np.ascontiguousarray(x, np.float32)) for x in scene[:2])
+    T = torch.from_numpy(icp.centroid_align_np(scene[0], scene[1]))
+    c_got, c_want = icp.centroid_align(src.to(dev), tgt.to(dev)).cpu(), icp.centroid_align(src, tgt)
+    gaps["centroid_align_m"] = float((c_got - c_want).abs().max())
+    p_got, p_want = icp.pca_init_candidates(src.to(dev), tgt.to(dev)).cpu(), icp.pca_init_candidates(src, tgt)
+    gaps["pca_init_candidates_as_set"] = max(float(min((g - w).abs().max() for w in p_want)) for g in p_got)
+    pca_same_order = bool(torch.allclose(p_got, p_want, rtol=0, atol=1e-4))
+    reset_launches()
+    r_got = float(icp.init_residual(src.to(dev), tgt.to(dev), T.to(dev)))
+    b2 = read_launches()["b2"]
+    r_batched = float(icp.init_residuals_batched(src.to(dev), tgt.to(dev), T[None].to(dev))[0])
+    r_want = float(icp.init_residual(src, tgt, T))
+    gaps["init_residual_rel"] = abs(r_got - r_want) / abs(r_want)
+    check(gaps["centroid_align_m"] <= 1e-5 and gaps["pca_init_candidates_as_set"] <= 1e-4
+          and gaps["init_residual_rel"] <= 1e-3 and r_got == r_batched and b2 == 1, (gaps, b2, r_got, r_batched))
+    return {"max_abs_err": gaps, "pca_same_order_as_cpu": pca_same_order, "init_residual_b2_launches": b2}
+
+
+def phase_watch_world(dev, tmp: str, frames: int = 128) -> dict:
+    """The watcher over a world of ranks (``pipeline/watch.py::serve_world``
+    on ``parallel/mesh.py::JobWorld``), three legs:
+
+    * full width in a 1-rank NCCL world in this process, in turns with the
+      one-process watcher (``ScanWatcher``), twice each (one copy a kind,
+      ``unwatch``-ed before each run): the
+      committed capture tiled to 128 frames a scan at 640² (fused route,
+      fixture YOLOv10-n, seeded BEiT-base bf16, ``pipeline_full_width``'s
+      settings), gold + 3 maintenance captures without the red sign. Bars:
+      every capture DONE, one missing sign each, every report row equal to
+      the one-process watcher's of the same turn but the 0.1 mm-rounded
+      distance (within 2e-4 m; whether the CSVs are identical is
+      recorded), B1 and B2 launched as many times as in the one-process
+      run. Captures a minute of each;
+    * gold + 2 maintenance captures at the parity configuration (the
+      committed capture, fixture checkpoints, f32, fused route, ICP at 1024
+      query points and 5 iterations a stage) on two gloo ranks sharing the
+      card, spawned (``parallel.mesh.spawn_world``), against the same two
+      ranks on the CPU, spawned beside them: the report rows of the card equal to the CPU's but
+      the distance, within 5e-4 m (ROADMAP §C's bar for two-rank walks: at
+      5 iterations a stage the walk never meets its tolerance, so a
+      near-tie pick that differs between B2 and its twin moves the final
+      transform), B1 and B2 launched on both card ranks;
+    * ``hold_image_and_init_ops``: ``ops/image.py`` and the device ICP
+      initialisers, card against CPU.
+
+    The worlds are torn down however the phase ends."""
+    import os
+    import threading
+
+    from tpu3dlm_torch.parallel.mesh import make_mesh
+    from tpu3dlm_torch.pipeline.watch import DONE_SENTINEL, ScanWatcher, serve_world
+
+    t_phase = time.perf_counter()
+    ops = hold_image_and_init_ops(dev)
+    watch_kw = dict(poll_interval=0.05, max_scans=4)
+    full, reports, threads = {}, {}, threading.active_count()
+    roots = {}
+    for turn in range(2):
+        for kind in ("one_process", "world_1_rank_nccl"):
+            if kind not in roots:
+                roots[kind] = watched_root(os.path.join(tmp, f"watch_world_{kind}"), FULL_WIDTH_PATCH, frames=frames,
+                                           extra=2)
+            cfg, data = roots[kind]
+            unwatch(data)
+            reset_launches()
+            t0 = time.perf_counter()
+            if kind == "one_process":
+                w = ScanWatcher(cfg, device=dev, **watch_kw)
+                w.run()
+            else:
+                mesh = make_mesh(1, device=dev, backend="nccl" if dev.type == "cuda" else "gloo")
+                try:
+                    w = serve_world(cfg, device=dev, **watch_kw)
+                finally:
+                    mesh.close()
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+            recs = {f: json.loads(Path(data, f, DONE_SENTINEL).read_text()) for f in w.processed}
+            check(sorted(w.processed) == ["gold_std", "maintenance", "maintenance_2", "maintenance_3"]
+                  and not w.suspect, (kind, w.processed, w.suspect))
+            check(all(recs[f]["missing"] == 1 for f in recs if f != "gold_std"), recs)
+            reports[kind, turn] = watched_reports(data)
+            gold_s = recs["gold_std"]["wall_clock_s"]
+            full.setdefault(kind, []).append({
+                "wall_s": wall, "captures_per_min": 4 * 60 / wall, "maintenance_captures_per_min": 3 * 60 / (wall - gold_s),
+                "capture_wall_clock_s": {f: r["wall_clock_s"] for f, r in recs.items()},
+                "b1": launches["b1"], "b2": launches["b2"]})
+    check(not torch.distributed.is_initialized() and threading.active_count() == threads, "worlds torn down")
+    dist_err, identical = 0.0, True
+    for turn in range(2):
+        one, world = reports["one_process", turn], reports["world_1_rank_nccl", turn]
+        check(one.keys() == world.keys(), (one.keys(), world.keys()))
+        for f in one:
+            dist_err = max(dist_err, _report_err(world[f], one[f]))
+            identical &= world[f] == one[f]
+        w1, o1 = full["world_1_rank_nccl"][turn], full["one_process"][turn]
+        check(w1["b1"] == o1["b1"] > 0 and w1["b2"] == o1["b2"] > 0, (w1, o1))
+    # distances are 0.1 mm-rounded decimals: round away the float noise of
+    # their difference before the inclusive bar
+    check(round(dist_err, 9) <= 2e-4, dist_err)
+
+    patches = PROJECT_PATCH + [("fused_inference = false", "fused_inference = true"),
+                               ("infer_dtype = bf16", "infer_dtype = f32"), ("mesh_devices = 1", "mesh_devices = 2"),
+                               ("yolo_weights =", f"yolo_weights = {FIXTURES / 'yolo_synthetic.msgpack'}"),
+                               ("beit_weights =", f"beit_weights = {FIXTURES / 'beit_synthetic.msgpack'}")
+                               ] + WATCH_WORLD_ICP_CUT
+    parity = gloo_watch_legs(dev, tmp, patches)
+    card = parity["card"]["ranks"]
+    check(card[0]["captures"] == ["gold_std", "maintenance", "maintenance_2"] and card[1]["captures"] == 3, card)
+    check(all(r["b1"] > 0 and r["b2"] > 0 for r in card), card)
+    check(parity["card"]["reports"].keys() == parity["cpu"]["reports"].keys(), parity)
+    gloo_err = max(_report_err(parity["card"]["reports"][f], parity["cpu"]["reports"][f])
+                   for f in parity["card"]["reports"])
+    check(round(gloo_err, 9) <= 5e-4, gloo_err)
+    check(all(sum(r["status"] == "missing" for r in rows) == 1 for rows in parity["card"]["reports"].values()),
+          parity["card"]["reports"])
+
+    result = {
+        "phase": "watch_world", "full_width": full,
+        "frames_per_capture": frames,
+        "full_width_config": "the committed capture tiled to 128 frames a scan at 640², fused route, fixture "
+                             "YOLOv10-n, seeded BEiT-base bf16, gold + 3 maintenance captures, poll 0.05 s",
+        "captures_per_min_median": {k: statistics.median(r["captures_per_min"] for r in v) for k, v in full.items()},
+        "max_report_distance_err_world_vs_one_process_m": dist_err, "reports_identical_world_vs_one_process": identical,
+        "gloo_two_ranks_one_card": {
+            "seconds": parity["card"]["seconds"], "cpu_seconds": parity["cpu"]["seconds"],
+            "launches_by_rank": {r["rank"]: {"b1": r["b1"], "b2": r["b2"]} for r in card},
+            "max_report_distance_err_card_vs_cpu_m": gloo_err,
+            "note": "two ranks share one card, while the CPU's two ranks run beside them: not a scaling "
+                    "measurement"},
+        "b1_launches_on_watch_world": full["world_1_rank_nccl"][0]["b1"],
+        "b2_launches_on_watch_world": full["world_1_rank_nccl"][0]["b2"],
+        "image_and_init_ops": ops, "seconds": time.perf_counter() - t_phase,
+    }
+    emit(result)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available; this script needs an NVIDIA GPU",
@@ -4444,6 +4764,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         plain = phase_plain_route_parity(dev, tmp)
     emit({"phase": "bench_and_plain_route_seconds", "seconds": time.perf_counter() - t_new})
+    with tempfile.TemporaryDirectory() as tmp:
+        watch_world = phase_watch_world(dev, tmp)
     from tpu3dlm_torch.ops.kernels.nn_variants import VARIANTS
 
     b4_rows = []
@@ -4508,6 +4830,9 @@ def main() -> int:
             "launches_on_dist_path": "dist_full_width: the sharded scan step (bf16) and the data-parallel "
                                      "BEiT-base f32 step in a 1-rank NCCL world; dist_parity: each of two "
                                      "gloo ranks on one card, its scan step and finetune step run twice",
+            "launches_on_watch_world": watch_world["b1_launches_on_watch_world"],
+            "launches_on_watch_world_path": "watch_world: the watcher over a 1-rank NCCL world, gold_std and 3 "
+                                            "maintenance captures (fused route, 128 frames each, BEiT-base bf16)",
         },
         {
             # B1's other route: every f32 shape and the bf16 shapes past the
@@ -4540,6 +4865,10 @@ def main() -> int:
                                       "steady two-scan runs on the fixture checkpoints, f32, attention_simt); "
                                       "bench and bench_align launch no B1",
             "launches_on_plain_route": plain["launches_plain_run"]["b1"],
+            "launches_on_watch_world_by_rank": {
+                r: v["b1"] for r, v in watch_world["gloo_two_ranks_one_card"]["launches_by_rank"].items()},
+            "launches_on_watch_world_path": "watch_world: each of two gloo ranks on one card watching gold_std "
+                                            "and 2 maintenance captures (fixture BEiT, f32, attention_simt)",
         },
         {
             "name": "nearest_neighbors", "route": "cuda",
@@ -4582,6 +4911,12 @@ def main() -> int:
             "launches_on_bench_path": "bench_port: tpu3dlm_torch.scripts.bench_align (warm-up, cold and 3 warm "
                                       "captures at 1M points, ann='auto') and bench_e2e (four two-scan runs)",
             "launches_on_plain_route": plain["launches_plain_run"]["b2"],
+            "launches_on_watch_world": {
+                "one_rank_nccl": watch_world["b2_launches_on_watch_world"],
+                "two_gloo_ranks_by_rank": {
+                    r: v["b2"] for r, v in watch_world["gloo_two_ranks_one_card"]["launches_by_rank"].items()}},
+            "launches_on_watch_world_path": "watch_world: the watcher's 3 compares in a 1-rank NCCL world (128 "
+                                            "frames a capture); each of two gloo ranks on one card, 2 compares",
             "ms_by_shape": {f"{c['shape'][0]}x{c['shape'][1]}": {
                 "case": c["case"], **{k: c[k] for k in ("kernel_ms", "plain_ms", "bound_ms", "bound_by")}}
                 for c in b2["checks"] if "kernel_ms" in c},

@@ -27,7 +27,7 @@ from tpu3dlm_torch.data.scan import Detections, Scan
 from tpu3dlm_torch.models.beit import BeitConfig
 from tpu3dlm_torch.models.checkpoint import read_flax_msgpack
 from tpu3dlm_torch.models.weights import beit_from_flax
-from tpu3dlm_torch.ops.image import rectify_crops
+from tpu3dlm_torch.ops.image import rectify_crops_mxu
 from tpu3dlm_torch.pipeline import classifier as PCLS
 from tpu3dlm_torch.pipeline.classifier import DamageDetector
 
@@ -111,7 +111,7 @@ def test_crops_round_where_the_fused_route_truncates():
 
     frame = torch.randint(0, 256, (1, 16, 16, 3), generator=torch.Generator().manual_seed(0),
                           dtype=torch.uint8)
-    crops = rectify_crops(frame.float() / 255.0, torch.tensor([[2.0, 3.0, 9.0, 12.0]]), (16, 16))
+    crops = rectify_crops_mxu(frame.float() / 255.0, torch.tensor([[[2.0, 3.0, 9.0, 12.0]]]), (16, 16))[:, 0]
     scaled = crops * 255.0
     short = scaled - scaled.floor() > 0.999
     assert int(short.sum()) > 0  # this resample has such pixels

@@ -182,6 +182,60 @@ def test_init_residuals_batched_matches_jax():
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("seed", range(3))
+def test_centroid_align_matches_jax(seed):
+    """The device centroid translation: within 1e-6 m of JAX's (f32 means
+    of a few thousand points, summed in another order), and of the host
+    twin's f64 means."""
+    rng = np.random.default_rng(20 + seed)
+    s = rng.normal(0, [3.0, 1.0, 0.3], (2000 + 37 * seed, 3)).astype(np.float32)
+    tgt = (rng.normal(2, [1.0, 2.0, 0.4], (3000, 3)) + [5.0, -3.0, 1.5]).astype(np.float32)
+    got = P.centroid_align(t(s), t(tgt)).numpy()
+    want = np.asarray(J.centroid_align(jnp.asarray(s), jnp.asarray(tgt)))
+    assert got.dtype == np.float32 and np.array_equal(got[:3, :3], np.eye(3)) and np.array_equal(got[3], [0, 0, 0, 1])
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got, P.centroid_align_np(s, tgt), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_pca_init_candidates_match_jax(seed):
+    """The four device candidates in JAX's order, within 1e-5 of JAX's
+    (f32 covariances and eigenvectors of well-separated eigenvalues), each
+    a proper rotation; and as a set within 1e-4 of the host twin's (f64
+    moments)."""
+    rng = np.random.default_rng(30 + seed)
+    s = rng.normal(0, [3.0, 1.0, 0.3], (2500, 3)).astype(np.float32)
+    tgt = (s @ np.asarray(rot_z(0.7 + seed, [0, 0, 0]))[:3, :3].T + [1.0, 2.0, -0.5]).astype(np.float32)
+    tgt = np.concatenate([tgt, rng.normal(0, [2.0, 1.5, 0.2], (500, 3)).astype(np.float32)])
+    got = P.pca_init_candidates(t(s), t(tgt)).numpy()
+    want = np.asarray(J.pca_init_candidates(jnp.asarray(s), jnp.asarray(tgt)))
+    assert got.shape == (4, 4, 4) and got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    for R in got[:, :3, :3]:
+        np.testing.assert_allclose(R @ R.T, np.eye(3), atol=1e-5)
+        assert abs(np.linalg.det(R) - 1.0) < 1e-5
+    host = P.pca_init_candidates_np(s, tgt)
+    for T in got:
+        assert min(np.abs(T - h).max() for h in host) < 1e-4
+
+
+def test_init_residual_matches_jax_and_the_batched_score():
+    """One candidate's score: JAX's within the batched score's bars, and
+    the port's batched score's first entry exactly (one implementation, one
+    search: B2's twin on CPU tensors, or with ``use_pallas=False``)."""
+    rng = np.random.default_rng(9)
+    target = planar_scene(rng, 3000)
+    source = planar_scene(np.random.default_rng(10), 3000)[:2048]
+    T = rot_z(0.5, [0.05, 0.0, -0.05])
+    got = P.init_residual(t(source), t(target), t(T))
+    want = float(J.init_residual(jnp.asarray(source), jnp.asarray(target), jnp.asarray(T)))
+    assert got.shape == () and got.dtype == torch.float32
+    np.testing.assert_allclose(float(got), want, rtol=1e-5, atol=1e-6)
+    Ts = np.stack([T, rot_z(3.0, [0, 0, 0])])
+    assert float(got) == float(P.init_residuals_batched(t(source), t(target), t(Ts))[0])
+    assert float(P.init_residual(t(source), t(target), t(T), use_pallas=False)) == float(got)
+
+
 @pytest.mark.parametrize("n_target", [700, 300_000])  # below and above the moment cap
 def test_host_init_helpers_identical(n_target):
     rng = np.random.default_rng(12)

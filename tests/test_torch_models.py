@@ -26,7 +26,7 @@ from tpu3dlm_torch.models.beit import BeitConfig, preprocess_crops, relative_pos
 from tpu3dlm_torch.models.weights import beit_from_flax, yolov10_from_flax
 from tpu3dlm_torch.models.yolov10 import postprocess
 from tpu3dlm_torch.ops import geometry as G
-from tpu3dlm_torch.ops.image import rectify_crops
+from tpu3dlm_torch.ops.image import rectify_crops_mxu
 from tpu3dlm_torch.utils import shapes
 
 torch.set_num_threads(1)
@@ -346,7 +346,7 @@ def test_rectify_matches_jax():
     boxes = np.stack([x1, y1, x1 + rng.uniform(1, 20, 4), y1 + rng.uniform(1, 20, 4)], -1)
     boxes = boxes.astype(np.float32)
     want = jax.vmap(_rectify_one_mxu, (0, 0, None))(jnp.asarray(imgs), jnp.asarray(boxes), (16, 12))
-    got = rectify_crops(t(imgs), t(boxes), (16, 12))
+    got = rectify_crops_mxu(t(imgs), t(boxes)[:, None], (16, 12))[:, 0]
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
 
 

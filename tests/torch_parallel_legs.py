@@ -204,10 +204,187 @@ def icp_steps(mesh, stages, starts) -> dict:
     return out
 
 
+def _job(job, mesh):
+    """A toy world job: a gather, a barrier and a sum; ``job`` names where
+    a rank fails instead."""
+    if job == "rank1_fails_first" and mesh.rank == 1:
+        raise ValueError("rank 1 fails before any collective")
+    mesh.all_gather(torch.ones(3, dtype=torch.bool))
+    if job == "rank0_fails_after_a_gather" and mesh.rank == 0:
+        raise ValueError("rank 0 fails after a gather")
+    mesh.barrier()
+    if job == "rank1_fails_in_the_middle" and mesh.rank == 1:
+        raise ValueError("rank 1 fails between two collectives")
+    t = torch.full((2,), float(mesh.rank + 1))
+    mesh.all_reduce(t)
+    return mesh.broadcast(t * (mesh.rank + 1)).tolist()
+
+
+def job_world_faults(mesh) -> dict:
+    """A JobWorld (tests/test_torch_job_world.py) running good and failing
+    toy jobs in turns: rank 0's result or error and seconds for each, and
+    how many jobs the other rank took."""
+    import time
+
+    from tpu3dlm_torch.parallel.mesh import JobFailed, JobWorld
+
+    world = JobWorld(device="cpu")
+    try:
+        if mesh.rank != 0:
+            return dict(followed=world.follow(_job))
+        runs = []
+        for job in ("ok", "rank1_fails_first", "ok", "rank0_fails_after_a_gather", "ok",
+                    "rank1_fails_in_the_middle", "ok"):
+            t0 = time.perf_counter()
+            try:
+                out, errors = world.run(job, _job), None
+            except JobFailed as e:
+                out, errors = None, e.errors
+            runs.append(dict(job=job, out=out, errors=errors, seconds=time.perf_counter() - t0))
+        world.stop()
+        return dict(runs=runs)
+    finally:
+        world.close()
+
+
+def _sum_job(job, mesh):
+    """A toy world job: the ranks' ``job`` + rank gathered and summed, that
+    sum all-reduced and broadcast: 2·(2·job + 1) on two ranks."""
+    g = mesh.all_gather(torch.tensor([float(job + mesh.rank)]))
+    t = g.sum().reshape(1)
+    mesh.all_reduce(t)
+    return float(mesh.broadcast(t)[0])
+
+
+def job_world_threads(mesh, threads: int = 8, jobs: int = 5) -> dict:
+    """Rank 0's ``threads`` threads each post ``jobs`` jobs at once, with
+    the switch interval cut to 1 µs so the threads interleave as often as
+    they can: every job must come back with its own sum (the world runs
+    them one at a time, in the order rank 0 posted them)."""
+    import sys
+    import threading
+
+    from tpu3dlm_torch.parallel.mesh import JobWorld
+
+    world = JobWorld(device="cpu")
+    try:
+        if mesh.rank != 0:
+            return dict(followed=world.follow(_sum_job))
+        got, interval = {}, sys.getswitchinterval()
+
+        def post(k):
+            for j in range(jobs):
+                got[k, j] = world.run(100 * k + j, _sum_job)
+
+        sys.setswitchinterval(1e-6)
+        try:
+            pool = [threading.Thread(target=post, args=(k,)) for k in range(threads)]
+            for t in pool:
+                t.start()
+            for t in pool:
+                t.join(timeout=60)
+            alive = sum(t.is_alive() for t in pool)
+        finally:
+            sys.setswitchinterval(interval)
+        world.stop()
+        return dict(got={f"{k}.{j}": v for (k, j), v in got.items()}, alive=alive, threads=threads, jobs=jobs)
+    finally:
+        world.close()
+
+
+def odd_frame_step(mesh) -> dict:
+    """The fused runner on a 5-frame scan (a bucket of 5: odd, so the
+    world pads a frame) sharded over the world and on this rank alone, with
+    a crop budget that does not bind (every box of 6 frames fits)."""
+    import chip_smoke
+    from tpu3dlm_torch.models.beit import BeitConfig
+    from tpu3dlm_torch.pipeline.fused import FusedScanRunner
+
+    scan = chip_smoke.synthetic_scan(5, 64, (48, 64), 3)
+    kw = dict(img_size=64, conf_thresh=0.0, max_det=4, nc=3, crop_budget=24, dtype=torch.float32, device="cpu",
+              beit_config=BeitConfig(image_size=32, hidden_size=32, num_layers=1, num_heads=2,
+                                     intermediate_size=64, num_labels=2))
+    out = {}
+    for name, m in (("world", mesh), ("one", None)):
+        det, gb = FusedScanRunner(mesh=m, **kw)(scan)
+        out[name] = dict(boxes=det.boxes, conf=det.conf, label=det.label, damage=det.damage, mask=det.mask,
+                         corners=gb.corners)
+    return out
+
+
+def watch_world_faults(mesh, config: str, flaky: str, bad: str) -> dict:
+    """The watcher over this world on the real Pipeline, where rank 1
+    fails capture ``flaky`` on its first attempt and ``bad`` on every one,
+    inside the Pipeline (its frame load, while rank 0 has gone on to the
+    next collective). Rank 0 polls until every capture has a sentinel.
+    Every rank reports what it opened for writing under the data root and
+    how often it built the gold moments (the gold cache); rank 0 its
+    processed captures and each job's outcome and seconds."""
+    import builtins
+    import os
+    import time
+
+    from tpu3dlm_torch.alignment import align as PA
+    from tpu3dlm_torch.parallel.mesh import JobWorld
+    from tpu3dlm_torch.pipeline import task as PT
+    from tpu3dlm_torch.pipeline import watch as PW
+
+    torch.set_num_threads(1)
+    root = os.path.join(os.path.dirname(config), "data")
+    writes, moments, failed_once = [], [], set()
+    real_open, real_moments, real_load = builtins.open, PA.target_moments_np, PT.load_scan
+
+    def spy_open(file, mode="r", *a, **kw):
+        if any(c in mode for c in "wax+") and os.path.abspath(str(file)).startswith(root):
+            writes.append(os.path.relpath(str(file), root))
+        return real_open(file, mode, *a, **kw)
+
+    def load_scan(*a, **kw):
+        folder = os.path.basename(os.path.dirname(os.path.dirname(kw["image_dir"])))
+        if mesh.rank == 1 and (folder == bad or (folder == flaky and folder not in failed_once)):
+            failed_once.add(folder)
+            raise RuntimeError(f"rank 1 cannot read {folder}")
+        return real_load(*a, **kw)
+
+    builtins.open, PT.load_scan = spy_open, load_scan
+    PA.target_moments_np = lambda *a, **kw: moments.append(1) or real_moments(*a, **kw)
+    world = JobWorld(device="cpu")
+    try:
+        if mesh.rank != 0:
+            return dict(followed=world.follow(PW.run_capture), writes=writes, gold_builds=len(moments))
+        w = PW.ScanWatcher(config, poll_interval=0.01, max_attempts=2, device="cpu", world=world)
+        jobs = []
+        real_run = world.run
+
+        def timed_run(job, fn):
+            t0 = time.perf_counter()
+            try:
+                return real_run(job, fn)
+            finally:
+                jobs.append((job["folder"], time.perf_counter() - t0))
+
+        world.run = timed_run
+        names = sorted(n for n in os.listdir(root) if PW._is_capture(os.path.join(root, n)))
+        sentinels = (PW.DONE_SENTINEL, PW.FAILED_SENTINEL, PW.SUSPECT_SENTINEL)
+        for _ in range(400):
+            w.run_once()
+            if all(any(os.path.exists(os.path.join(root, n, s)) for s in sentinels) for n in names):
+                break
+            time.sleep(0.01)
+        w.close()
+        world.stop()
+        return dict(processed=w.processed, jobs=jobs, writes=writes, gold_builds=len(moments))
+    finally:
+        world.close()
+        builtins.open, PT.load_scan, PA.target_moments_np = real_open, real_load, real_moments
+
+
 LEGS = dict(collectives=collectives, target_nn=target_nn, scan_step=scan_step, icp_compare=icp_compare,
             beit_step=beit_step, yolo_step=yolo_step, finetune_yolo=finetune_yolo, finetune_beit=finetune_beit,
             pipeline_walk=pipeline_walk, icp_steps=icp_steps,
-            cli_default_config=cli_default_config)
+            cli_default_config=cli_default_config, job_world_faults=job_world_faults,
+            job_world_threads=job_world_threads,
+            odd_frame_step=odd_frame_step, watch_world_faults=watch_world_faults)
 
 
 def run(mesh, legs: dict) -> dict:

@@ -28,9 +28,10 @@ N ranks (``parallel/mesh.py``). With no world running, the CLI starts the N
 ranks itself (spawned processes, one device each: NCCL over the cards,
 gloo on the CPU) and each runs the same command; a rank that fails fails
 the run. Under ``torchrun --nproc-per-node N -m tpu3dlm_torch.cli ...`` it
-first joins the world torchrun started. Rank 0 alone writes files, the
-default config included. ``--watch`` runs in one process and needs
-``mesh_devices = 1``.
+first joins the world torchrun started, and leaves it at the end. Rank 0
+alone writes files, the default config included. ``--watch`` runs over the
+world too (``pipeline/watch.py::serve_world``): rank 0 watches the data
+root and every rank runs each capture's Pipeline, one capture at a time.
 """
 
 from __future__ import annotations
@@ -71,13 +72,26 @@ def main(argv=None):
     import torch.distributed as dist
 
     from tpu3dlm_torch.device import resolve_device
-    from tpu3dlm_torch.parallel.mesh import distributed_init, spawn_world
-    from tpu3dlm_torch.pipeline.task import load_gold_std, setup_pipeline
-    from tpu3dlm_torch.utils.config import ConfigLoader, write_default_config
+    from tpu3dlm_torch.parallel.mesh import distributed_init, leave_world
 
     device = resolve_device(args.device)
     if "WORLD_SIZE" in os.environ and not dist.is_initialized():  # torchrun's world
         distributed_init("env://", device=device)
+        try:
+            _run(args, argv, device)
+        finally:
+            leave_world()
+        return
+    _run(args, argv, device)
+
+
+def _run(args, argv: list, device) -> None:
+    import torch.distributed as dist
+
+    from tpu3dlm_torch.parallel.mesh import spawn_world
+    from tpu3dlm_torch.pipeline.task import load_gold_std, setup_pipeline
+    from tpu3dlm_torch.utils.config import ConfigLoader, write_default_config
+
     rank0 = not dist.is_initialized() or dist.get_rank() == 0
     config_path = args.config or os.path.join("configs", "variables.cfg")
     if not os.path.exists(config_path) and rank0:
@@ -89,8 +103,6 @@ def main(argv=None):
     cfg_goldstd = ConfigLoader(config_path, "gold_std")
 
     n = getattr(cfg, "mesh_devices", 1)
-    if n > 1 and args.watch:
-        raise ValueError("--watch runs in one process: set mesh_devices = 1")
     if n > 1 and not dist.is_initialized():
         spawn_world(_rank_main, n, device=device, args=(argv,))
         return
@@ -105,10 +117,10 @@ def main(argv=None):
         _barrier()
 
     if args.watch:
-        from tpu3dlm_torch.pipeline.watch import ScanWatcher
+        from tpu3dlm_torch.pipeline.watch import watch
 
-        ScanWatcher(config_path, poll_interval=args.poll_interval, max_scans=args.max_scans,
-                    concurrency=args.watch_concurrency, device=device).run()
+        watch(config_path, device=device, poll_interval=args.poll_interval, max_scans=args.max_scans,
+              concurrency=args.watch_concurrency)
         return
 
     if args.data == "gold_std":

@@ -25,7 +25,7 @@ Crop noise, per crop (N,): ``gain`` (already exponentiated), ``offset``,
 All ops keep static shapes: boxes that leave the view after a crop are
 masked, never dropped. Images are float32 NHWC in [0, 1]; boxes (F, B, 4)
 xyxy in stored-frame pixels, as ``pipeline/selftrain.yolo_training_arrays``
-gives them. The crop-zoom resample is ``ops/image.rectify_crops``.
+gives them. The crop-zoom resample is ``ops/image.rectify_crops_mxu``.
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ import math
 
 import torch
 
-from tpu3dlm_torch.ops.image import rectify_crops
+from tpu3dlm_torch.ops.image import rectify_crops_mxu
 
 # the reference's defaults (tpu3dlm/ops/augment.py:176-241)
 DETECTION_DEFAULTS = dict(hflip_p=0.5, brightness=0.2, contrast=0.2, zoom_p=0.5, zoom_min=0.7,
@@ -135,7 +135,7 @@ def crop_zoom(images, boxes, mask, zoom, zoom_scale, zoom_x, zoom_y):
     ox = zoom_x * (span - we)
     oy = zoom_y * (span - we)
     window = torch.stack([ox, oy, ox + we, oy + we], -1)
-    zoomed = rectify_crops(images, window, (S, S))
+    zoomed = rectify_crops_mxu(images, window[:, None], (S, S))[:, 0]
     images = torch.where(_per_image(zoom), zoomed, images)
 
     scale = (span / torch.clamp(we, min=1e-6))[:, None]

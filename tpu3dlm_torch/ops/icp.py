@@ -1,10 +1,12 @@
 """ICP registration (port of ``tpu3dlm/ops/icp.py``).
 
 Point-to-point and hybrid point-to-plane ICP with per-iteration increments
-recorded for the animation contract, the batched init scoring, and the host
-numpy helpers that build init candidates and pad targets to power-of-two
-buckets; ``rotation_about`` builds the (R, center) steps the animation
-replays. Every correspondence search is kernel B2
+recorded for the animation contract, the init scoring (batched, and
+``init_residual`` for one candidate), the init candidates on the device
+(``centroid_align``, ``pca_init_candidates``; the compare builds them with
+their host numpy twins, as the reference does), the host numpy helpers
+that build init candidates and pad targets to power-of-two buckets;
+``rotation_about`` builds the (R, center) steps the animation replays. Every correspondence search is kernel B2
 (``ops/kernels/pairwise.nearest_neighbors``), except the iterations of a
 solve given an anchor index (``target_index``, ``ops/ann.py``), which use
 the anchored search; the measurement pass stays on B2 either way. Every
@@ -308,6 +310,49 @@ def init_residuals_batched(
     if mesh is None:
         return clipped.mean(1)
     return mesh.all_reduce(clipped.sum(1)) / (clipped.shape[1] * mesh.size)
+
+
+def centroid_align(source: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """4×4 pure translation moving the source centroid onto the target's,
+    on the inputs' device (the host twin is ``centroid_align_np``)."""
+    T = torch.eye(4, dtype=torch.float32, device=source.device)
+    T[:3, 3] = target.to(torch.float32).mean(0) - source.to(torch.float32).mean(0)
+    return T
+
+
+def pca_init_candidates(source: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """(4, 4, 4) principal-axes init candidates on the inputs' device: the
+    clouds' PCA frames aligned, one candidate for each of the four proper
+    rotations the eigenvectors' sign ambiguity allows, centroid
+    translation composed in (the host twin is ``pca_init_candidates_np``).
+    f32 throughout, as the reference."""
+    src = source.to(torch.float32)
+    tgt = target.to(torch.float32)
+    mu_s, mu_t = src.mean(0), tgt.mean(0)
+    sc, tc = src - mu_s, tgt - mu_t
+    Cs = sc.T @ sc / src.shape[0]
+    Ct = tc.T @ tc / tgt.shape[0]
+    _, Vs = torch.linalg.eigh(Cs)  # columns: eigenvectors, ascending eigenvalue
+    _, Vt = torch.linalg.eigh(Ct)
+    # right-handed bases, so every candidate below is a proper rotation
+    Vs = torch.cat([Vs[:, :1] * torch.sign(torch.linalg.det(Vs)), Vs[:, 1:]], 1)
+    Vt = torch.cat([Vt[:, :1] * torch.sign(torch.linalg.det(Vt)), Vt[:, 1:]], 1)
+    signs = torch.tensor([[1, 1, 1], [1, -1, -1], [-1, 1, -1], [-1, -1, 1]], dtype=torch.float32,
+                         device=src.device)
+    R = (Vt * signs[:, None, :]) @ Vs.T  # Vt · diag(s) · Vsᵀ for each s
+    T = torch.eye(4, dtype=torch.float32, device=src.device).repeat(4, 1, 1)
+    T[:, :3, :3] = R
+    T[:, :3, 3] = mu_t - R @ mu_s
+    return T
+
+
+def init_residual(source: torch.Tensor, target: torch.Tensor, T: torch.Tensor, use_pallas: bool = True
+                  ) -> torch.Tensor:
+    """The clipped-mean NN distance of T·source into target: the score
+    that ranks init candidates, one candidate of ``init_residuals_batched``
+    (its one implementation, on the same search: kernel B2, its twin on
+    CPU tensors or under ``use_pallas=False``)."""
+    return init_residuals_batched(source, target, T[None], use_pallas=use_pallas)[0]
 
 
 # Host numpy, copied from the reference so the same seeds give the same

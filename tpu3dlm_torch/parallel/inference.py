@@ -29,7 +29,7 @@ from tpu3dlm_torch.device import as_device_tensor, module_device, resolve_device
 from tpu3dlm_torch.mapper.projection import project_boxes
 from tpu3dlm_torch.models.beit import BeitClassifier, preprocess_crops
 from tpu3dlm_torch.models.yolov10 import YOLOv10, postprocess, topk_stable
-from tpu3dlm_torch.ops.image import rectify_crops
+from tpu3dlm_torch.ops.image import rectify_crops_mxu
 from tpu3dlm_torch.parallel.mesh import Mesh, shard_batch
 
 
@@ -97,7 +97,7 @@ def classify_top_crops(
     damage = torch.full((F * D,), -1, dtype=torch.int32, device=conf.device)
     if top_idx.numel():
         sel_boxes = boxes_rect.reshape(F * D, 4)[top_idx]
-        crops = rectify_crops(x[top_idx // D], sel_boxes, (size, size))
+        crops = rectify_crops_mxu(x[top_idx // D], sel_boxes[:, None], (size, size))[:, 0]
         sel = (crops * 255.0).to(torch.uint8)  # the reference's u8 round trip
         ids = beit(preprocess_crops(sel)).argmax(dim=-1).to(torch.int32)
         damage[top_idx] = torch.where(top_conf >= conf_thresh, ids, torch.full_like(ids, -1))

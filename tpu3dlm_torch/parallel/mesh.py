@@ -22,6 +22,14 @@ so a hung rank fails its collectives instead of hanging the caller.
     mesh = make_mesh(2)           # inside a running world of 2 ranks
     (x,), n = pad_to_devices((x,), mesh)
     local = shard_batch(x, mesh)  # this rank's contiguous rows
+
+``JobWorld`` runs jobs on every rank of a running world, one at a time:
+rank 0 posts each job (``run``) and the other ranks take them (``follow``)
+until rank 0 stops (``stop``). A job's collectives watch the world's store
+while they wait, so a rank that fails the job releases the others at once
+instead of at the world's timeout; the ranks then reissue the one
+collective some of them still owe, so the world's group stays in step for
+the next job. ``leave_world`` tears down the world this process is in.
 """
 
 from __future__ import annotations
@@ -31,6 +39,9 @@ import os
 import pickle
 import shutil
 import tempfile
+import threading
+import time
+import traceback
 from typing import Any, Callable
 
 import numpy as np
@@ -41,6 +52,12 @@ from tpu3dlm_torch.device import resolve_device
 
 # seconds a collective may wait for the other ranks before it raises
 DEFAULT_TIMEOUT_S = 600.0
+# seconds a rank of a JobWorld may wait for its next job (a service idles)
+IDLE_TIMEOUT_S = 30 * 86400.0
+# while a job's collective waits: seconds between looks at the store, and
+# the sleep between looks at the collective itself
+_FAILED_POLL_S = 0.01
+_SPIN_S = 1e-4
 
 
 def default_backend(device: str | torch.device) -> str:
@@ -76,21 +93,63 @@ def _rank_device(rank: int, device_type: str) -> torch.device:
     return resolve_device(f"cuda:{index}")
 
 
+class JobAborted(RuntimeError):
+    """A collective of a job gave up waiting: another rank failed the job."""
+
+
+class JobFailed(RuntimeError):
+    """A job failed on some rank of the world; ``errors`` holds each failed
+    rank's traceback, the ranks that failed first before those that were
+    released by their failure."""
+
+    def __init__(self, errors: list[str]):
+        self.errors = errors
+        super().__init__("\n".join(errors))
+
+
+class _Job:
+    """One job's collectives on this rank: how many it issued, the one it
+    waits on (kind, shape, dtype, source rank) and how to learn that
+    another rank failed the job."""
+
+    def __init__(self, failed: Callable[[], bool]):
+        self.failed = failed
+        self.issued = 0
+        self.pending: tuple | None = None
+
+    def wait(self, work, op: tuple) -> None:
+        self.issued += 1
+        self.pending = op
+        next_look = 0.0
+        while not work.is_completed():
+            now = time.monotonic()
+            if now >= next_look:
+                if self.failed():
+                    raise JobAborted(f"another rank failed the job while this rank waited in {op[0]}")
+                next_look = now + _FAILED_POLL_S
+            time.sleep(_SPIN_S)
+        work.wait()
+        self.pending = None
+
+
 class Mesh:
     """A 1-D world of ranks: the process group, this rank, the world size,
     this rank's device and ``axis_names == ("batch",)``. ``key`` names the
     world for caches (its size, this rank, its device, the backend), as the
-    reference keys on the mesh's device ids."""
+    reference keys on the mesh's device ids. A mesh given a ``job``
+    (``JobWorld``'s) waits on each collective while watching for another
+    rank's failure of that job."""
 
     axis_names = ("batch",)
 
     def __init__(self, group, rank: int, size: int, device: torch.device, backend: str,
-                 store_dir: str | None = None):
+                 store_dir: str | None = None, job: _Job | None = None):
         self.group = group
         self.rank = rank
         self.size = size
         self.device = device
         self.backend = backend
+        self.job = job
         self._store_dir = store_dir  # set when this mesh brought the world up
 
     def __repr__(self) -> str:
@@ -100,31 +159,57 @@ class Mesh:
     def key(self) -> tuple:
         return (self.size, self.rank, str(self.device), self.backend)
 
+    def _run(self, op: tuple, issue: Callable) -> None:
+        """Issue one collective (``issue(async_op)``) and wait for it."""
+        if self.job is None:
+            issue(False)
+        else:
+            self.job.wait(issue(True), op)
+
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         """Every rank's ``t`` (the same shape on each), concatenated on the
         leading axis in rank order."""
         t = t.contiguous()
         wire = t.view(torch.uint8) if t.dtype == torch.bool else t
         parts = [torch.empty_like(wire) for _ in range(self.size)]
-        dist.all_gather(parts, wire, group=self.group)
+        self._run(("all_gather", tuple(wire.shape), wire.dtype, 0),
+                  lambda a: dist.all_gather(parts, wire, group=self.group, async_op=a))
         out = torch.cat(parts)
         return out.view(torch.bool) if t.dtype == torch.bool else out
 
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """The sum of every rank's ``t``, in place; returns ``t``."""
-        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
+        self._run(("all_reduce", tuple(t.shape), t.dtype, 0),
+                  lambda a: dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group, async_op=a))
         return t
 
     def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
         """Rank ``src``'s ``t`` on every rank, in place; returns ``t``."""
-        dist.broadcast(t, src=src, group=self.group)
+        self._run(("broadcast", tuple(t.shape), t.dtype, src),
+                  lambda a: dist.broadcast(t, src=src, group=self.group, async_op=a))
         return t
 
     def barrier(self) -> None:
         if self.device.type == "cuda" and self.backend == "nccl":
-            dist.barrier(group=self.group, device_ids=[self.device.index])
+            issue = lambda a: dist.barrier(group=self.group, device_ids=[self.device.index], async_op=a)  # noqa: E731
         else:
-            dist.barrier(group=self.group)
+            issue = lambda a: dist.barrier(group=self.group, async_op=a)  # noqa: E731
+        self._run(("barrier", (), None, 0), issue)
+
+    def reissue(self, op: tuple) -> None:
+        """Issue the collective ``op`` (as ``_Job.pending`` records it) on
+        zeros and wait for it, outside any job: the collective this rank
+        owes ranks that are still waiting in it."""
+        kind, shape, dtype, src = op
+        plain = Mesh(self.group, self.rank, self.size, self.device, self.backend)
+        if kind == "barrier":
+            plain.barrier()
+            return
+        t = torch.zeros(shape, dtype=dtype, device=self.device)
+        if kind == "broadcast":
+            plain.broadcast(t, src)
+        else:
+            getattr(plain, kind)(t)
 
     def close(self) -> None:
         """Tear down a world this mesh brought up (``make_mesh(1)`` with no
@@ -289,7 +374,7 @@ def _rank_main(rank: int, n: int, backend: str, device_type: str, timeout_s: flo
         with open(os.path.join(store_dir, f"result{rank}.pkl"), "wb") as f:
             pickle.dump(out, f)
     finally:
-        dist.destroy_process_group()
+        leave_world()
 
 
 def spawn_world(fn: Callable, n: int, *, device: str | torch.device = "cuda", backend: str | None = None,
@@ -329,3 +414,125 @@ def spawn_world(fn: Callable, n: int, *, device: str | torch.device = "cuda", ba
         return out
     finally:
         shutil.rmtree(store_dir, ignore_errors=True)
+
+
+def leave_world() -> None:
+    """Tear down the world this process is in (its default group and every
+    group made in it); no-op outside a world."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+class JobWorld:
+    """Jobs that every rank of the running world runs, one at a time.
+
+    Rank 0 posts each job with ``run(job, fn)``; the other ranks wait for it
+    in ``follow(fn)``; every rank runs ``fn(job, mesh)`` on a mesh of the
+    world whose collectives watch for a failure of that job. A rank whose
+    ``fn`` raises marks the job failed in the world's store, and every rank
+    waiting in one of the job's collectives then raises ``JobAborted``
+    within ``_FAILED_POLL_S``. The ranks then trade outcomes, and those that
+    issued one collective fewer than the rest issue it once on zeros, which
+    completes the collective the others gave up on and leaves the world's
+    group in step for the next job. ``run`` returns rank 0's result, or
+    raises ``JobFailed`` on rank 0 when any rank failed the job; an
+    interrupt of ``fn`` (``KeyboardInterrupt``) counts as a failure, then
+    propagates. ``run`` holds a lock, so threads of rank 0 post their jobs
+    one after another and no two jobs' collectives ever interleave. Posts
+    and outcomes travel on a gloo group of their own whose timeout,
+    ``idle_timeout_s``, bounds how long a rank waits for its next job.
+    ``stop()`` (rank 0) ends every rank's ``follow``; ``close()`` removes
+    that group. Every rank of the world builds the ``JobWorld`` together."""
+
+    def __init__(self, device: str | torch.device = "cuda", idle_timeout_s: float = IDLE_TIMEOUT_S):
+        if not dist.is_initialized():
+            raise ValueError("a JobWorld needs a running world: start it with spawn_world, torchrun, "
+                             "distributed_init or make_mesh(1)")
+        self.mesh = make_mesh(None, device=device)
+        self._control = dist.new_group(backend="gloo", timeout=datetime.timedelta(seconds=idle_timeout_s))
+        base = dist.distributed_c10d._get_default_store()
+        world_id = self._post(base.add("tpu3dlm_torch_jobs/worlds", 1) if self.mesh.rank == 0 else None)
+        self._store = dist.PrefixStore(f"tpu3dlm_torch_jobs/{world_id}/", base)
+        self._seq = 0
+        self._lock = threading.Lock()
+
+    def _post(self, msg: Any = None) -> Any:
+        """Rank 0's ``msg`` on every rank."""
+        box = [msg]
+        dist.broadcast_object_list(box, src=0, group=self._control)
+        return box[0]
+
+    def _gather(self, obj: Any) -> list:
+        out = [None] * self.mesh.size
+        dist.all_gather_object(out, obj, group=self._control)
+        return out
+
+    def run(self, job: Any, fn: Callable) -> Any:
+        """Rank 0: post ``job`` and run ``fn(job, mesh)`` here as every
+        rank does; returns this rank's result."""
+        if self.mesh.rank != 0:
+            raise RuntimeError("only rank 0 posts jobs; the other ranks follow")
+        with self._lock:
+            self._post(("job", job))
+            return self._execute(job, fn)
+
+    def follow(self, fn: Callable) -> int:
+        """The other ranks: run each job rank 0 posts until it stops;
+        returns the number of jobs run. A failed job is rank 0's to
+        record."""
+        done = 0
+        while True:
+            kind, job = self._post()
+            if kind == "stop":
+                return done
+            done += 1
+            try:
+                self._execute(job, fn)
+            except JobFailed:
+                pass
+
+    def stop(self) -> None:
+        """Rank 0: end every rank's ``follow``."""
+        with self._lock:
+            self._post(("stop", None))
+
+    def close(self) -> None:
+        if self._control is not None:
+            dist.destroy_process_group(self._control)
+            self._control = None
+
+    def _execute(self, job: Any, fn: Callable) -> Any:
+        self._seq += 1
+        key = f"failed/{self._seq}"
+        state = _Job(lambda: self._store.check([key]))
+        m = self.mesh
+        mesh = Mesh(m.group, m.rank, m.size, m.device, m.backend, job=state)
+        out, err, interrupt = None, None, None
+        try:
+            out = fn(job, mesh)
+        except BaseException as e:  # noqa: BLE001 - an interrupt is a failure first, then re-raised
+            self._store.set(key, str(m.rank))
+            err = (isinstance(e, JobAborted), f"rank {m.rank}: {traceback.format_exc()}")
+            if not isinstance(e, Exception):
+                interrupt = e
+        errors = [e for e in self._gather(err) if e is not None]
+        if errors:
+            self._settle(mesh, state)
+        if interrupt is not None:
+            raise interrupt
+        if errors:
+            raise JobFailed([text for _, text in sorted(errors, key=lambda e: e[0])])
+        return out
+
+    def _settle(self, mesh: Mesh, state: _Job) -> None:
+        """After a failed job: a rank that issued one collective fewer than
+        the others issues the one they wait in (every rank that issued
+        more is waiting in that same one)."""
+        counts = self._gather((state.issued, state.pending))
+        most = max(n for n, _ in counts)
+        if state.issued == most:
+            return
+        owed = next((op for n, op in counts if n == most and op is not None), None)
+        if state.issued != most - 1 or owed is None:
+            raise RuntimeError(f"the world's collectives are out of step after a failed job: {counts}")
+        mesh.reissue(owed)

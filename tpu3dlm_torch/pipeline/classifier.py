@@ -3,8 +3,8 @@ rectified sign crops (port of ``tpu3dlm/pipeline/classifier.py``).
 
 ``classify_detections`` rescales each box from original pixels to the
 stored frame, selects the valid (frame, box) pairs, and only those are
-rectified (``ops.image.rectify_crops``, the batched form of the
-reference's ``_rectify_one_mxu``) and classified, in fixed batches of
+rectified (``ops.image.rectify_crops_mxu``, one frame per crop: the
+reference's ``_rectify_one_mxu`` batched) and classified, in fixed batches of
 ``batch_size`` (``utils.shapes.padded_batches``), so BEiT, and kernel B1 in
 each of its layers, always sees one shape. Every valid detection is
 classified: there is no crop budget on this route.
@@ -31,7 +31,7 @@ import torch
 from tpu3dlm_torch.data.scan import Detections, Scan
 from tpu3dlm_torch.device import resolve_device
 from tpu3dlm_torch.models.beit import BeitClassifier, BeitConfig, preprocess_crops, seeded_beit
-from tpu3dlm_torch.ops.image import rectify_crops
+from tpu3dlm_torch.ops.image import rectify_crops_mxu
 from tpu3dlm_torch.utils.shapes import padded_batches
 
 
@@ -125,7 +125,7 @@ class DamageDetector:
                 [valid_idx, frame_idx, boxes_sel], self.batch_size
             ):
                 x = frames[torch.as_tensor(fi, device=self.device)].float() / 255.0
-                crops = rectify_crops(x, torch.as_tensor(bsel, device=self.device), size)
+                crops = rectify_crops_mxu(x, torch.as_tensor(bsel, device=self.device)[:, None], size)[:, 0]
                 ids = self._classify(crops_to_u8(crops)).cpu().numpy()
                 damage_flat[idx[:n_valid]] = ids[:n_valid]
         return dataclasses.replace(det, damage=damage_flat.reshape(F, -1))

@@ -11,10 +11,12 @@ most ``max_inflight`` chunks on the device.
 With ``mesh_devices = n > 1`` the runner joins the running world of n
 ranks (``parallel/mesh.py::make_mesh``; each rank builds its own runner
 over the same scan) and its models are broadcast from rank 0. Each call
-pads the frames with inert zero frames to a multiple of n
-(``pad_to_devices``), runs ``parallel.inference.sharded_full_scan_step``
+pads the frames with inert frames (``_pad_scan_frames``) to a multiple of
+n, runs ``parallel.inference.sharded_full_scan_step``
 (each rank its block of frames, the crop selection global) and trims
-the padding in ``_finalize``; every rank gets every frame's records.
+the padding in ``_finalize``; every rank gets every frame's records. A
+``mesh`` given to the runner is used in place of the world's own, at its
+size (the Pipeline passes its mesh on).
 """
 
 from __future__ import annotations
@@ -32,16 +34,17 @@ from tpu3dlm_torch.models.beit import BeitClassifier, BeitConfig, seeded_beit
 from tpu3dlm_torch.models.layers import init_seeded_
 from tpu3dlm_torch.models.yolov10 import YOLOv10
 from tpu3dlm_torch.parallel.inference import full_scan_step, sharded_full_scan_step, square_box_affine
-from tpu3dlm_torch.parallel.mesh import make_mesh, pad_to_devices, replicate
+from tpu3dlm_torch.parallel.mesh import make_mesh, replicate
 from tpu3dlm_torch.utils.shapes import next_bucket, pad_axis0, pad_poses
 
 
-def _pad_scan_frames(scan: Scan) -> Scan:
-    """Pad every frame-axis field to the next bucket with inert frames:
-    zero RGB and depth, identity intrinsics/size/letterbox scale (no
-    division by zero in the affine inverse), identity-quaternion poses."""
+def _pad_scan_frames(scan: Scan, frames: int | None = None) -> Scan:
+    """Pad every frame-axis field to ``frames`` (by default the next
+    bucket) with inert frames: zero RGB and depth, identity
+    intrinsics/size/letterbox scale (no division by zero in the affine
+    inverse), identity-quaternion poses."""
     F = scan.num_frames
-    Fb = next_bucket(F, min_bucket=4, quarter_from=4)
+    Fb = next_bucket(F, min_bucket=4, quarter_from=4) if frames is None else frames
     if Fb == F:
         return scan
     letterbox = scan.letterbox
@@ -85,8 +88,11 @@ class FusedScanRunner:
         dtype: torch.dtype = torch.bfloat16,
         crop_budget: int = 128,
         device: str | torch.device = "cuda",
+        mesh=None,
     ):
-        self.mesh = make_mesh(mesh_devices, device=device) if mesh_devices > 1 else None
+        if mesh is None and mesh_devices > 1:
+            mesh = make_mesh(mesh_devices, device=device)
+        self.mesh = mesh
         self.device = self.mesh.device if self.mesh is not None else resolve_device(device)
         self.img_size = img_size
         self.conf_thresh = conf_thresh
@@ -104,6 +110,13 @@ class FusedScanRunner:
 
     def _dispatch(self, scan: Scan) -> dict[str, torch.Tensor]:
         """Run the fused step on one scan; returns device tensors."""
+        if self.mesh is not None:
+            # inert frames up to a multiple of the world size, where the
+            # reference pads zeros (pad_to_devices): a zero frame's NaN boxes
+            # index the depth out of bounds, which XLA's gather clamps and
+            # PyTorch's indexing refuses; _finalize trims them either way
+            n = self.mesh.size
+            scan = _pad_scan_frames(scan, -(-scan.num_frames // n) * n)
         if scan.letterbox is not None:
             lb = np.asarray(scan.letterbox, np.float32)  # (F, 3) s, px, py
             affine = np.stack([lb[:, 0], lb[:, 0], lb[:, 1], lb[:, 2]], axis=-1)
@@ -117,8 +130,6 @@ class FusedScanRunner:
         kw = dict(img_size=self.img_size, max_det=self.max_det, conf_thresh=self.conf_thresh,
                   crop_budget=self.crop_budget)
         if self.mesh is not None:
-            # zero frames are inert (no box clears conf_thresh); _finalize trims them
-            args, _ = pad_to_devices(args, self.mesh)
             return sharded_full_scan_step(self.mesh, self.yolo, self.beit, *args, **kw)
         return full_scan_step(self.yolo, self.beit, *args, device=self.device, **kw)
 

@@ -79,10 +79,10 @@ def beit_training_crops(gt_boxes_2d: dict[int, list[list[float]]], gt_damage_2d:
                         scan, size: int, device="cuda"):
     """Rectified uint8 crops of every ground-truth box on an in-range frame
     + damage labels: rectified in f32 on ``device``
-    (``ops/image.rectify_crops``), then ``clip(x·255)`` and a truncating
+    (``ops/image.rectify_crops_mxu``), then ``clip(x·255)`` and a truncating
     uint8 cast on the host, as the reference."""
     from tpu3dlm_torch.device import as_device_tensor, resolve_device
-    from tpu3dlm_torch.ops.image import rectify_crops
+    from tpu3dlm_torch.ops.image import rectify_crops_mxu
 
     frames, flat_boxes, labels = [], [], []
     for f, recs in gt_boxes_2d.items():
@@ -99,7 +99,8 @@ def beit_training_crops(gt_boxes_2d: dict[int, list[list[float]]], gt_damage_2d:
     frame_idx = np.asarray(frames)
     boxes = scale_boxes_to_frame(np.asarray(flat_boxes, np.float32), scan, frame_idx)
     rgb_sel = np.asarray(scan.rgb)[frame_idx].astype(np.float32) / 255.0
-    crops = rectify_crops(as_device_tensor(rgb_sel, dev), as_device_tensor(boxes, dev), (size, size))
+    crops = rectify_crops_mxu(as_device_tensor(rgb_sel, dev), as_device_tensor(boxes, dev)[:, None], (size, size))
+    crops = crops[:, 0]
     crops_u8 = np.clip(crops.cpu().numpy() * 255.0, 0, 255).astype(np.uint8)
     return crops_u8, np.asarray(labels, np.int32)
 

@@ -46,13 +46,16 @@ changes the report.
 
 ``mesh_devices = n > 1`` runs the Pipeline on every rank of a running
 world of n ranks (``parallel/mesh.py``; ``python -m tpu3dlm_torch.cli``
-starts them): every rank reads the capture (rank 0 first extracts the
-database and writes the scanpack), the fused route shards its frames
+starts them): every rank reads the capture (rank 0 alone first extracts
+the database and writes the scanpack), the fused route shards its frames
 (``FusedScanRunner(mesh_devices=n)``), the staged route ignores the mesh
 for detection as the reference does, and the compare shards its ICP
 queries (``Alignment(mesh=...)``). Rank 0 alone writes the pickle, the
 CSV, the map and the views; ``run`` returns on every rank once they are
 written. Without a world of n ranks the Pipeline raises ``ValueError``.
+A ``mesh`` given to the Pipeline (the watcher's, ``pipeline/watch.py``)
+is used in place of the world's own, at its size, which must be
+``mesh_devices``: a 1-rank world runs the sharded paths at world 1.
 
 ``use_pallas = false`` is the reference's escape hatch from its kernels,
 and the port's: the compare runs every nearest-neighbour search on the
@@ -105,9 +108,11 @@ def _cached_weights(key, builder):
 
 class Pipeline:
     def __init__(self, data_folder, cfg, cfg_goldstd=None, goldstd_var=None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", mesh=None):
         n = getattr(cfg, "mesh_devices", 1)
-        self.mesh = make_mesh(n, device=device) if n > 1 else None
+        if mesh is not None and mesh.size != n:
+            raise ValueError(f"the Pipeline's mesh has {mesh.size} ranks, the config's mesh_devices is {n}")
+        self.mesh = mesh if mesh is not None else (make_mesh(n, device=device) if n > 1 else None)
         self.device = self.mesh.device if self.mesh is not None else resolve_device(device)
         self.cfg = cfg
         self.cfg_goldstd = cfg_goldstd
@@ -244,7 +249,8 @@ class Pipeline:
         return scan
 
     def _load_scan(self) -> Scan:
-        self._fetch_from_db()
+        if self._rank0:  # the other ranks read the frames rank 0 wrote
+            self._fetch_from_db()
         return load_scan(
             image_dir=self.cfg.image_dir,
             depth_image_dir=self.cfg.depth_image_dir,
@@ -358,6 +364,7 @@ class Pipeline:
             dtype=self.dtype,
             crop_budget=getattr(self.cfg, "crop_budget", 128),
             device=self.device,
+            mesh=self.mesh,
         )
 
     def _map_detected_objects(self, scan: Scan, detections: Detections, fused_gboxes=None):
@@ -573,7 +580,7 @@ def load_gold_std(pickle_path: str):
 
 
 def setup_pipeline(data_folder, cfg, cfg_goldstd=None, goldstd_var=None,
-                   device: str | torch.device = "cuda") -> Pipeline:
-    pipeline = Pipeline(data_folder, cfg, cfg_goldstd, goldstd_var, device=device)
+                   device: str | torch.device = "cuda", mesh=None) -> Pipeline:
+    pipeline = Pipeline(data_folder, cfg, cfg_goldstd, goldstd_var, device=device, mesh=mesh)
     pipeline.run()
     return pipeline

@@ -31,6 +31,24 @@ into a long-running service on one device:
 
 The device is resolved when the watcher is built: ``device="cuda"`` (the
 default) raises without a card; pass ``device="cpu"`` for the CPU.
+
+Over a world of ranks (``mesh_devices = N``, the reference's watcher on
+its mesh), every rank calls ``serve_world``: rank 0 alone watches the data
+root, with all of the above, and runs each capture's Pipeline as a job of a
+``parallel.mesh.JobWorld``: the job (the folder, and for a maintenance
+capture the gold baseline rank 0 read) goes to every rank, and every rank
+runs the Pipeline on the job's mesh (the fused step sharded by frames, the
+compare's ICP by queries); rank 0 alone writes the pickle, the CSV and the
+sentinel. Jobs run one at a time across the world: with ``concurrency >
+1`` rank 0's worker threads take turns at the world (``JobWorld.run``
+holds a lock), so two captures' collectives never interleave, and the
+threads overlap only rank 0's own host work. A capture that fails on any
+rank fails on rank 0, which retries or quarantines it as above; the other
+ranks are released from the capture's collectives at once and run the
+retry when rank 0 posts it. When rank 0 stops (``max_scans``, an error, an
+interrupt) it stops every rank, and each leaves the world. The gold and
+anchor-index caches of ``alignment/align.py`` are keyed by the rank, not
+the capture, so each rank builds them once.
 """
 
 from __future__ import annotations
@@ -84,6 +102,9 @@ class ScanWatcher:
     max_attempts: failures tolerated per capture before quarantine.
     concurrency: captures processed at once.
     device: where every Pipeline runs.
+    world: a ``parallel.mesh.JobWorld`` (rank 0's) to run every Pipeline
+        on every rank of; its mesh's device replaces ``device``, and the
+        config's ``mesh_devices`` must be its size.
     """
 
     def __init__(
@@ -94,10 +115,12 @@ class ScanWatcher:
         max_attempts: int = 3,
         concurrency: int = 1,
         device: str | torch.device = "cuda",
+        world=None,
     ):
         from tpu3dlm_torch.utils.config import ConfigLoader, write_default_config
 
-        self.device = resolve_device(device)
+        self.world = world
+        self.device = world.mesh.device if world is not None else resolve_device(device)
         if not os.path.exists(config_path):
             write_default_config(config_path)
         self.config_path = config_path
@@ -117,6 +140,9 @@ class ScanWatcher:
         self._warned_gold_failed = False
         self.processed: list[str] = []
         self.suspect: list[str] = []
+        n = getattr(self.cfg_goldstd, "mesh_devices", 1)
+        if world is not None and n != world.mesh.size:
+            raise ValueError(f"the world has {world.mesh.size} ranks, the config's mesh_devices is {n}")
 
     # -- discovery ---------------------------------------------------------
 
@@ -172,7 +198,19 @@ class ScanWatcher:
 
         if not os.path.exists(self.cfg_goldstd.pickle_path):
             self.logger.info("gold_std pickle absent — running setup pipeline")
-            task.setup_pipeline("gold_std", self.cfg_goldstd, None, device=self.device)
+            self._run_pipeline("gold_std", self.cfg_goldstd)
+
+    def _run_pipeline(self, folder: str, cfg, cfg_goldstd=None, goldstd_var=None):
+        """One capture's Pipeline: here, or as a job on every rank of the
+        world."""
+        from tpu3dlm_torch.pipeline import task
+
+        if self.world is None:
+            return task.setup_pipeline(folder, cfg, cfg_goldstd, goldstd_var=goldstd_var, device=self.device)
+        # every rank, this one too, reads the configs from the path (run_capture)
+        job = {"config": self.config_path, "folder": folder, "with_gold": cfg_goldstd is not None,
+               "goldstd_var": goldstd_var}
+        return self.world.run(job, run_capture)
 
     def _process(self, folder: str) -> bool:
         """Run one capture; True when it was handled (a sentinel written or
@@ -199,11 +237,10 @@ class ScanWatcher:
                 return False
         try:
             if folder == "gold_std":
-                pipeline = task.setup_pipeline("gold_std", self.cfg_goldstd, None, device=self.device)
+                pipeline = self._run_pipeline("gold_std", self.cfg_goldstd)
             else:
-                cfg = self._loader(self.config_path, folder)
-                pipeline = task.setup_pipeline(folder, cfg, self.cfg_goldstd, goldstd_var=goldstd_var,
-                                               device=self.device)
+                pipeline = self._run_pipeline(folder, self._loader(self.config_path, folder), self.cfg_goldstd,
+                                              goldstd_var)
         except Exception:
             return self._record_failure(folder, path)
         self._attempts.pop(folder, None)
@@ -325,8 +362,9 @@ class ScanWatcher:
         return done
 
     def run(self) -> None:
-        self.logger.info("watching %s every %.1f s (concurrency %d, device %s)",
-                         self.data_root, self.poll_interval, self.concurrency, self.device)
+        self.logger.info("watching %s every %.1f s (concurrency %d, device %s, %d rank(s))",
+                         self.data_root, self.poll_interval, self.concurrency, self.device,
+                         1 if self.world is None else self.world.mesh.size)
         try:
             while True:
                 self.run_once()
@@ -348,6 +386,68 @@ class ScanWatcher:
             self._pool = None
 
 
+def run_capture(job: dict, mesh):
+    """A world job (``ScanWatcher._run_pipeline``'s): the capture's
+    Pipeline on this rank, on the job's mesh."""
+    from tpu3dlm_torch.pipeline import task
+    from tpu3dlm_torch.utils.config import ConfigLoader
+
+    cfg = ConfigLoader(job["config"], job["folder"])
+    cfg_goldstd = ConfigLoader(job["config"], "gold_std") if job["with_gold"] else None
+    return task.setup_pipeline(job["folder"], cfg, cfg_goldstd, goldstd_var=job["goldstd_var"], device=mesh.device,
+                               mesh=mesh)
+
+
+def serve_world(config_path: str, device: str | torch.device = "cuda", **watch_kw):
+    """The watcher over the running world; every rank calls it. Rank 0
+    builds ``ScanWatcher(config_path, world=..., **watch_kw)``, runs it and
+    returns it; the other ranks run the captures it posts and return how
+    many they ran. Returns once rank 0 stops."""
+    from tpu3dlm_torch.parallel.mesh import JobWorld
+
+    world = JobWorld(device=device)
+    try:
+        if world.mesh.rank != 0:
+            return world.follow(run_capture)
+        try:
+            watcher = ScanWatcher(config_path, device=device, world=world, **watch_kw)
+            watcher.run()
+        finally:
+            world.stop()
+        return watcher
+    finally:
+        world.close()
+
+
+def _serve_rank(mesh, config_path: str, watch_kw: dict):
+    """One rank of a world ``watch`` started."""
+    out = serve_world(config_path, device=mesh.device, **watch_kw)
+    return out.processed if isinstance(out, ScanWatcher) else out
+
+
+def watch(config_path: str, device: str | torch.device = "cuda", **watch_kw) -> None:
+    """Serve the config's data root until the watcher stops: over the
+    running world (``serve_world``); else with ``mesh_devices = N > 1``
+    over a world of N ranks started here (``parallel.mesh.spawn_world``:
+    one device each, NCCL over the cards, gloo on the CPU); else in this
+    process."""
+    import torch.distributed as dist
+
+    from tpu3dlm_torch.parallel.mesh import spawn_world
+    from tpu3dlm_torch.utils.config import ConfigLoader, write_default_config
+
+    if dist.is_initialized():
+        serve_world(config_path, device=device, **watch_kw)
+        return
+    if not os.path.exists(config_path):
+        write_default_config(config_path)
+    n = getattr(ConfigLoader(config_path, "gold_std"), "mesh_devices", 1)
+    if n > 1:
+        spawn_world(_serve_rank, n, device=device, args=(config_path, watch_kw))
+    else:
+        ScanWatcher(config_path, device=device, **watch_kw).run()
+
+
 def main(argv=None):
     import argparse
 
@@ -363,8 +463,8 @@ def main(argv=None):
     ap.add_argument("--device", type=str, default="cuda",
                     help="Device to run on: cuda (default; raises without a GPU) or cpu.")
     args = ap.parse_args(argv)
-    ScanWatcher(args.config, args.poll, args.max_scans, args.max_attempts, concurrency=args.concurrency,
-                device=args.device).run()
+    watch(args.config, device=args.device, poll_interval=args.poll, max_scans=args.max_scans,
+          max_attempts=args.max_attempts, concurrency=args.concurrency)
 
 
 if __name__ == "__main__":
