@@ -72,6 +72,71 @@ def test_a_failed_job_releases_every_rank_and_the_world_goes_on(world):
         assert r["errors"][1].startswith(f"rank {1 - culprit}:") and "JobAborted" in r["errors"][1]
 
 
+@pytest.mark.cuda
+def test_a_failed_job_on_nccl_releases_every_rank_and_the_world_goes_on():
+    """The same jobs on two ranks over NCCL, one card each, where the
+    watchdog aborts the jobs' group: each failing job raises ``JobFailed``
+    on rank 0 with the failing rank's error first and ends within 15 s
+    (a rank the abort released may finish its job with what the collective
+    left, or raise), and the next job gives the right sums on the group the
+    ranks made anew."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs: NCCL runs one rank per card")
+    got = PM.spawn_world(legs.run, 2, device="cuda", timeout_s=WORLD_TIMEOUT_S, args=({"job_world_faults": {}},))
+    runs = got[0]["job_world_faults"]["runs"]
+    assert got[1]["job_world_faults"]["followed"] == len(runs) == 7
+    for r in runs:
+        assert r["seconds"] < RELEASE_S, r
+        if r["job"] == "ok":
+            assert r["out"] == [3.0, 3.0] and r["errors"] is None
+            continue
+        culprit = 0 if r["job"].startswith("rank0") else 1
+        assert r["out"] is None and 1 <= len(r["errors"]) <= 2
+        assert r["errors"][0].startswith(f"rank {culprit}:") and "ValueError" in r["errors"][0]
+        assert all(e.startswith(f"rank {1 - culprit}:") for e in r["errors"][1:])
+
+
+def test_the_nccl_watchdog_aborts_the_jobs_group_once_the_job_is_marked_failed(monkeypatch):
+    """NCCL's release, on stand-ins for the group (the CPU has no NCCL):
+    ``JobWorld._watch`` leaves the jobs' group alone while the job runs,
+    aborts it once the job is marked failed and marks the job aborted, so
+    the rank's next collective raises ``JobAborted``; it stops without an
+    abort when the job ends first. ``_renew`` aborts the group unless the
+    watchdog did, and makes a new one."""
+    import threading
+    import time
+
+    import torch.distributed as dist
+
+    aborted, made = [], []
+    monkeypatch.setattr(dist.distributed_c10d, "_abort_process_group", aborted.append)
+    monkeypatch.setattr(dist, "new_group", lambda **kw: made.append(kw) or f"group {len(made)}")
+    world = PM.JobWorld.__new__(PM.JobWorld)
+    world._group = "group 0"
+    marked = threading.Event()
+    state = PM._Job(marked.is_set, polled=False)
+    watchdog = threading.Thread(target=world._watch, args=(state, threading.Event()))
+    watchdog.start()
+    time.sleep(3 * PM._WATCH_S)
+    assert aborted == [] and not state.aborted.is_set()
+    marked.set()
+    watchdog.join(timeout=5)
+    assert not watchdog.is_alive() and aborted == ["group 0"] and state.aborted.is_set()
+    with pytest.raises(PM.JobAborted):
+        PM.Mesh(None, 0, 1, torch.device("cpu"), "nccl", job=state).all_reduce(torch.ones(1))
+    world._renew(state)
+    assert aborted == ["group 0"] and made == [dict(backend="nccl")] and world._group == "group 1"
+
+    ended, done = PM._Job(lambda: False, polled=False), threading.Event()
+    watchdog = threading.Thread(target=world._watch, args=(ended, done))
+    watchdog.start()
+    done.set()
+    watchdog.join(timeout=5)
+    assert not watchdog.is_alive() and not ended.aborted.is_set()
+    world._renew(ended)
+    assert aborted == ["group 0", "group 1"] and world._group == "group 2"
+
+
 def test_jobs_posted_by_many_threads_run_one_at_a_time(world):
     """8 threads of rank 0 post 5 jobs each at once (switch interval 1 µs):
     every job returns its own sum, 2·(2·job + 1), no thread is left, and
@@ -116,6 +181,38 @@ def test_rank_0_alone_writes_and_each_rank_builds_the_gold_cache_once(world):
         assert os.path.join(f, "comparison_output.csv") in written
         assert os.path.join(f, DONE_SENTINEL) in written
     assert [r["gold_builds"] for r in ranks] == [1, 1]
+
+
+def test_the_runner_broadcasts_cached_models_once_per_group(monkeypatch):
+    """The Pipeline builds a fused runner per capture over the models it
+    caches: in a 1-rank gloo world the runner broadcasts them the first
+    time only, on the world's group and on a job's mesh of that group
+    alike, and again on a new group (as after a failed NCCL job)."""
+    import torch.distributed as dist
+
+    from tpu3dlm_torch.models.beit import BeitConfig, seeded_beit
+    from tpu3dlm_torch.models.layers import init_seeded_
+    from tpu3dlm_torch.models.yolov10 import YOLOv10
+    from tpu3dlm_torch.pipeline import fused as PF
+
+    sent = []
+    real = PF.replicate
+    monkeypatch.setattr(PF, "replicate", lambda model, mesh: sent.append(model) or real(model, mesh))
+    cfg = BeitConfig(image_size=32, hidden_size=32, num_layers=1, num_heads=2, intermediate_size=64, num_labels=2)
+    yolo = init_seeded_(YOLOv10(nc=3, variant="n"), torch.Generator().manual_seed(0))
+    beit = seeded_beit(cfg, torch.Generator().manual_seed(1))
+    kw = dict(img_size=64, nc=3, beit_config=cfg, yolo=yolo, beit=beit, dtype=torch.float32, device="cpu")
+    mesh = PM.make_mesh(1, device="cpu", backend="gloo")
+    try:
+        PF.FusedScanRunner(mesh=mesh, **kw)
+        PF.FusedScanRunner(mesh=mesh, **kw)
+        PF.FusedScanRunner(mesh=PM.Mesh(mesh.group, 0, 1, mesh.device, "gloo"), **kw)
+        assert [id(m) for m in sent] == [id(yolo), id(beit)]
+        renewed = dist.new_group(backend="gloo")
+        PF.FusedScanRunner(mesh=PM.Mesh(renewed, 0, 1, mesh.device, "gloo"), **kw)
+        assert [id(m) for m in sent] == [id(yolo), id(beit)] * 2
+    finally:
+        mesh.close()
 
 
 def test_a_scan_the_world_does_not_divide_shards_as_on_one_device(world):

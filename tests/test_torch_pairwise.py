@@ -118,6 +118,31 @@ def test_queries_alone_and_bad_inputs():
         nearest_neighbors(torch.zeros(2, 4), b)
 
 
+@pytest.mark.parametrize("n,m", [
+    (1500, 5000), (1024, 4096), (700, 9000), (5, 70), (2048, 8193), (1, 4097),
+])
+def test_twin_blocks_in_place_give_the_fresh_blocks_bits(n, m):
+    """The twin forms each block in one reused buffer; the picks and d²
+    are bit for bit those of ``|a|² − 2 a·bᵀ + |b|²`` with a new block per
+    step (``scripts/bench_twin.py::fresh_blocks``), on whole and partial
+    chunks of both axes and on near-ties (scan-like planes)."""
+    from tpu3dlm_torch.scripts.bench_twin import fresh_blocks
+
+    rng = np.random.default_rng(n * 7 + m)
+    a = torch.from_numpy(scan_like(rng, n) if n >= 3 else rng.uniform(0, 1, (n, 3)).astype(np.float32))
+    b = torch.from_numpy(scan_like(rng, m))
+    got, want = nearest_neighbors_reference(a, b), fresh_blocks(a, b)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_bench_twin_prints_both_forms():
+    from tpu3dlm_torch.scripts.bench_twin import main
+
+    out = main(["--queries", "5", "1100", "--targets", "4100", "--reps", "1"])
+    assert [r["queries"] for r in out["rows"]] == [5, 1100]
+    assert all(r["in_place_s"] > 0 and r["fresh_blocks_s"] > 0 for r in out["rows"])
+
+
 def test_twin_is_the_cpu_path():
     """On CPU tensors the wrapper runs the twin and launches nothing."""
     rng = np.random.default_rng(7)

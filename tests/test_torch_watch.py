@@ -379,20 +379,29 @@ class TestEntryPoints:
         watch.main(["--config", cfg_path, "--poll", "0.01", "--max-scans", "1", "--device", "cpu"])
         assert os.path.exists(os.path.join(w.data_root, "scan_main", DONE_SENTINEL))
 
-    def test_watch_main_serves_a_world_of_mesh_devices_ranks(self, tmp_path, monkeypatch):
-        """``python -m tpu3dlm_torch.pipeline.watch`` with ``mesh_devices =
-        2`` starts two ranks, each serving the world (the CLI spawns its
-        ranks itself; tests/test_torch_watch_world.py runs that for real)."""
+    def test_watch_main_is_the_cli_watch(self, tmp_path, monkeypatch):
+        """``python -m tpu3dlm_torch.pipeline.watch`` runs ``cli.py
+        --watch`` with its flags: with ``mesh_devices = 2`` the CLI spawns
+        the two ranks (tests/test_torch_watch_world.py runs that for real),
+        and in one process ``--max-attempts`` reaches the watcher."""
         import chip_smoke
         from tpu3dlm_torch.parallel import mesh as PM
         from tpu3dlm_torch.pipeline import watch
 
-        cfg = chip_smoke.write_config(str(tmp_path), [("mesh_devices = 1", "mesh_devices = 2")])
+        cfg = chip_smoke.write_config(str(tmp_path / "world"), [("mesh_devices = 1", "mesh_devices = 2")])
         spawned = []
         monkeypatch.setattr(PM, "spawn_world", lambda fn, n, **kw: spawned.append((fn, n, kw)))
         watch.main(["--config", cfg, "--poll", "0.01", "--max-scans", "1", "--max-attempts", "2", "--device", "cpu"])
-        assert spawned == [(watch._serve_rank, 2, dict(device="cpu", args=(cfg, dict(
-            poll_interval=0.01, max_scans=1, max_attempts=2, concurrency=1))))]
+        assert spawned == [(cli._rank_main, 2, dict(device=torch.device("cpu"), args=([
+            "--watch", "--config", cfg, "--poll-interval", "0.01", "--max-attempts", "2",
+            "--watch-concurrency", "1", "--device", "cpu", "--max-scans", "1"],)))]
+
+        built = []
+        monkeypatch.setattr(watch.ScanWatcher, "run", lambda self: built.append(self))
+        one = chip_smoke.write_config(str(tmp_path / "one"), [])
+        watch.main(["--config", one, "--poll", "0.5", "--max-attempts", "5", "--concurrency", "2", "--device", "cpu"])
+        (w,) = built
+        assert (w.poll_interval, w.max_attempts, w.concurrency, w.max_scans, w.world) == (0.5, 5, 2, None, None)
 
     def test_cuda_is_the_default_device(self, tmp_path):
         if torch.cuda.is_available():

@@ -209,26 +209,26 @@ def _job(job, mesh):
     a rank fails instead."""
     if job == "rank1_fails_first" and mesh.rank == 1:
         raise ValueError("rank 1 fails before any collective")
-    mesh.all_gather(torch.ones(3, dtype=torch.bool))
+    mesh.all_gather(torch.ones(3, dtype=torch.bool, device=mesh.device))
     if job == "rank0_fails_after_a_gather" and mesh.rank == 0:
         raise ValueError("rank 0 fails after a gather")
     mesh.barrier()
     if job == "rank1_fails_in_the_middle" and mesh.rank == 1:
         raise ValueError("rank 1 fails between two collectives")
-    t = torch.full((2,), float(mesh.rank + 1))
+    t = torch.full((2,), float(mesh.rank + 1), device=mesh.device)
     mesh.all_reduce(t)
     return mesh.broadcast(t * (mesh.rank + 1)).tolist()
 
 
 def job_world_faults(mesh) -> dict:
-    """A JobWorld (tests/test_torch_job_world.py) running good and failing
-    toy jobs in turns: rank 0's result or error and seconds for each, and
-    how many jobs the other rank took."""
+    """A JobWorld (tests/test_torch_job_world.py) on this world's device
+    running good and failing toy jobs in turns: rank 0's result or error
+    and seconds for each, and how many jobs the other rank took."""
     import time
 
     from tpu3dlm_torch.parallel.mesh import JobFailed, JobWorld
 
-    world = JobWorld(device="cpu")
+    world = JobWorld(device=mesh.device.type)
     try:
         if mesh.rank != 0:
             return dict(followed=world.follow(_job))

@@ -66,6 +66,8 @@ def main(argv=None):
                         help="--watch: stop after N processed scans (default: run forever).")
     parser.add_argument("--watch-concurrency", type=int, default=1,
                         help="--watch: captures processed at once (gold_std always runs alone).")
+    parser.add_argument("--max-attempts", type=int, default=3,
+                        help="--watch: failures tolerated per capture (with backoff) before quarantine.")
     argv = sys.argv[1:] if argv is None else list(argv)
     args = parser.parse_args(argv)
 
@@ -120,7 +122,7 @@ def _run(args, argv: list, device) -> None:
         from tpu3dlm_torch.pipeline.watch import watch
 
         watch(config_path, device=device, poll_interval=args.poll_interval, max_scans=args.max_scans,
-              concurrency=args.watch_concurrency)
+              max_attempts=args.max_attempts, concurrency=args.watch_concurrency)
         return
 
     if args.data == "gold_std":

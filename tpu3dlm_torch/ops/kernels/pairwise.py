@@ -109,12 +109,17 @@ def nearest_neighbors_reference(a: torch.Tensor, b: torch.Tensor) -> tuple[torch
     with a strict ``<`` (ties: the first chunk, and the first column
     within one); the result is clamped at 0. The reference pads the last
     target chunk with rows at 1e15, which can never win; here the last chunk
-    is simply shorter."""
+    is simply shorter. Each block is formed in place in one buffer
+    (``a·bᵀ``, times −2, plus ``|a|²``, plus ``|b|²``: the same roundings
+    as ``|a|² − 2 a·bᵀ + |b|²``), since a fresh 16 MB block per step costs
+    more than the arithmetic on hosts where large allocations fault in
+    their pages each time (``scripts/bench_twin.py``)."""
     _check(a, b)
     n, m = a.shape[0], b.shape[0]
     idx = torch.zeros(n, dtype=torch.int64, device=a.device)
     d2 = torch.empty(n, dtype=torch.float32, device=a.device)
     b2 = (b * b).sum(1)
+    block = torch.empty(min(n, CHUNK), min(m, CHUNK_B), dtype=torch.float32, device=a.device)
     for i0 in range(0, n, CHUNK):
         ac = a[i0:i0 + CHUNK]
         a2 = (ac * ac).sum(1, keepdim=True)
@@ -122,7 +127,9 @@ def nearest_neighbors_reference(a: torch.Tensor, b: torch.Tensor) -> tuple[torch
         best_i = idx[i0:i0 + CHUNK]
         for j0 in range(0, m, CHUNK_B):
             bc = b[j0:j0 + CHUNK_B]
-            d = a2 - 2.0 * (ac @ bc.T) + b2[j0:j0 + CHUNK_B][None, :]
+            d = block[:ac.shape[0]] if bc.shape[0] == block.shape[1] else None
+            d = torch.mm(ac, bc.T, out=d) if d is not None else ac @ bc.T
+            d.mul_(-2.0).add_(a2).add_(b2[j0:j0 + CHUNK_B][None, :])
             tile_min, tile_arg = torch.min(d, dim=1)
             better = tile_min < best
             best = torch.where(better, tile_min, best)

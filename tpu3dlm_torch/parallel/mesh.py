@@ -25,11 +25,12 @@ so a hung rank fails its collectives instead of hanging the caller.
 
 ``JobWorld`` runs jobs on every rank of a running world, one at a time:
 rank 0 posts each job (``run``) and the other ranks take them (``follow``)
-until rank 0 stops (``stop``). A job's collectives watch the world's store
-while they wait, so a rank that fails the job releases the others at once
-instead of at the world's timeout; the ranks then reissue the one
-collective some of them still owe, so the world's group stays in step for
-the next job. ``leave_world`` tears down the world this process is in.
+until rank 0 stops (``stop``). A rank that fails a job releases the others
+at once instead of at the world's timeout: on NCCL a watchdog thread
+aborts the jobs' group and the ranks make a new one; on gloo, whose waits
+no abort releases, the job's collectives watch the world's store while
+they wait, and the ranks then reissue the one collective some of them
+still owe. ``leave_world`` tears down the world this process is in.
 """
 
 from __future__ import annotations
@@ -54,7 +55,11 @@ from tpu3dlm_torch.device import resolve_device
 DEFAULT_TIMEOUT_S = 600.0
 # seconds a rank of a JobWorld may wait for its next job (a service idles)
 IDLE_TIMEOUT_S = 30 * 86400.0
-# while a job's collective waits: seconds between looks at the store, and
+# seconds between the NCCL watchdog's looks at the store for a failed job:
+# each look takes the GIL from the rank's host-bound work, so it looks no
+# more often than a prompt release needs
+_WATCH_S = 0.1
+# while a gloo collective waits: seconds between looks at the store, and
 # the sleep between looks at the collective itself
 _FAILED_POLL_S = 0.01
 _SPIN_S = 1e-4
@@ -108,16 +113,27 @@ class JobFailed(RuntimeError):
 
 
 class _Job:
-    """One job's collectives on this rank: how many it issued, the one it
-    waits on (kind, shape, dtype, source rank) and how to learn that
-    another rank failed the job."""
+    """One job's collectives on this rank. On NCCL they are issued as
+    anywhere else, and once the watchdog has aborted the jobs' group
+    (``aborted``) the next one raises ``JobAborted``. On gloo (``polled``)
+    each is issued async and its wait polled, watching for another rank's
+    failure of the job; the job counts what it issued and records the one
+    it waits on (kind, shape, dtype, source rank)."""
 
-    def __init__(self, failed: Callable[[], bool]):
+    def __init__(self, failed: Callable[[], bool], polled: bool):
         self.failed = failed
+        self.polled = polled
+        self.aborted = threading.Event()
         self.issued = 0
         self.pending: tuple | None = None
 
-    def wait(self, work, op: tuple) -> None:
+    def run(self, issue: Callable, op: tuple) -> None:
+        if self.aborted.is_set():
+            raise JobAborted(f"another rank failed the job before this rank's {op[0]}")
+        if not self.polled:
+            issue(False)
+            return
+        work = issue(True)
         self.issued += 1
         self.pending = op
         next_look = 0.0
@@ -137,8 +153,7 @@ class Mesh:
     this rank's device and ``axis_names == ("batch",)``. ``key`` names the
     world for caches (its size, this rank, its device, the backend), as the
     reference keys on the mesh's device ids. A mesh given a ``job``
-    (``JobWorld``'s) waits on each collective while watching for another
-    rank's failure of that job."""
+    (``JobWorld``'s) runs its collectives through it."""
 
     axis_names = ("batch",)
 
@@ -160,11 +175,11 @@ class Mesh:
         return (self.size, self.rank, str(self.device), self.backend)
 
     def _run(self, op: tuple, issue: Callable) -> None:
-        """Issue one collective (``issue(async_op)``) and wait for it."""
+        """Issue one collective (``issue(async_op)``)."""
         if self.job is None:
             issue(False)
         else:
-            self.job.wait(issue(True), op)
+            self.job.run(issue, op)
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         """Every rank's ``t`` (the same shape on each), concatenated on the
@@ -428,28 +443,42 @@ class JobWorld:
 
     Rank 0 posts each job with ``run(job, fn)``; the other ranks wait for it
     in ``follow(fn)``; every rank runs ``fn(job, mesh)`` on a mesh of the
-    world whose collectives watch for a failure of that job. A rank whose
-    ``fn`` raises marks the job failed in the world's store, and every rank
-    waiting in one of the job's collectives then raises ``JobAborted``
-    within ``_FAILED_POLL_S``. The ranks then trade outcomes, and those that
-    issued one collective fewer than the rest issue it once on zeros, which
-    completes the collective the others gave up on and leaves the world's
-    group in step for the next job. ``run`` returns rank 0's result, or
-    raises ``JobFailed`` on rank 0 when any rank failed the job; an
-    interrupt of ``fn`` (``KeyboardInterrupt``) counts as a failure, then
-    propagates. ``run`` holds a lock, so threads of rank 0 post their jobs
-    one after another and no two jobs' collectives ever interleave. Posts
-    and outcomes travel on a gloo group of their own whose timeout,
-    ``idle_timeout_s``, bounds how long a rank waits for its next job.
-    ``stop()`` (rank 0) ends every rank's ``follow``; ``close()`` removes
-    that group. Every rank of the world builds the ``JobWorld`` together."""
+    world. A rank whose ``fn`` raises marks the job failed in the world's
+    store, and the others are released from the job's collectives at once:
 
-    def __init__(self, device: str | torch.device = "cuda", idle_timeout_s: float = IDLE_TIMEOUT_S):
+    * NCCL: the job's collectives are issued as anywhere else (the host
+      never waits on them). They run on a group of the jobs' own, and while
+      a job runs a watchdog thread looks at the store every ``_WATCH_S``;
+      when the job is marked failed it aborts that
+      group, which ends the collectives a failed rank left the others in,
+      and the rank raises ``JobAborted`` at its next collective. After a
+      failed job every rank aborts the group (if its watchdog has not) and
+      the ranks make a new one together.
+    * gloo: no abort releases a gloo collective, so each is issued async
+      and its wait looks at the store; a released rank raises
+      ``JobAborted``. The ranks then trade outcomes, and those that issued
+      one collective fewer than the rest issue it once on zeros, which
+      completes the collective the others gave up on and leaves the
+      world's group in step for the next job.
+
+    ``run`` returns rank 0's result, or raises ``JobFailed`` on rank 0 when
+    any rank failed the job; an interrupt of ``fn`` (``KeyboardInterrupt``)
+    counts as a failure, then propagates. ``run`` holds a lock, so threads
+    of rank 0 post their jobs one after another and no two jobs'
+    collectives ever interleave. Posts and outcomes travel on a gloo group
+    of their own whose timeout, ``IDLE_TIMEOUT_S``, bounds how long a rank
+    waits for its next job. ``stop()`` (rank 0) ends every rank's
+    ``follow``; ``close()`` removes the groups. Every rank of the world
+    builds the ``JobWorld`` together."""
+
+    def __init__(self, device: str | torch.device = "cuda"):
         if not dist.is_initialized():
             raise ValueError("a JobWorld needs a running world: start it with spawn_world, torchrun, "
                              "distributed_init or make_mesh(1)")
         self.mesh = make_mesh(None, device=device)
-        self._control = dist.new_group(backend="gloo", timeout=datetime.timedelta(seconds=idle_timeout_s))
+        self._control = dist.new_group(backend="gloo", timeout=datetime.timedelta(seconds=IDLE_TIMEOUT_S))
+        self._abortable = self.mesh.backend == "nccl"
+        self._group = dist.new_group(backend="nccl") if self._abortable else self.mesh.group
         base = dist.distributed_c10d._get_default_store()
         world_id = self._post(base.add("tpu3dlm_torch_jobs/worlds", 1) if self.mesh.rank == 0 else None)
         self._store = dist.PrefixStore(f"tpu3dlm_torch_jobs/{world_id}/", base)
@@ -498,36 +527,67 @@ class JobWorld:
 
     def close(self) -> None:
         if self._control is not None:
+            if self._abortable:
+                dist.destroy_process_group(self._group)
             dist.destroy_process_group(self._control)
             self._control = None
+
+    def _watch(self, state: _Job, done: threading.Event) -> None:
+        """NCCL: abort the jobs' group once the running job is marked
+        failed, unless the job ends first."""
+        while not done.wait(_WATCH_S):
+            if state.failed():
+                state.aborted.set()
+                dist.distributed_c10d._abort_process_group(self._group)
+                return
 
     def _execute(self, job: Any, fn: Callable) -> Any:
         self._seq += 1
         key = f"failed/{self._seq}"
-        state = _Job(lambda: self._store.check([key]))
+        state = _Job(lambda: self._store.check([key]), polled=not self._abortable)
         m = self.mesh
-        mesh = Mesh(m.group, m.rank, m.size, m.device, m.backend, job=state)
+        mesh = Mesh(self._group, m.rank, m.size, m.device, m.backend, job=state)
+        done = threading.Event()
+        watchdog = threading.Thread(target=self._watch, args=(state, done), daemon=True) if self._abortable else None
         out, err, interrupt = None, None, None
+        if watchdog is not None:
+            watchdog.start()
         try:
             out = fn(job, mesh)
         except BaseException as e:  # noqa: BLE001 - an interrupt is a failure first, then re-raised
+            released = isinstance(e, JobAborted) or state.aborted.is_set()
             self._store.set(key, str(m.rank))
-            err = (isinstance(e, JobAborted), f"rank {m.rank}: {traceback.format_exc()}")
+            err = (released, f"rank {m.rank}: {traceback.format_exc()}")
             if not isinstance(e, Exception):
                 interrupt = e
+        finally:
+            done.set()
+            if watchdog is not None:
+                watchdog.join()
         errors = [e for e in self._gather(err) if e is not None]
         if errors:
-            self._settle(mesh, state)
+            if self._abortable:
+                self._renew(state)
+            else:
+                self._settle(mesh, state)
         if interrupt is not None:
             raise interrupt
         if errors:
             raise JobFailed([text for _, text in sorted(errors, key=lambda e: e[0])])
         return out
 
+    def _renew(self, state: _Job) -> None:
+        """NCCL, after a failed job: abort the jobs' group here (unless the
+        watchdog did), which ends whatever collective of it is still
+        queued, and make a new one with the other ranks."""
+        if not state.aborted.is_set():
+            dist.distributed_c10d._abort_process_group(self._group)
+        self._group = dist.new_group(backend="nccl")
+
     def _settle(self, mesh: Mesh, state: _Job) -> None:
-        """After a failed job: a rank that issued one collective fewer than
-        the others issues the one they wait in (every rank that issued
-        more is waiting in that same one)."""
+        """gloo, after a failed job: a rank that issued one collective
+        fewer than the others issues the one they wait in (every rank that
+        issued more is waiting in that same one)."""
         counts = self._gather((state.issued, state.pending))
         most = max(n for n, _ in counts)
         if state.issued == most:

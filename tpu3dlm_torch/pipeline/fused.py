@@ -10,7 +10,9 @@ most ``max_inflight`` chunks on the device.
 
 With ``mesh_devices = n > 1`` the runner joins the running world of n
 ranks (``parallel/mesh.py::make_mesh``; each rank builds its own runner
-over the same scan) and its models are broadcast from rank 0. Each call
+over the same scan) and its models are broadcast from rank 0 once per
+group (``replicate_once``: the Pipeline builds a runner per capture over
+the models it caches by checkpoint). Each call
 pads the frames with inert frames (``_pad_scan_frames``) to a multiple of
 n, runs ``parallel.inference.sharded_full_scan_step``
 (each rank its block of frames, the crop selection global) and trims
@@ -22,6 +24,7 @@ size (the Pipeline passes its mesh on).
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from collections import deque
 
 import numpy as np
@@ -61,6 +64,24 @@ def _pad_scan_frames(scan: Scan, frames: int | None = None) -> Scan:
         letterbox=letterbox,
         timestamps=None if scan.timestamps is None else pad_axis0(scan.timestamps, Fb),
     )
+
+
+# the group each model was last broadcast on: a model's weights change only
+# when the Pipeline's cache builds a new model (another checkpoint or mtime)
+_REPLICATED: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+
+def replicate_once(models, mesh) -> None:
+    """Rank 0's weights on every rank for each of ``models`` that the
+    mesh's group has not broadcast yet. The ranks agree on which (a sum of
+    their flags), so a rank that missed one, as in a failed capture, never
+    leaves the others in a broadcast alone."""
+    need = torch.tensor([float(_REPLICATED.get(m) is not mesh.group) for m in models], device=mesh.device)
+    mesh.all_reduce(need)
+    for model, n in zip(models, need.tolist()):
+        if n:
+            replicate(model, mesh)
+            _REPLICATED[model] = mesh.group
 
 
 class FusedScanRunner:
@@ -105,8 +126,7 @@ class FusedScanRunner:
         self.yolo = yolo.to(self.device, dtype).to(memory_format=torch.channels_last).eval()
         self.beit = beit.to(self.device, dtype).eval()
         if self.mesh is not None:
-            replicate(self.yolo, self.mesh)
-            replicate(self.beit, self.mesh)
+            replicate_once((self.yolo, self.beit), self.mesh)
 
     def _dispatch(self, scan: Scan) -> dict[str, torch.Tensor]:
         """Run the fused step on one scan; returns device tensors."""

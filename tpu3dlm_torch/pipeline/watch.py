@@ -419,37 +419,25 @@ def serve_world(config_path: str, device: str | torch.device = "cuda", **watch_k
         world.close()
 
 
-def _serve_rank(mesh, config_path: str, watch_kw: dict):
-    """One rank of a world ``watch`` started."""
-    out = serve_world(config_path, device=mesh.device, **watch_kw)
-    return out.processed if isinstance(out, ScanWatcher) else out
-
-
 def watch(config_path: str, device: str | torch.device = "cuda", **watch_kw) -> None:
     """Serve the config's data root until the watcher stops: over the
-    running world (``serve_world``); else with ``mesh_devices = N > 1``
-    over a world of N ranks started here (``parallel.mesh.spawn_world``:
-    one device each, NCCL over the cards, gloo on the CPU); else in this
-    process."""
+    running world (``serve_world``), else in this process. The CLI starts
+    the world for ``mesh_devices = N > 1`` (``cli.py``)."""
     import torch.distributed as dist
-
-    from tpu3dlm_torch.parallel.mesh import spawn_world
-    from tpu3dlm_torch.utils.config import ConfigLoader, write_default_config
 
     if dist.is_initialized():
         serve_world(config_path, device=device, **watch_kw)
-        return
-    if not os.path.exists(config_path):
-        write_default_config(config_path)
-    n = getattr(ConfigLoader(config_path, "gold_std"), "mesh_devices", 1)
-    if n > 1:
-        spawn_world(_serve_rank, n, device=device, args=(config_path, watch_kw))
     else:
         ScanWatcher(config_path, device=device, **watch_kw).run()
 
 
 def main(argv=None):
+    """``python -m tpu3dlm_torch.pipeline.watch``: the reference's flags,
+    run as ``cli.py --watch`` (which starts the world for ``mesh_devices =
+    N > 1``)."""
     import argparse
+
+    from tpu3dlm_torch import cli
 
     logging.basicConfig(level=logging.INFO)
     ap = argparse.ArgumentParser(description="Continuous maintenance service: process scans as they arrive.")
@@ -463,8 +451,9 @@ def main(argv=None):
     ap.add_argument("--device", type=str, default="cuda",
                     help="Device to run on: cuda (default; raises without a GPU) or cpu.")
     args = ap.parse_args(argv)
-    watch(args.config, device=args.device, poll_interval=args.poll, max_scans=args.max_scans,
-          max_attempts=args.max_attempts, concurrency=args.concurrency)
+    cli.main(["--watch", "--config", args.config, "--poll-interval", str(args.poll), "--max-attempts",
+              str(args.max_attempts), "--watch-concurrency", str(args.concurrency), "--device", args.device]
+             + ([] if args.max_scans is None else ["--max-scans", str(args.max_scans)]))
 
 
 if __name__ == "__main__":
