@@ -5,7 +5,7 @@
 
 Builds every CUDA kernel of the port from ``tpu3dlm_torch/csrc`` (into
 ``tpu3dlm_torch/_build``, one ``nvcc`` per source and one ``c++`` for the
-host C++ sources, all at once), then runs thirty-eight phases, each printing one
+host C++ sources, all at once), then runs thirty-nine phases, each printing one
 JSON line; any failure raises and the script exits non-zero without a result:
 
 1. ``kernel_b1``: kernel B1 (BEiT attention) against its plain PyTorch twin
@@ -118,21 +118,33 @@ JSON line; any failure raises and the script exits non-zero without a result:
     counts at 0 (B1: 12 launches per scan on ``attention_bf16_tma``; B2 by
     shape), then 5 warm maintenance runs: per-stage ms, frames/s of detect
     + map, capture ms, peak memory. Sanity bars only.
-18. ``staged_parity``: ``pipeline_parity`` on the staged route (the default
+18. ``codec_full_width``: every JPEG and PNG mode the port decodes. The
+    committed codec fixtures (``tests/fixtures/codecs``: arithmetic,
+    YCCK/CMYK, 3x1/1x4/4x1/4x2 sampling, partial progressions, the capture's
+    transcodes, PNG layouts with Adam7) decoded on this host: sha256, shape
+    and dtype equal to cv2's (``digests.json``). Then ``pipeline_full_width``'s
+    capture with its maintenance image blobs replaced by progressive,
+    arithmetic and progressive-arithmetic transcodes, RGB PNGs and baseline
+    JPEGs with an EXIF orientation-1 APP1, each run as the maintenance scan
+    through the CLI on the baseline's gold map beside the baseline itself:
+    every report identical to the baseline's, B1's and B2's launches equal;
+    host decode ms per frame of each variant, and ``load_scan`` frames/s
+    with 8 workers on the progressive one.
+19. ``staged_parity``: ``pipeline_parity`` on the staged route (the default
     ``fused_inference = false``, as ``BENCH_E2E_FUSED=0`` runs
     ``bench_e2e.py``): ``ObjectDetector``, then ``DamageDetector`` over
     every valid box; the same bars, and B1 launched once per layer for
     each classifier batch.
-19. ``staged_full_width``: ``pipeline_full_width`` on the staged route
+20. ``staged_full_width``: ``pipeline_full_width`` on the staged route
     (the default detector batch of 64): B1 launches per scan by kernel,
     the crops classified, B2 by shape, then 5 warm maintenance runs.
-20. ``stream_parity``: ``pipeline_parity`` streamed in chunks of 2 frames
+21. ``stream_parity``: ``pipeline_parity`` streamed in chunks of 2 frames
     (``streaming_chunk = 2``: chunks of 2, 2 and 1 + padding): the same
     bars card against CPU, and the card's streamed run against its
     whole-scan fused run; at most 2 chunks in flight, B1 once per layer and
     chunk, the valid boxes per chunk (the per-chunk crop budget never
     binds).
-21. ``stream_full_width``: the serving path — the capture tiled to 512
+22. ``stream_full_width``: the serving path — the capture tiled to 512
     frames a scan at 640², YOLOv10-n, a seeded BEiT-base in bf16, crop
     budget 384, 8 decode threads, ``streaming_chunk = 32`` — through the
     CLI with the counts at 0 (B1 12 launches per chunk at B = 256 on
@@ -145,7 +157,7 @@ JSON line; any failure raises and the script exits non-zero without a result:
     host peaks, chunks in flight, valid boxes; the same report rows on
     every leg as in the CLI's run (the missing count is recorded: at 640²
     the 128-px fixture detector keeps one box a scan).
-22. ``watch_full_width``: ``ScanWatcher`` on the default config (staged
+23. ``watch_full_width``: ``ScanWatcher`` on the default config (staged
     route) over ``gold_std`` and 3 maintenance captures of 128 frames at
     640², at concurrency 1 and then 2 on fresh copies: DONE for every
     maintenance capture with the missing count of a plain CLI run, the same
@@ -153,7 +165,7 @@ JSON line; any failure raises and the script exits non-zero without a result:
     and at concurrency 2
     B1's and B2's launch counts equal to the sum of the captures' own;
     per-capture wall clock and captures per minute.
-23. ``mesh_parity``: the map stage (``visualise = true``) on the card
+24. ``mesh_parity``: the map stage (``visualise = true``) on the card
     against the CPU on the committed capture at ``bench_e2e.py``'s small
     configuration, ``eps = 0.1``, ``mesh_voxel = 0.04``: the gold
     Pipeline's ``map_mesh.ply`` for ``mesh_source = tsdf``,
@@ -163,7 +175,7 @@ JSON line; any failure raises and the script exits non-zero without a result:
     (NaN-mask flips and values more than 1e-5 apart counted, ≤ 1e-4 of the
     voxels) and the Poisson χ and iso of the DBSCAN-kept gold cloud within
     1e-5 × max|χ| (cuFFT against pocketfft). No port kernel runs there.
-24. ``mesh_full_width``: (a) the CLI's gold run with ``visualise = true``
+25. ``mesh_full_width``: (a) the CLI's gold run with ``visualise = true``
     on the capture tiled to 128 frames at 640² for each mesh setting at
     ``mesh_voxel = 0.04``: the median of 3 warm ``plot`` stages, the
     device peak and idle share of one, and the legs of one (DBSCAN,
@@ -176,7 +188,7 @@ JSON line; any failure raises and the script exits non-zero without a result:
     meshers at 0.04 and 0.01, with ``tests/test_meshing.py``'s two-sided
     distance gate; (c) the TSDF of the 128-frame scan at 0.01. Effective
     voxel, grid dims and voxel count, vertices and faces of each.
-25. ``int8_full_width``: the int8 classifier (``beit_quant = int8``) at
+26. ``int8_full_width``: the int8 classifier (``beit_quant = int8``) at
     full width — the card's int8 GEMM (``torch._int_mm`` through
     ``ops/quant.py``) against the CPU twin, int32 identical, at rows ≤ 16
     (padded) and at the forward's shapes, with the kernel row- and
@@ -188,7 +200,7 @@ JSON line; any failure raises and the script exits non-zero without a result:
     classify ms of int8 and bf16 in turns (median of 5 warm runs) with the
     device peak; then ``fused_full_width``'s scan step with the int8
     classifier beside bf16: step ms and the classify stage's ms.
-26. ``eval_parity``: the accuracy loop at fixture scale — the whole
+27. ``eval_parity``: the accuracy loop at fixture scale — the whole
     hard-eval corpus (7 axes × 5 seeds × 14 frames, img_size 128, conf
     0.3, the committed checkpoints, f32) through the detector and the
     damage corpus (5 axes) through detect → rectify → classify (B1 on
@@ -201,14 +213,14 @@ JSON line; any failure raises and the script exits non-zero without a result:
     one missing sign, B1 and B2 launched) and the CLI's ``--setup`` for
     ``gold_std`` then ``maintenance``; the committed artifacts' gate
     verdicts on the port's reports, printed.
-27. ``eval_full_width``: the same corpus at the ``*_FULL`` artifacts'
+28. ``eval_full_width``: the same corpus at the ``*_FULL`` artifacts'
     operating point (YOLOv10-n at 640², BEiT-base at 224² in bf16 and in
     int8, seeded weights, seed 11 only): finite metrics and the ground
     truth of ``eval_parity``'s seed 11 (accuracy is not held: no 640-pixel
     checkpoint is in the repo); host generation ms per scan, JPEG encode
     ms per frame, detect frames/s, classify ms per batch of 64 in bf16 and
     int8, and the device idle share of one profiled axis.
-28. ``vis_parity``: the views of a run (``view_img``, ``alignment_vis``,
+29. ``vis_parity``: the views of a run (``view_img``, ``alignment_vis``,
     ``comparison_vis``) through gold and maintenance on the staged route
     at ``bench_e2e.py``'s configuration (fixture checkpoints, f32), the ICP
     cut to one iteration a stage so the animation has at most 80 frames,
@@ -220,7 +232,7 @@ JSON line; any failure raises and the script exits non-zero without a result:
     on another surface (background, gold, comparison); ``frame_view_
     geometry`` and ``scan_to_pointcloud`` of both scans within 1e-5 m; B1
     and B2 launched.
-29. ``vis_full_width``: (a) the animation of ``compare_full_width``'s
+30. ``vis_full_width``: (a) the animation of ``compare_full_width``'s
     capture (two ~1M-point clouds, subsampled to 50,000 as the Pipeline
     does, density mesh at span/72, 480 × 640) over its first 2 moving
     steps (40 frames): mesh, render per frame, write, host peak, and the
@@ -228,13 +240,13 @@ JSON line; any failure raises and the script exits non-zero without a result:
     ``staged_full_width``'s 128-frame maintenance capture at 640²: the
     detect stage with and without it, the drawing and PNG ms per frame; (c)
     ``scan_to_pointcloud`` of that scan on the card.
-30. ``envelope_parity``: the convergence-envelope sweep
+31. ``envelope_parity``: the convergence-envelope sweep
     (``python -m tpu3dlm_torch.scripts.alignment_envelope``: 3 seeds, 144
     registrations) on the card against ``docs/ALIGNMENT_ENVELOPE.json``:
     every cell's success and verdict flag equal, or (printed) within 0.5° /
     0.01 m of the success line or near a verdict floor; the verdict's catch
     and false-alarm rates within 0.05; B2's launches and the wall time.
-31. ``train_parity``: training on the card against the port's CPU run on
+32. ``train_parity``: training on the card against the port's CPU run on
     the same noise drawn once on the CPU and the same Flax-like init:
     YOLOv10-n at 128 px on 4 frames of the committed capture with the hard
     recipe's augmentation, 3 steps (losses, step 1's augmented batch, TAL
@@ -242,7 +254,7 @@ JSON line; any failure raises and the script exits non-zero without a result:
     a float64 run), and the toy BEiT with crop augmentation, 3 steps
     (losses, the augmented uint8 crops identical, B1 launched);
     ``phase_train_parity`` states each bar.
-32. ``train_full_width``: ``python -m tpu3dlm_torch.scripts.e2e_accuracy
+33. ``train_full_width``: ``python -m tpu3dlm_torch.scripts.e2e_accuracy
     --full-scale`` through its ``main`` (YOLOv10-n at 640², 1500 steps on
     the 5-frame gold scan; BEiT-base at 224² in f32, 120 steps; ``verify``
     over both scans) with the counts at 0: ``docs/ACCURACY_FULL_SCALE.json``'s
@@ -250,28 +262,28 @@ JSON line; any failure raises and the script exits non-zero without a result:
     last loss, the device peak, B1's launches in training and B1's and
     B2's in ``verify``; then the hard recipe's 640² step (16 sampled
     frames, erase, cosine, EMA) on 4 corpus scenes: step ms and peak.
-33. ``dist_full_width``: the world of ranks (``tpu3dlm_torch/parallel``)
+34. ``dist_full_width``: the world of ranks (``tpu3dlm_torch/parallel``)
     at full width in a real 1-rank NCCL world on the card: the sharded
     scan step (``fused_full_width``'s shape), ``target_sharded_nn`` at
     16384 × 1,048,576, the data-parallel BEiT-base f32 step at batch 64 and
     the data-parallel YOLOv10-n step at 640², each held to its unsharded
     twin (``phase_dist_full_width`` states the bars) and timed beside it in
     turns: the collectives' own cost at world 1.
-34. ``dist_parity``: ``python -m tpu3dlm_torch.scripts.distributed_smoke
+35. ``dist_parity``: ``python -m tpu3dlm_torch.scripts.distributed_smoke
     --procs 2 --backend gloo``, two ranks sharing the card, the four legs
     held against one device, B1 and B2 launched on every rank; over NCCL
     too when two cards are visible (a line says when that does not apply).
-35. ``bench_port``: the port's three benches (``tpu3dlm_torch/scripts/
+36. ``bench_port``: the port's three benches (``tpu3dlm_torch/scripts/
     bench.py``, ``bench_align.py``, ``bench_e2e.py``) through ``run()`` at
     their defaults with ``cpu_baseline="off"`` (2 windows; 3 warm
     captures on ``two_scan_scene(1_000_000)``, which is their scene): each
     JSON line, the sanity flags, finite values, 0 < ``mfu_vs_bf16_peak`` ≤
     1, B1's and B2's launches by bench.
-36. ``plain_route_parity``: ``use_pallas = false`` through the Pipeline
+37. ``plain_route_parity``: ``use_pallas = false`` through the Pipeline
     against ``use_pallas = true`` on ``pipeline_parity``'s configuration:
     no B1 or B2 launch on the plain run, ``hold_pipelines``' bars; a bf16
     einsum BEiT-base forward, card against CPU, by the A8 rule.
-37. ``watch_world``: the watcher over a world of ranks (``serve_world``):
+38. ``watch_world``: the watcher over a world of ranks (``serve_world``):
     gold + 3 maintenance captures of 128 frames at 640² (fused route,
     fixture YOLOv10-n, seeded BEiT-base bf16) in a 1-rank NCCL world, in
     turns with the one-process watcher, twice each: every report identical,
@@ -282,7 +294,7 @@ JSON line; any failure raises and the script exits non-zero without a result:
     ranks); and
     ``ops/image.py`` and the device ICP initialisers, card against CPU
     (``hold_image_and_init_ops`` states the bars).
-38. ``kernels``: one line listing every ported kernel (B1 on its two
+39. ``kernels``: one line listing every ported kernel (B1 on its two
     routes — ``attention_bf16_tma`` counted on the scan step,
     ``attention_simt`` on the finetune step — B2, B3, B4 v1 and v2) with
     its launches, the path they were counted on (``launches_on``), error,
@@ -2236,6 +2248,156 @@ def phase_pipeline_full_width(dev, tiled_root: str, fused: bool = True) -> dict:
         "warm_capture_ms_median": statistics.median(walls), "warm_capture_ms_samples": walls,
         "detect_map_frames_per_s": n_frames / ((med["detect"] + med["map"]) / 1e3),
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    emit(result)
+    return result
+
+
+CODEC_VARIANTS = ("progressive", "arithmetic", "arithmetic_progressive", "png", "exif_orientation_1")
+
+
+def codec_variant_blob(variant: str, source_frame: int, baseline: bytes) -> bytes:
+    """The maintenance frame ``source_frame`` of the committed capture as
+    ``variant``: a coefficient-exact transcode (``tests/fixtures/codecs``,
+    made by ``make_fixtures.c``), an RGB PNG of the decoded frame written
+    by ``encode_png`` here, or the baseline JPEG with an EXIF APP1 holding
+    orientation 1 after its JFIF APP0. Every one decodes to the baseline's
+    pixels."""
+    from tpu3dlm_torch.data import codecs
+
+    suffix = {"progressive": "prog", "arithmetic": "arith", "arithmetic_progressive": "arith_prog"}
+    if variant in suffix:
+        return (FIXTURES / "codecs" / f"capture_maintenance_{source_frame}_{suffix[variant]}.jpg").read_bytes()
+    if variant == "png":
+        return codecs.encode_png(codecs.decode_jpeg(baseline)[..., ::-1])
+    check(baseline[2:4] == b"\xff\xe0", "a JFIF APP0 follows SOI")
+    at = 4 + int.from_bytes(baseline[4:6], "big")
+    tiff = b"MM\x00\x2a\x00\x00\x00\x08\x00\x01\x01\x12\x00\x03\x00\x00\x00\x01\x00\x01\x00\x00\x00\x00\x00\x00"
+    app1 = b"\xff\xe1" + (len(tiff) + 8).to_bytes(2, "big") + b"Exif\x00\x00" + tiff
+    return baseline[:at] + app1 + baseline[at:]
+
+
+def phase_codec_full_width(dev, tmp: str, tiled_root: str) -> dict:
+    """Every JPEG and PNG mode the port decodes, on this host (no cv2) and
+    through the Pipeline on the card:
+
+    - every committed codec fixture (``tests/fixtures/codecs``: arithmetic,
+      YCCK/CMYK, 3x1/1x4/4x1/4x2 sampling, partial progressions, the
+      capture's transcodes; PNG layouts with Adam7) decoded by the port:
+      sha256, shape and dtype equal to what cv2 gave where the fixtures
+      were made (``digests.json``), so this host's compiler builds the same
+      decoder;
+    - ``pipeline_full_width``'s capture (128 frames a scan at 640², fused
+      route, bf16, YOLOv10-n, seeded BEiT-base): its maintenance data.db
+      image blobs replaced by each of ``CODEC_VARIANTS``
+      (``codec_variant_blob``; tiled frame k takes its source frame's), the
+      depth untouched, the baseline's gold map. Each variant and the
+      baseline JPEGs run as the maintenance scan through the CLI, the
+      counts at 0 before each: every variant's report CSV identical to the
+      baseline's, and B1's and B2's launches equal to its;
+    - host decode ms per 640x480 frame of each variant beside the baseline
+      (``decode_image`` of the blob, median over the 5 source frames x 5
+      passes, in turns), and ``load_scan`` frames/s at 640 with 8 workers
+      on the progressive variant's extracted scan."""
+    import hashlib
+    import os
+    import shutil
+    import sqlite3
+
+    from tpu3dlm_torch import cli
+    from tpu3dlm_torch.data import codecs
+    from tpu3dlm_torch.data.dataset import load_scan
+    from tpu3dlm_torch.ops.kernels.attention import beit_attention_packed
+    from tpu3dlm_torch.ops.kernels.pairwise import nearest_neighbors
+    from tpu3dlm_torch.utils.config import ConfigLoader
+
+    t_phase = time.perf_counter()
+    fixdir = FIXTURES / "codecs"
+    digests = json.loads((fixdir / "digests.json").read_text())
+
+    def digest(a) -> dict:
+        a = np.ascontiguousarray(a)
+        return {"sha256": hashlib.sha256(a.tobytes()).hexdigest(), "shape": list(a.shape), "dtype": str(a.dtype)}
+
+    for name, want in digests.items():
+        path = str(fixdir / name)
+        if name.endswith(".jpg"):
+            got = {"color": codecs.read_jpeg(path)[..., ::-1]}
+        else:
+            got = {"color": codecs.read_image(path)[..., ::-1], "unchanged": codecs.read_png(path)}
+        check(got.keys() == want.keys() and all(digest(got[k]) == want[k] for k in want), name)
+    t_fixtures = time.perf_counter() - t_phase
+
+    src_db = os.path.join(tiled_root, "configs", "data", "maintenance", "data.db")
+    conn = sqlite3.connect(src_db)
+    baseline = {i: bytes(b) for i, b in conn.execute("SELECT id, image FROM Data")}
+    conn.close()
+    frames = len(baseline)
+    n_src = 5
+    blobs = {v: {s: codec_variant_blob(v, s, baseline[s]) for s in range(1, n_src + 1)} for v in CODEC_VARIANTS}
+    blobs = {"baseline": {s: baseline[s] for s in range(1, n_src + 1)}, **blobs}
+    for v, by_src in blobs.items():  # every variant decodes to the baseline's pixels
+        for s, b in by_src.items():
+            check(np.array_equal(codecs.decode_image(b), codecs.decode_image(baseline[s])), (v, s))
+
+    runs = {}
+    for variant in blobs:
+        root = os.path.join(tmp, f"codec_{variant}")
+        shutil.copytree(os.path.join(tiled_root, "configs"), os.path.join(root, "configs"))
+        cfg = os.path.join(root, "configs", "variables.cfg")
+        check(os.path.exists(ConfigLoader(cfg, "gold_std").pickle_path), "the baseline's gold map")
+        if variant != "baseline":
+            conn = sqlite3.connect(os.path.join(root, "configs", "data", "maintenance", "data.db"))
+            conn.executemany("UPDATE Data SET image = ? WHERE id = ?",
+                             [(blobs[variant][(k - 1) % n_src + 1], k) for k in baseline])
+            conn.commit()
+            conn.close()
+        beit_attention_packed.launches = 0
+        nearest_neighbors.launches = 0
+        t0 = time.perf_counter()
+        cli.main(["--data", "maintenance", "--config", cfg, "--device", str(dev)])
+        runs[variant] = {"cli_s": time.perf_counter() - t0, "b1": beit_attention_packed.launches,
+                         "b2": nearest_neighbors.launches,
+                         "csv": Path(ConfigLoader(cfg, "maintenance").csv_output).read_bytes(),
+                         "rgb_dir": os.path.join(root, "configs", "data", "maintenance", "rtabmap_extract")}
+    base = runs["baseline"]
+    check(base["b1"] > 0 and base["b2"] > 0, (base["b1"], base["b2"]))
+    for variant, r in runs.items():
+        check(r["csv"] == base["csv"], (variant, r["csv"], base["csv"]))
+        check((r["b1"], r["b2"]) == (base["b1"], base["b2"]), (variant, r["b1"], r["b2"], base["b1"], base["b2"]))
+
+    decode_samples: dict = {v: [] for v in blobs}
+    for _ in range(5):  # in turns, so drift on the host touches every variant alike
+        for v, by_src in blobs.items():
+            for b in by_src.values():
+                t0 = time.perf_counter()
+                codecs.decode_image(b)
+                decode_samples[v].append((time.perf_counter() - t0) * 1e3)
+    decode_ms = {v: statistics.median(x) for v, x in decode_samples.items()}
+
+    ext = runs["progressive"]["rgb_dir"]
+    scan_dir = os.path.dirname(ext)
+    samples = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        scan = load_scan(os.path.join(ext, "data_rgb"), os.path.join(ext, "data_depth"),
+                         os.path.join(ext, "calibration"), os.path.join(scan_dir, "poses.txt"),
+                         img_size=640, workers=8)
+        samples.append(time.perf_counter() - t0)
+    check(scan.num_frames == frames, scan.num_frames)
+    result = {
+        "phase": "codec_full_width", "frames_per_scan": frames,
+        "frame_hw": list(codecs.decode_image(baseline[1]).shape[:2]),
+        "fixtures_checked": len(digests), "fixtures_s": t_fixtures,
+        "variants": list(blobs), "reports_identical": True, "report_rows": base["csv"].count(b"\n") - 1,
+        "b1_launches_by_variant": {v: r["b1"] for v, r in runs.items()},
+        "b2_launches_by_variant": {v: r["b2"] for v, r in runs.items()},
+        "cli_s_by_variant": {v: r["cli_s"] for v, r in runs.items()},
+        "decode_ms_per_frame": decode_ms,
+        "decode_ratio_to_baseline": {v: decode_ms[v] / decode_ms["baseline"] for v in blobs},
+        "load_scan_640_progressive_8_workers": {"frames_per_s": frames / statistics.median(samples),
+                                                "ms_samples": [x * 1e3 for x in samples]},
+        "seconds": time.perf_counter() - t_phase,
     }
     emit(result)
     return result
@@ -4714,6 +4876,7 @@ def main() -> int:
         phase_ingest_parity(tmp, tiled_root)
         phase_pipeline_parity(dev, tmp)
         pipe = phase_pipeline_full_width(dev, tiled_root)
+        codec = phase_codec_full_width(dev, tmp, tiled_root)
         phase_pipeline_parity(dev, tmp, fused=False)
         staged_root = str(Path(tmp, "staged"))
         copy_project(staged_root, frames=128)
@@ -4781,6 +4944,9 @@ def main() -> int:
             "launches_on_pipeline": pipe["b1_launches_cli_by_kernel"]["attention_bf16_tma"],
             "launches_on_pipeline_path": "pipeline_full_width: the CLI's gold and maintenance "
                                          "runs (128 frames a scan, BEiT-base bf16)",
+            "launches_on_codec": codec["b1_launches_by_variant"],
+            "launches_on_codec_path": "codec_full_width: one maintenance run through the CLI per frame "
+                                      "format (128 frames, BEiT-base bf16, the baseline's gold map)",
             "launches_on_staged": staged["b1_launches_cli_by_kernel"]["attention_bf16_tma"],
             "launches_on_staged_by_scan": staged["b1_launches_cli_by_scan"],
             "launches_on_staged_path": "staged_full_width: the CLI's gold and maintenance runs on "
@@ -4862,6 +5028,8 @@ def main() -> int:
             "launches_by_shape": compare["b2_launches_by_shape_main_path"],
             "launches_on_pipeline": pipe["b2_launches_cli"],
             "launches_on_pipeline_by_shape": pipe["b2_launches_cli_by_shape"],
+            "launches_on_codec": codec["b2_launches_by_variant"],
+            "launches_on_codec_path": "codec_full_width: the maintenance compare of each frame format's run",
             "launches_on_ann": compare_ann["b2_launches_cold_capture"],
             "launches_on_ann_by_shape": compare_ann["b2_launches_by_shape_cold_capture"],
             "launches_on_ann_path": "compare_full_width_ann: the cold capture at ann='auto' "

@@ -1,0 +1,66 @@
+"""Writes the PNG fixtures beside the JPEG ones (``make_fixtures.c``) and
+``digests.json``: for every fixture, the sha256, shape and dtype of what
+cv2 decodes (JPEG: ``imread(p, IMREAD_COLOR)``; PNG: ``imread`` with
+``IMREAD_UNCHANGED`` and with ``IMREAD_COLOR``), in cv2's BGR order.
+``chip_smoke.py`` decodes every fixture with the port on a host without cv2
+and holds it to these digests; ``tests/test_torch_codecs_modes.py`` holds
+the file to cv2. Run from the repository root:
+
+    python tests/fixtures/codecs/make_digests.py
+"""
+
+import hashlib
+import json
+import os
+import sys
+
+import cv2
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+TESTS = os.path.dirname(os.path.dirname(HERE))
+sys.path[:0] = [TESTS, os.path.dirname(TESTS)]
+
+from test_torch_codecs_modes import png_bytes  # noqa: E402
+
+
+def digest(a: np.ndarray) -> dict:
+    a = np.ascontiguousarray(a)
+    return {"sha256": hashlib.sha256(a.tobytes()).hexdigest(), "shape": list(a.shape), "dtype": str(a.dtype)}
+
+
+def png_fixtures() -> dict:
+    """A few PNG layouts past 8-bit gray/RGB/RGBA, Adam7 among them."""
+    rng = np.random.default_rng(7)
+    h, w = 37, 53
+    pal = rng.integers(0, 256, 16 * 3, dtype=np.uint8).tobytes()
+    return {
+        "palette_4bit_adam7_trns.png": png_bytes(rng.integers(0, 16, (h, w, 1), dtype=np.uint8), 3, 4, True,
+                                                 plte=pal, trns=bytes(range(0, 240, 20))),
+        "gray_1bit.png": png_bytes(rng.integers(0, 2, (h, w, 1), dtype=np.uint8), 0, 1),
+        "gray_alpha_16bit_adam7.png": png_bytes(rng.integers(0, 65536, (h, w, 2), dtype=np.uint16), 4, 16, True),
+        "rgb_16bit_trns.png": png_bytes(rng.integers(0, 4, (h, w, 3), dtype=np.uint16) * 21845, 2, 16,
+                                        trns=b"\x00\x00\x55\x55\xaa\xaa"),
+        "rgba_8bit_adam7.png": png_bytes(rng.integers(0, 256, (h, w, 4), dtype=np.uint8), 6, 8, True),
+    }
+
+
+def main() -> None:
+    for name, data in png_fixtures().items():
+        with open(os.path.join(HERE, name), "wb") as f:
+            f.write(data)
+    out = {}
+    for name in sorted(os.listdir(HERE)):
+        path = os.path.join(HERE, name)
+        if name.endswith(".jpg"):
+            out[name] = {"color": digest(cv2.imread(path, cv2.IMREAD_COLOR))}
+        elif name.endswith(".png"):
+            out[name] = {"color": digest(cv2.imread(path, cv2.IMREAD_COLOR)),
+                         "unchanged": digest(cv2.imread(path, cv2.IMREAD_UNCHANGED))}
+    with open(os.path.join(HERE, "digests.json"), "w") as f:
+        json.dump(out, f, indent=1, sort_keys=True)
+        f.write("\n")
+
+
+if __name__ == "__main__":
+    main()

@@ -94,9 +94,15 @@ def test_every_png_filter_type_occurs_across_levels():
 
 
 def test_png_refusals(tmp_path):
-    rgb16 = np.zeros((4, 5, 3), np.uint16)
-    with pytest.raises(ValueError, match="colour type 2 at 16 bits"):
-        codecs.decode_png(cv2.imencode(".png", rgb16)[1].tobytes(), "rgb16.png")
+    """What the port refuses is what cv2 refuses (a CRC mismatch, a cut
+    file); 16-bit RGB, once refused, decodes as cv2 decodes it (every PNG
+    layout: tests/test_torch_codecs_modes.py)."""
+    rgb16 = np.random.default_rng(1).integers(0, 65536, (4, 5, 3), dtype=np.uint16)
+    enc = cv2.imencode(".png", rgb16)[1]
+    got = codecs.decode_png(enc.tobytes(), "rgb16.png")
+    assert got.dtype == np.uint16 and got.shape == (4, 5, 3)
+    np.testing.assert_array_equal(got, cv2.imdecode(enc, cv2.IMREAD_UNCHANGED))
+    np.testing.assert_array_equal(got, rgb16)
     data = bytearray(cv2.imencode(".png", np.zeros((4, 5), np.uint8))[1].tobytes())
     data[30] ^= 0xFF  # inside IHDR: the CRC no longer matches
     with pytest.raises(ValueError, match="CRC"):
@@ -183,11 +189,15 @@ def test_grayscale_jpeg_matches_cv2(hw):
 
 def test_jpeg_refusals_and_errors(tmp_path):
     """The reference raises ValueError where cv2.imread returns None and
-    FileNotFoundError for a missing file. The port raises ValueError for
-    every file it cannot decode exactly: progressive JPEG (cv2 reads it),
-    and a file cut inside its entropy-coded data (cv2 returns an image
-    padded with grey and a warning) as well as one cut inside its headers
-    (cv2 returns None)."""
+    FileNotFoundError for a missing file; the port does the same. cv2.imread
+    decodes a progressive file, and a file cut inside its entropy-coded data
+    or just before EOI (libjpeg's stdio source feeds a fake EOI marker, so
+    the missing blocks keep zero coefficients: grey where nothing was
+    decoded), and the port gives the same bytes. A file cut inside its
+    headers, and bytes that are no image, raise (cv2 returns None).
+    cv2.imdecode of cut bytes returns None and decode_jpeg raises: that form
+    runs out of data instead of meeting a fake marker. Lossless and 12-bit
+    JPEG, which the port still refuses: tests/test_torch_codecs_modes.py."""
     img = np.random.default_rng(0).integers(0, 256, (48, 64, 3), dtype=np.uint8)
     progressive = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])[1].tobytes()
     baseline = cv2.imencode(".jpg", img)[1].tobytes()
@@ -196,11 +206,18 @@ def test_jpeg_refusals_and_errors(tmp_path):
     for name, data in cases.items():
         p = tmp_path / name
         p.write_bytes(data)
-        with pytest.raises(ValueError, match=f"undecodable JPEG .*{name}"):
-            load_rgb_image(str(p))
-    with pytest.raises(ValueError, match="progressive"):
-        codecs.decode_jpeg(progressive)
-    assert cv2.imread(str(tmp_path / "cut_header.jpg")) is None
+        want = cv2.imread(str(p), cv2.IMREAD_COLOR)
+        if name in ("cut_header.jpg", "junk.jpg"):
+            assert want is None
+            with pytest.raises(ValueError, match=f"undecodable JPEG .*{name}"):
+                load_rgb_image(str(p))
+        else:
+            np.testing.assert_array_equal(load_rgb_image(str(p)), cv2.cvtColor(want, cv2.COLOR_BGR2RGB))
+        if name != "progressive.jpg":
+            assert cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR) is None
+            with pytest.raises(ValueError, match="undecodable JPEG"):
+                codecs.decode_jpeg(data, name)
+    np.testing.assert_array_equal(codecs.decode_jpeg(progressive), cv2_rgb(np.frombuffer(progressive, np.uint8)))
     with pytest.raises(FileNotFoundError):
         load_rgb_image(str(tmp_path / "absent.jpg"))
 

@@ -1,22 +1,34 @@
-// Host image codecs of the port: baseline JPEG decode, PNG unfilter and
+// Host image codecs of the port: JPEG decode and encode, the PNG sample
+// stage (row filters, Adam7 deinterlacing, sub-byte unpacking) and
 // cv2-compatible INTER_LINEAR resize of uint8 images.
 //
 // Built by tpu3dlm_torch/kernels/build.py with the system C++ compiler
 // (c++ -O3 -shared -fPIC) and called through ctypes from
 // tpu3dlm_torch/data/codecs.py, which parses PNG chunks, inflates IDAT with
-// zlib and writes PNGs. Every entry point has a plain C interface, touches
-// only the buffers it is given and keeps no state, so calls run in parallel
-// on a thread pool (ctypes releases the GIL).
+// zlib, maps PNG samples to cv2's layouts and writes PNGs. Every entry point
+// has a plain C interface, touches only the buffers it is given and keeps no
+// state, so calls run in parallel on a thread pool (ctypes releases the GIL).
 //
-// The JPEG path reproduces libjpeg-turbo's default decode bit for bit:
-// the integer "islow" IDCT of jidctint.c (CONST_BITS 13, PASS1_BITS 2,
-// range limit), fancy upsampling (jdsample.c: h2v1, h1v2, h2v2 triangle
-// filters, replication for widths of 2 or less) and jdcolor.c's
-// fixed-point YCbCr->RGB (SCALEBITS 16). It decodes sequential Huffman
-// JPEG (SOF0/SOF1, 8-bit, 1 or 3 components, sampling factors up to 2x2,
-// interleaved or not, restart markers). Everything else is refused with a
-// message, never decoded approximately.
+// The JPEG decoder reproduces libjpeg-turbo 3.1's default decode, as cv2
+// calls it, bit for bit:
+// - entropy decoding of sequential and progressive Huffman (SOF0/1/2) and
+//   arithmetic (SOF9/10, DAC conditioning) scans, with restart markers, into
+//   a coefficient buffer for the whole image (jdhuff.c, jdphuff.c,
+//   jdarith.c), padding with zero bits where a scan's data stops early;
+// - jdcoefct.c's block smoothing of the coefficients that a progressive
+//   file's scans leave incomplete (a partial progression or a cut file);
+// - the integer "islow" IDCT of jidctint.c with its range limit;
+// - jdsample.c's upsampling: the h2v1, h1v2 and h2v2 triangle filters and
+//   integral replication, sampling factors 1-4 (fractional ratios refused);
+// - jdcolor.c's fixed-point YCbCr->RGB and YCCK->CMYK, RGB and gray, and
+//   OpenCV's CMYK->BGR step for 4-component files.
+// Two stream forms: the bytes as given (cv2.imdecode: data that ends before
+// EOI is an error) and a file (cv2.imread: libjpeg's stdio source feeds a
+// fake EOI marker, FF D9, whenever the file is exhausted, so a cut file
+// decodes with the missing data left out). Lossless, hierarchical and
+// 12-bit JPEG are refused with a message, never decoded approximately.
 
+#include <climits>
 #include <cmath>
 #include <cstdint>
 #include <cstdio>
@@ -43,14 +55,16 @@ void copy_message(const std::string& msg, char* err, int errlen) {
 // JPEG
 // ---------------------------------------------------------------------------
 
-const int kNaturalOrder[64] = {
-    0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
-    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
-    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
-    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63};
+// zigzag -> natural order, with jutils.c's 16 guard entries for corrupt runs
+const int kNaturalOrder[80] = {
+    0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,  12, 19, 26, 33,
+    40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28, 35, 42, 49, 56, 57, 50, 43, 36,
+    29, 22, 15, 23, 30, 37, 44, 51, 58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54,
+    47, 55, 62, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
 
 struct HuffTable {
     bool defined = false;
+    int max_symbol = 0;
     uint8_t vals[256] = {};
     int32_t maxcode[18] = {};
     int32_t valoffset[18] = {};
@@ -99,48 +113,219 @@ void build_huff(HuffTable& t, const uint8_t* bits /* [1..16] */, const uint8_t* 
             }
         }
     }
+    std::memset(t.vals, 0, sizeof(t.vals));
     std::memcpy(t.vals, vals, static_cast<size_t>(nvals));
+    t.max_symbol = 0;
+    for (int i = 0; i < nvals; i++) t.max_symbol = vals[i] > t.max_symbol ? vals[i] : t.max_symbol;
     t.defined = true;
 }
 
-// Entropy-coded segment reader. Byte stuffing (FF 00) is undone; at a marker
-// the reader stops and feeds zero bits, as libjpeg does, but any zero bit
-// that is actually consumed makes the data truncated or corrupt.
-struct BitReader {
+// The byte stream that libjpeg reads. In the file form the stream goes on
+// past the last byte as FF D9 FF D9 ..., the fake EOI markers of
+// jdatasrc.c's fill_input_buffer; in the bytes form reading past the end is
+// the error cv2.imdecode reports as a failed decode.
+struct Source {
     const uint8_t* data;
     size_t len;
-    size_t pos;
-    uint64_t buf = 0;
-    int count = 0;
-    int fake = 0;  // zero bits fed after a marker, at the low end of buf
-    bool at_marker = false;
+    bool file;
+    size_t pos = 0;
+
+    int byte() {
+        size_t p = pos++;
+        if (p < len) return data[p];
+        if (!file) fail("file ends before EOI (truncated)");
+        return ((p - len) & 1) ? 0xD9 : 0xFF;
+    }
+};
+
+// jdmarker.c next_marker: skip to an FF, swallow fill FFs, skip FF 00.
+int next_marker(Source& s) {
+    for (;;) {
+        int c = s.byte();
+        while (c != 0xFF) c = s.byte();
+        do {
+            c = s.byte();
+        } while (c == 0xFF);
+        if (c != 0) return c;
+    }
+}
+
+struct Component {
+    int id = 0, h = 1, v = 1, tq = 0;
+    int width = 0, height = 0;          // downsampled size
+    int wib = 0, hib = 0;               // size in blocks
+    int bw = 0, bh = 0;                 // allocated blocks (MCU-padded)
+    std::vector<int16_t> coef;          // bw*bh*64, natural order
+    uint16_t quant[64] = {};
+    bool quant_latched = false;
+    int dc_tbl = 0, ac_tbl = 0;         // of the current scan
+
+    int16_t* block(int row, int col) { return &coef[(static_cast<size_t>(row) * bw + col) * 64]; }
+};
+
+struct Jpeg {
+    explicit Jpeg(const uint8_t* data, size_t len, bool file) : src{data, len, file} {}
+    Source src;
+    int unread_marker = 0;
+    int width = 0, height = 0, ncomp = 0;
+    int hmax = 1, vmax = 1, mcux = 0, mcuy = 0;  // mcuy = total iMCU rows
+    bool have_frame = false, progressive = false, arith = false;
+    int restart_interval = 0, next_restart_num = 0;
+    bool saw_jfif = false, saw_adobe = false, saw_app1 = false;
+    int adobe_transform = -1;
+    int orientation = 0;  // EXIF tag 0x0112 of the first APP1, 0 if none
+    Component comp[4];
+    uint16_t qt[4][64] = {};
+    bool qt_defined[4] = {};
+    HuffTable dc[4], ac[4];
+    uint8_t arith_dc_L[16], arith_dc_U[16], arith_ac_K[16];
+    uint8_t dc_stats[16][64], ac_stats[16][256];
+    int coef_bits[4][64], prev_coef_bits[4][64];  // progression status
+    int input_scan_number = 0;
+    int last_good_iMCU_row = 0;  // jdmaster.c: last row decoded with data
+};
+
+uint16_t be16(const uint8_t* p) { return static_cast<uint16_t>((p[0] << 8) | p[1]); }
+
+// OpenCV's ExifReader: TIFF header, IFD0, the first 0x0112 entry's SHORT.
+int exif_orientation(const uint8_t* d, size_t n) {
+    if (n < 8) return 0;
+    bool intel = d[0] == 'I' && d[1] == 'I';
+    bool moto = d[0] == 'M' && d[1] == 'M';
+    if (!intel && !moto) return 0;
+    auto u16 = [&](size_t o) -> int {
+        if (o + 1 >= n) return -1;
+        return intel ? (d[o] | (d[o + 1] << 8)) : ((d[o] << 8) | d[o + 1]);
+    };
+    auto u32 = [&](size_t o) -> int64_t {
+        if (o + 3 >= n) return -1;
+        return intel ? (int64_t(d[o]) | (int64_t(d[o + 1]) << 8) | (int64_t(d[o + 2]) << 16) |
+                        (int64_t(d[o + 3]) << 24))
+                     : ((int64_t(d[o]) << 24) | (int64_t(d[o + 1]) << 16) | (int64_t(d[o + 2]) << 8) |
+                        int64_t(d[o + 3]));
+    };
+    if (u16(2) != 0x2A) return 0;
+    int64_t off = u32(4);
+    if (off < 0) return 0;
+    int count = u16(static_cast<size_t>(off));
+    if (count < 0) return 0;
+    size_t e = static_cast<size_t>(off) + 2;
+    for (int i = 0; i < count; i++, e += 12) {
+        int tag = u16(e);
+        if (tag < 0) return 0;
+        if (tag == 0x0112) {
+            int v = u16(e + 8);
+            return v < 0 ? 0 : v;
+        }
+    }
+    return 0;
+}
+
+void parse_frame(Jpeg& j, const std::vector<uint8_t>& s, int marker) {
+    const int n = static_cast<int>(s.size());
+    if (n < 6) fail("short SOF segment");
+    const uint8_t* p = s.data();
+    if (p[0] != 8) fail(std::to_string(p[0]) + "-bit JPEG is not supported (8-bit only)");
+    j.progressive = marker == 0xC2 || marker == 0xCA;
+    j.arith = marker >= 0xC9;
+    j.height = be16(p + 1);
+    j.width = be16(p + 3);
+    j.ncomp = p[5];
+    if (j.height == 0) fail("JPEG with a DNL height is not supported");
+    if (j.width == 0) fail("JPEG of width 0");
+    if (j.ncomp != 1 && j.ncomp != 3 && j.ncomp != 4) {
+        fail(std::to_string(j.ncomp) + "-component JPEG has no colour conversion");
+    }
+    if (n != 6 + 3 * j.ncomp) fail("bad SOF segment length");
+    j.hmax = j.vmax = 1;
+    for (int c = 0; c < j.ncomp; c++) {
+        Component& cp = j.comp[c];
+        cp.id = p[6 + 3 * c];
+        cp.h = p[7 + 3 * c] >> 4;
+        cp.v = p[7 + 3 * c] & 15;
+        cp.tq = p[8 + 3 * c];
+        if (cp.h < 1 || cp.h > 4 || cp.v < 1 || cp.v > 4) fail("bad sampling factors (1 to 4 only)");
+        if (cp.tq > 3) fail("bad quantization table index");
+        j.hmax = cp.h > j.hmax ? cp.h : j.hmax;
+        j.vmax = cp.v > j.vmax ? cp.v : j.vmax;
+    }
+    j.mcux = (j.width + 8 * j.hmax - 1) / (8 * j.hmax);
+    j.mcuy = (j.height + 8 * j.vmax - 1) / (8 * j.vmax);
+    for (int c = 0; c < j.ncomp; c++) {
+        Component& cp = j.comp[c];
+        if (j.hmax % cp.h || j.vmax % cp.v) fail("fractional sampling ratios are not implemented (as in libjpeg)");
+        cp.width = (j.width * cp.h + j.hmax - 1) / j.hmax;
+        cp.height = (j.height * cp.v + j.vmax - 1) / j.vmax;
+        cp.wib = (cp.width + 7) / 8;
+        cp.hib = (cp.height + 7) / 8;
+        cp.bw = j.mcux * cp.h;
+        cp.bh = j.mcuy * cp.v;
+        cp.coef.assign(static_cast<size_t>(cp.bw) * cp.bh * 64, 0);
+        for (int k = 0; k < 64; k++) j.coef_bits[c][k] = j.prev_coef_bits[c][k] = -1;
+    }
+    j.have_frame = true;
+}
+
+struct Scan {
+    int ns = 0;
+    Component* c[4] = {};
+    int ci[4] = {};  // component indices
+    int Ss = 0, Se = 63, Ah = 0, Al = 0;
+};
+
+inline int huff_extend(int x, int s) { return x < (1 << (s - 1)) ? x + static_cast<int>(~0u << s) + 1 : x; }
+
+// jdhuff.c's bit reader: bits are read greedily up to a marker; past it the
+// reader feeds zero bits, and the first zero bit that is actually consumed
+// sets insufficient_data (libjpeg's "premature end of data segment").
+struct HuffDecoder {
+    Jpeg& j;
+    const Scan& s;
+    uint64_t buf = 0;  // top-aligned
+    int count = 0;     // bits in buf
+    int real = 0;      // of which read from the stream
+    bool insufficient = false;
+    unsigned restarts_to_go = 0;
+    int last_dc[4] = {};
+    unsigned eobrun = 0;
+
+    HuffDecoder(Jpeg& jj, const Scan& ss) : j(jj), s(ss), restarts_to_go(jj.restart_interval) {}
 
     void fill() {
         while (count <= 56) {
-            uint8_t byte = 0;
-            if (!at_marker) {
-                if (pos >= len) {
-                    at_marker = true;
-                } else if (data[pos] == 0xFF) {
-                    if (pos + 1 < len && data[pos + 1] == 0x00) {
-                        byte = 0xFF;
-                        pos += 2;
+            int c = 0;
+            bool data = false;
+            if (!j.unread_marker) {
+                c = j.src.byte();
+                if (c == 0xFF) {
+                    do {
+                        c = j.src.byte();
+                    } while (c == 0xFF);
+                    if (c == 0) {
+                        c = 0xFF;
+                        data = true;
                     } else {
-                        at_marker = true;
+                        j.unread_marker = c;
+                        c = 0;
                     }
                 } else {
-                    byte = data[pos++];
+                    data = true;
                 }
             }
-            if (at_marker) fake += 8;
-            buf |= static_cast<uint64_t>(byte) << (56 - count);
+            buf |= static_cast<uint64_t>(c) << (56 - count);
             count += 8;
+            if (data) real += 8;
         }
     }
     void consume(int n) {
         buf <<= n;
         count -= n;
-        if (count < fake) fail("entropy-coded data ends early (truncated or corrupt)");
+        if (n > real) {
+            insufficient = true;
+            real = 0;
+        } else {
+            real -= n;
+        }
     }
     int get_bits(int n) {
         if (n == 0) return 0;
@@ -150,7 +335,7 @@ struct BitReader {
         return v;
     }
     int decode(const HuffTable& t) {
-        if (count < 16) fill();
+        if (count < 17) fill();
         int look = static_cast<int>(buf >> 56);
         int l = t.look_len[look];
         if (l) {
@@ -159,324 +344,784 @@ struct BitReader {
         }
         l = 9;
         int32_t code = static_cast<int32_t>(buf >> (64 - 9));
-        while (l <= 16 && code > t.maxcode[l]) {
+        while (code > t.maxcode[l]) {  // maxcode[17] ends the search
             l++;
             code = static_cast<int32_t>(buf >> (64 - l));
         }
-        if (l > 16) fail("bad Huffman code (corrupt data)");
         consume(l);
+        if (l > 16) return 0;  // bad code: libjpeg warns and yields 0
         return t.vals[(code + t.valoffset[l]) & 0xFF];
     }
-    // Discard the partial byte and expect RSTn (restart) next.
-    void restart(int expected) {
-        buf = 0;
-        count = 0;
-        fake = 0;
-        at_marker = false;
-        // skip what is left of the interval (libjpeg discards it too) and
-        // the fill bytes before the marker
-        while (pos + 1 < len && !(data[pos] == 0xFF && data[pos + 1] != 0x00 && data[pos + 1] != 0xFF)) pos++;
-        if (pos + 1 >= len || data[pos + 1] != 0xD0 + expected) {
-            fail("missing restart marker (corrupt data)");
-        }
-        pos += 2;
-    }
+
+    void process_restart();
+    void mcu(int16_t* const* blk, const int* memb, int nblk);
 };
 
-inline int huff_extend(int x, int s) { return x < (1 << (s - 1)) ? x + ((-1) << s) + 1 : x; }
-
-struct Component {
-    int id = 0, h = 1, v = 1, tq = 0;
-    int width = 0, height = 0;          // downsampled size
-    int bw = 0, bh = 0;                 // allocated blocks (MCU-padded)
-    std::vector<int16_t> coef;          // bw*bh*64, natural order
-    uint16_t quant[64] = {};
-    bool quant_latched = false;
-    int dc_pred = 0;
-};
-
-struct Jpeg {
-    int width = 0, height = 0, ncomp = 0;
-    int hmax = 1, vmax = 1;
-    int restart_interval = 0;
-    bool saw_jfif = false, saw_adobe = false;
-    int adobe_transform = -1;
-    bool have_frame = false;
-    Component comp[3];
-    uint16_t qt[4][64] = {};
-    bool qt_defined[4] = {};
-    HuffTable dc[4], ac[4];
-};
-
-uint16_t be16(const uint8_t* p) { return static_cast<uint16_t>((p[0] << 8) | p[1]); }
-
-void parse_frame(Jpeg& j, const uint8_t* p, int n, int marker) {
-    if (n < 6) fail("short SOF segment");
-    if (p[0] != 8) fail(std::to_string(p[0]) + "-bit JPEG is not supported (8-bit only)");
-    j.height = be16(p + 1);
-    j.width = be16(p + 3);
-    j.ncomp = p[5];
-    if (j.height == 0) fail("JPEG with a DNL height is not supported");
-    if (j.width == 0) fail("JPEG of width 0");
-    if (j.ncomp == 4) fail("4-component (CMYK/YCCK) JPEG is not supported");
-    if (j.ncomp != 1 && j.ncomp != 3) fail(std::to_string(j.ncomp) + "-component JPEG is not supported");
-    if (n < 6 + 3 * j.ncomp) fail("short SOF segment");
-    (void)marker;
-    j.hmax = j.vmax = 1;
-    for (int c = 0; c < j.ncomp; c++) {
-        Component& cp = j.comp[c];
-        cp.id = p[6 + 3 * c];
-        cp.h = p[7 + 3 * c] >> 4;
-        cp.v = p[7 + 3 * c] & 15;
-        cp.tq = p[8 + 3 * c];
-        if (cp.h < 1 || cp.h > 2 || cp.v < 1 || cp.v > 2) fail("sampling factors above 2x2 are not supported");
-        if (cp.tq > 3) fail("bad quantization table index");
-        j.hmax = cp.h > j.hmax ? cp.h : j.hmax;
-        j.vmax = cp.v > j.vmax ? cp.v : j.vmax;
-    }
-    int mcux = (j.width + 8 * j.hmax - 1) / (8 * j.hmax);
-    int mcuy = (j.height + 8 * j.vmax - 1) / (8 * j.vmax);
-    for (int c = 0; c < j.ncomp; c++) {
-        Component& cp = j.comp[c];
-        cp.width = (j.width * cp.h + j.hmax - 1) / j.hmax;
-        cp.height = (j.height * cp.v + j.vmax - 1) / j.vmax;
-        cp.bw = mcux * cp.h;
-        cp.bh = mcuy * cp.v;
-        cp.coef.assign(static_cast<size_t>(cp.bw) * cp.bh * 64, 0);
-    }
-    j.have_frame = true;
-}
-
-void decode_block(BitReader& br, Component& cp, const HuffTable& dct, const HuffTable& act, int16_t* block) {
-    int s = br.decode(dct);
-    if (s) {
-        if (s > 11) fail("bad DC difference (corrupt data)");
-        int r = br.get_bits(s);
-        s = huff_extend(r, s);
-    }
-    cp.dc_pred += s;
-    block[0] = static_cast<int16_t>(cp.dc_pred);
-    for (int k = 1; k < 64; k++) {
-        s = br.decode(act);
-        int r = s >> 4;
-        s &= 15;
-        if (s) {
-            k += r;
-            if (k > 63) fail("AC coefficient index past 63 (corrupt data)");
-            r = br.get_bits(s);
-            block[kNaturalOrder[k]] = static_cast<int16_t>(huff_extend(r, s));
+// jpeg_resync_to_restart for a marker that is not the expected RSTn.
+void resync_to_restart(Jpeg& j, int desired) {
+    int marker = j.unread_marker;
+    for (;;) {
+        int action;
+        if (marker < 0xC0) {
+            action = 2;
+        } else if (marker < 0xD0 || marker > 0xD7) {
+            action = 3;
+        } else if (marker == 0xD0 + ((desired + 1) & 7) || marker == 0xD0 + ((desired + 2) & 7)) {
+            action = 3;
+        } else if (marker == 0xD0 + ((desired - 1) & 7) || marker == 0xD0 + ((desired - 2) & 7)) {
+            action = 2;
         } else {
-            if (r != 15) break;
-            k += 15;
+            action = 1;
         }
+        if (action == 1) {
+            j.unread_marker = 0;
+            return;
+        }
+        if (action == 3) return;
+        marker = j.unread_marker = next_marker(j.src);
     }
 }
 
-// Returns the position just after the scan's entropy-coded data.
-size_t decode_scan(Jpeg& j, const uint8_t* data, size_t len, size_t pos, const uint8_t* sos, int n) {
-    if (!j.have_frame) fail("SOS before SOF");
-    if (n < 1) fail("short SOS segment");
-    int ns = sos[0];
-    if (ns < 1 || ns > j.ncomp || n < 1 + 2 * ns + 3) fail("bad SOS segment");
-    Component* sc[3];
-    int dct[3], act[3];
-    for (int i = 0; i < ns; i++) {
-        int cid = sos[1 + 2 * i];
-        int c = 0;
-        while (c < j.ncomp && j.comp[c].id != cid) c++;
-        if (c == j.ncomp) fail("SOS names an unknown component");
-        sc[i] = &j.comp[c];
-        dct[i] = sos[2 + 2 * i] >> 4;
-        act[i] = sos[2 + 2 * i] & 15;
-        if (dct[i] > 3 || act[i] > 3 || !j.dc[dct[i]].defined || !j.ac[act[i]].defined) {
-            fail("SOS uses an undefined Huffman table");
-        }
-    }
-    int ss = sos[1 + 2 * ns], se = sos[2 + 2 * ns], ahal = sos[3 + 2 * ns];
-    if (ss != 0 || se != 63 || ahal != 0) fail("progressive scan parameters in a sequential JPEG");
-    for (int i = 0; i < ns; i++) {
-        Component& cp = *sc[i];
-        if (!cp.quant_latched) {
-            if (!j.qt_defined[cp.tq]) fail("component uses an undefined quantization table");
-            std::memcpy(cp.quant, j.qt[cp.tq], sizeof(cp.quant));
-            cp.quant_latched = true;
-        }
-        cp.dc_pred = 0;
-    }
-    BitReader br{data, len, pos};
-    int mcus_x, mcus_y;
-    if (ns == 1) {
-        mcus_x = (sc[0]->width + 7) / 8;
-        mcus_y = (sc[0]->height + 7) / 8;
+void read_restart_marker(Jpeg& j) {
+    if (!j.unread_marker) j.unread_marker = next_marker(j.src);
+    if (j.unread_marker == 0xD0 + j.next_restart_num) {
+        j.unread_marker = 0;
     } else {
-        mcus_x = (j.width + 8 * j.hmax - 1) / (8 * j.hmax);
-        mcus_y = (j.height + 8 * j.vmax - 1) / (8 * j.vmax);
+        resync_to_restart(j, j.next_restart_num);
     }
-    int total = mcus_x * mcus_y;
-    int restarts = 0, todo = j.restart_interval;
-    for (int m = 0; m < total; m++) {
-        if (j.restart_interval) {
-            if (todo == 0) {
-                br.restart(restarts & 7);
-                restarts++;
-                todo = j.restart_interval;
-                for (int i = 0; i < ns; i++) sc[i]->dc_pred = 0;
+    j.next_restart_num = (j.next_restart_num + 1) & 7;
+}
+
+void HuffDecoder::process_restart() {
+    buf = 0;
+    count = real = 0;
+    read_restart_marker(j);
+    for (int i = 0; i < s.ns; i++) last_dc[i] = 0;
+    eobrun = 0;
+    restarts_to_go = static_cast<unsigned>(j.restart_interval);
+    if (!j.unread_marker) insufficient = false;
+}
+
+void HuffDecoder::mcu(int16_t* const* blk, const int* memb, int nblk) {
+    if (j.restart_interval && restarts_to_go == 0) process_restart();
+    const int Ss = s.Ss, Se = s.Se, Al = s.Al;
+    if (!j.progressive) {  // jdhuff.c decode_mcu
+        if (!insufficient) {
+            for (int b = 0; b < nblk; b++) {
+                int16_t* block = blk[b];
+                const Component& cp = *s.c[memb[b]];
+                int t = decode(j.dc[cp.dc_tbl]);
+                if (t) t = huff_extend(get_bits(t), t);
+                last_dc[memb[b]] = static_cast<int>(static_cast<unsigned>(last_dc[memb[b]]) + t);
+                block[0] = static_cast<int16_t>(last_dc[memb[b]]);
+                const HuffTable& act = j.ac[cp.ac_tbl];
+                for (int k = 1; k < 64; k++) {
+                    int sym = decode(act);
+                    int r = sym >> 4;
+                    sym &= 15;
+                    if (sym) {
+                        k += r;
+                        block[kNaturalOrder[k]] = static_cast<int16_t>(huff_extend(get_bits(sym), sym));
+                    } else {
+                        if (r != 15) break;
+                        k += 15;
+                    }
+                }
             }
-            todo--;
         }
-        int mx = m % mcus_x, my = m / mcus_x;
-        if (ns == 1) {
-            Component& cp = *sc[0];
-            int16_t* blk = &cp.coef[(static_cast<size_t>(my) * cp.bw + mx) * 64];
-            decode_block(br, cp, j.dc[dct[0]], j.ac[act[0]], blk);
+    } else if (Ss == 0 && s.Ah == 0) {  // jdphuff.c decode_mcu_DC_first
+        if (!insufficient) {
+            for (int b = 0; b < nblk; b++) {
+                int t = decode(j.dc[s.c[memb[b]]->dc_tbl]);
+                if (t) t = huff_extend(get_bits(t), t);
+                int& last = last_dc[memb[b]];
+                if ((last >= 0 && t > INT_MAX - last) || (last < 0 && t < INT_MIN - last)) {
+                    fail("DC coefficient out of range (corrupt data)");
+                }
+                last += t;
+                blk[b][0] = static_cast<int16_t>(static_cast<unsigned>(last) << Al);
+            }
+        }
+    } else if (Ss == 0) {  // decode_mcu_DC_refine: zero bits change nothing
+        const int p1 = 1 << Al;
+        for (int b = 0; b < nblk; b++) {
+            if (get_bits(1)) blk[b][0] = static_cast<int16_t>(blk[b][0] | p1);
+        }
+    } else if (s.Ah == 0) {  // decode_mcu_AC_first
+        if (!insufficient) {
+            if (eobrun > 0) {
+                eobrun--;
+            } else {
+                int16_t* block = blk[0];
+                const HuffTable& t = j.ac[s.c[0]->ac_tbl];
+                for (int k = Ss; k <= Se; k++) {
+                    int sym = decode(t);
+                    int r = sym >> 4;
+                    sym &= 15;
+                    if (sym) {
+                        k += r;
+                        int v = huff_extend(get_bits(sym), sym);
+                        block[kNaturalOrder[k]] = static_cast<int16_t>(static_cast<unsigned>(v) << Al);
+                    } else if (r == 15) {
+                        k += 15;
+                    } else {
+                        eobrun = 1u << r;
+                        if (r) eobrun += static_cast<unsigned>(get_bits(r));
+                        eobrun--;
+                        break;
+                    }
+                }
+            }
+        }
+    } else {  // decode_mcu_AC_refine
+        if (!insufficient) {
+            const int p1 = 1 << Al, m1 = static_cast<int>(~0u << Al);
+            int16_t* block = blk[0];
+            const HuffTable& t = j.ac[s.c[0]->ac_tbl];
+            int k = Ss;
+            if (eobrun == 0) {
+                for (; k <= Se; k++) {
+                    int sym = decode(t);
+                    int r = sym >> 4;
+                    sym &= 15;
+                    if (sym) {
+                        sym = get_bits(1) ? p1 : m1;
+                    } else if (r != 15) {
+                        eobrun = 1u << r;
+                        if (r) eobrun += static_cast<unsigned>(get_bits(r));
+                        break;
+                    }
+                    do {
+                        int16_t* c = block + kNaturalOrder[k];
+                        if (*c != 0) {
+                            if (get_bits(1) && (*c & p1) == 0) {
+                                *c = static_cast<int16_t>(*c >= 0 ? *c + p1 : *c + m1);
+                            }
+                        } else if (--r < 0) {
+                            break;
+                        }
+                        k++;
+                    } while (k <= Se);
+                    if (sym) block[kNaturalOrder[k]] = static_cast<int16_t>(sym);
+                }
+            }
+            if (eobrun > 0) {
+                for (; k <= Se; k++) {
+                    int16_t* c = block + kNaturalOrder[k];
+                    if (*c != 0 && get_bits(1) && (*c & p1) == 0) {
+                        *c = static_cast<int16_t>(*c >= 0 ? *c + p1 : *c + m1);
+                    }
+                }
+                eobrun--;
+            }
+        }
+    }
+    if (j.restart_interval) restarts_to_go--;
+}
+
+// jaricom.c jpeg_aritab: Qe << 16 | Next_Index_MPS << 8 | Switch_MPS << 7 |
+// Next_Index_LPS (ITU-T T.81 Table D.2, and entry 113 for the fixed 0.5).
+#define V(qe, nl, nm, sw) ((int64_t(qe) << 16) | (int64_t(nm) << 8) | (int64_t(sw) << 7) | int64_t(nl))
+const int64_t kAriTab[114] = {
+    V(0x5a1d, 1, 1, 1),     V(0x2586, 14, 2, 0),    V(0x1114, 16, 3, 0),    V(0x080b, 18, 4, 0),
+    V(0x03d8, 20, 5, 0),    V(0x01da, 23, 6, 0),    V(0x00e5, 25, 7, 0),    V(0x006f, 28, 8, 0),
+    V(0x0036, 30, 9, 0),    V(0x001a, 33, 10, 0),   V(0x000d, 35, 11, 0),   V(0x0006, 9, 12, 0),
+    V(0x0003, 10, 13, 0),   V(0x0001, 12, 13, 0),   V(0x5a7f, 15, 15, 1),   V(0x3f25, 36, 16, 0),
+    V(0x2cf2, 38, 17, 0),   V(0x207c, 39, 18, 0),   V(0x17b9, 40, 19, 0),   V(0x1182, 42, 20, 0),
+    V(0x0cef, 43, 21, 0),   V(0x09a1, 45, 22, 0),   V(0x072f, 46, 23, 0),   V(0x055c, 48, 24, 0),
+    V(0x0406, 49, 25, 0),   V(0x0303, 51, 26, 0),   V(0x0240, 52, 27, 0),   V(0x01b1, 54, 28, 0),
+    V(0x0144, 56, 29, 0),   V(0x00f5, 57, 30, 0),   V(0x00b7, 59, 31, 0),   V(0x008a, 60, 32, 0),
+    V(0x0068, 62, 33, 0),   V(0x004e, 63, 34, 0),   V(0x003b, 32, 35, 0),   V(0x002c, 33, 9, 0),
+    V(0x5ae1, 37, 37, 1),   V(0x484c, 64, 38, 0),   V(0x3a0d, 65, 39, 0),   V(0x2ef1, 67, 40, 0),
+    V(0x261f, 68, 41, 0),   V(0x1f33, 69, 42, 0),   V(0x19a8, 70, 43, 0),   V(0x1518, 72, 44, 0),
+    V(0x1177, 73, 45, 0),   V(0x0e74, 74, 46, 0),   V(0x0bfb, 75, 47, 0),   V(0x09f8, 77, 48, 0),
+    V(0x0861, 78, 49, 0),   V(0x0706, 79, 50, 0),   V(0x05cd, 48, 51, 0),   V(0x04de, 50, 52, 0),
+    V(0x040f, 50, 53, 0),   V(0x0363, 51, 54, 0),   V(0x02d4, 52, 55, 0),   V(0x025c, 53, 56, 0),
+    V(0x01f8, 54, 57, 0),   V(0x01a4, 55, 58, 0),   V(0x0160, 56, 59, 0),   V(0x0125, 57, 60, 0),
+    V(0x00f6, 58, 61, 0),   V(0x00cb, 59, 62, 0),   V(0x00ab, 61, 63, 0),   V(0x008f, 61, 32, 0),
+    V(0x5b12, 65, 65, 1),   V(0x4d04, 80, 66, 0),   V(0x412c, 81, 67, 0),   V(0x37d8, 82, 68, 0),
+    V(0x2fe8, 83, 69, 0),   V(0x293c, 84, 70, 0),   V(0x2379, 86, 71, 0),   V(0x1edf, 87, 72, 0),
+    V(0x1aa9, 87, 73, 0),   V(0x174e, 72, 74, 0),   V(0x1424, 72, 75, 0),   V(0x119c, 74, 76, 0),
+    V(0x0f6b, 74, 77, 0),   V(0x0d51, 75, 78, 0),   V(0x0bb6, 77, 79, 0),   V(0x0a40, 77, 48, 0),
+    V(0x5832, 80, 81, 1),   V(0x4d1c, 88, 82, 0),   V(0x438e, 89, 83, 0),   V(0x3bdd, 90, 84, 0),
+    V(0x34ee, 91, 85, 0),   V(0x2eae, 92, 86, 0),   V(0x299a, 93, 87, 0),   V(0x2516, 86, 71, 0),
+    V(0x5570, 88, 89, 1),   V(0x4ca9, 95, 90, 0),   V(0x44d9, 96, 91, 0),   V(0x3e22, 97, 92, 0),
+    V(0x3824, 99, 93, 0),   V(0x32b4, 99, 94, 0),   V(0x2e17, 93, 86, 0),   V(0x56a8, 95, 96, 1),
+    V(0x4f46, 101, 97, 0),  V(0x47e5, 102, 98, 0),  V(0x41cf, 103, 99, 0),  V(0x3c3d, 104, 100, 0),
+    V(0x375e, 99, 93, 0),   V(0x5231, 105, 102, 0), V(0x4c0f, 106, 103, 0), V(0x4639, 107, 104, 0),
+    V(0x415e, 103, 99, 0),  V(0x5627, 105, 106, 1), V(0x50e7, 108, 107, 0), V(0x4b85, 109, 103, 0),
+    V(0x5597, 110, 109, 0), V(0x504f, 111, 107, 0), V(0x5a10, 110, 111, 1), V(0x5522, 112, 109, 0),
+    V(0x59eb, 112, 111, 1), V(0x5a1d, 113, 113, 0)};
+#undef V
+
+// jdarith.c: the QM decoder. A marker in the data is legal here: past it the
+// decoder reads zero bytes (no insufficient_data state).
+struct ArithDecoder {
+    Jpeg& j;
+    const Scan& s;
+    int64_t c = 0, a = 0;
+    int ct = -16;  // -1: error state, the rest of the segment is skipped
+    int last_dc[4] = {}, dc_context[4] = {};
+    unsigned restarts_to_go = 0;
+    uint8_t fixed_bin[4] = {113, 0, 0, 0};
+    static constexpr bool insufficient = false;
+
+    ArithDecoder(Jpeg& jj, const Scan& ss) : j(jj), s(ss), restarts_to_go(jj.restart_interval) { reset_stats(); }
+
+    void reset_stats() {
+        for (int i = 0; i < s.ns; i++) {
+            const Component& cp = *s.c[i];
+            if (!j.progressive || (s.Ss == 0 && s.Ah == 0)) {
+                std::memset(j.dc_stats[cp.dc_tbl], 0, 64);
+                last_dc[i] = dc_context[i] = 0;
+            }
+            if (!j.progressive || s.Ss) std::memset(j.ac_stats[cp.ac_tbl], 0, 256);
+        }
+    }
+
+    int decode(uint8_t* st) {
+        while (a < 0x8000) {
+            if (--ct < 0) {
+                int data = 0;
+                if (!j.unread_marker) {
+                    data = j.src.byte();
+                    if (data == 0xFF) {
+                        do {
+                            data = j.src.byte();
+                        } while (data == 0xFF);
+                        if (data == 0) {
+                            data = 0xFF;
+                        } else {
+                            j.unread_marker = data;
+                            data = 0;
+                        }
+                    }
+                }
+                c = (c << 8) | data;
+                if ((ct += 8) < 0) {
+                    if (++ct == 0) a = 0x8000;
+                }
+            }
+            a <<= 1;
+        }
+        int sv = *st;
+        int64_t qe = kAriTab[sv & 0x7F];
+        uint8_t nl = static_cast<uint8_t>(qe & 0xFF);
+        qe >>= 8;
+        uint8_t nm = static_cast<uint8_t>(qe & 0xFF);
+        qe >>= 8;
+        int64_t temp = a - qe;
+        a = temp;
+        temp <<= ct;
+        if (c >= temp) {
+            c -= temp;
+            if (a < qe) {
+                a = qe;
+                *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+            } else {
+                a = qe;
+                *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+                sv ^= 0x80;
+            }
+        } else if (a < 0x8000) {
+            if (a < qe) {
+                *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+                sv ^= 0x80;
+            } else {
+                *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+            }
+        }
+        return sv >> 7;
+    }
+
+    void process_restart() {
+        read_restart_marker(j);
+        reset_stats();
+        c = a = 0;
+        ct = -16;
+        restarts_to_go = static_cast<unsigned>(j.restart_interval);
+    }
+
+    // Figures F.19-F.24: a DC difference (st0 = the context's first bin).
+    // Returns false on a magnitude overflow (error state set).
+    bool dc_diff(int i, int tbl, int* out) {
+        uint8_t* st = j.dc_stats[tbl] + dc_context[i];
+        if (decode(st) == 0) {
+            dc_context[i] = 0;
+            *out = 0;
+            return true;
+        }
+        int sign = decode(st + 1);
+        st += 2 + sign;
+        int m = decode(st);
+        if (m != 0) {
+            st = j.dc_stats[tbl] + 20;
+            while (decode(st)) {
+                if ((m <<= 1) == 0x8000) {
+                    ct = -1;
+                    return false;
+                }
+                st += 1;
+            }
+        }
+        if (m < static_cast<int>((1L << j.arith_dc_L[tbl]) >> 1)) {
+            dc_context[i] = 0;
+        } else if (m > static_cast<int>((1L << j.arith_dc_U[tbl]) >> 1)) {
+            dc_context[i] = 12 + sign * 4;
         } else {
-            for (int i = 0; i < ns; i++) {
-                Component& cp = *sc[i];
-                for (int by = 0; by < cp.v; by++) {
-                    for (int bx = 0; bx < cp.h; bx++) {
-                        size_t row = static_cast<size_t>(my) * cp.v + by;
-                        size_t col = static_cast<size_t>(mx) * cp.h + bx;
-                        decode_block(br, cp, j.dc[dct[i]], j.ac[act[i]], &cp.coef[(row * cp.bw + col) * 64]);
+            dc_context[i] = 4 + sign * 4;
+        }
+        int v = m;
+        st += 14;
+        while (m >>= 1) {
+            if (decode(st)) v |= m;
+        }
+        v += 1;
+        if (sign) v = -v;
+        *out = v;
+        return true;
+    }
+
+    // Figure F.20 from k to Se; false on an overflow (error state set).
+    bool ac_values(int tbl, int k, int Se, int16_t* block, int Al) {
+        for (; k <= Se; k++) {
+            uint8_t* st = j.ac_stats[tbl] + 3 * (k - 1);
+            if (decode(st)) break;  // EOB
+            while (decode(st + 1) == 0) {
+                st += 3;
+                if (++k > Se) {
+                    ct = -1;
+                    return false;
+                }
+            }
+            int sign = decode(fixed_bin);
+            st += 2;
+            int m = decode(st);
+            if (m != 0) {
+                if (decode(st)) {
+                    m <<= 1;
+                    st = j.ac_stats[tbl] + (k <= j.arith_ac_K[tbl] ? 189 : 217);
+                    while (decode(st)) {
+                        if ((m <<= 1) == 0x8000) {
+                            ct = -1;
+                            return false;
+                        }
+                        st += 1;
+                    }
+                }
+            }
+            int v = m;
+            st += 14;
+            while (m >>= 1) {
+                if (decode(st)) v |= m;
+            }
+            v += 1;
+            if (sign) v = -v;
+            block[kNaturalOrder[k]] = static_cast<int16_t>(static_cast<unsigned>(v) << Al);
+        }
+        return true;
+    }
+
+    void mcu(int16_t* const* blk, const int* memb, int nblk) {
+        if (j.restart_interval) {
+            if (restarts_to_go == 0) process_restart();
+            restarts_to_go--;
+        }
+        if (j.progressive && s.Ss == 0 && s.Ah != 0) {  // DC refine
+            const int p1 = 1 << s.Al;
+            for (int b = 0; b < nblk; b++) {
+                if (decode(fixed_bin)) blk[b][0] = static_cast<int16_t>(blk[b][0] | p1);
+            }
+            return;
+        }
+        if (ct == -1) return;
+        if (!j.progressive) {  // decode_mcu
+            for (int b = 0; b < nblk; b++) {
+                const int i = memb[b];
+                const Component& cp = *s.c[i];
+                int v;
+                if (!dc_diff(i, cp.dc_tbl, &v)) return;
+                last_dc[i] += v;
+                blk[b][0] = static_cast<int16_t>(last_dc[i]);
+                if (!ac_values(cp.ac_tbl, 1, 63, blk[b], 0)) return;
+            }
+        } else if (s.Ss == 0) {  // DC first
+            for (int b = 0; b < nblk; b++) {
+                const int i = memb[b];
+                int v;
+                if (!dc_diff(i, s.c[i]->dc_tbl, &v)) return;
+                last_dc[i] = (last_dc[i] + v) & 0xffff;
+                blk[b][0] = static_cast<int16_t>(static_cast<unsigned>(last_dc[i]) << s.Al);
+            }
+        } else if (s.Ah == 0) {  // AC first
+            ac_values(s.c[0]->ac_tbl, s.Ss, s.Se, blk[0], s.Al);
+        } else {  // AC refine
+            const int tbl = s.c[0]->ac_tbl;
+            const int p1 = 1 << s.Al, m1 = static_cast<int>(~0u << s.Al);
+            int16_t* block = blk[0];
+            int kex = s.Se;
+            for (; kex > 0; kex--) {
+                if (block[kNaturalOrder[kex]]) break;
+            }
+            for (int k = s.Ss; k <= s.Se; k++) {
+                uint8_t* st = j.ac_stats[tbl] + 3 * (k - 1);
+                if (k > kex && decode(st)) break;
+                for (;;) {
+                    int16_t* c = block + kNaturalOrder[k];
+                    if (*c) {
+                        if (decode(st + 2)) *c = static_cast<int16_t>(*c < 0 ? *c + m1 : *c + p1);
+                        break;
+                    }
+                    if (decode(st + 1)) {
+                        *c = static_cast<int16_t>(decode(fixed_bin) ? m1 : p1);
+                        break;
+                    }
+                    st += 3;
+                    if (++k > s.Se) {
+                        ct = -1;
+                        return;
                     }
                 }
             }
         }
     }
-    // The bit buffer may hold bytes read past the last MCU: step back to
-    // the first unread byte of the segment, then scan for the next marker.
-    size_t p = br.pos;
-    while (p + 1 < len && !(data[p] == 0xFF && data[p + 1] != 0x00 && data[p + 1] != 0xFF)) p++;
-    return p;
+};
+
+Scan parse_sos(Jpeg& j, const std::vector<uint8_t>& seg) {
+    if (!j.have_frame) fail("SOS before SOF");
+    const int n = static_cast<int>(seg.size());
+    if (n < 1) fail("short SOS segment");
+    Scan s;
+    s.ns = seg[0];
+    if (n != 2 * s.ns + 4 || s.ns < 1 || s.ns > 4) fail("bad SOS segment");
+    for (int i = 0; i < s.ns; i++) {
+        int cid = seg[1 + 2 * i];
+        int c = 0;
+        while (c < j.ncomp && j.comp[c].id != cid) c++;
+        if (c == j.ncomp) fail("SOS names an unknown component");
+        for (int k = 0; k < i; k++) {
+            if (s.ci[k] == c) fail("SOS names a component twice");
+        }
+        s.c[i] = &j.comp[c];
+        s.ci[i] = c;
+        s.c[i]->dc_tbl = seg[2 + 2 * i] >> 4;
+        s.c[i]->ac_tbl = seg[2 + 2 * i] & 15;
+    }
+    s.Ss = seg[1 + 2 * s.ns];
+    s.Se = seg[2 + 2 * s.ns];
+    s.Ah = seg[3 + 2 * s.ns] >> 4;
+    s.Al = seg[3 + 2 * s.ns] & 15;
+    j.input_scan_number++;
+    j.next_restart_num = 0;
+    if (j.progressive) {  // start_pass_phuff_decoder / jdarith.c start_pass
+        bool bad = false;
+        if (s.Ss == 0) {
+            bad = s.Se != 0;
+        } else {
+            bad = s.Se < s.Ss || s.Se > 63 || s.ns != 1;
+        }
+        if (s.Ah != 0 && s.Al != s.Ah - 1) bad = true;
+        if (s.Al > 13) bad = true;
+        if (bad) fail("bad progressive scan parameters");
+        for (int i = 0; i < s.ns; i++) {
+            int* bits = j.coef_bits[s.ci[i]];
+            int* prev = j.prev_coef_bits[s.ci[i]];
+            int lo = s.Ss < 1 ? s.Ss : 1, hi = s.Se > 9 ? s.Se : 9;
+            for (int k = lo; k <= hi; k++) prev[k] = j.input_scan_number > 1 ? bits[k] : 0;
+            for (int k = s.Ss; k <= s.Se; k++) bits[k] = s.Al;
+        }
+    }  // a sequential scan's Ss, Se, Ah and Al are not used (libjpeg only warns)
+    for (int i = 0; i < s.ns; i++) {  // jdinput.c latch_quant_tables
+        Component& cp = *s.c[i];
+        if (!cp.quant_latched) {
+            if (!j.qt_defined[cp.tq]) fail("component uses an undefined quantization table");
+            std::memcpy(cp.quant, j.qt[cp.tq], sizeof(cp.quant));
+            cp.quant_latched = true;
+        }
+        bool dc_used = !j.progressive || (s.Ss == 0 && s.Ah == 0);
+        bool ac_used = !j.progressive || s.Ss != 0;
+        if (j.arith) {
+            if (cp.dc_tbl > 15 || cp.ac_tbl > 15) fail("bad arithmetic conditioning table index");
+        } else {
+            if ((dc_used && (cp.dc_tbl > 3 || !j.dc[cp.dc_tbl].defined)) ||
+                (ac_used && (cp.ac_tbl > 3 || !j.ac[cp.ac_tbl].defined))) {
+                fail("SOS uses an undefined Huffman table");
+            }
+            // jdhuff.c jpeg_make_d_derived_tbl: a DC symbol is a bit count
+            if (dc_used && j.dc[cp.dc_tbl].max_symbol > 15) fail("bad Huffman table (DC symbol above 15)");
+        }
+    }
+    if (s.ns > 1) {
+        int blocks = 0;
+        for (int i = 0; i < s.ns; i++) blocks += s.c[i]->h * s.c[i]->v;
+        if (blocks > 10) fail("too many blocks in an MCU");
+    }
+    return s;
 }
 
-// jidctint.c jpeg_idct_islow, with dequantization and the range limit.
+// Decode one scan's MCUs in libjpeg's order (jdcoefct.c consume_data).
+template <class Decoder>
+void run_scan(Jpeg& j, const Scan& s) {
+    Decoder d(j, s);
+    int16_t* blk[10];
+    int memb[10];
+    if (s.ns == 1) {
+        Component& cp = *s.c[0];
+        memb[0] = 0;
+        for (int by = 0; by < cp.hib; by++) {
+            for (int bx = 0; bx < cp.wib; bx++) {
+                if (!d.insufficient) j.last_good_iMCU_row = by / cp.v;
+                blk[0] = cp.block(by, bx);
+                d.mcu(blk, memb, 1);
+            }
+        }
+        return;
+    }
+    for (int my = 0; my < j.mcuy; my++) {
+        for (int mx = 0; mx < j.mcux; mx++) {
+            int n = 0;
+            for (int i = 0; i < s.ns; i++) {
+                Component& cp = *s.c[i];
+                for (int by = 0; by < cp.v; by++) {
+                    for (int bx = 0; bx < cp.h; bx++) {
+                        memb[n] = i;
+                        blk[n++] = cp.block(my * cp.v + by, mx * cp.h + bx);
+                    }
+                }
+            }
+            if (!d.insufficient) j.last_good_iMCU_row = my;
+            d.mcu(blk, memb, n);
+        }
+    }
+}
+
+std::vector<uint8_t> read_segment(Jpeg& j) {
+    int hi = j.src.byte();
+    int lo = j.src.byte();
+    int seglen = (hi << 8) | lo;
+    if (seglen < 2) fail("bad marker segment length");
+    std::vector<uint8_t> seg(static_cast<size_t>(seglen - 2));
+    Source& s = j.src;
+    if (s.pos + seg.size() <= s.len) {
+        std::memcpy(seg.data(), s.data + s.pos, seg.size());
+        s.pos += seg.size();
+    } else {
+        for (auto& b : seg) b = static_cast<uint8_t>(s.byte());
+    }
+    return seg;
+}
+
+// Read markers and decode scans (jdmarker.c read_markers). With headers_only
+// the parse stops at the first SOS (jpeg_read_header).
+void parse(Jpeg& j, bool headers_only) {
+    Source& src = j.src;
+    if (src.len < 2 || src.data[0] != 0xFF || src.data[1] != 0xD8) fail("not a JPEG file (no SOI marker)");
+    src.pos = 2;
+    for (int i = 0; i < 16; i++) {
+        j.arith_dc_L[i] = 0;
+        j.arith_dc_U[i] = 1;
+        j.arith_ac_K[i] = 5;
+    }
+    bool saw_scan = false;
+    for (;;) {
+        int marker = j.unread_marker ? j.unread_marker : next_marker(src);
+        j.unread_marker = 0;
+        if (marker == 0xD9) {  // EOI
+            if (!saw_scan) fail("no image data before EOI");
+            return;
+        }
+        if (marker >= 0xD0 && marker <= 0xD7) continue;  // stray RSTn
+        if (marker == 0x01) continue;                     // TEM
+        if (marker == 0xD8) fail("second SOI marker");
+        std::vector<uint8_t> seg = read_segment(j);
+        const int n = static_cast<int>(seg.size());
+        switch (marker) {
+            case 0xC0:
+            case 0xC1:
+            case 0xC2:
+            case 0xC9:
+            case 0xCA:
+                if (j.have_frame) fail("more than one SOF marker");
+                parse_frame(j, seg, marker);
+                break;
+            case 0xC3:
+                fail("lossless JPEG (SOF3) is not supported");
+            case 0xCB:
+                fail("lossless arithmetic-coded JPEG (SOF11) is not supported");
+            case 0xC5:
+            case 0xC6:
+            case 0xC7:
+            case 0xCD:
+            case 0xCE:
+            case 0xCF:
+                fail("hierarchical JPEG (SOF" + std::to_string(marker - 0xC0) + ") is not supported");
+            case 0xC4: {  // DHT
+                int p = 0;
+                while (p < n) {
+                    if (p + 17 > n) fail("short DHT segment");
+                    int tc = seg[p] >> 4, th = seg[p] & 15;
+                    if (tc > 1 || th > 3) fail("bad DHT table index");
+                    uint8_t bits[17] = {0};
+                    int count = 0;
+                    for (int i = 1; i <= 16; i++) {
+                        bits[i] = seg[p + i];
+                        count += bits[i];
+                    }
+                    if (count > 256 || p + 17 + count > n) fail("bad DHT segment");
+                    build_huff(tc ? j.ac[th] : j.dc[th], bits, seg.data() + p + 17, count);
+                    p += 17 + count;
+                }
+                break;
+            }
+            case 0xCC: {  // DAC
+                for (int p = 0; p + 1 < n; p += 2) {
+                    int index = seg[p], val = seg[p + 1];
+                    if (index >= 32) fail("bad DAC table index");
+                    if (index >= 16) {
+                        j.arith_ac_K[index - 16] = static_cast<uint8_t>(val);
+                    } else {
+                        j.arith_dc_L[index] = static_cast<uint8_t>(val & 15);
+                        j.arith_dc_U[index] = static_cast<uint8_t>(val >> 4);
+                        if (j.arith_dc_L[index] > j.arith_dc_U[index]) fail("bad DAC value");
+                    }
+                }
+                break;
+            }
+            case 0xDB: {  // DQT
+                int p = 0;
+                while (p < n) {
+                    int pq = seg[p] >> 4, tq = seg[p] & 15;
+                    if (tq > 3 || pq > 1) fail("bad DQT segment");
+                    int need = 1 + 64 * (pq ? 2 : 1);
+                    if (p + need > n) fail("short DQT segment");
+                    for (int i = 0; i < 64; i++) {
+                        j.qt[tq][kNaturalOrder[i]] =
+                            pq ? be16(seg.data() + p + 1 + 2 * i) : static_cast<uint16_t>(seg[p + 1 + i]);
+                    }
+                    j.qt_defined[tq] = true;
+                    p += need;
+                }
+                break;
+            }
+            case 0xDD:  // DRI
+                if (n != 2) fail("bad DRI segment");
+                j.restart_interval = be16(seg.data());
+                break;
+            case 0xDA: {  // SOS
+                Scan s = parse_sos(j, seg);
+                if (headers_only) return;
+                if (j.arith) {
+                    run_scan<ArithDecoder>(j, s);
+                } else {
+                    run_scan<HuffDecoder>(j, s);
+                }
+                saw_scan = true;
+                break;
+            }
+            case 0xE0:
+                if (n >= 14 && std::memcmp(seg.data(), "JFIF\0", 5) == 0) j.saw_jfif = true;
+                break;
+            case 0xE1:  // OpenCV reads the first APP1 past its 6-byte header
+                if (!j.saw_app1) {
+                    j.saw_app1 = true;
+                    if (n > 6) j.orientation = exif_orientation(seg.data() + 6, static_cast<size_t>(n - 6));
+                }
+                break;
+            case 0xEE:
+                if (n >= 12 && std::memcmp(seg.data(), "Adobe", 5) == 0) {
+                    j.saw_adobe = true;
+                    j.adobe_transform = seg[11];
+                }
+                break;
+            default:  // other APPn, COM and DNL are skipped, as libjpeg does
+                if (!((marker >= 0xE0 && marker <= 0xEF) || marker == 0xFE || marker == 0xDC)) {
+                    fail("unknown JPEG marker 0x" + std::to_string(marker));
+                }
+                break;
+        }
+    }
+}
+
+// libjpeg-turbo's SIMD islow IDCT (jidctint-sse2.asm / -avx2.asm), which
+// cv2's x86-64 build runs: jidctint.c's arithmetic (CONST_BITS 13,
+// PASS1_BITS 2) in the SIMD data widths. Coefficients are dequantized by a
+// 16-bit multiply (pmullw), in0 +/- in4 and the odd part's z3 = in7 + in3,
+// z4 = in5 + in1 are 16-bit sums, products and sums are 32-bit, each pass's
+// outputs saturate to 16 bits (packssdw) and the samples saturate to
+// [-128, 127] before the +128 shift (packsswb). On every block of a valid
+// file this equals the C version; on the out-of-range coefficients of a cut
+// or corrupt one it is what cv2 returns. A block whose rows 1-7 are all zero
+// takes the DC-only pass 1 (psllw: a 16-bit shift).
 constexpr int CONST_BITS = 13;
 constexpr int PASS1_BITS = 2;
-constexpr int64_t FIX_0_298631336 = 2446;
-constexpr int64_t FIX_0_390180644 = 3196;
-constexpr int64_t FIX_0_541196100 = 4433;
-constexpr int64_t FIX_0_765366865 = 6270;
-constexpr int64_t FIX_0_899976223 = 7373;
-constexpr int64_t FIX_1_175875602 = 9633;
-constexpr int64_t FIX_1_501321110 = 12299;
-constexpr int64_t FIX_1_847759065 = 15137;
-constexpr int64_t FIX_1_961570560 = 16069;
-constexpr int64_t FIX_2_053119869 = 16819;
-constexpr int64_t FIX_2_562915447 = 20995;
-constexpr int64_t FIX_3_072711026 = 25172;
+constexpr int32_t FIX_0_298631336 = 2446;
+constexpr int32_t FIX_0_390180644 = 3196;
+constexpr int32_t FIX_0_541196100 = 4433;
+constexpr int32_t FIX_0_765366865 = 6270;
+constexpr int32_t FIX_0_899976223 = 7373;
+constexpr int32_t FIX_1_175875602 = 9633;
+constexpr int32_t FIX_1_501321110 = 12299;
+constexpr int32_t FIX_1_847759065 = 15137;
+constexpr int32_t FIX_1_961570560 = 16069;
+constexpr int32_t FIX_2_053119869 = 16819;
+constexpr int32_t FIX_2_562915447 = 20995;
+constexpr int32_t FIX_3_072711026 = 25172;
 
-inline int64_t descale(int64_t x, int n) { return (x + (int64_t(1) << (n - 1))) >> n; }
+inline int16_t w16(int32_t x) { return static_cast<int16_t>(static_cast<uint16_t>(x)); }
+inline int32_t w32(int64_t x) { return static_cast<int32_t>(static_cast<uint32_t>(x)); }
+inline int16_t sat16(int32_t x) { return static_cast<int16_t>(x < -32768 ? -32768 : (x > 32767 ? 32767 : x)); }
 
-// range_limit[x & 1023] of jdmaster.c's post-IDCT table.
-inline uint8_t idct_limit(int64_t x) {
-    int v = static_cast<int>(x & 1023);
-    if (v < 128) return static_cast<uint8_t>(v + 128);
-    if (v < 512) return 255;
-    if (v < 896) return 0;
-    return static_cast<uint8_t>(v - 896);
+// One 1-D pass over 8 values: out[k] = sat16((x + round) >> shift).
+inline void idct_1d(const int16_t* in, int16_t* out, int shift) {
+    const int32_t z2 = in[2], z3 = in[6];
+    const int32_t tmp3e = w32(int64_t(z2) * (FIX_0_541196100 + FIX_0_765366865) + int64_t(z3) * FIX_0_541196100);
+    const int32_t tmp2e = w32(int64_t(z2) * FIX_0_541196100 + int64_t(z3) * (FIX_0_541196100 - FIX_1_847759065));
+    const int32_t tmp0e = static_cast<int32_t>(static_cast<uint32_t>(int32_t(w16(in[0] + in[4]))) << CONST_BITS);
+    const int32_t tmp1e = static_cast<int32_t>(static_cast<uint32_t>(int32_t(w16(in[0] - in[4]))) << CONST_BITS);
+    const int32_t tmp10 = w32(int64_t(tmp0e) + tmp3e), tmp13 = w32(int64_t(tmp0e) - tmp3e);
+    const int32_t tmp11 = w32(int64_t(tmp1e) + tmp2e), tmp12 = w32(int64_t(tmp1e) - tmp2e);
+    const int32_t i7 = in[7], i5 = in[5], i3 = in[3], i1 = in[1];
+    const int32_t zo3 = w16(i7 + i3), zo4 = w16(i5 + i1);
+    const int32_t z3o = w32(int64_t(zo3) * (FIX_1_175875602 - FIX_1_961570560) + int64_t(zo4) * FIX_1_175875602);
+    const int32_t z4o = w32(int64_t(zo3) * FIX_1_175875602 + int64_t(zo4) * (FIX_1_175875602 - FIX_0_390180644));
+    const int32_t t0 = w32(int64_t(i7) * (FIX_0_298631336 - FIX_0_899976223) + int64_t(i1) * -FIX_0_899976223 + z3o);
+    const int32_t t3 = w32(int64_t(i7) * -FIX_0_899976223 + int64_t(i1) * (FIX_1_501321110 - FIX_0_899976223) + z4o);
+    const int32_t t1 = w32(int64_t(i5) * (FIX_2_053119869 - FIX_2_562915447) + int64_t(i3) * -FIX_2_562915447 + z4o);
+    const int32_t t2 = w32(int64_t(i5) * -FIX_2_562915447 + int64_t(i3) * (FIX_3_072711026 - FIX_2_562915447) + z3o);
+    const int64_t r = int64_t(1) << (shift - 1);
+    auto d = [&](int64_t x) { return sat16(w32(w32(x) + r) >> shift); };
+    out[0] = d(int64_t(tmp10) + t3);
+    out[7] = d(int64_t(tmp10) - t3);
+    out[1] = d(int64_t(tmp11) + t2);
+    out[6] = d(int64_t(tmp11) - t2);
+    out[2] = d(int64_t(tmp12) + t1);
+    out[5] = d(int64_t(tmp12) - t1);
+    out[3] = d(int64_t(tmp13) + t0);
+    out[4] = d(int64_t(tmp13) - t0);
 }
 
 void idct_islow(const int16_t* in, const uint16_t* q, uint8_t* out, int stride) {
-    int ws[64];
-    for (int c = 0; c < 8; c++) {
-        const int16_t* ip = in + c;
-        const uint16_t* qp = q + c;
-        int* wp = ws + c;
-        if (ip[8] == 0 && ip[16] == 0 && ip[24] == 0 && ip[32] == 0 && ip[40] == 0 && ip[48] == 0 &&
-            ip[56] == 0) {
-            int dcval = static_cast<int>(int64_t(ip[0]) * qp[0] * (1 << PASS1_BITS));
-            for (int r = 0; r < 8; r++) wp[8 * r] = dcval;
-            continue;
+    int16_t ws[64];  // pass 1 output, transposed: ws[c * 8 + r]
+    bool ac_zero = true;
+    for (int i = 8; i < 64 && ac_zero; i++) ac_zero = in[i] == 0;
+    if (ac_zero) {
+        for (int c = 0; c < 8; c++) {
+            const int16_t dc = w16(static_cast<int32_t>(static_cast<uint32_t>(int32_t(w16(in[c] * q[c]))) << PASS1_BITS));
+            for (int r = 0; r < 8; r++) ws[c * 8 + r] = dc;
         }
-        int64_t z2 = int64_t(ip[16]) * qp[16], z3 = int64_t(ip[48]) * qp[48];
-        int64_t z1 = (z2 + z3) * FIX_0_541196100;
-        int64_t tmp2 = z1 + z3 * (-FIX_1_847759065);
-        int64_t tmp3 = z1 + z2 * FIX_0_765366865;
-        z2 = int64_t(ip[0]) * qp[0];
-        z3 = int64_t(ip[32]) * qp[32];
-        int64_t tmp0 = (z2 + z3) * (1 << CONST_BITS);
-        int64_t tmp1 = (z2 - z3) * (1 << CONST_BITS);
-        int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-        tmp0 = int64_t(ip[56]) * qp[56];
-        tmp1 = int64_t(ip[40]) * qp[40];
-        tmp2 = int64_t(ip[24]) * qp[24];
-        tmp3 = int64_t(ip[8]) * qp[8];
-        z1 = tmp0 + tmp3;
-        z2 = tmp1 + tmp2;
-        z3 = tmp0 + tmp2;
-        int64_t z4 = tmp1 + tmp3;
-        int64_t z5 = (z3 + z4) * FIX_1_175875602;
-        tmp0 *= FIX_0_298631336;
-        tmp1 *= FIX_2_053119869;
-        tmp2 *= FIX_3_072711026;
-        tmp3 *= FIX_1_501321110;
-        z1 *= -FIX_0_899976223;
-        z2 *= -FIX_2_562915447;
-        z3 *= -FIX_1_961570560;
-        z4 *= -FIX_0_390180644;
-        z3 += z5;
-        z4 += z5;
-        tmp0 += z1 + z3;
-        tmp1 += z2 + z4;
-        tmp2 += z2 + z3;
-        tmp3 += z1 + z4;
-        const int sh = CONST_BITS - PASS1_BITS;
-        wp[0] = static_cast<int>(descale(tmp10 + tmp3, sh));
-        wp[56] = static_cast<int>(descale(tmp10 - tmp3, sh));
-        wp[8] = static_cast<int>(descale(tmp11 + tmp2, sh));
-        wp[48] = static_cast<int>(descale(tmp11 - tmp2, sh));
-        wp[16] = static_cast<int>(descale(tmp12 + tmp1, sh));
-        wp[40] = static_cast<int>(descale(tmp12 - tmp1, sh));
-        wp[24] = static_cast<int>(descale(tmp13 + tmp0, sh));
-        wp[32] = static_cast<int>(descale(tmp13 - tmp0, sh));
+    } else {
+        for (int c = 0; c < 8; c++) {
+            int16_t col[8];
+            for (int r = 0; r < 8; r++) col[r] = w16(in[r * 8 + c] * q[r * 8 + c]);
+            idct_1d(col, ws + c * 8, CONST_BITS - PASS1_BITS);
+        }
     }
     for (int r = 0; r < 8; r++) {
-        const int* wp = ws + 8 * r;
+        int16_t row[8], res[8];
+        for (int c = 0; c < 8; c++) row[c] = ws[c * 8 + r];
+        idct_1d(row, res, CONST_BITS + PASS1_BITS + 3);
         uint8_t* op = out + static_cast<size_t>(r) * stride;
-        if (wp[1] == 0 && wp[2] == 0 && wp[3] == 0 && wp[4] == 0 && wp[5] == 0 && wp[6] == 0 && wp[7] == 0) {
-            uint8_t dcval = idct_limit(descale(wp[0], PASS1_BITS + 3));
-            for (int c = 0; c < 8; c++) op[c] = dcval;
-            continue;
-        }
-        int64_t z2 = wp[2], z3 = wp[6];
-        int64_t z1 = (z2 + z3) * FIX_0_541196100;
-        int64_t tmp2 = z1 + z3 * (-FIX_1_847759065);
-        int64_t tmp3 = z1 + z2 * FIX_0_765366865;
-        int64_t tmp0 = (int64_t(wp[0]) + wp[4]) * (1 << CONST_BITS);
-        int64_t tmp1 = (int64_t(wp[0]) - wp[4]) * (1 << CONST_BITS);
-        int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-        tmp0 = wp[7];
-        tmp1 = wp[5];
-        tmp2 = wp[3];
-        tmp3 = wp[1];
-        z1 = tmp0 + tmp3;
-        z2 = tmp1 + tmp2;
-        z3 = tmp0 + tmp2;
-        int64_t z4 = tmp1 + tmp3;
-        int64_t z5 = (z3 + z4) * FIX_1_175875602;
-        tmp0 *= FIX_0_298631336;
-        tmp1 *= FIX_2_053119869;
-        tmp2 *= FIX_3_072711026;
-        tmp3 *= FIX_1_501321110;
-        z1 *= -FIX_0_899976223;
-        z2 *= -FIX_2_562915447;
-        z3 *= -FIX_1_961570560;
-        z4 *= -FIX_0_390180644;
-        z3 += z5;
-        z4 += z5;
-        tmp0 += z1 + z3;
-        tmp1 += z2 + z4;
-        tmp2 += z2 + z3;
-        tmp3 += z1 + z4;
-        const int sh = CONST_BITS + PASS1_BITS + 3;
-        op[0] = idct_limit(descale(tmp10 + tmp3, sh));
-        op[7] = idct_limit(descale(tmp10 - tmp3, sh));
-        op[1] = idct_limit(descale(tmp11 + tmp2, sh));
-        op[6] = idct_limit(descale(tmp11 - tmp2, sh));
-        op[2] = idct_limit(descale(tmp12 + tmp1, sh));
-        op[5] = idct_limit(descale(tmp12 - tmp1, sh));
-        op[3] = idct_limit(descale(tmp13 + tmp0, sh));
-        op[4] = idct_limit(descale(tmp13 - tmp0, sh));
+        for (int c = 0; c < 8; c++) op[c] = static_cast<uint8_t>((res[c] < -128 ? -128 : (res[c] > 127 ? 127 : res[c])) + 128);
     }
 }
 
@@ -579,133 +1224,217 @@ struct ColorTables {
 
 inline uint8_t clamp255(int64_t v) { return static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v)); }
 
-Jpeg parse_and_decode(const uint8_t* data, size_t len, bool headers_only) {
-    Jpeg j;
-    if (len < 4 || data[0] != 0xFF || data[1] != 0xD8) fail("not a JPEG file (no SOI marker)");
-    size_t pos = 2;
-    bool saw_scan = false;
-    for (;;) {
-        // next marker: skip fill bytes (and garbage, as libjpeg does)
-        while (pos < len && data[pos] != 0xFF) pos++;
-        while (pos < len && data[pos] == 0xFF) pos++;
-        if (pos >= len) {
-            if (headers_only && j.have_frame) return j;
-            fail("file ends before EOI (truncated)");
+// jdcoefct.c smoothing_ok: smoothing applies to a progressive file whose
+// components all have their quantisation tables latched, nonzero entries at
+// the DC and first 9 AC positions, some DC data, and an AC coefficient among
+// the first 9 that is not known to full precision. Latches the progression
+// status of coefficients 0-9 (SAVED_COEFS), now and before the last scan.
+bool smoothing_ok(const Jpeg& j, int latch[4][10], int prev_latch[4][10]) {
+    if (!j.progressive) return false;
+    bool useful = false;
+    for (int c = 0; c < j.ncomp; c++) {
+        const Component& cp = j.comp[c];
+        if (!cp.quant_latched) return false;
+        const uint16_t* q = cp.quant;
+        if (!q[0] || !q[1] || !q[8] || !q[16] || !q[9] || !q[2] || !q[3] || !q[10] || !q[17] || !q[24]) {
+            return false;
         }
-        int marker = data[pos++];
-        if (marker == 0xD9) {  // EOI
-            if (!saw_scan) fail("no image data before EOI");
-            return j;
+        if (j.coef_bits[c][0] < 0) return false;
+        latch[c][0] = j.coef_bits[c][0];
+        for (int k = 1; k < 10; k++) {
+            prev_latch[c][k] = j.input_scan_number > 1 ? j.prev_coef_bits[c][k] : -1;
+            latch[c][k] = j.coef_bits[c][k];
+            if (latch[c][k] != 0) useful = true;
         }
-        if (marker >= 0xD0 && marker <= 0xD7) continue;  // stray RSTn
-        if (marker == 0x01) continue;                     // TEM
-        if (pos + 2 > len) fail("truncated marker segment");
-        int seglen = be16(data + pos);
-        if (seglen < 2 || pos + seglen > len) fail("truncated marker segment");
-        const uint8_t* seg = data + pos + 2;
-        int n = seglen - 2;
-        pos += seglen;
-        switch (marker) {
-            case 0xC0:
-            case 0xC1:
-                if (j.have_frame) fail("more than one SOF marker");
-                parse_frame(j, seg, n, marker);
-                if (headers_only) return j;
-                break;
-            case 0xC2:
-            case 0xC6:
-            case 0xCA:
-            case 0xCE:
-                fail("progressive JPEG is not supported (baseline sequential only)");
-            case 0xC3:
-            case 0xC7:
-            case 0xCB:
-            case 0xCF:
-                fail("lossless JPEG is not supported");
-            case 0xC5:
-            case 0xC9:
-            case 0xCD:
-                fail("arithmetic-coded JPEG is not supported");
-            case 0xCC:
-                fail("arithmetic-coded JPEG is not supported");
-            case 0xC4: {  // DHT
-                int p = 0;
-                while (p < n) {
-                    if (p + 17 > n) fail("short DHT segment");
-                    int tc = seg[p] >> 4, th = seg[p] & 15;
-                    if (tc > 1 || th > 3) fail("bad DHT table index");
-                    uint8_t bits[17] = {0};
-                    int count = 0;
-                    for (int i = 1; i <= 16; i++) {
-                        bits[i] = seg[p + i];
-                        count += bits[i];
+    }
+    return useful;
+}
+
+inline int smooth_pred(int64_t num, int64_t q, int Al) {
+    int pred = static_cast<int>(((q << 7) + (num >= 0 ? num : -num)) / (q << 8));
+    if (Al > 0 && pred >= (1 << Al)) pred = (1 << Al) - 1;
+    return num >= 0 ? pred : -pred;
+}
+
+// jdcoefct.c decompress_smooth_data for one component: each block's first 9
+// AC coefficients, where still zero and not known to full precision, are
+// estimated from the DC values of the 5x5 blocks around it (and the DC
+// itself when no AC data came at all). The neighbour rows follow libjpeg's
+// own indexing, including its short last iMCU row.
+void idct_smoothed(const Jpeg& j, Component& cp, const int* cur_bits, const int* prev_bits, uint8_t* plane,
+                   int stride) {
+    const int T = j.mcuy;
+    const int64_t Q00 = cp.quant[0], Q01 = cp.quant[1], Q10 = cp.quant[8], Q20 = cp.quant[16],
+                  Q11 = cp.quant[9], Q02 = cp.quant[2], Q03 = cp.quant[3], Q12 = cp.quant[10],
+                  Q21 = cp.quant[17], Q30 = cp.quant[24];
+    int16_t ws[64];
+    for (int i = 0; i < T; i++) {
+        int block_rows = cp.v;
+        if (i == T - 1) {
+            block_rows = cp.hib % cp.v;
+            if (block_rows == 0) block_rows = cp.v;
+        }
+        const int* bits = i > j.last_good_iMCU_row ? prev_bits : cur_bits;
+        bool change_dc = true;
+        for (int k = 1; k < 10; k++) change_dc = change_dc && bits[k] == -1;
+        const int N = block_rows * T;
+        for (int b = 0; b < block_rows; b++) {
+            const int R = i * cp.v + b, I = i * block_rows + b;
+            const int r0 = R, r_1 = I > 0 ? R - 1 : R;
+            const int r_2 = I > 1 ? R - 2 : r_1;
+            const int r1 = I < N - 1 ? R + 1 : R;
+            const int r2 = I < N - 2 ? R + 2 : r1;
+            auto dc = [&](int row, int col) -> int { return cp.block(row, col)[0]; };
+            int DC01, DC02, DC03, DC04, DC05, DC06, DC07, DC08, DC09, DC10, DC11, DC12, DC13, DC14, DC15, DC16,
+                DC17, DC18, DC19, DC20, DC21, DC22, DC23, DC24, DC25;
+            DC01 = DC02 = DC03 = DC04 = DC05 = dc(r_2, 0);
+            DC06 = DC07 = DC08 = DC09 = DC10 = dc(r_1, 0);
+            DC11 = DC12 = DC13 = DC14 = DC15 = dc(r0, 0);
+            DC16 = DC17 = DC18 = DC19 = DC20 = dc(r1, 0);
+            DC21 = DC22 = DC23 = DC24 = DC25 = dc(r2, 0);
+            const int last = cp.wib - 1;
+            for (int bx = 0; bx <= last; bx++) {
+                std::memcpy(ws, cp.block(R, bx), sizeof(ws));
+                if (bx == 0 && bx < last) {
+                    DC04 = DC05 = dc(r_2, 1);
+                    DC09 = DC10 = dc(r_1, 1);
+                    DC14 = DC15 = dc(r0, 1);
+                    DC19 = DC20 = dc(r1, 1);
+                    DC24 = DC25 = dc(r2, 1);
+                }
+                if (bx + 1 < last) {
+                    DC05 = dc(r_2, bx + 2);
+                    DC10 = dc(r_1, bx + 2);
+                    DC15 = dc(r0, bx + 2);
+                    DC20 = dc(r1, bx + 2);
+                    DC25 = dc(r2, bx + 2);
+                }
+                int Al;
+                if ((Al = bits[1]) != 0 && ws[1] == 0) {  // AC01
+                    int64_t num = Q00 * (change_dc ? (-DC01 - DC02 + DC04 + DC05 - 3 * DC06 + 13 * DC07 -
+                                                      13 * DC09 + 3 * DC10 - 3 * DC11 + 38 * DC12 - 38 * DC14 +
+                                                      3 * DC15 - 3 * DC16 + 13 * DC17 - 13 * DC19 + 3 * DC20 -
+                                                      DC21 - DC22 + DC24 + DC25)
+                                                   : (-7 * DC11 + 50 * DC12 - 50 * DC14 + 7 * DC15));
+                    ws[1] = static_cast<int16_t>(smooth_pred(num, Q01, Al));
+                }
+                if ((Al = bits[2]) != 0 && ws[8] == 0) {  // AC10
+                    int64_t num = Q00 * (change_dc ? (-DC01 - 3 * DC02 - 3 * DC03 - 3 * DC04 - DC05 - DC06 +
+                                                      13 * DC07 + 38 * DC08 + 13 * DC09 - DC10 + DC16 -
+                                                      13 * DC17 - 38 * DC18 - 13 * DC19 + DC20 + DC21 +
+                                                      3 * DC22 + 3 * DC23 + 3 * DC24 + DC25)
+                                                   : (-7 * DC03 + 50 * DC08 - 50 * DC18 + 7 * DC23));
+                    ws[8] = static_cast<int16_t>(smooth_pred(num, Q10, Al));
+                }
+                if ((Al = bits[3]) != 0 && ws[16] == 0) {  // AC20
+                    int64_t num = Q00 * (change_dc ? (DC03 + 2 * DC07 + 7 * DC08 + 2 * DC09 - 5 * DC12 -
+                                                      14 * DC13 - 5 * DC14 + 2 * DC17 + 7 * DC18 + 2 * DC19 + DC23)
+                                                   : (-DC03 + 13 * DC08 - 24 * DC13 + 13 * DC18 - DC23));
+                    ws[16] = static_cast<int16_t>(smooth_pred(num, Q20, Al));
+                }
+                if ((Al = bits[4]) != 0 && ws[9] == 0) {  // AC11
+                    int64_t num = Q00 * (change_dc ? (-DC01 + DC05 + 9 * DC07 - 9 * DC09 - 9 * DC17 + 9 * DC19 +
+                                                      DC21 - DC25)
+                                                   : (DC10 + DC16 - 10 * DC17 + 10 * DC19 - DC02 - DC20 + DC22 -
+                                                      DC24 + DC04 - DC06 + 10 * DC07 - 10 * DC09));
+                    ws[9] = static_cast<int16_t>(smooth_pred(num, Q11, Al));
+                }
+                if ((Al = bits[5]) != 0 && ws[2] == 0) {  // AC02
+                    int64_t num = Q00 * (change_dc ? (2 * DC07 - 5 * DC08 + 2 * DC09 + DC11 + 7 * DC12 -
+                                                      14 * DC13 + 7 * DC14 + DC15 + 2 * DC17 - 5 * DC18 + 2 * DC19)
+                                                   : (-DC11 + 13 * DC12 - 24 * DC13 + 13 * DC14 - DC15));
+                    ws[2] = static_cast<int16_t>(smooth_pred(num, Q02, Al));
+                }
+                if (change_dc) {
+                    if ((Al = bits[6]) != 0 && ws[3] == 0) {  // AC03
+                        int64_t num = Q00 * (DC07 - DC09 + 2 * DC12 - 2 * DC14 + DC17 - DC19);
+                        ws[3] = static_cast<int16_t>(smooth_pred(num, Q03, Al));
                     }
-                    if (count > 256 || p + 17 + count > n) fail("bad DHT segment");
-                    build_huff(tc ? j.ac[th] : j.dc[th], bits, seg + p + 17, count);
-                    p += 17 + count;
-                }
-                break;
-            }
-            case 0xDB: {  // DQT
-                int p = 0;
-                while (p < n) {
-                    int pq = seg[p] >> 4, tq = seg[p] & 15;
-                    if (tq > 3 || pq > 1) fail("bad DQT segment");
-                    int need = 1 + 64 * (pq ? 2 : 1);
-                    if (p + need > n) fail("short DQT segment");
-                    for (int i = 0; i < 64; i++) {
-                        j.qt[tq][kNaturalOrder[i]] =
-                            pq ? be16(seg + p + 1 + 2 * i) : static_cast<uint16_t>(seg[p + 1 + i]);
+                    if ((Al = bits[7]) != 0 && ws[10] == 0) {  // AC12
+                        int64_t num = Q00 * (DC07 - 3 * DC08 + DC09 - DC17 + 3 * DC18 - DC19);
+                        ws[10] = static_cast<int16_t>(smooth_pred(num, Q12, Al));
                     }
-                    j.qt_defined[tq] = true;
-                    p += need;
+                    if ((Al = bits[8]) != 0 && ws[17] == 0) {  // AC21
+                        int64_t num = Q00 * (DC07 - DC09 - 3 * DC12 + 3 * DC14 + DC17 - DC19);
+                        ws[17] = static_cast<int16_t>(smooth_pred(num, Q21, Al));
+                    }
+                    if ((Al = bits[9]) != 0 && ws[24] == 0) {  // AC30
+                        int64_t num = Q00 * (DC07 + 2 * DC08 + DC09 - DC17 - 2 * DC18 - DC19);
+                        ws[24] = static_cast<int16_t>(smooth_pred(num, Q30, Al));
+                    }
+                    int64_t num = Q00 * (-2 * DC01 - 6 * DC02 - 8 * DC03 - 6 * DC04 - 2 * DC05 - 6 * DC06 +
+                                         6 * DC07 + 42 * DC08 + 6 * DC09 - 6 * DC10 - 8 * DC11 + 42 * DC12 +
+                                         152 * DC13 + 42 * DC14 - 8 * DC15 - 6 * DC16 + 6 * DC17 + 42 * DC18 +
+                                         6 * DC19 - 6 * DC20 - 2 * DC21 - 6 * DC22 - 8 * DC23 - 6 * DC24 - 2 * DC25);
+                    ws[0] = static_cast<int16_t>(smooth_pred(num, Q00, 0));
                 }
-                break;
+                idct_islow(ws, cp.quant, plane + static_cast<size_t>(R) * 8 * stride + bx * 8, stride);
+                DC01 = DC02; DC02 = DC03; DC03 = DC04; DC04 = DC05;
+                DC06 = DC07; DC07 = DC08; DC08 = DC09; DC09 = DC10;
+                DC11 = DC12; DC12 = DC13; DC13 = DC14; DC14 = DC15;
+                DC16 = DC17; DC17 = DC18; DC18 = DC19; DC19 = DC20;
+                DC21 = DC22; DC22 = DC23; DC23 = DC24; DC24 = DC25;
             }
-            case 0xDD:  // DRI
-                if (n < 2) fail("short DRI segment");
-                j.restart_interval = be16(seg);
-                break;
-            case 0xDC:
-                fail("DNL marker is not supported");
-            case 0xDA:  // SOS
-                pos = decode_scan(j, data, len, pos, seg, n);
-                saw_scan = true;
-                break;
-            case 0xE0:
-                if (n >= 5 && std::memcmp(seg, "JFIF\0", 5) == 0) j.saw_jfif = true;
-                break;
-            case 0xEE:
-                if (n >= 12 && std::memcmp(seg, "Adobe", 5) == 0) {
-                    j.saw_adobe = true;
-                    j.adobe_transform = seg[11];
-                }
-                break;
-            default:
-                break;  // other APPn, COM
         }
     }
 }
 
-void jpeg_to_rgb(Jpeg& j, uint8_t* out) {
+// The decoded image in cv2's colour form: channels 3 gives RGB (the order
+// reversed from what cv2 returns), channels 1 the gray plane of a
+// 1-component file (cv2's IMREAD_UNCHANGED).
+void render(Jpeg& j, uint8_t* out, int channels) {
     const int W = j.width, H = j.height;
+    int latch[4][10], prev_latch[4][10];
+    const bool smooth = smoothing_ok(j, latch, prev_latch);
+    static const uint16_t kZeroQuant[64] = {};  // a component with no scan: grey
     std::vector<std::vector<uint8_t>> full(static_cast<size_t>(j.ncomp));
     for (int c = 0; c < j.ncomp; c++) {
         Component& cp = j.comp[c];
-        if (!cp.quant_latched) fail("a component has no scan");
-        std::vector<uint8_t> plane(static_cast<size_t>(cp.bw) * 8 * cp.bh * 8);
         const int stride = cp.bw * 8;
-        for (int by = 0; by < cp.bh; by++) {
-            for (int bx = 0; bx < cp.bw; bx++) {
-                idct_islow(&cp.coef[(static_cast<size_t>(by) * cp.bw + bx) * 64], cp.quant,
-                           &plane[static_cast<size_t>(by) * 8 * stride + bx * 8], stride);
+        std::vector<uint8_t> plane(static_cast<size_t>(stride) * cp.bh * 8);
+        if (smooth) {
+            idct_smoothed(j, cp, latch[c], prev_latch[c], plane.data(), stride);
+        } else {
+            const uint16_t* q = cp.quant_latched ? cp.quant : kZeroQuant;
+            for (int by = 0; by < cp.hib; by++) {
+                for (int bx = 0; bx < cp.wib; bx++) {
+                    idct_islow(cp.block(by, bx), q, &plane[static_cast<size_t>(by) * 8 * stride + bx * 8], stride);
+                }
             }
         }
         full[c] = upsample(cp, plane, j.hmax, j.vmax, W, H);
     }
+    const size_t n = static_cast<size_t>(W) * H;
     if (j.ncomp == 1) {
         const uint8_t* y = full[0].data();
-        for (size_t i = 0, n = static_cast<size_t>(W) * H; i < n; i++) out[3 * i] = out[3 * i + 1] = out[3 * i + 2] = y[i];
+        if (channels == 1) {
+            std::memcpy(out, y, n);
+        } else {
+            for (size_t i = 0; i < n; i++) out[3 * i] = out[3 * i + 1] = out[3 * i + 2] = y[i];
+        }
+        return;
+    }
+    if (channels != 3) fail("a colour JPEG decodes to 3 channels");
+    static const ColorTables t;
+    const uint8_t *p0 = full[0].data(), *p1 = full[1].data(), *p2 = full[2].data();
+    if (j.ncomp == 4) {
+        // jdapimin.c: Adobe transform 0 is CMYK, any other YCCK, no Adobe
+        // marker CMYK; libjpeg outputs CMYK and OpenCV's
+        // icvCvt_CMYK2BGR_8u_C4C3R takes it to BGR
+        const bool ycck = j.saw_adobe && j.adobe_transform != 0;
+        const uint8_t* p3 = full[3].data();
+        for (size_t i = 0; i < n; i++) {
+            int cc = p0[i], mm = p1[i], yy = p2[i], k = p3[i];
+            if (ycck) {  // jdcolor.c ycck_cmyk_convert
+                int y = p0[i], cb = p1[i], cr = p2[i];
+                cc = clamp255(255 - (y + t.cr_r[cr]));
+                mm = clamp255(255 - (y + static_cast<int>((t.cb_g[cb] + t.cr_g[cr]) >> 16)));
+                yy = clamp255(255 - (y + t.cb_b[cb]));
+            }
+            out[3 * i] = static_cast<uint8_t>(k - (((255 - cc) * k) >> 8));
+            out[3 * i + 1] = static_cast<uint8_t>(k - (((255 - mm) * k) >> 8));
+            out[3 * i + 2] = static_cast<uint8_t>(k - (((255 - yy) * k) >> 8));
+        }
         return;
     }
     bool rgb;
@@ -716,8 +1445,6 @@ void jpeg_to_rgb(Jpeg& j, uint8_t* out) {
     } else {
         rgb = j.comp[0].id == 82 && j.comp[1].id == 71 && j.comp[2].id == 66;
     }
-    const uint8_t *p0 = full[0].data(), *p1 = full[1].data(), *p2 = full[2].data();
-    const size_t n = static_cast<size_t>(W) * H;
     if (rgb) {
         for (size_t i = 0; i < n; i++) {
             out[3 * i] = p0[i];
@@ -726,7 +1453,6 @@ void jpeg_to_rgb(Jpeg& j, uint8_t* out) {
         }
         return;
     }
-    static const ColorTables t;
     for (size_t i = 0; i < n; i++) {
         int y = p0[i], cb = p1[i], cr = p2[i];
         out[3 * i] = clamp255(y + t.cr_r[cr]);
@@ -736,7 +1462,7 @@ void jpeg_to_rgb(Jpeg& j, uint8_t* out) {
 }
 
 // ---------------------------------------------------------------------------
-// PNG unfilter
+// PNG samples
 // ---------------------------------------------------------------------------
 
 inline uint8_t paeth(int a, int b, int c) {
@@ -746,48 +1472,10 @@ inline uint8_t paeth(int a, int b, int c) {
     return static_cast<uint8_t>(pb <= pc ? b : c);
 }
 
-}  // namespace
-
-extern "C" {
-
-// Image size of a JPEG: 0 on success, else -1 with a message in err.
-int tl_jpeg_header(const uint8_t* data, size_t len, int* width, int* height, char* err, int errlen) {
-    try {
-        Jpeg j = parse_and_decode(data, len, true);
-        if (!j.have_frame) fail("no SOF marker");
-        *width = j.width;
-        *height = j.height;
-        return 0;
-    } catch (const DecodeError& e) {
-        copy_message(e.msg, err, errlen);
-        return -1;
-    } catch (const std::exception& e) {
-        copy_message(e.what(), err, errlen);
-        return -1;
-    }
-}
-
-// Decode a JPEG into out (height*width*3 RGB): 0 on success, else -1.
-int tl_jpeg_decode(const uint8_t* data, size_t len, uint8_t* out, int width, int height, char* err, int errlen) {
-    try {
-        Jpeg j = parse_and_decode(data, len, false);
-        if (j.width != width || j.height != height) fail("image size changed between calls");
-        jpeg_to_rgb(j, out);
-        return 0;
-    } catch (const DecodeError& e) {
-        copy_message(e.msg, err, errlen);
-        return -1;
-    } catch (const std::exception& e) {
-        copy_message(e.what(), err, errlen);
-        return -1;
-    }
-}
-
-// Undo the PNG row filters of a non-interlaced image: raw holds height rows
+// Undo the row filters of one image (or Adam7 pass): raw holds height rows
 // of (filter byte, rowbytes bytes), bpp is the bytes per complete pixel
-// (at least 1). Writes height*rowbytes bytes to out. 0 on success, -1 for
-// an unknown filter type.
-int tl_png_unfilter(const uint8_t* raw, int height, int rowbytes, int bpp, uint8_t* out) {
+// (at least 1). False for an unknown filter type.
+bool unfilter(const uint8_t* raw, int height, int rowbytes, int bpp, uint8_t* out) {
     for (int y = 0; y < height; y++) {
         const uint8_t* in = raw + static_cast<size_t>(y) * (rowbytes + 1);
         uint8_t* cur = out + static_cast<size_t>(y) * rowbytes;
@@ -818,7 +1506,105 @@ int tl_png_unfilter(const uint8_t* raw, int height, int rowbytes, int bpp, uint8
                 }
                 break;
             default:
-                return -1;
+                return false;
+        }
+    }
+    return true;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Header of a JPEG, read as jpeg_read_header does (up to the first SOS):
+// info = {width, height, components, EXIF orientation (0: none)}. file
+// selects the stream form (1: a file, padded past its end; 0: bytes).
+// 0 on success, else -1 with a message in err.
+int tl_jpeg_info(const uint8_t* data, size_t len, int file, int* info, char* err, int errlen) {
+    try {
+        Jpeg j(data, len, file != 0);
+        parse(j, true);
+        if (!j.have_frame) fail("no SOF marker");
+        info[0] = j.width;
+        info[1] = j.height;
+        info[2] = j.ncomp;
+        info[3] = j.orientation;
+        return 0;
+    } catch (const DecodeError& e) {
+        copy_message(e.msg, err, errlen);
+        return -1;
+    } catch (const std::exception& e) {
+        copy_message(e.what(), err, errlen);
+        return -1;
+    }
+}
+
+// Decode a JPEG into out (height*width*channels; channels 3: RGB, 1: the
+// gray plane of a 1-component file). 0 on success, else -1.
+int tl_jpeg_decode(const uint8_t* data, size_t len, int file, uint8_t* out, int width, int height, int channels,
+                   char* err, int errlen) {
+    try {
+        Jpeg j(data, len, file != 0);
+        parse(j, false);
+        if (j.width != width || j.height != height) fail("image size changed between calls");
+        render(j, out, channels);
+        return 0;
+    } catch (const DecodeError& e) {
+        copy_message(e.msg, err, errlen);
+        return -1;
+    } catch (const std::exception& e) {
+        copy_message(e.what(), err, errlen);
+        return -1;
+    }
+}
+
+// Orientation (tag 0x0112) of a TIFF-structured EXIF block, 0 if none.
+int tl_exif_orientation(const uint8_t* data, size_t len) { return exif_orientation(data, len); }
+
+// Inflated PNG image data -> samples, (height, width, channels) of uint8
+// (depth 1-8: sub-byte samples unpacked to their values) or native-endian
+// uint16 (depth 16). Interlace 1 is Adam7: each of the seven passes is
+// unfiltered on its own and its pixels placed. 0 on success, -1 for an
+// unknown filter type, -2 when raw is too short.
+int tl_png_samples(const uint8_t* raw, size_t rawlen, int width, int height, int depth, int channels, int interlace,
+                   uint8_t* out) {
+    static const int kAdam7[7][4] = {{0, 0, 8, 8}, {4, 0, 8, 8}, {0, 4, 4, 8}, {2, 0, 4, 4},
+                                     {0, 2, 2, 4}, {1, 0, 2, 2}, {0, 1, 1, 2}};  // x0, y0, dx, dy
+    static const int kWhole[1][4] = {{0, 0, 1, 1}};
+    const int (*passes)[4] = interlace ? kAdam7 : kWhole;
+    const int npass = interlace ? 7 : 1;
+    const int bits_pp = depth * channels;
+    const int bpp = bits_pp >= 8 ? bits_pp / 8 : 1;
+    const int es = depth == 16 ? 2 : 1;
+    size_t off = 0;
+    std::vector<uint8_t> rows;
+    for (int p = 0; p < npass; p++) {
+        const int x0 = passes[p][0], y0 = passes[p][1], dx = passes[p][2], dy = passes[p][3];
+        const int pw = width > x0 ? (width - x0 + dx - 1) / dx : 0;
+        const int ph = height > y0 ? (height - y0 + dy - 1) / dy : 0;
+        if (pw == 0 || ph == 0) continue;
+        const size_t rowbytes = (static_cast<size_t>(pw) * bits_pp + 7) / 8;
+        const size_t need = (rowbytes + 1) * ph;
+        if (off + need > rawlen) return -2;
+        rows.resize(rowbytes * ph);
+        if (!unfilter(raw + off, ph, static_cast<int>(rowbytes), bpp, rows.data())) return -1;
+        off += need;
+        for (int py = 0; py < ph; py++) {
+            const uint8_t* r = rows.data() + py * rowbytes;
+            uint8_t* o = out + (static_cast<size_t>(y0 + py * dy) * width) * channels * es;
+            for (int px = 0; px < pw; px++) {
+                const size_t x = static_cast<size_t>(x0 + px * dx);
+                if (depth < 8) {
+                    const int bit = px * depth;
+                    o[x] = static_cast<uint8_t>((r[bit >> 3] >> (8 - depth - (bit & 7))) & ((1 << depth) - 1));
+                } else if (depth == 8) {
+                    std::memcpy(o + x * channels, r + static_cast<size_t>(px) * channels, channels);
+                } else {
+                    uint16_t* o16 = reinterpret_cast<uint16_t*>(o) + x * channels;
+                    const uint8_t* s = r + static_cast<size_t>(px) * channels * 2;
+                    for (int c = 0; c < channels; c++) o16[c] = static_cast<uint16_t>((s[2 * c] << 8) | s[2 * c + 1]);
+                }
+            }
         }
     }
     return 0;

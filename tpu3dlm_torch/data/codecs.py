@@ -2,23 +2,35 @@
 
 The reference decodes frames with ``cv2.imread`` / ``cv2.imdecode`` and
 resizes them with ``cv2.resize``. The card host has no cv2, so the port
-carries its own, held to cv2's output byte for byte:
+carries its own, held to cv2 5.0's output (libjpeg-turbo 3.1, libpng 1.6)
+byte for byte:
 
-- ``decode_jpeg`` / ``read_jpeg``: baseline sequential Huffman JPEG → RGB
-  uint8 (the only frame format of RTAB-Map exports), equal to ``cvtColor(imread(p, IMREAD_COLOR), COLOR_BGR2RGB)``
-  (libjpeg-turbo's islow IDCT, fancy upsampling and fixed-point colour
-  conversion, in ``csrc/host/codecs.cpp``). Progressive, arithmetic-coded,
-  lossless, 12-bit and CMYK files raise ``ValueError``.
-- ``decode_png`` / ``read_png``: PNG → the array ``imread(p,
-  IMREAD_UNCHANGED)`` gives: 8-bit gray (H, W), RGB as BGR (H, W, 3), RGBA
-  as BGRA (H, W, 4), 16-bit gray (H, W) uint16. Python parses the chunks,
-  checks CRCs and inflates IDAT (``zlib``); the C++ source undoes the row
-  filters. Interlaced, palette, gray+alpha and other bit depths raise.
+- ``read_image`` / ``decode_image``: any frame → (H, W, 3) RGB uint8,
+  ``cvtColor(imread(p, IMREAD_COLOR), COLOR_BGR2RGB)`` (``imdecode`` for
+  bytes), the format told apart by its signature as cv2 does, whatever the
+  file's extension; ``read_unchanged`` / ``decode_unchanged``: the same
+  under IMREAD_UNCHANGED (the depth path). Other containers cv2 reads
+  (WebP, TIFF, JPEG 2000, BMP, GIF, PNM and the rest) raise ``ValueError``
+  naming the format and the file.
+- ``decode_jpeg`` / ``read_jpeg``: JPEG → RGB as IMREAD_COLOR gives it:
+  sequential or progressive, Huffman or arithmetic coded, 1, 3 or 4
+  components (YCbCr, RGB, gray, YCCK, Adobe CMYK), sampling factors 1-4
+  with integral ratios, restart markers, block smoothing of incomplete
+  progressions, EXIF orientation (``csrc/host/codecs.cpp``); under
+  IMREAD_UNCHANGED through ``*_unchanged``. The bytes form fails on
+  data cut short, as ``imdecode`` does; the file form pads it, as
+  ``imread`` does. Lossless, hierarchical and 12-bit JPEG raise.
+- ``decode_png`` / ``read_png``: PNG of every colour type and bit depth
+  (gray 1-16, RGB 8/16, palette 1-8, gray+alpha and RGBA 8/16), tRNS, Adam7
+  → the array ``imread(p, IMREAD_UNCHANGED)`` gives (BGR/BGRA order);
+  through ``*_image`` the RGB of IMREAD_COLOR with an eXIf orientation.
+  Python parses the chunks, checks CRCs and inflates IDAT (``zlib``); the
+  C++ source undoes the filters, deinterlaces and unpacks the samples.
 - ``encode_jpeg``: RGB uint8 → the bytes ``cv2.imencode(".jpg", ...)``
   writes at its defaults (quality 95, 4:2:0, libjpeg-turbo's fixed-point
   colour conversion, islow DCT and Annex K tables).
-- ``write_png``: the inverse for the same layouts (filter None), so a file
-  it writes decodes under ``imread(IMREAD_UNCHANGED)`` to its input.
+- ``encode_png`` / ``write_png``: every layout ``decode_png`` returns
+  (filter None), as ``cv2.imwrite`` lays it out.
 - ``resize_linear``: ``cv2.resize(..., INTER_LINEAR)`` on uint8 (fixed-point
   weights, OpenCV's vector rounding); ``resize_nearest``: ``INTER_NEAREST``.
 
@@ -44,15 +56,15 @@ _ERRLEN = 256
 def _lib() -> ctypes.CDLL:
     lib = load_host_library("codecs")
     if not getattr(lib, "_typed", False):
-        u8p, i = ctypes.c_void_p, ctypes.c_int
-        lib.tl_jpeg_header.argtypes = [u8p, ctypes.c_size_t, ctypes.POINTER(i), ctypes.POINTER(i),
-                                       ctypes.c_char_p, i]
-        lib.tl_jpeg_decode.argtypes = [u8p, ctypes.c_size_t, u8p, i, i, ctypes.c_char_p, i]
-        lib.tl_png_unfilter.argtypes = [u8p, i, i, i, u8p]
+        u8p, i, sz = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
+        lib.tl_jpeg_info.argtypes = [u8p, sz, i, ctypes.POINTER(i), ctypes.c_char_p, i]
+        lib.tl_jpeg_decode.argtypes = [u8p, sz, i, u8p, i, i, i, ctypes.c_char_p, i]
+        lib.tl_exif_orientation.argtypes = [u8p, sz]
+        lib.tl_png_samples.argtypes = [u8p, sz, i, i, i, i, i, u8p]
         lib.tl_resize_linear_u8.argtypes = [u8p, i, i, i, u8p, i, i]
-        lib.tl_jpeg_encode.argtypes = [u8p, i, i, i, u8p, ctypes.c_size_t, ctypes.POINTER(ctypes.c_size_t),
-                                       ctypes.c_char_p, i]
-        for fn in (lib.tl_jpeg_header, lib.tl_jpeg_decode, lib.tl_png_unfilter, lib.tl_jpeg_encode):
+        lib.tl_jpeg_encode.argtypes = [u8p, i, i, i, u8p, sz, ctypes.POINTER(sz), ctypes.c_char_p, i]
+        for fn in (lib.tl_jpeg_info, lib.tl_jpeg_decode, lib.tl_exif_orientation, lib.tl_png_samples,
+                   lib.tl_jpeg_encode):
             fn.restype = i
         lib.tl_resize_linear_u8.restype = None
         lib._typed = True
@@ -64,28 +76,51 @@ def _read(path: str) -> bytes:
         return f.read()
 
 
+def _orient(img: np.ndarray, orientation: int) -> np.ndarray:
+    """OpenCV's ApplyExifOrientation: EXIF orientation 2-8 as flips and a
+    transpose (1 and anything else leave the image as it is)."""
+    if orientation in (5, 6, 7, 8):
+        img = img.swapaxes(0, 1)
+    flip = {2: (1,), 3: (0, 1), 4: (0,), 6: (1,), 7: (0, 1), 8: (0,)}.get(orientation, ())
+    if flip:
+        img = np.flip(img, flip)
+    return np.ascontiguousarray(img)
+
+
 # ---------------------------------------------------------------------------
 # JPEG
 # ---------------------------------------------------------------------------
 
 
-def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """JPEG bytes → (H, W, 3) RGB uint8; ``ValueError`` naming ``name``."""
+def _jpeg(data: bytes, name: str, file: bool, unchanged: bool) -> np.ndarray:
     lib = _lib()
     src = np.frombuffer(data, np.uint8)
     buf = src.ctypes.data
     err = ctypes.create_string_buffer(_ERRLEN)
-    w, h = ctypes.c_int(), ctypes.c_int()
-    if lib.tl_jpeg_header(buf, len(data), ctypes.byref(w), ctypes.byref(h), err, _ERRLEN) != 0:
+    info = (ctypes.c_int * 4)()
+    if lib.tl_jpeg_info(buf, len(data), int(file), info, err, _ERRLEN) != 0:
         raise ValueError(f"undecodable JPEG {name}: {err.value.decode()}")
-    out = np.empty((h.value, w.value, 3), np.uint8)
-    if lib.tl_jpeg_decode(buf, len(data), out.ctypes.data, w.value, h.value, err, _ERRLEN) != 0:
+    w, h, ncomp, orientation = info
+    gray = unchanged and ncomp == 1
+    out = np.empty((h, w) if gray else (h, w, 3), np.uint8)
+    if lib.tl_jpeg_decode(buf, len(data), int(file), out.ctypes.data, w, h, 1 if gray else 3, err, _ERRLEN) != 0:
         raise ValueError(f"undecodable JPEG {name}: {err.value.decode()}")
-    return out
+    if unchanged:
+        return out if gray else np.ascontiguousarray(out[..., ::-1])
+    return _orient(out, orientation)
+
+
+def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """JPEG bytes → (H, W, 3) RGB uint8, ``cvtColor(imdecode(b,
+    IMREAD_COLOR), COLOR_BGR2RGB)`` with its EXIF orientation applied. Data
+    that ends before EOI fails, as in cv2. ``ValueError`` naming ``name``."""
+    return _jpeg(data, name, False, False)
 
 
 def read_jpeg(path: str) -> np.ndarray:
-    return decode_jpeg(_read(path), path)
+    """``decode_jpeg`` of a file as ``cv2.imread`` reads it: a file cut
+    short decodes with its missing data left out (libjpeg's fake EOI)."""
+    return _jpeg(_read(path), path, True, False)
 
 
 def encode_jpeg(rgb: np.ndarray, quality: int = 95) -> bytes:
@@ -113,16 +148,14 @@ def encode_jpeg(rgb: np.ndarray, quality: int = 95) -> bytes:
 # PNG
 # ---------------------------------------------------------------------------
 
-# (colour type, bit depth) → channels
-_PNG_LAYOUTS = {(0, 8): 1, (2, 8): 3, (6, 8): 4, (0, 16): 1}
+# colour type → (channels per pixel, allowed bit depths)
+_PNG_TYPES = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)), 3: (1, (1, 2, 4, 8)), 4: (2, (8, 16)), 6: (4, (8, 16))}
 
 
-def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """PNG bytes → the array ``cv2.imdecode(..., IMREAD_UNCHANGED)`` gives
-    (BGR/BGRA channel order); ``ValueError`` naming ``name``."""
+def _png_chunks(data: bytes, name: str) -> dict:
     if data[:8] != _PNG_SIG:
         raise ValueError(f"undecodable PNG {name}: no PNG signature")
-    pos, ihdr, idat = 8, None, []
+    pos, chunks = 8, {"IDAT": []}
     while True:
         if pos + 12 > len(data):
             raise ValueError(f"undecodable PNG {name}: truncated chunk")
@@ -135,46 +168,91 @@ def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
         if zlib.crc32(ctype + body) != crc:
             raise ValueError(f"undecodable PNG {name}: CRC mismatch in chunk {ctype!r}")
         pos += 12 + length
-        if ctype == b"IHDR":
-            if length != 13:
-                raise ValueError(f"undecodable PNG {name}: bad IHDR")
-            ihdr = struct.unpack(">IIBBBBB", body)
-        elif ctype == b"IDAT":
-            idat.append(body)
-        elif ctype == b"IEND":
-            break
-    if ihdr is None or not idat:
+        key = ctype.decode("latin-1")
+        if key == "IDAT":
+            chunks["IDAT"].append(body)
+        elif key == "IEND":
+            return chunks
+        elif key in ("IHDR", "PLTE", "tRNS", "eXIf"):
+            chunks.setdefault(key, body)
+
+
+def _png(data: bytes, name: str, color: bool) -> np.ndarray:
+    c = _png_chunks(data, name)
+    if len(c.get("IHDR", b"")) != 13 or not c["IDAT"]:
         raise ValueError(f"undecodable PNG {name}: no IHDR or IDAT")
-    width, height, depth, color, compression, filt, interlace = ihdr
-    if interlace != 0:
-        raise ValueError(f"unsupported PNG {name}: interlaced images are not supported")
-    if compression != 0 or filt != 0:
-        raise ValueError(f"undecodable PNG {name}: unknown compression or filter method")
-    channels = _PNG_LAYOUTS.get((color, depth))
-    if channels is None:
-        raise ValueError(
-            f"unsupported PNG {name}: colour type {color} at {depth} bits (8-bit gray/RGB/RGBA "
-            "and 16-bit gray only)")
+    width, height, depth, ctype, compression, filt, interlace = struct.unpack(">IIBBBBB", c["IHDR"])
+    if ctype not in _PNG_TYPES or depth not in _PNG_TYPES[ctype][1]:
+        raise ValueError(f"undecodable PNG {name}: colour type {ctype} at {depth} bits is not in the PNG spec")
+    if compression != 0 or filt != 0 or interlace > 1:
+        raise ValueError(f"undecodable PNG {name}: unknown compression, filter or interlace method")
     if width == 0 or height == 0:
         raise ValueError(f"undecodable PNG {name}: empty image")
+    if ctype == 3 and "PLTE" not in c:
+        raise ValueError(f"undecodable PNG {name}: palette image without PLTE")
     try:
-        raw = zlib.decompress(b"".join(idat))
+        raw = zlib.decompress(b"".join(c["IDAT"]))
     except zlib.error as e:
         raise ValueError(f"undecodable PNG {name}: {e}") from None
-    bpp = channels * depth // 8
-    rowbytes = width * bpp
-    if len(raw) < height * (rowbytes + 1):
-        raise ValueError(f"undecodable PNG {name}: image data is short (truncated)")
+    channels = _PNG_TYPES[ctype][0]
+    samples = np.empty((height, width, channels), np.uint16 if depth == 16 else np.uint8)
     raw = np.frombuffer(raw, np.uint8)
-    out = np.empty(height * rowbytes, np.uint8)
-    if _lib().tl_png_unfilter(raw.ctypes.data, height, rowbytes, bpp, out.ctypes.data) != 0:
+    rc = _lib().tl_png_samples(raw.ctypes.data, raw.size, width, height, depth, channels, interlace,
+                               samples.ctypes.data)
+    if rc == -2:
+        raise ValueError(f"undecodable PNG {name}: image data is short (truncated)")
+    if rc != 0:
         raise ValueError(f"undecodable PNG {name}: unknown row filter type")
-    if depth == 16:
-        return out.view(">u2").reshape(height, width).astype(np.uint16)
-    img = out.reshape(height, width, channels) if channels > 1 else out.reshape(height, width)
-    if channels >= 3:  # cv2 order: RGB(A) on disk → BGR(A)
-        img = img[..., [2, 1, 0, 3][:channels]]
-    return np.ascontiguousarray(img)
+    img = _png_layout(samples, ctype, depth, c.get("PLTE"), c.get("tRNS"), color)
+    if color:  # cv2 applies an eXIf orientation under IMREAD_COLOR
+        exif = c.get("eXIf")
+        if exif:
+            e = np.frombuffer(exif, np.uint8)
+            img = _orient(img, _lib().tl_exif_orientation(e.ctypes.data, e.size))
+    return img
+
+
+def _png_layout(s: np.ndarray, ctype: int, depth: int, plte, trns, color: bool) -> np.ndarray:
+    """PNG samples → what OpenCV's PNG decoder asks libpng for: palette
+    expanded, gray of 1/2/4 bits scaled to 8, gray → BGR and alpha dropped
+    under IMREAD_COLOR (16 bits stripped to their high byte), and under
+    IMREAD_UNCHANGED gray (H, W), BGR, or BGRA where the file has alpha or a
+    tRNS chunk on RGB or a palette. Returns RGB(A) for ``color``, cv2's
+    BGR(A) channel order otherwise."""
+    if ctype == 3:
+        pal = np.zeros((256, 4), np.uint8)
+        pal[:, 3] = 255
+        p = np.frombuffer(plte, np.uint8)[: len(plte) // 3 * 3].reshape(-1, 3)[:256]
+        pal[: len(p), :3] = p
+        if trns:
+            t = np.frombuffer(trns, np.uint8)[:256]
+            pal[: len(t), 3] = t
+        s = pal[s[..., 0]]
+        if not trns or color:
+            s = s[..., :3]
+    elif ctype == 0 and depth < 8:
+        s = s * np.uint8(255 // ((1 << depth) - 1))
+    elif ctype == 2 and trns and not color and len(trns) == 6:
+        key = np.array(struct.unpack(">HHH", trns), np.uint16).astype(s.dtype)
+        alpha = np.where((s == key).all(-1), 0, np.iinfo(s.dtype).max).astype(s.dtype)
+        s = np.concatenate([s, alpha[..., None]], -1)
+    if s.shape[-1] == 2:  # gray + alpha
+        s = s[..., [0, 0, 0, 1]]
+    if color:
+        if s.dtype == np.uint16:
+            s = (s >> 8).astype(np.uint8)
+        s = s[..., [0, 0, 0]] if s.shape[-1] == 1 else s[..., :3]
+        return np.ascontiguousarray(s)
+    if s.shape[-1] == 1:
+        return np.ascontiguousarray(s[..., 0])
+    return np.ascontiguousarray(s[..., [2, 1, 0, 3][: s.shape[-1]]])
+
+
+def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """PNG bytes → the array ``cv2.imdecode(..., IMREAD_UNCHANGED)`` gives
+    (BGR/BGRA channel order, uint8 or uint16); ``ValueError`` naming
+    ``name``. ``decode_image`` gives IMREAD_COLOR's."""
+    return _png(data, name, False)
 
 
 def read_png(path: str) -> np.ndarray:
@@ -186,20 +264,19 @@ def _chunk(ctype: bytes, body: bytes) -> bytes:
 
 
 def encode_png(img: np.ndarray) -> bytes:
-    """Array in cv2's layout (uint8 (H, W), BGR (H, W, 3), BGRA (H, W, 4);
-    uint16 (H, W)) → PNG bytes, every row with filter None."""
+    """Array in cv2's layout ((H, W) gray, (H, W, 3) BGR or (H, W, 4) BGRA,
+    uint8 or uint16: every layout ``decode_png`` returns) → PNG bytes, every
+    row with filter None, as ``cv2.imwrite`` lays it out: 8- or 16-bit gray,
+    RGB or RGBA."""
     img = np.asarray(img)
-    if img.dtype == np.uint16 and img.ndim == 2:
-        color, depth, rows = 0, 16, img.astype(">u2").view(np.uint8).reshape(img.shape[0], -1)
-    elif img.dtype == np.uint8 and (img.ndim == 2 or (img.ndim == 3 and img.shape[2] in (3, 4))):
-        channels = 1 if img.ndim == 2 else img.shape[2]
-        color, depth = {1: 0, 3: 2, 4: 6}[channels], 8
-        if channels >= 3:
-            img = img[..., [2, 1, 0, 3][:channels]]  # BGR(A) → RGB(A) on disk
-        rows = np.ascontiguousarray(img).reshape(img.shape[0], -1)
-    else:
+    channels = 1 if img.ndim == 2 else (img.shape[2] if img.ndim == 3 else 0)
+    if img.dtype not in (np.uint8, np.uint16) or channels not in (1, 3, 4):
         raise ValueError(f"write_png: unsupported array {img.shape} {img.dtype}")
+    color, depth = {1: 0, 3: 2, 4: 6}[channels], img.dtype.itemsize * 8
+    if channels >= 3:
+        img = img[..., [2, 1, 0, 3][:channels]]  # BGR(A) → RGB(A) on disk
     h, w = img.shape[:2]
+    rows = np.ascontiguousarray(img.astype(img.dtype.newbyteorder(">"))).view(np.uint8).reshape(h, -1)
     raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1).tobytes()
     ihdr = struct.pack(">IIBBBBB", w, h, depth, color, 0, 0, 0)
     return (_PNG_SIG + _chunk(b"IHDR", ihdr) + _chunk(b"IDAT", zlib.compress(raw, 1))
@@ -212,8 +289,69 @@ def write_png(path: str, img: np.ndarray) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Any frame, and the resizes
+# Any frame, told apart by its signature as cv2 does, and the resizes
 # ---------------------------------------------------------------------------
+
+# containers that cv2 reads and the port does not: (signature test, name)
+_OTHER_FORMATS = (
+    (lambda d: d[:4] == b"RIFF" and d[8:12] == b"WEBP", "WebP"),
+    (lambda d: d[:4] in (b"II*\x00", b"MM\x00*"), "TIFF"),
+    (lambda d: d[:12] == b"\x00\x00\x00\x0cjP  \r\n\x87\n" or d[:4] == b"\xffO\xffQ", "JPEG 2000"),
+    (lambda d: d[:2] == b"BM", "BMP"),
+    (lambda d: d[:6] in (b"GIF87a", b"GIF89a"), "GIF"),
+    (lambda d: d[4:12] in (b"ftypavif", b"ftypavis"), "AVIF"),
+    (lambda d: d[:4] == b"v/1\x01", "OpenEXR"),
+    (lambda d: d[:10] == b"#?RADIANCE" or d[:6] == b"#?RGBE", "Radiance HDR"),
+    (lambda d: d[:4] == b"\x59\xa6\x6a\x95", "Sun raster"),
+    (lambda d: d[:2] in (b"PF", b"Pf"), "PFM"),
+    (lambda d: len(d) > 1 and d[:1] == b"P" and d[1:2] in b"1234567", "PNM"),
+)
+
+
+def _format(data: bytes, name: str) -> str:
+    """``"jpeg"`` or ``"png"`` from the leading bytes; any other format
+    raises ``ValueError`` naming it and ``name``."""
+    if data[:2] == b"\xff\xd8":
+        return "jpeg"
+    if data[:8] == _PNG_SIG:
+        return "png"
+    for test, fmt in _OTHER_FORMATS:
+        if test(data):
+            raise ValueError(f"unsupported image {name}: {fmt} (the port reads JPEG and PNG)")
+    raise ValueError(f"undecodable image {name}: unknown format (no JPEG or PNG signature)")
+
+
+def decode_image(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """Image bytes → (H, W, 3) RGB uint8: ``cvtColor(imdecode(b,
+    IMREAD_COLOR), COLOR_BGR2RGB)`` for a JPEG or PNG, told apart by
+    signature."""
+    if _format(data, name) == "jpeg":
+        return _jpeg(data, name, False, False)
+    return _png(data, name, True)
+
+
+def read_image(path: str) -> np.ndarray:
+    """``decode_image`` of a file as ``cv2.imread(path, IMREAD_COLOR)``
+    reads it (a cut JPEG file decodes padded), whatever its extension."""
+    data = _read(path)
+    if _format(data, path) == "jpeg":
+        return _jpeg(data, path, True, False)
+    return _png(data, path, True)
+
+
+def decode_unchanged(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """``cv2.imdecode(b, IMREAD_UNCHANGED)`` of a JPEG or PNG."""
+    if _format(data, name) == "jpeg":
+        return _jpeg(data, name, False, True)
+    return _png(data, name, False)
+
+
+def read_unchanged(path: str) -> np.ndarray:
+    """``cv2.imread(path, IMREAD_UNCHANGED)`` of a JPEG or PNG file."""
+    data = _read(path)
+    if _format(data, path) == "jpeg":
+        return _jpeg(data, path, True, True)
+    return _png(data, path, False)
 
 
 def resize_linear(img: np.ndarray, size_wh: tuple[int, int]) -> np.ndarray:

@@ -116,10 +116,12 @@ def load_depth_image(path: str, depth_height: int, depth_width: int) -> np.ndarr
     - 16UC1 uint16: already millimetres; nearest-neighbour resized if the
       stored resolution differs.
 
-    A missing file raises FileNotFoundError; one that does not decode
-    raises ValueError naming the path.
+    The file is read as ``cv2.imread(path, IMREAD_UNCHANGED)`` reads it,
+    whatever its format: a JPEG gets the layout error. A missing file
+    raises FileNotFoundError; one that does not decode raises ValueError
+    naming the path.
     """
-    raw = codecs.read_png(path)
+    raw = codecs.read_unchanged(path)
     if raw.ndim == 2 and raw.dtype == np.uint16:
         depth = raw.astype(np.float32)  # already millimetres
         if depth.shape != (depth_height, depth_width):
@@ -142,10 +144,12 @@ def load_depth_image(path: str, depth_height: int, depth_width: int) -> np.ndarr
 
 
 def load_rgb_image(path: str, size_hw: tuple[int, int] | None = None) -> np.ndarray:
-    """Load a JPEG frame as (H, W, 3) RGB uint8, optionally resized to
-    (h, w). A missing file raises FileNotFoundError; one that does not
+    """Load a frame as (H, W, 3) RGB uint8, optionally resized to (h, w):
+    ``cv2.imread(path, IMREAD_COLOR)``, a JPEG or PNG told apart by its
+    signature whatever the extension, EXIF orientation applied, a cut JPEG
+    file padded. A missing file raises FileNotFoundError; one that does not
     decode raises ValueError naming the path."""
-    rgb = codecs.read_jpeg(path)
+    rgb = codecs.read_image(path)
     if size_hw is not None and rgb.shape[:2] != tuple(size_hw):
         rgb = codecs.resize_linear(rgb, (size_hw[1], size_hw[0]))
     return rgb

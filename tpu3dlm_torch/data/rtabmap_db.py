@@ -8,8 +8,10 @@ RGB blobs copied as ``<ordinal>.jpg``. The reference's rules hold:
 ordinals number the distinct node ids 1..K (duplicate-id JOIN rows
 collapse to the first), a node whose depth blob is NULL or undecodable is
 skipped and its ordinal left as a gap, so every later frame keeps its own
-poses.txt row. The port decodes PNG depth blobs only (what RTAB-Map
-writes); a blob in another format counts as undecodable.
+poses.txt row. Blobs are decoded as ``cv2.imdecode`` decodes them, a JPEG
+or PNG told apart by its signature: depth under IMREAD_UNCHANGED, RGB under
+IMREAD_COLOR (any JPEG mode, PNG, EXIF orientation applied); a blob in
+another format, or cut short, counts as undecodable.
 """
 
 from __future__ import annotations
@@ -54,7 +56,7 @@ def _decode_depth_blob(blob):
     if blob is None:
         return None
     try:
-        return codecs.decode_png(bytes(blob), "<depth blob>")
+        return codecs.decode_unchanged(bytes(blob), "<depth blob>")
     except ValueError:
         return None
 
@@ -114,7 +116,7 @@ class ImageExtractor:
             rgb = None
             if image_blob is not None:
                 try:
-                    rgb = codecs.decode_jpeg(bytes(image_blob), "<image blob>")
+                    rgb = codecs.decode_image(bytes(image_blob), "<image blob>")
                 except ValueError:
                     rgb = None
             if depth_u8 is None or rgb is None:
