@@ -118,18 +118,25 @@ JSON line; any failure raises and the script exits non-zero without a result:
     counts at 0 (B1: 12 launches per scan on ``attention_bf16_tma``; B2 by
     shape), then 5 warm maintenance runs: per-stage ms, frames/s of detect
     + map, capture ms, peak memory. Sanity bars only.
-18. ``codec_full_width``: every JPEG and PNG mode the port decodes. The
+18. ``codec_full_width``: every frame format the port decodes. The
     committed codec fixtures (``tests/fixtures/codecs``: arithmetic,
     YCCK/CMYK, 3x1/1x4/4x1/4x2 sampling, partial progressions, the capture's
-    transcodes, PNG layouts with Adam7) decoded on this host: sha256, shape
-    and dtype equal to cv2's (``digests.json``). Then ``pipeline_full_width``'s
-    capture with its maintenance image blobs replaced by progressive,
-    arithmetic and progressive-arithmetic transcodes, RGB PNGs and baseline
-    JPEGs with an EXIF orientation-1 APP1, each run as the maintenance scan
-    through the CLI on the baseline's gold map beside the baseline itself:
-    every report identical to the baseline's, B1's and B2's launches equal;
-    host decode ms per frame of each variant, and ``load_scan`` frames/s
-    with 8 workers on the progressive one.
+    transcodes, PNG layouts with Adam7; ``codecs/containers``: lossless
+    JPEG, PNM/PAM/PFM, BMP (RLE too), TIFF (LZW, Deflate, PackBits, tiles,
+    planes, predictors, palettes, alpha), Sun raster, Radiance HDR, GIF and
+    the files cv2 refuses) decoded on this host under IMREAD_COLOR and
+    IMREAD_UNCHANGED: sha256, shape and dtype equal to cv2's
+    (``digests.json``), a refusal where cv2 gave None. Then
+    ``pipeline_full_width``'s capture with its maintenance image blobs
+    replaced by progressive, arithmetic and progressive-arithmetic
+    transcodes, RGB PNGs, baseline JPEGs with an EXIF orientation-1 APP1,
+    and lossless JPEG, Deflate TIFF, BMP and PPM written by this script,
+    then with its depth blobs replaced by 4-channel TIFF and BMP, each run
+    as the maintenance scan through the CLI on the baseline's gold map
+    beside the baseline itself: every report identical to the baseline's,
+    B1's and B2's launches equal; host decode ms per frame of each image
+    and depth variant, and ``load_scan`` frames/s with 8 workers on the
+    progressive one.
 19. ``staged_parity``: ``pipeline_parity`` on the staged route (the default
     ``fused_inference = false``, as ``BENCH_E2E_FUSED=0`` runs
     ``bench_e2e.py``): ``ObjectDetector``, then ``DamageDetector`` over
@@ -2253,23 +2260,137 @@ def phase_pipeline_full_width(dev, tiled_root: str, fused: bool = True) -> dict:
     return result
 
 
-CODEC_VARIANTS = ("progressive", "arithmetic", "arithmetic_progressive", "png", "exif_orientation_1")
+CODEC_VARIANTS = ("progressive", "arithmetic", "arithmetic_progressive", "png", "exif_orientation_1",
+                  "lossless_jpeg", "tiff_deflate", "bmp", "ppm")
+DEPTH_VARIANTS = ("tiff_rgba", "bmp_bgra")
+
+# minimal writers of the containers ``codec_full_width`` feeds the CLI: each
+# takes an array in cv2's layout ((H, W, 3) BGR or (H, W, 4) BGRA uint8) and
+# writes a file that cv2 (and the port) decode back to it exactly
+# (tests/test_torch_codecs_containers.py holds them to cv2)
+
+
+def write_ppm(bgr: np.ndarray) -> bytes:
+    """Binary PPM (P6, maxval 255)."""
+    h, w = bgr.shape[:2]
+    return b"P6\n%d %d\n255\n" % (w, h) + np.ascontiguousarray(bgr[..., ::-1]).tobytes()
+
+
+def write_bmp(img: np.ndarray) -> bytes:
+    """BMP with a 40-byte header, bottom-up: 24 bits for BGR; 32 bits with
+    BI_BITFIELDS masks for BGRA, which cv2 reads back as 4 channels."""
+    import struct
+
+    h, w, c = img.shape
+    rows = np.ascontiguousarray(img[::-1]).reshape(h, w * c)
+    rows = np.concatenate([rows, np.zeros((h, (-w * c) % 4), np.uint8)], 1)
+    masks = struct.pack("<III", 0xFF0000, 0xFF00, 0xFF) if c == 4 else b""
+    offset = 54 + len(masks)
+    info = struct.pack("<IiiHHIIiiII", 40, w, h, 1, 8 * c, 3 if c == 4 else 0, rows.size, 2835, 2835, 0, 0)
+    return b"BM" + struct.pack("<IHHI", offset + rows.size, 0, 0, offset) + info + masks + rows.tobytes()
+
+
+def write_tiff(img: np.ndarray) -> bytes:
+    """Little-endian TIFF of RGB (from BGR) or RGBA with associated alpha
+    (from BGRA), chunky, Deflate strips of 16 rows with the horizontal
+    predictor."""
+    import struct
+    import zlib
+
+    h, w, c = img.shape
+    rgb = np.ascontiguousarray(img[..., [2, 1, 0, 3][:c]])
+    diff = rgb.copy()
+    diff[:, 1:] = rgb[:, 1:] - rgb[:, :-1]  # predictor 2, modulo 256
+    rows_per_strip = 16
+    strips = [zlib.compress(diff[y:y + rows_per_strip].tobytes()) for y in range(0, h, rows_per_strip)]
+    data = bytearray(b"II*\x00\x00\x00\x00\x00")
+    offsets = []
+    for st in strips:
+        offsets.append(len(data))
+        data += st + b"\x00" * (len(st) % 2)
+    tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [8] * c), 259: (3, [8]), 262: (3, [2]), 273: (4, offsets),
+            277: (3, [c]), 278: (4, [rows_per_strip]), 279: (4, [len(st) for st in strips]), 284: (3, [1]),
+            317: (3, [2])}
+    if c == 4:
+        tags[338] = (3, [1])
+    ifd_at = len(data)
+    values_at = ifd_at + 2 + 12 * len(tags) + 4
+    ifd, values = bytearray(struct.pack("<H", len(tags))), bytearray()
+    for t in sorted(tags):
+        typ, vals = tags[t]
+        blob = struct.pack("<" + {3: "H", 4: "I"}[typ] * len(vals), *vals)
+        if len(blob) <= 4:
+            ifd += struct.pack("<HHI", t, typ, len(vals)) + blob.ljust(4, b"\x00")
+        else:
+            ifd += struct.pack("<HHII", t, typ, len(vals), values_at + len(values))
+            values += blob
+    data += ifd + b"\x00" * 4 + values
+    data[4:8] = struct.pack("<I", ifd_at)
+    return bytes(data)
+
+
+def write_lossless_jpeg(bgr: np.ndarray) -> bytes:
+    """Lossless JPEG (SOF3, 8 bits, Huffman, predictor 1) of the RGB
+    samples: three components R, G, B interleaved, no JFIF marker (so
+    libjpeg-turbo keeps RGB), one table over the difference categories
+    0-16. Vectorised: the differences, their codes and the bit string are
+    numpy arrays."""
+    import struct
+
+    h, w = bgr.shape[:2]
+    x = bgr[..., ::-1].astype(np.int32)  # (H, W, 3) R, G, B
+    pred = np.empty_like(x)  # predictor 1: the left neighbour
+    pred[:, 1:] = x[:, :-1]
+    pred[0, 0] = 128  # the first sample: 1 << (P - 1)
+    pred[1:, 0] = x[:-1, 0]  # the first column: from above
+    d = (x - pred).reshape(-1)  # MCU order: each pixel's R, G, B
+    d = np.where(d > 32768, d - 65536, np.where(d < -32767, d + 65536, d))
+    cat = np.where(d == 0, 0, np.floor(np.log2(np.maximum(np.abs(d), 1))).astype(np.int64) + 1)
+    bits = [0, 0, 6, 0, 4, 3, 2, 2, 0, 0, 0, 0, 0, 0, 0, 0]  # lengths 3 (0-5), 5 (6-9), 6, 7, 8
+    code_len = np.repeat(np.arange(1, 17), bits)
+    codes, code = [], 0
+    for length in range(1, 17):
+        for _ in range(bits[length - 1]):
+            codes.append(code)
+            code += 1
+        code <<= 1
+    codes = np.asarray(codes, np.int64)
+    extra = np.where(d > 0, d, d - 1) & ((1 << cat) - 1)
+    extra_len = np.where(cat < 16, cat, 0)
+    val = np.stack([codes[cat], extra], 1).reshape(-1)
+    ln = np.stack([code_len[cat], extra_len], 1).reshape(-1)
+    total = int(ln.sum())
+    start = np.cumsum(ln) - ln
+    tok = np.repeat(np.arange(ln.size), ln)
+    k = np.arange(total) - start[tok]
+    stream = ((val[tok] >> (ln[tok] - 1 - k)) & 1).astype(np.uint8)
+    stream = np.concatenate([stream, np.ones((-total) % 8, np.uint8)])
+    by = np.packbits(stream)
+    by = np.insert(by, np.flatnonzero(by == 0xFF) + 1, 0)  # byte stuffing
+    seg = lambda m, body: struct.pack(">HH", 0xFF00 | m, len(body) + 2) + body  # noqa: E731
+    frame = struct.pack(">BHHB", 8, h, w, 3) + bytes([82, 0x11, 0, 71, 0x11, 0, 66, 0x11, 0])
+    table = bytes([0]) + bytes(bits) + bytes(range(17))
+    scan = bytes([3, 82, 0, 71, 0, 66, 0, 1, 0, 0])
+    return b"\xff\xd8" + seg(0xC3, frame) + seg(0xC4, table) + seg(0xDA, scan) + by.tobytes() + b"\xff\xd9"
 
 
 def codec_variant_blob(variant: str, source_frame: int, baseline: bytes) -> bytes:
     """The maintenance frame ``source_frame`` of the committed capture as
     ``variant``: a coefficient-exact transcode (``tests/fixtures/codecs``,
     made by ``make_fixtures.c``), an RGB PNG of the decoded frame written
-    by ``encode_png`` here, or the baseline JPEG with an EXIF APP1 holding
-    orientation 1 after its JFIF APP0. Every one decodes to the baseline's
-    pixels."""
+    by ``encode_png`` here, the baseline JPEG with an EXIF APP1 holding
+    orientation 1 after its JFIF APP0, or the decoded frame in a container
+    written by this script (lossless JPEG, Deflate TIFF, BMP, PPM). Every
+    one decodes to the baseline's pixels."""
     from tpu3dlm_torch.data import codecs
 
     suffix = {"progressive": "prog", "arithmetic": "arith", "arithmetic_progressive": "arith_prog"}
     if variant in suffix:
         return (FIXTURES / "codecs" / f"capture_maintenance_{source_frame}_{suffix[variant]}.jpg").read_bytes()
-    if variant == "png":
-        return codecs.encode_png(codecs.decode_jpeg(baseline)[..., ::-1])
+    writers = {"png": codecs.encode_png, "lossless_jpeg": write_lossless_jpeg, "tiff_deflate": write_tiff,
+               "bmp": write_bmp, "ppm": write_ppm}
+    if variant in writers:
+        return writers[variant](codecs.decode_jpeg(baseline)[..., ::-1])
     check(baseline[2:4] == b"\xff\xe0", "a JFIF APP0 follows SOI")
     at = 4 + int.from_bytes(baseline[4:6], "big")
     tiff = b"MM\x00\x2a\x00\x00\x00\x08\x00\x01\x01\x12\x00\x03\x00\x00\x00\x01\x00\x01\x00\x00\x00\x00\x00\x00"
@@ -2277,26 +2398,41 @@ def codec_variant_blob(variant: str, source_frame: int, baseline: bytes) -> byte
     return baseline[:at] + app1 + baseline[at:]
 
 
+def depth_variant_blob(variant: str, baseline: bytes) -> bytes:
+    """A maintenance depth blob (a CV_8UC4 PNG of float32 metres) as a
+    4-channel TIFF or BMP of the same bytes, which decodes to the same
+    (H, W, 4) array under IMREAD_UNCHANGED."""
+    from tpu3dlm_torch.data import codecs
+
+    bgra = codecs.decode_unchanged(baseline)
+    return {"tiff_rgba": write_tiff, "bmp_bgra": write_bmp}[variant](bgra)
+
+
 def phase_codec_full_width(dev, tmp: str, tiled_root: str) -> dict:
-    """Every JPEG and PNG mode the port decodes, on this host (no cv2) and
+    """Every frame format the port decodes, on this host (no cv2) and
     through the Pipeline on the card:
 
-    - every committed codec fixture (``tests/fixtures/codecs``: arithmetic,
-      YCCK/CMYK, 3x1/1x4/4x1/4x2 sampling, partial progressions, the
-      capture's transcodes; PNG layouts with Adam7) decoded by the port:
-      sha256, shape and dtype equal to what cv2 gave where the fixtures
-      were made (``digests.json``), so this host's compiler builds the same
-      decoder;
+    - every committed codec fixture decoded by the port (``tests/fixtures/
+      codecs``: JPEG modes and PNG layouts; ``codecs/containers``: lossless
+      JPEG, PNM/PAM/PFM, BMP, TIFF, Sun raster, Radiance HDR, GIF, and the
+      files cv2 refuses): sha256, shape and dtype equal to what cv2 gave
+      under IMREAD_COLOR and IMREAD_UNCHANGED where the fixtures were made
+      (``digests.json``), and a ``ValueError`` where cv2 gave None, so this
+      host's compiler builds the same decoders;
     - ``pipeline_full_width``'s capture (128 frames a scan at 640², fused
       route, bf16, YOLOv10-n, seeded BEiT-base): its maintenance data.db
       image blobs replaced by each of ``CODEC_VARIANTS``
-      (``codec_variant_blob``; tiled frame k takes its source frame's), the
-      depth untouched, the baseline's gold map. Each variant and the
-      baseline JPEGs run as the maintenance scan through the CLI, the
+      (``codec_variant_blob``: transcodes, PNG, EXIF, and lossless JPEG,
+      Deflate TIFF, BMP and PPM written here from the decoded frame; tiled
+      frame k takes its source frame's), then its depth blobs (256x192
+      CV_8UC4 PNGs) replaced by each of ``DEPTH_VARIANTS`` (4-channel TIFF
+      and BMP of the same bytes), on the baseline's gold map. Each variant
+      and the baseline run as the maintenance scan through the CLI, the
       counts at 0 before each: every variant's report CSV identical to the
       baseline's, and B1's and B2's launches equal to its;
-    - host decode ms per 640x480 frame of each variant beside the baseline
-      (``decode_image`` of the blob, median over the 5 source frames x 5
+    - host decode ms per 640x480 frame of each image variant and per depth
+      frame of each depth variant beside the baseline (``decode_image`` /
+      ``decode_unchanged`` of the blob, median over the 5 source frames x 5
       passes, in turns), and ``load_scan`` frames/s at 640 with 8 workers
       on the progressive variant's extracted scan."""
     import hashlib
@@ -2314,6 +2450,7 @@ def phase_codec_full_width(dev, tmp: str, tiled_root: str) -> dict:
     t_phase = time.perf_counter()
     fixdir = FIXTURES / "codecs"
     digests = json.loads((fixdir / "digests.json").read_text())
+    containers = json.loads((fixdir / "containers" / "digests.json").read_text())
 
     def digest(a) -> dict:
         a = np.ascontiguousarray(a)
@@ -2326,30 +2463,49 @@ def phase_codec_full_width(dev, tmp: str, tiled_root: str) -> dict:
         else:
             got = {"color": codecs.read_image(path)[..., ::-1], "unchanged": codecs.read_png(path)}
         check(got.keys() == want.keys() and all(digest(got[k]) == want[k] for k in want), name)
+    refused = 0
+    for name, want in containers.items():
+        path = str(fixdir / "containers" / name)
+        for key, read in (("color", lambda p: codecs.read_image(p)[..., ::-1]), ("unchanged", codecs.read_unchanged)):
+            try:
+                got = digest(read(path))
+            except ValueError:
+                got = None
+                refused += 1
+            check(got == want[key], (name, key, got, want[key]))
     t_fixtures = time.perf_counter() - t_phase
 
     src_db = os.path.join(tiled_root, "configs", "data", "maintenance", "data.db")
     conn = sqlite3.connect(src_db)
     baseline = {i: bytes(b) for i, b in conn.execute("SELECT id, image FROM Data")}
+    baseline_depth = {i: bytes(b) for i, b in conn.execute("SELECT id, depth FROM Data")}
     conn.close()
     frames = len(baseline)
     n_src = 5
+    t_write = time.perf_counter()
     blobs = {v: {s: codec_variant_blob(v, s, baseline[s]) for s in range(1, n_src + 1)} for v in CODEC_VARIANTS}
     blobs = {"baseline": {s: baseline[s] for s in range(1, n_src + 1)}, **blobs}
-    for v, by_src in blobs.items():  # every variant decodes to the baseline's pixels
+    depth_blobs = {v: {s: depth_variant_blob(v, baseline_depth[s]) for s in range(1, n_src + 1)} for v in DEPTH_VARIANTS}
+    depth_blobs = {"baseline": {s: baseline_depth[s] for s in range(1, n_src + 1)}, **depth_blobs}
+    write_s = time.perf_counter() - t_write
+    for v, by_src in blobs.items():  # every variant decodes to the baseline's arrays
         for s, b in by_src.items():
             check(np.array_equal(codecs.decode_image(b), codecs.decode_image(baseline[s])), (v, s))
+    for v, by_src in depth_blobs.items():
+        for s, b in by_src.items():
+            check(np.array_equal(codecs.decode_unchanged(b), codecs.decode_unchanged(baseline_depth[s])), (v, s))
 
     runs = {}
-    for variant in blobs:
+    cases = [(v, "image", blobs[v]) for v in blobs] + [(f"depth_{v}", "depth", depth_blobs[v]) for v in DEPTH_VARIANTS]
+    for variant, column, by_src in cases:
         root = os.path.join(tmp, f"codec_{variant}")
         shutil.copytree(os.path.join(tiled_root, "configs"), os.path.join(root, "configs"))
         cfg = os.path.join(root, "configs", "variables.cfg")
         check(os.path.exists(ConfigLoader(cfg, "gold_std").pickle_path), "the baseline's gold map")
         if variant != "baseline":
             conn = sqlite3.connect(os.path.join(root, "configs", "data", "maintenance", "data.db"))
-            conn.executemany("UPDATE Data SET image = ? WHERE id = ?",
-                             [(blobs[variant][(k - 1) % n_src + 1], k) for k in baseline])
+            conn.executemany(f"UPDATE Data SET {column} = ? WHERE id = ?",
+                             [(by_src[(k - 1) % n_src + 1], k) for k in baseline])
             conn.commit()
             conn.close()
         beit_attention_packed.launches = 0
@@ -2367,13 +2523,20 @@ def phase_codec_full_width(dev, tmp: str, tiled_root: str) -> dict:
         check((r["b1"], r["b2"]) == (base["b1"], base["b2"]), (variant, r["b1"], r["b2"], base["b1"], base["b2"]))
 
     decode_samples: dict = {v: [] for v in blobs}
+    depth_samples: dict = {v: [] for v in depth_blobs}
     for _ in range(5):  # in turns, so drift on the host touches every variant alike
         for v, by_src in blobs.items():
             for b in by_src.values():
                 t0 = time.perf_counter()
                 codecs.decode_image(b)
                 decode_samples[v].append((time.perf_counter() - t0) * 1e3)
+        for v, by_src in depth_blobs.items():
+            for b in by_src.values():
+                t0 = time.perf_counter()
+                codecs.decode_unchanged(b)
+                depth_samples[v].append((time.perf_counter() - t0) * 1e3)
     decode_ms = {v: statistics.median(x) for v, x in decode_samples.items()}
+    depth_ms = {v: statistics.median(x) for v, x in depth_samples.items()}
 
     ext = runs["progressive"]["rgb_dir"]
     scan_dir = os.path.dirname(ext)
@@ -2388,13 +2551,17 @@ def phase_codec_full_width(dev, tmp: str, tiled_root: str) -> dict:
     result = {
         "phase": "codec_full_width", "frames_per_scan": frames,
         "frame_hw": list(codecs.decode_image(baseline[1]).shape[:2]),
-        "fixtures_checked": len(digests), "fixtures_s": t_fixtures,
-        "variants": list(blobs), "reports_identical": True, "report_rows": base["csv"].count(b"\n") - 1,
+        "depth_hw_channels": list(codecs.decode_unchanged(baseline_depth[1]).shape),
+        "fixtures_checked": len(digests) + len(containers), "container_fixtures": len(containers),
+        "container_refusals_checked": refused, "fixtures_s": t_fixtures, "variants_written_s": write_s,
+        "variants": list(runs), "reports_identical": True, "report_rows": base["csv"].count(b"\n") - 1,
         "b1_launches_by_variant": {v: r["b1"] for v, r in runs.items()},
         "b2_launches_by_variant": {v: r["b2"] for v, r in runs.items()},
         "cli_s_by_variant": {v: r["cli_s"] for v, r in runs.items()},
         "decode_ms_per_frame": decode_ms,
         "decode_ratio_to_baseline": {v: decode_ms[v] / decode_ms["baseline"] for v in blobs},
+        "depth_decode_ms_per_frame": depth_ms,
+        "depth_decode_ratio_to_baseline": {v: depth_ms[v] / depth_ms["baseline"] for v in depth_blobs},
         "load_scan_640_progressive_8_workers": {"frames_per_s": frames / statistics.median(samples),
                                                 "ms_samples": [x * 1e3 for x in samples]},
         "seconds": time.perf_counter() - t_phase,
@@ -4945,8 +5112,8 @@ def main() -> int:
             "launches_on_pipeline_path": "pipeline_full_width: the CLI's gold and maintenance "
                                          "runs (128 frames a scan, BEiT-base bf16)",
             "launches_on_codec": codec["b1_launches_by_variant"],
-            "launches_on_codec_path": "codec_full_width: one maintenance run through the CLI per frame "
-                                      "format (128 frames, BEiT-base bf16, the baseline's gold map)",
+            "launches_on_codec_path": "codec_full_width: one maintenance run through the CLI per image or "
+                                      "depth frame format (128 frames, BEiT-base bf16, the baseline's gold map)",
             "launches_on_staged": staged["b1_launches_cli_by_kernel"]["attention_bf16_tma"],
             "launches_on_staged_by_scan": staged["b1_launches_cli_by_scan"],
             "launches_on_staged_path": "staged_full_width: the CLI's gold and maintenance runs on "
@@ -5029,7 +5196,8 @@ def main() -> int:
             "launches_on_pipeline": pipe["b2_launches_cli"],
             "launches_on_pipeline_by_shape": pipe["b2_launches_cli_by_shape"],
             "launches_on_codec": codec["b2_launches_by_variant"],
-            "launches_on_codec_path": "codec_full_width: the maintenance compare of each frame format's run",
+            "launches_on_codec_path": "codec_full_width: the maintenance compare of each image or depth "
+                                      "frame format's run",
             "launches_on_ann": compare_ann["b2_launches_cold_capture"],
             "launches_on_ann_by_shape": compare_ann["b2_launches_by_shape_cold_capture"],
             "launches_on_ann_path": "compare_full_width_ann: the cold capture at ann='auto' "

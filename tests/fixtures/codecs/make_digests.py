@@ -1,10 +1,15 @@
 """Writes the PNG fixtures beside the JPEG ones (``make_fixtures.c``) and
 ``digests.json``: for every fixture, the sha256, shape and dtype of what
 cv2 decodes (JPEG: ``imread(p, IMREAD_COLOR)``; PNG: ``imread`` with
-``IMREAD_UNCHANGED`` and with ``IMREAD_COLOR``), in cv2's BGR order.
+``IMREAD_UNCHANGED`` and with ``IMREAD_COLOR``), in cv2's BGR order. Then
+the other containers (``make_containers.fixtures()``: lossless JPEG, PNM,
+PAM, PFM, BMP, TIFF, Sun raster, Radiance HDR, GIF, OpenEXR) into
+``containers/`` with ``containers/digests.json``: ``imread`` under both
+flags, ``null`` where cv2 returns None.
 ``chip_smoke.py`` decodes every fixture with the port on a host without cv2
-and holds it to these digests; ``tests/test_torch_codecs_modes.py`` holds
-the file to cv2. Run from the repository root:
+and holds it to these digests; ``tests/test_torch_codecs_modes.py`` and
+``tests/test_torch_codecs_containers.py`` hold the files to cv2. Run from
+the repository root:
 
     python tests/fixtures/codecs/make_digests.py
 """
@@ -19,8 +24,9 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 TESTS = os.path.dirname(os.path.dirname(HERE))
-sys.path[:0] = [TESTS, os.path.dirname(TESTS)]
+sys.path[:0] = [HERE, TESTS, os.path.dirname(TESTS)]
 
+from make_containers import fixtures as container_fixtures  # noqa: E402
 from test_torch_codecs_modes import png_bytes  # noqa: E402
 
 
@@ -58,6 +64,20 @@ def main() -> None:
             out[name] = {"color": digest(cv2.imread(path, cv2.IMREAD_COLOR)),
                          "unchanged": digest(cv2.imread(path, cv2.IMREAD_UNCHANGED))}
     with open(os.path.join(HERE, "digests.json"), "w") as f:
+        json.dump(out, f, indent=1, sort_keys=True)
+        f.write("\n")
+    sub = os.path.join(HERE, "containers")
+    os.makedirs(sub, exist_ok=True)
+    out = {}
+    for name, data in container_fixtures().items():
+        path = os.path.join(sub, name)
+        with open(path, "wb") as f:
+            f.write(data)
+        out[name] = {}
+        for key, flag in (("color", cv2.IMREAD_COLOR), ("unchanged", cv2.IMREAD_UNCHANGED)):
+            img = cv2.imread(path, flag)
+            out[name][key] = None if img is None else digest(img)
+    with open(os.path.join(sub, "digests.json"), "w") as f:
         json.dump(out, f, indent=1, sort_keys=True)
         f.write("\n")
 

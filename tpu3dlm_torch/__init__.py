@@ -9,8 +9,9 @@ Hand-written kernels live in ``csrc/`` (CUDA C++ for ``sm_90a``), are built
 at first use by ``kernels/build.py`` and are called through wrappers in
 ``ops/kernels/``. Every wrapper launches its kernel for CUDA tensors and
 runs its plain PyTorch twin only for CPU tensors. Host C++ is built the same
-way by the system C++ compiler: the image codecs (``csrc/host/codecs.cpp``,
-behind ``data/codecs.py``), because the GPU host has no cv2, and the map
+way by the system C++ compiler: the image codecs (``csrc/host/codecs.cpp``
+and ``containers.cpp``, behind ``data/codecs.py`` and
+``data/containers.py``), because the GPU host has no cv2, and the map
 stage's DBSCAN and meshing legs (``csrc/host/dbscan.cpp`` and
 ``meshing.cpp``, copies of the JAX package's, behind ``native.py``).
 

@@ -25,9 +25,18 @@
 // Two stream forms: the bytes as given (cv2.imdecode: data that ends before
 // EOI is an error) and a file (cv2.imread: libjpeg's stdio source feeds a
 // fake EOI marker, FF D9, whenever the file is exhausted, so a cut file
-// decodes with the missing data left out). Lossless, hierarchical and
-// 12-bit JPEG are refused with a message, never decoded approximately.
+// decodes with the missing data left out).
+// Lossless JPEG (SOF3) follows libjpeg-turbo 3.1's jdlhuff.c, jddiffct.c
+// and jdpred.c: Huffman-coded differences (category 16 is 32768), the
+// seven predictors with the first row of the image and of each restart
+// interval predicted from the left, the point transform undone by a shift,
+// replicated (never fancy) upsampling, and only the colour conversions it
+// allows: RGB as is, CMYK, gray to gray. What libjpeg-turbo or cv2 refuse
+// is refused with a message, never decoded approximately: precision above 8
+// bits (lossless or DCT), arithmetic-coded lossless (SOF11), hierarchical
+// frames, a YCbCr or YCCK lossless file, and a gray one asked for colour.
 
+#include <algorithm>
 #include <climits>
 #include <cmath>
 #include <cstdint>
@@ -156,6 +165,8 @@ struct Component {
     int wib = 0, hib = 0;               // size in blocks
     int bw = 0, bh = 0;                 // allocated blocks (MCU-padded)
     std::vector<int16_t> coef;          // bw*bh*64, natural order
+    std::vector<uint8_t> samp;          // lossless: bw*bh output samples
+    bool scanned = false;               // lossless: a scan has written samp
     uint16_t quant[64] = {};
     bool quant_latched = false;
     int dc_tbl = 0, ac_tbl = 0;         // of the current scan
@@ -169,7 +180,8 @@ struct Jpeg {
     int unread_marker = 0;
     int width = 0, height = 0, ncomp = 0;
     int hmax = 1, vmax = 1, mcux = 0, mcuy = 0;  // mcuy = total iMCU rows
-    bool have_frame = false, progressive = false, arith = false;
+    bool have_frame = false, progressive = false, arith = false, lossless = false;
+    int precision = 8;
     int restart_interval = 0, next_restart_num = 0;
     bool saw_jfif = false, saw_adobe = false, saw_app1 = false;
     int adobe_transform = -1;
@@ -225,7 +237,13 @@ void parse_frame(Jpeg& j, const std::vector<uint8_t>& s, int marker) {
     const int n = static_cast<int>(s.size());
     if (n < 6) fail("short SOF segment");
     const uint8_t* p = s.data();
-    if (p[0] != 8) fail(std::to_string(p[0]) + "-bit JPEG is not supported (8-bit only)");
+    j.lossless = marker == 0xC3;
+    j.precision = p[0];
+    if (j.lossless) {  // libjpeg-turbo's 8-bit lossless path takes 2 to 8 bits; cv2 asks for no other
+        if (p[0] < 2 || p[0] > 8) fail(std::to_string(p[0]) + "-bit lossless JPEG is not supported (2 to 8 bits)");
+    } else if (p[0] != 8) {
+        fail(std::to_string(p[0]) + "-bit JPEG is not supported (8-bit only)");
+    }
     j.progressive = marker == 0xC2 || marker == 0xCA;
     j.arith = marker >= 0xC9;
     j.height = be16(p + 1);
@@ -249,18 +267,23 @@ void parse_frame(Jpeg& j, const std::vector<uint8_t>& s, int marker) {
         j.hmax = cp.h > j.hmax ? cp.h : j.hmax;
         j.vmax = cp.v > j.vmax ? cp.v : j.vmax;
     }
-    j.mcux = (j.width + 8 * j.hmax - 1) / (8 * j.hmax);
-    j.mcuy = (j.height + 8 * j.vmax - 1) / (8 * j.vmax);
+    const int unit = j.lossless ? 1 : 8;  // a lossless data unit is one sample
+    j.mcux = (j.width + unit * j.hmax - 1) / (unit * j.hmax);
+    j.mcuy = (j.height + unit * j.vmax - 1) / (unit * j.vmax);
     for (int c = 0; c < j.ncomp; c++) {
         Component& cp = j.comp[c];
         if (j.hmax % cp.h || j.vmax % cp.v) fail("fractional sampling ratios are not implemented (as in libjpeg)");
         cp.width = (j.width * cp.h + j.hmax - 1) / j.hmax;
         cp.height = (j.height * cp.v + j.vmax - 1) / j.vmax;
-        cp.wib = (cp.width + 7) / 8;
-        cp.hib = (cp.height + 7) / 8;
+        cp.wib = (cp.width + unit - 1) / unit;
+        cp.hib = (cp.height + unit - 1) / unit;
         cp.bw = j.mcux * cp.h;
         cp.bh = j.mcuy * cp.v;
-        cp.coef.assign(static_cast<size_t>(cp.bw) * cp.bh * 64, 0);
+        if (j.lossless) {
+            cp.samp.assign(static_cast<size_t>(cp.bw) * cp.bh, 0);
+        } else {
+            cp.coef.assign(static_cast<size_t>(cp.bw) * cp.bh * 64, 0);
+        }
         for (int k = 0; k < 64; k++) j.coef_bits[c][k] = j.prev_coef_bits[c][k] = -1;
     }
     j.have_frame = true;
@@ -813,6 +836,24 @@ Scan parse_sos(Jpeg& j, const std::vector<uint8_t>& seg) {
     s.Al = seg[3 + 2 * s.ns] & 15;
     j.input_scan_number++;
     j.next_restart_num = 0;
+    if (j.lossless) {  // jdlossls.c start_input_pass, jdlhuff.c start_pass_lhuff_decoder
+        if (s.Ss < 1 || s.Ss > 7 || s.Se != 0 || s.Ah != 0 || s.Al >= j.precision) {
+            fail("lossless JPEG (SOF3) with predictor " + std::to_string(s.Ss) + ", Se " + std::to_string(s.Se) +
+                 ", Ah " + std::to_string(s.Ah) + ", Al " + std::to_string(s.Al) + ": bad scan parameters");
+        }
+        int mcus_per_row = s.ns == 1 ? s.c[0]->width : j.mcux;
+        if (j.restart_interval % mcus_per_row) fail("lossless JPEG (SOF3): restart interval is not whole MCU rows");
+        for (int i = 0; i < s.ns; i++) {
+            if (s.c[i]->dc_tbl > 3 || !j.dc[s.c[i]->dc_tbl].defined) fail("SOS uses an undefined Huffman table");
+            if (j.dc[s.c[i]->dc_tbl].max_symbol > 16) fail("bad Huffman table (lossless symbol above 16)");
+        }
+        if (s.ns > 1) {
+            int units = 0;
+            for (int i = 0; i < s.ns; i++) units += s.c[i]->h * s.c[i]->v;
+            if (units > 10) fail("too many blocks in an MCU");
+        }
+        return s;
+    }
     if (j.progressive) {  // start_pass_phuff_decoder / jdarith.c start_pass
         bool bad = false;
         if (s.Ss == 0) {
@@ -895,6 +936,147 @@ void run_scan(Jpeg& j, const Scan& s) {
     }
 }
 
+// jdpred.c's undifferencing of one row after its first sample: predictor
+// 1-7 from the row's left neighbour Ra, the one above Rb and above-left Rc,
+// each sum taken modulo 2^16 (the predictor's loop picked once per row).
+template <int P>
+void undifference_row(const int32_t* df, const uint16_t* pv, uint16_t* cur, int W) {
+    int Ra = cur[0], Rb = pv[0], Rc;
+    for (int x = 1; x < W; x++) {
+        Rc = Rb;
+        Rb = pv[x];
+        int p;
+        if (P == 1) p = Ra;
+        if (P == 2) p = Rb;
+        if (P == 3) p = Rc;
+        if (P == 4) p = Ra + Rb - Rc;
+        if (P == 5) p = Ra + ((Rb - Rc) >> 1);
+        if (P == 6) p = Rb + ((Ra - Rc) >> 1);
+        if (P == 7) p = (Ra + Rb) >> 1;
+        Ra = (df[x] + p) & 0xFFFF;
+        cur[x] = static_cast<uint16_t>(Ra);
+    }
+}
+
+void undifference(int pred, const int32_t* df, const uint16_t* pv, uint16_t* cur, int W) {
+    switch (pred) {
+        case 1: undifference_row<1>(df, pv, cur, W); break;
+        case 2: undifference_row<2>(df, pv, cur, W); break;
+        case 3: undifference_row<3>(df, pv, cur, W); break;
+        case 4: undifference_row<4>(df, pv, cur, W); break;
+        case 5: undifference_row<5>(df, pv, cur, W); break;
+        case 6: undifference_row<6>(df, pv, cur, W); break;
+        default: undifference_row<7>(df, pv, cur, W); break;
+    }
+}
+
+// One lossless scan (jddiffct.c decompress_data), an iMCU row at a time:
+// its MCU rows' sample differences (jdlhuff.c decode_mcus), then each
+// component row undifferenced against the one above (jdpred.c) and scaled
+// by << Al into the component's samples. A restart (whole MCU rows) and the
+// scan's start make the next undifferenced row of every component a first
+// row, predicted from the left. Once the data has run out (a zero bit past
+// the end was consumed), each later MCU row's differences are zero and the
+// predictors are reset, so the rest of the scan is 1 << (P - 1). Both resets
+// take effect before the iMCU row is undifferenced, as in libjpeg-turbo.
+void run_lossless_scan(Jpeg& j, const Scan& s) {
+    HuffDecoder d(j, s);
+    const bool single = s.ns == 1;
+    const int cols = single ? s.c[0]->width : j.mcux;
+    const int restart_rows = j.restart_interval ? j.restart_interval / cols : 0;
+    struct Unit {
+        Component* cp;
+        int uh, uv, rowlen;
+        std::vector<int32_t> diff;
+        std::vector<uint16_t> prev;
+        bool first = true;
+    };
+    std::vector<Unit> units(static_cast<size_t>(s.ns));
+    int rows_per_imcu = 1;
+    for (int i = 0; i < s.ns; i++) {
+        Unit& u = units[static_cast<size_t>(i)];
+        u.cp = s.c[i];
+        u.uh = single ? 1 : u.cp->h;
+        u.uv = u.cp->v;
+        u.rowlen = cols * u.uh;
+        u.diff.assign(static_cast<size_t>(u.rowlen) * u.uv, 0);
+        u.prev.assign(static_cast<size_t>(u.cp->width), 0);
+    }
+    if (single) rows_per_imcu = s.c[0]->v;  // MCU rows (one sample row each) per iMCU row
+    const int initial = 1 << (j.precision - s.Al - 1);
+    const int pred = s.Ss, Al = s.Al;
+    int rows_to_go = restart_rows;
+    std::vector<uint16_t> cur;
+    for (int iy = 0; iy < j.mcuy; iy++) {
+        const bool last = iy == j.mcuy - 1;
+        int mcu_rows = single ? rows_per_imcu : 1;
+        if (single && last) mcu_rows = s.c[0]->height - iy * rows_per_imcu;
+        for (int yo = 0; yo < mcu_rows; yo++) {
+            if (restart_rows) {
+                if (rows_to_go == 0) {  // jdlhuff.c process_restart, jdpred.c predict_process_restart
+                    d.buf = 0;
+                    d.count = d.real = 0;
+                    read_restart_marker(j);
+                    if (!j.unread_marker) d.insufficient = false;
+                    for (Unit& u : units) u.first = true;
+                    rows_to_go = restart_rows;
+                }
+            }
+            if (d.insufficient) {  // "leave the MCU row zero, reset the undifferencer"
+                for (Unit& u : units) {
+                    const size_t lo = single ? static_cast<size_t>(yo) * u.rowlen : 0;
+                    std::fill(u.diff.data() + lo, single ? u.diff.data() + lo + u.rowlen : u.diff.data() + u.diff.size(), 0);
+                }
+                for (Unit& u : units) u.first = true;
+            } else {
+                for (int mx = 0; mx < cols; mx++) {
+                    for (Unit& u : units) {
+                        const HuffTable& t = j.dc[u.cp->dc_tbl];
+                        const int ny = single ? 1 : u.uv;
+                        for (int yy = 0; yy < ny; yy++) {
+                            for (int xx = 0; xx < u.uh; xx++) {
+                                int v = d.decode(t);
+                                if (v == 16) {
+                                    v = 32768;
+                                } else if (v) {
+                                    v = huff_extend(d.get_bits(v), v);
+                                }
+                                u.diff[static_cast<size_t>(single ? yo : yy) * u.rowlen + mx * u.uh + xx] = v;
+                            }
+                        }
+                    }
+                }
+            }
+            if (restart_rows) rows_to_go--;
+        }
+        for (Unit& u : units) {
+            Component& cp = *u.cp;
+            const int W = cp.width;
+            cur.resize(static_cast<size_t>(W));
+            for (int yy = 0; yy < u.uv; yy++) {
+                const int r = iy * u.uv + yy;
+                if (r >= cp.height) break;
+                const int32_t* df = &u.diff[static_cast<size_t>(yy) * u.rowlen];
+                const uint16_t* pv = u.prev.data();
+                int Ra;
+                if (u.first) {  // jpeg_undifference_first_row: the left neighbour
+                    Ra = (df[0] + initial) & 0xFFFF;
+                    cur[0] = static_cast<uint16_t>(Ra);
+                    for (int x = 1; x < W; x++) cur[static_cast<size_t>(x)] = static_cast<uint16_t>(Ra = (df[x] + Ra) & 0xFFFF);
+                    u.first = false;
+                } else {
+                    cur[0] = static_cast<uint16_t>((df[0] + pv[0]) & 0xFFFF);
+                    undifference(pred, df, pv, cur.data(), W);
+                }
+                uint8_t* o = &cp.samp[static_cast<size_t>(r) * cp.bw];
+                for (int x = 0; x < W; x++) o[x] = static_cast<uint8_t>(cur[static_cast<size_t>(x)] << Al);
+                u.prev.swap(cur);
+            }
+        }
+    }
+    for (int i = 0; i < s.ns; i++) s.c[i]->scanned = true;
+}
+
 std::vector<uint8_t> read_segment(Jpeg& j) {
     int hi = j.src.byte();
     int lo = j.src.byte();
@@ -945,7 +1127,9 @@ void parse(Jpeg& j, bool headers_only) {
                 parse_frame(j, seg, marker);
                 break;
             case 0xC3:
-                fail("lossless JPEG (SOF3) is not supported");
+                if (j.have_frame) fail("more than one SOF marker");
+                parse_frame(j, seg, marker);
+                break;
             case 0xCB:
                 fail("lossless arithmetic-coded JPEG (SOF11) is not supported");
             case 0xC5:
@@ -1010,7 +1194,9 @@ void parse(Jpeg& j, bool headers_only) {
             case 0xDA: {  // SOS
                 Scan s = parse_sos(j, seg);
                 if (headers_only) return;
-                if (j.arith) {
+                if (j.lossless) {
+                    run_lossless_scan(j, s);
+                } else if (j.arith) {
                     run_scan<ArithDecoder>(j, s);
                 } else {
                     run_scan<HuffDecoder>(j, s);
@@ -1382,7 +1568,13 @@ void idct_smoothed(const Jpeg& j, Component& cp, const int* cur_bits, const int*
 // The decoded image in cv2's colour form: channels 3 gives RGB (the order
 // reversed from what cv2 returns), channels 1 the gray plane of a
 // 1-component file (cv2's IMREAD_UNCHANGED).
+void render_lossless(Jpeg& j, uint8_t* out, int channels);
+
 void render(Jpeg& j, uint8_t* out, int channels) {
+    if (j.lossless) {
+        render_lossless(j, out, channels);
+        return;
+    }
     const int W = j.width, H = j.height;
     int latch[4][10], prev_latch[4][10];
     const bool smooth = smoothing_ok(j, latch, prev_latch);
@@ -1458,6 +1650,61 @@ void render(Jpeg& j, uint8_t* out, int channels) {
         out[3 * i] = clamp255(y + t.cr_r[cr]);
         out[3 * i + 1] = clamp255(y + ((t.cb_g[cb] + t.cr_g[cr]) >> 16));
         out[3 * i + 2] = clamp255(y + t.cb_b[cb]);
+    }
+}
+
+// A lossless image in cv2's form. libjpeg-turbo upsamples it by replication
+// (fancy upsampling needs DCT blocks) and converts colour only where the
+// conversion is lossless: a 3-component file is RGB unless a JFIF or an
+// Adobe marker says YCbCr (then refused; component IDs are not read), a
+// 4-component one CMYK unless Adobe says YCCK (refused), and a gray file
+// gives gray only (cv2's IMREAD_COLOR asks for RGB and is refused).
+void render_lossless(Jpeg& j, uint8_t* out, int channels) {
+    const int W = j.width, H = j.height;
+    for (int c = 0; c < j.ncomp; c++) {  // jddiffct.c's whole-image buffer is not pre-zeroed
+        if (!j.comp[c].scanned) fail("lossless JPEG ends before every component has a scan");
+    }
+    if (j.ncomp == 1 && channels != 1) fail("a gray lossless JPEG has no conversion to colour in libjpeg-turbo");
+    if (j.ncomp == 3 && (j.saw_jfif || (j.saw_adobe && j.adobe_transform != 0))) {
+        fail("a YCbCr lossless JPEG has no colour conversion in libjpeg-turbo");
+    }
+    if (j.ncomp == 4 && j.saw_adobe && j.adobe_transform != 0) {
+        fail("a YCCK lossless JPEG has no colour conversion in libjpeg-turbo");
+    }
+    // each component replicated to the image size, one row at a time
+    const int nc = j.ncomp;
+    std::vector<std::vector<uint8_t>> row(static_cast<size_t>(nc), std::vector<uint8_t>(static_cast<size_t>(W)));
+    const uint8_t* p[4] = {};
+    for (int y = 0; y < H; y++) {
+        for (int c = 0; c < nc; c++) {
+            const Component& cp = j.comp[c];
+            const int rx = j.hmax / cp.h, ry = j.vmax / cp.v;
+            const uint8_t* in = &cp.samp[static_cast<size_t>(y / ry) * cp.bw];
+            if (rx == 1) {
+                p[c] = in;
+            } else {
+                uint8_t* r = row[static_cast<size_t>(c)].data();
+                for (int x = 0; x < W; x++) r[x] = in[x / rx];
+                p[c] = r;
+            }
+        }
+        uint8_t* o = out + static_cast<size_t>(y) * W * (nc == 1 ? 1 : 3);
+        if (nc == 1) {
+            std::memcpy(o, p[0], static_cast<size_t>(W));
+        } else if (nc == 3) {
+            for (int x = 0; x < W; x++) {
+                o[3 * x] = p[0][x];
+                o[3 * x + 1] = p[1][x];
+                o[3 * x + 2] = p[2][x];
+            }
+        } else {  // CMYK, then OpenCV's icvCvt_CMYK2BGR_8u_C4C3R
+            for (int x = 0; x < W; x++) {
+                int k = p[3][x];
+                o[3 * x] = static_cast<uint8_t>(k - (((255 - p[0][x]) * k) >> 8));
+                o[3 * x + 1] = static_cast<uint8_t>(k - (((255 - p[1][x]) * k) >> 8));
+                o[3 * x + 2] = static_cast<uint8_t>(k - (((255 - p[2][x]) * k) >> 8));
+            }
+        }
     }
 }
 

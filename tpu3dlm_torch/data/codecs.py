@@ -2,24 +2,29 @@
 
 The reference decodes frames with ``cv2.imread`` / ``cv2.imdecode`` and
 resizes them with ``cv2.resize``. The card host has no cv2, so the port
-carries its own, held to cv2 5.0's output (libjpeg-turbo 3.1, libpng 1.6)
-byte for byte:
+carries its own, held to cv2 5.0's output (libjpeg-turbo 3.1, libpng 1.6,
+libtiff 4.7 and cv2's own decoders) byte for byte:
 
 - ``read_image`` / ``decode_image``: any frame → (H, W, 3) RGB uint8,
   ``cvtColor(imread(p, IMREAD_COLOR), COLOR_BGR2RGB)`` (``imdecode`` for
   bytes), the format told apart by its signature as cv2 does, whatever the
   file's extension; ``read_unchanged`` / ``decode_unchanged``: the same
-  under IMREAD_UNCHANGED (the depth path). Other containers cv2 reads
-  (WebP, TIFF, JPEG 2000, BMP, GIF, PNM and the rest) raise ``ValueError``
-  naming the format and the file.
+  under IMREAD_UNCHANGED (the depth path), in cv2's layout and dtype. JPEG
+  and PNG are decoded here; TIFF, BMP, PNM/PAM/PFM, Sun raster, Radiance
+  HDR and GIF in ``data/containers.py``. WebP, JPEG 2000 and AVIF raise
+  ``ValueError`` naming the format as not yet ported, OpenEXR (cv2 here is
+  built without it) and unknown data as undecodable. Where cv2's
+  ``imread`` and ``imdecode`` differ, so do the file and bytes forms.
 - ``decode_jpeg`` / ``read_jpeg``: JPEG → RGB as IMREAD_COLOR gives it:
-  sequential or progressive, Huffman or arithmetic coded, 1, 3 or 4
-  components (YCbCr, RGB, gray, YCCK, Adobe CMYK), sampling factors 1-4
-  with integral ratios, restart markers, block smoothing of incomplete
-  progressions, EXIF orientation (``csrc/host/codecs.cpp``); under
-  IMREAD_UNCHANGED through ``*_unchanged``. The bytes form fails on
+  sequential, progressive or lossless (SOF3), Huffman or arithmetic coded,
+  1, 3 or 4 components (YCbCr, RGB, gray, YCCK, Adobe CMYK), sampling
+  factors 1-4 with integral ratios, restart markers, block smoothing of
+  incomplete progressions, EXIF orientation (``csrc/host/codecs.cpp``);
+  under IMREAD_UNCHANGED through ``*_unchanged``. The bytes form fails on
   data cut short, as ``imdecode`` does; the file form pads it, as
-  ``imread`` does. Lossless, hierarchical and 12-bit JPEG raise.
+  ``imread`` does. What libjpeg-turbo or cv2 refuse raises: 12- and 16-bit
+  precision, hierarchical and arithmetic lossless frames, YCbCr or YCCK
+  lossless files and a gray lossless file asked for colour.
 - ``decode_png`` / ``read_png``: PNG of every colour type and bit depth
   (gray 1-16, RGB 8/16, palette 1-8, gray+alpha and RGBA 8/16), tRNS, Adam7
   → the array ``imread(p, IMREAD_UNCHANGED)`` gives (BGR/BGRA order);
@@ -34,7 +39,7 @@ byte for byte:
 - ``resize_linear``: ``cv2.resize(..., INTER_LINEAR)`` on uint8 (fixed-point
   weights, OpenCV's vector rounding); ``resize_nearest``: ``INTER_NEAREST``.
 
-Decoding errors raise ``ValueError`` naming the file. The C++ library is
+Decoding errors raise ``ValueError`` naming the file. The C++ libraries are
 built at first use (``kernels/build.py``); without a C++ compiler the
 codecs raise — there is no Python fallback.
 """
@@ -47,6 +52,7 @@ import zlib
 
 import numpy as np
 
+from tpu3dlm_torch.data import containers
 from tpu3dlm_torch.kernels.build import load_host_library
 
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
@@ -76,17 +82,6 @@ def _read(path: str) -> bytes:
         return f.read()
 
 
-def _orient(img: np.ndarray, orientation: int) -> np.ndarray:
-    """OpenCV's ApplyExifOrientation: EXIF orientation 2-8 as flips and a
-    transpose (1 and anything else leave the image as it is)."""
-    if orientation in (5, 6, 7, 8):
-        img = img.swapaxes(0, 1)
-    flip = {2: (1,), 3: (0, 1), 4: (0,), 6: (1,), 7: (0, 1), 8: (0,)}.get(orientation, ())
-    if flip:
-        img = np.flip(img, flip)
-    return np.ascontiguousarray(img)
-
-
 # ---------------------------------------------------------------------------
 # JPEG
 # ---------------------------------------------------------------------------
@@ -107,7 +102,7 @@ def _jpeg(data: bytes, name: str, file: bool, unchanged: bool) -> np.ndarray:
         raise ValueError(f"undecodable JPEG {name}: {err.value.decode()}")
     if unchanged:
         return out if gray else np.ascontiguousarray(out[..., ::-1])
-    return _orient(out, orientation)
+    return containers.orient(out, orientation)
 
 
 def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
@@ -208,7 +203,7 @@ def _png(data: bytes, name: str, color: bool) -> np.ndarray:
         exif = c.get("eXIf")
         if exif:
             e = np.frombuffer(exif, np.uint8)
-            img = _orient(img, _lib().tl_exif_orientation(e.ctypes.data, e.size))
+            img = containers.orient(img, _lib().tl_exif_orientation(e.ctypes.data, e.size))
     return img
 
 
@@ -292,66 +287,78 @@ def write_png(path: str, img: np.ndarray) -> None:
 # Any frame, told apart by its signature as cv2 does, and the resizes
 # ---------------------------------------------------------------------------
 
-# containers that cv2 reads and the port does not: (signature test, name)
-_OTHER_FORMATS = (
+# containers cv2 decodes that the port does not yet
+_NOT_PORTED = (
     (lambda d: d[:4] == b"RIFF" and d[8:12] == b"WEBP", "WebP"),
-    (lambda d: d[:4] in (b"II*\x00", b"MM\x00*"), "TIFF"),
     (lambda d: d[:12] == b"\x00\x00\x00\x0cjP  \r\n\x87\n" or d[:4] == b"\xffO\xffQ", "JPEG 2000"),
-    (lambda d: d[:2] == b"BM", "BMP"),
-    (lambda d: d[:6] in (b"GIF87a", b"GIF89a"), "GIF"),
     (lambda d: d[4:12] in (b"ftypavif", b"ftypavis"), "AVIF"),
-    (lambda d: d[:4] == b"v/1\x01", "OpenEXR"),
-    (lambda d: d[:10] == b"#?RADIANCE" or d[:6] == b"#?RGBE", "Radiance HDR"),
-    (lambda d: d[:4] == b"\x59\xa6\x6a\x95", "Sun raster"),
-    (lambda d: d[:2] in (b"PF", b"Pf"), "PFM"),
-    (lambda d: len(d) > 1 and d[:1] == b"P" and d[1:2] in b"1234567", "PNM"),
 )
 
 
 def _format(data: bytes, name: str) -> str:
-    """``"jpeg"`` or ``"png"`` from the leading bytes; any other format
-    raises ``ValueError`` naming it and ``name``."""
+    """``"jpeg"``, ``"png"`` or a container of ``containers.DECODERS``,
+    from the leading bytes as cv2 tells them apart; ``ValueError`` naming
+    ``name`` for a format the port does not decode yet, for OpenEXR (cv2 is
+    built without it and returns None) and for no known signature."""
     if data[:2] == b"\xff\xd8":
         return "jpeg"
     if data[:8] == _PNG_SIG:
         return "png"
-    for test, fmt in _OTHER_FORMATS:
+    fmt = containers.sniff(data)
+    if fmt:
+        return fmt
+    for test, fmt in _NOT_PORTED:
         if test(data):
-            raise ValueError(f"unsupported image {name}: {fmt} (the port reads JPEG and PNG)")
-    raise ValueError(f"undecodable image {name}: unknown format (no JPEG or PNG signature)")
+            raise ValueError(f"unsupported image {name}: {fmt} is not yet ported (cv2 decodes it)")
+    if data[:4] == b"v/1\x01":
+        raise ValueError(f"undecodable image {name}: OpenEXR (cv2 is built without it and returns None)")
+    raise ValueError(f"undecodable image {name}: unknown format (no signature cv2 reads)")
+
+
+def _color(data: bytes, name: str, file: bool) -> np.ndarray:
+    fmt = _format(data, name)
+    if fmt == "jpeg":
+        return _jpeg(data, name, file, False)
+    if fmt == "png":
+        return _png(data, name, True)
+    bgr = containers.decode(fmt, data, name, True, file)
+    if bgr.ndim != 3:  # a gray PFM: cv2.cvtColor(BGR2RGB) refuses one channel
+        raise ValueError(f"undecodable image {name}: {fmt} decodes to one channel under IMREAD_COLOR")
+    return np.ascontiguousarray(bgr[..., ::-1])
+
+
+def _unchanged(data: bytes, name: str, file: bool) -> np.ndarray:
+    fmt = _format(data, name)
+    if fmt == "jpeg":
+        return _jpeg(data, name, file, True)
+    if fmt == "png":
+        return _png(data, name, False)
+    return containers.decode(fmt, data, name, False, file)
 
 
 def decode_image(data: bytes, name: str = "<bytes>") -> np.ndarray:
     """Image bytes → (H, W, 3) RGB uint8: ``cvtColor(imdecode(b,
-    IMREAD_COLOR), COLOR_BGR2RGB)`` for a JPEG or PNG, told apart by
-    signature."""
-    if _format(data, name) == "jpeg":
-        return _jpeg(data, name, False, False)
-    return _png(data, name, True)
+    IMREAD_COLOR), COLOR_BGR2RGB)`` of any format the port reads, told apart
+    by signature."""
+    return _color(data, name, False)
 
 
 def read_image(path: str) -> np.ndarray:
     """``decode_image`` of a file as ``cv2.imread(path, IMREAD_COLOR)``
     reads it (a cut JPEG file decodes padded), whatever its extension."""
-    data = _read(path)
-    if _format(data, path) == "jpeg":
-        return _jpeg(data, path, True, False)
-    return _png(data, path, True)
+    return _color(_read(path), path, True)
 
 
 def decode_unchanged(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """``cv2.imdecode(b, IMREAD_UNCHANGED)`` of a JPEG or PNG."""
-    if _format(data, name) == "jpeg":
-        return _jpeg(data, name, False, True)
-    return _png(data, name, False)
+    """``cv2.imdecode(b, IMREAD_UNCHANGED)``: cv2's layout and dtype (BGR or
+    BGRA order; uint8, uint16 or float32)."""
+    return _unchanged(data, name, False)
 
 
 def read_unchanged(path: str) -> np.ndarray:
-    """``cv2.imread(path, IMREAD_UNCHANGED)`` of a JPEG or PNG file."""
-    data = _read(path)
-    if _format(data, path) == "jpeg":
-        return _jpeg(data, path, True, True)
-    return _png(data, path, False)
+    """``cv2.imread(path, IMREAD_UNCHANGED)`` of a file, whatever its
+    extension."""
+    return _unchanged(_read(path), path, True)
 
 
 def resize_linear(img: np.ndarray, size_wh: tuple[int, int]) -> np.ndarray:

@@ -109,7 +109,7 @@ def _pack_path(image_dir: str, img_size: int) -> str:
 
 
 def load_depth_image(path: str, depth_height: int, depth_width: int) -> np.ndarray:
-    """Decode an RTAB-Map depth PNG → (depth_height, depth_width) float32 mm.
+    """Decode an RTAB-Map depth frame → (depth_height, depth_width) float32 mm.
 
     - CV_8UC4: byte-level reinterpret as float32 metres, NaN/±inf → 0, then
       ×1000; reshaped to the calibration's (depth_height, depth_width).
@@ -117,7 +117,9 @@ def load_depth_image(path: str, depth_height: int, depth_width: int) -> np.ndarr
       stored resolution differs.
 
     The file is read as ``cv2.imread(path, IMREAD_UNCHANGED)`` reads it,
-    whatever its format: a JPEG gets the layout error. A missing file
+    whatever its format (a 16-bit TIFF or PGM is 16UC1; a 4-channel 8-bit
+    TIFF, BMP or PNG is CV_8UC4; a JPEG or float frame gets the layout
+    error). A missing file
     raises FileNotFoundError; one that does not decode raises ValueError
     naming the path.
     """
@@ -145,9 +147,9 @@ def load_depth_image(path: str, depth_height: int, depth_width: int) -> np.ndarr
 
 def load_rgb_image(path: str, size_hw: tuple[int, int] | None = None) -> np.ndarray:
     """Load a frame as (H, W, 3) RGB uint8, optionally resized to (h, w):
-    ``cv2.imread(path, IMREAD_COLOR)``, a JPEG or PNG told apart by its
-    signature whatever the extension, EXIF orientation applied, a cut JPEG
-    file padded. A missing file raises FileNotFoundError; one that does not
+    ``cv2.imread(path, IMREAD_COLOR)`` of any format the port decodes,
+    told apart by its signature whatever the extension, EXIF (or TIFF)
+    orientation applied, a cut JPEG file padded. A missing file raises FileNotFoundError; one that does not
     decode raises ValueError naming the path."""
     rgb = codecs.read_image(path)
     if size_hw is not None and rgb.shape[:2] != tuple(size_hw):

@@ -8,10 +8,13 @@ RGB blobs copied as ``<ordinal>.jpg``. The reference's rules hold:
 ordinals number the distinct node ids 1..K (duplicate-id JOIN rows
 collapse to the first), a node whose depth blob is NULL or undecodable is
 skipped and its ordinal left as a gap, so every later frame keeps its own
-poses.txt row. Blobs are decoded as ``cv2.imdecode`` decodes them, a JPEG
-or PNG told apart by its signature: depth under IMREAD_UNCHANGED, RGB under
-IMREAD_COLOR (any JPEG mode, PNG, EXIF orientation applied); a blob in
-another format, or cut short, counts as undecodable.
+poses.txt row. Blobs are decoded as ``cv2.imdecode`` decodes them, the
+format told apart by its signature (JPEG, PNG, TIFF, BMP, PNM/PAM/PFM, Sun
+raster, Radiance HDR, GIF; ``data/codecs.py``): depth under
+IMREAD_UNCHANGED, RGB under IMREAD_COLOR; a blob cv2 would return None for,
+or one in a format the port does not decode yet (WebP, JPEG 2000, AVIF),
+counts as undecodable. A depth array PNG cannot hold (float, signed or
+32-bit samples) is written as ``cv2.imwrite`` writes it: cast to 8 bits.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import sqlite3
 
 import numpy as np
 
-from tpu3dlm_torch.data import codecs
+from tpu3dlm_torch.data import codecs, containers
 
 _QUERY = (
     "SELECT Data.id, Data.image, Data.depth FROM Data JOIN Node "
@@ -51,6 +54,17 @@ def _iter_unique_rows(cursor):
         )
 
 
+def png_writable(img: np.ndarray) -> np.ndarray:
+    """``img`` as ``cv2.imwrite`` hands it to the PNG encoder: uint8 and
+    uint16 as they are, any other depth cast to uint8 (saturating; floats
+    rounded half to even, NaN and values past int32 to 0)."""
+    if img.dtype in (np.uint8, np.uint16):
+        return img
+    if img.dtype.kind == "f":
+        return containers.saturate_u8(img)
+    return np.clip(img.astype(np.int64), 0, 255).astype(np.uint8)
+
+
 def _decode_depth_blob(blob):
     """Decoded depth image (cv2 layout), or None when NULL or undecodable."""
     if blob is None:
@@ -74,7 +88,8 @@ class ImageExtractor:
         self.conn = sqlite3.connect(db_path)
 
     def fetch_data(self) -> int:
-        """Write depth PNGs (and RGB JPEGs when image_dir given); returns the
+        """Write depth PNGs (and the RGB blobs as ``<n>.jpg``, whatever their
+        format, when image_dir given); returns the
         frame count. Rows with a NULL or undecodable depth blob are skipped
         with a warning; filenames keep the 1-based node ordinal
         (``self.node_ordinals``). The cursor streams row by row."""
@@ -87,7 +102,7 @@ class ImageExtractor:
             if depth is None:
                 skipped += 1
                 continue
-            codecs.write_png(os.path.join(self.depth_dir, f"{ordinal}.png"), depth)
+            codecs.write_png(os.path.join(self.depth_dir, f"{ordinal}.png"), png_writable(depth))
             if self.image_dir and image_blob is not None:
                 with open(os.path.join(self.image_dir, f"{ordinal}.jpg"), "wb") as f:
                     f.write(image_blob)

@@ -8,7 +8,8 @@ into its own shared library, loaded with ctypes:
 
 Host sources, ``csrc/host/<name>.cpp``, are compiled the same way by the
 system C++ compiler, so they build on a host without CUDA: ``codecs.cpp``
-(the image codecs), ``dbscan.cpp`` (the map stage's DBSCAN) and
+(JPEG, PNG and the resizes), ``containers.cpp`` (the other image
+containers' bit-level decoding), ``dbscan.cpp`` (the map stage's DBSCAN) and
 ``meshing.cpp`` (marching tetrahedra, the Poisson leakage cull and the
 trilinear splat); the last two are copies of the JAX package's
 ``native/src/dbscan.cpp`` and ``poisson.cpp``:
