@@ -124,16 +124,19 @@ JSON line; any failure raises and the script exits non-zero without a result:
     transcodes, PNG layouts with Adam7; ``codecs/containers``: lossless
     JPEG, PNM/PAM/PFM, BMP (RLE too), TIFF (LZW, Deflate, PackBits, tiles,
     planes, predictors, palettes, alpha), Sun raster, Radiance HDR, GIF and
-    the files cv2 refuses) decoded on this host under IMREAD_COLOR and
-    IMREAD_UNCHANGED: sha256, shape and dtype equal to cv2's
-    (``digests.json``), a refusal where cv2 gave None. Then
-    ``pipeline_full_width``'s capture with its maintenance image blobs
+    the files cv2 refuses; ``codecs/webp``: WebP lossy and lossless under
+    libwebp's encoder settings, alpha, EXIF, animations, refusals) decoded on
+    this host under IMREAD_COLOR and IMREAD_UNCHANGED: sha256, shape and
+    dtype equal to cv2's (``digests.json``), a refusal where cv2 gave None.
+    Then ``pipeline_full_width``'s capture with its maintenance image blobs
     replaced by progressive, arithmetic and progressive-arithmetic
     transcodes, RGB PNGs, baseline JPEGs with an EXIF orientation-1 APP1,
-    and lossless JPEG, Deflate TIFF, BMP and PPM written by this script,
-    then with its depth blobs replaced by 4-channel TIFF and BMP, each run
-    as the maintenance scan through the CLI on the baseline's gold map
-    beside the baseline itself: every report identical to the baseline's,
+    lossless JPEG, Deflate TIFF, BMP and PPM written by this script,
+    lossless and quality-90 WebP written by cv2 (committed) and PNGs of the
+    lossy WebP's pixels, then with its depth blobs replaced by 4-channel
+    TIFF, BMP and lossless WebP, each run as the maintenance scan through
+    the CLI on the baseline's gold map beside the baseline itself: every
+    report identical to the baseline's (the lossy WebP's to its PNG twin's),
     B1's and B2's launches equal; host decode ms per frame of each image
     and depth variant, and ``load_scan`` frames/s with 8 workers on the
     progressive one.
@@ -430,6 +433,7 @@ def phase_kernel_b1(dev, mem_rate) -> dict:
     inputs = {}
     for dtype, (B, N, h, d), tol in [
         (torch.bfloat16, (384, 197, 12, 64), 1e-2),
+        (torch.bfloat16, (256, 197, 12, 64), 1e-2),  # the staged and streamed routes' batch
         (torch.bfloat16, (5, 9, 2, 64), 1e-2),
         (torch.bfloat16, (3, 257, 2, 64), 1e-2),  # past the TMA kernel's 256 tokens
         (torch.float32, (5, 33, 3, 16), 1e-5),
@@ -469,7 +473,7 @@ def phase_kernel_b1(dev, mem_rate) -> dict:
 
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 must be off for the f32 yardstick")
     result = {"phase": "kernel_b1", "checks": checks, **timed(inputs[torch.bfloat16, 384]),
-              "f32_path": timed(inputs[torch.float32, 64])}
+              "b256": timed(inputs[torch.bfloat16, 256]), "f32_path": timed(inputs[torch.float32, 64])}
     emit(result)
     return result
 
@@ -2261,8 +2265,12 @@ def phase_pipeline_full_width(dev, tiled_root: str, fused: bool = True) -> dict:
 
 
 CODEC_VARIANTS = ("progressive", "arithmetic", "arithmetic_progressive", "png", "exif_orientation_1",
-                  "lossless_jpeg", "tiff_deflate", "bmp", "ppm")
-DEPTH_VARIANTS = ("tiff_rgba", "bmp_bgra")
+                  "lossless_jpeg", "tiff_deflate", "bmp", "ppm", "webp_lossless", "webp_lossy", "png_of_webp_lossy")
+DEPTH_VARIANTS = ("tiff_rgba", "bmp_bgra", "webp_bgra")
+# variants whose pixels are not the baseline's: each run's report must equal
+# that of the run named here (the same pixels in another container)
+LOSSY_VARIANTS = {"webp_lossy": "png_of_webp_lossy"}
+WEBP_FIXTURES = FIXTURES / "codecs" / "webp"
 
 # minimal writers of the containers ``codec_full_width`` feeds the CLI: each
 # takes an array in cv2's layout ((H, W, 3) BGR or (H, W, 4) BGRA uint8) and
@@ -2379,14 +2387,22 @@ def codec_variant_blob(variant: str, source_frame: int, baseline: bytes) -> byte
     ``variant``: a coefficient-exact transcode (``tests/fixtures/codecs``,
     made by ``make_fixtures.c``), an RGB PNG of the decoded frame written
     by ``encode_png`` here, the baseline JPEG with an EXIF APP1 holding
-    orientation 1 after its JFIF APP0, or the decoded frame in a container
-    written by this script (lossless JPEG, Deflate TIFF, BMP, PPM). Every
-    one decodes to the baseline's pixels."""
+    orientation 1 after its JFIF APP0, the decoded frame in a container
+    written by this script (lossless JPEG, Deflate TIFF, BMP, PPM), or WebP
+    as cv2 wrote it (``tests/fixtures/codecs/webp``: lossless, and lossy at
+    quality 90, with a PNG of the lossy frame's decode written here). All but
+    the lossy WebP and its PNG decode to the baseline's pixels."""
     from tpu3dlm_torch.data import codecs
 
     suffix = {"progressive": "prog", "arithmetic": "arith", "arithmetic_progressive": "arith_prog"}
     if variant in suffix:
         return (FIXTURES / "codecs" / f"capture_maintenance_{source_frame}_{suffix[variant]}.jpg").read_bytes()
+    webp = {"webp_lossless": "webp_lossless", "webp_lossy": "webp_q90"}
+    if variant in webp:
+        return (WEBP_FIXTURES / f"capture_maintenance_{source_frame}_{webp[variant]}.webp").read_bytes()
+    if variant == "png_of_webp_lossy":
+        lossy = codec_variant_blob("webp_lossy", source_frame, baseline)
+        return codecs.encode_png(codecs.decode_image(lossy)[..., ::-1])
     writers = {"png": codecs.encode_png, "lossless_jpeg": write_lossless_jpeg, "tiff_deflate": write_tiff,
                "bmp": write_bmp, "ppm": write_ppm}
     if variant in writers:
@@ -2398,12 +2414,15 @@ def codec_variant_blob(variant: str, source_frame: int, baseline: bytes) -> byte
     return baseline[:at] + app1 + baseline[at:]
 
 
-def depth_variant_blob(variant: str, baseline: bytes) -> bytes:
+def depth_variant_blob(variant: str, source_frame: int, baseline: bytes) -> bytes:
     """A maintenance depth blob (a CV_8UC4 PNG of float32 metres) as a
-    4-channel TIFF or BMP of the same bytes, which decodes to the same
-    (H, W, 4) array under IMREAD_UNCHANGED."""
+    4-channel TIFF or BMP of the same bytes written here, or as the
+    lossless 4-channel WebP cv2 wrote of it, each of which decodes to the
+    same (H, W, 4) array under IMREAD_UNCHANGED."""
     from tpu3dlm_torch.data import codecs
 
+    if variant == "webp_bgra":
+        return (WEBP_FIXTURES / f"capture_maintenance_{source_frame}_depth.webp").read_bytes()
     bgra = codecs.decode_unchanged(baseline)
     return {"tiff_rgba": write_tiff, "bmp_bgra": write_bmp}[variant](bgra)
 
@@ -2415,10 +2434,11 @@ def phase_codec_full_width(dev, tmp: str, tiled_root: str) -> dict:
     - every committed codec fixture decoded by the port (``tests/fixtures/
       codecs``: JPEG modes and PNG layouts; ``codecs/containers``: lossless
       JPEG, PNM/PAM/PFM, BMP, TIFF, Sun raster, Radiance HDR, GIF, and the
-      files cv2 refuses): sha256, shape and dtype equal to what cv2 gave
-      under IMREAD_COLOR and IMREAD_UNCHANGED where the fixtures were made
-      (``digests.json``), and a ``ValueError`` where cv2 gave None, so this
-      host's compiler builds the same decoders;
+      files cv2 refuses; ``codecs/webp``: lossy and lossless WebP under every
+      encoder setting, alpha, EXIF, animations, refusals): sha256, shape and
+      dtype equal to what cv2 gave under IMREAD_COLOR and IMREAD_UNCHANGED
+      where the fixtures were made (``digests.json``), and a ``ValueError``
+      where cv2 gave None, so this host's compiler builds the same decoders;
     - ``pipeline_full_width``'s capture (128 frames a scan at 640², fused
       route, bf16, YOLOv10-n, seeded BEiT-base): its maintenance data.db
       image blobs replaced by each of ``CODEC_VARIANTS``
@@ -2426,10 +2446,12 @@ def phase_codec_full_width(dev, tmp: str, tiled_root: str) -> dict:
       Deflate TIFF, BMP and PPM written here from the decoded frame; tiled
       frame k takes its source frame's), then its depth blobs (256x192
       CV_8UC4 PNGs) replaced by each of ``DEPTH_VARIANTS`` (4-channel TIFF
-      and BMP of the same bytes), on the baseline's gold map. Each variant
-      and the baseline run as the maintenance scan through the CLI, the
-      counts at 0 before each: every variant's report CSV identical to the
-      baseline's, and B1's and B2's launches equal to its;
+      and BMP of the same bytes, and lossless WebP), on the baseline's gold
+      map. Each variant and the baseline run as the maintenance scan through
+      the CLI, the counts at 0 before each: every variant's report CSV
+      identical to the baseline's, but the lossy WebP's, which is identical
+      to that of a PNG of its decoded pixels (``LOSSY_VARIANTS``), and B1's
+      and B2's launches equal to the baseline's;
     - host decode ms per 640x480 frame of each image variant and per depth
       frame of each depth variant beside the baseline (``decode_image`` /
       ``decode_unchanged`` of the blob, median over the 5 source frames x 5
@@ -2464,15 +2486,20 @@ def phase_codec_full_width(dev, tmp: str, tiled_root: str) -> dict:
             got = {"color": codecs.read_image(path)[..., ::-1], "unchanged": codecs.read_png(path)}
         check(got.keys() == want.keys() and all(digest(got[k]) == want[k] for k in want), name)
     refused = 0
-    for name, want in containers.items():
-        path = str(fixdir / "containers" / name)
-        for key, read in (("color", lambda p: codecs.read_image(p)[..., ::-1]), ("unchanged", codecs.read_unchanged)):
-            try:
-                got = digest(read(path))
-            except ValueError:
-                got = None
-                refused += 1
-            check(got == want[key], (name, key, got, want[key]))
+    webp = json.loads((WEBP_FIXTURES / "digests.json").read_text())
+    webp_refused = 0
+    for sub, table in (("containers", containers), ("webp", webp)):
+        for name, want in table.items():
+            path = str(fixdir / sub / name)
+            for key, read in (("color", lambda p: codecs.read_image(p)[..., ::-1]),
+                              ("unchanged", codecs.read_unchanged)):
+                try:
+                    got = digest(read(path))
+                except ValueError:
+                    got = None
+                    refused += sub == "containers"
+                    webp_refused += sub == "webp"
+                check(got == want[key], (name, key, got, want[key]))
     t_fixtures = time.perf_counter() - t_phase
 
     src_db = os.path.join(tiled_root, "configs", "data", "maintenance", "data.db")
@@ -2485,12 +2512,18 @@ def phase_codec_full_width(dev, tmp: str, tiled_root: str) -> dict:
     t_write = time.perf_counter()
     blobs = {v: {s: codec_variant_blob(v, s, baseline[s]) for s in range(1, n_src + 1)} for v in CODEC_VARIANTS}
     blobs = {"baseline": {s: baseline[s] for s in range(1, n_src + 1)}, **blobs}
-    depth_blobs = {v: {s: depth_variant_blob(v, baseline_depth[s]) for s in range(1, n_src + 1)} for v in DEPTH_VARIANTS}
+    depth_blobs = {v: {s: depth_variant_blob(v, s, baseline_depth[s]) for s in range(1, n_src + 1)}
+                   for v in DEPTH_VARIANTS}
     depth_blobs = {"baseline": {s: baseline_depth[s] for s in range(1, n_src + 1)}, **depth_blobs}
     write_s = time.perf_counter() - t_write
-    for v, by_src in blobs.items():  # every variant decodes to the baseline's arrays
+    lossy = set(LOSSY_VARIANTS) | set(LOSSY_VARIANTS.values())
+    for v, by_src in blobs.items():  # the baseline's arrays, or cv2's decode of the lossy WebP
         for s, b in by_src.items():
-            check(np.array_equal(codecs.decode_image(b), codecs.decode_image(baseline[s])), (v, s))
+            if v in lossy:
+                want = webp[f"capture_maintenance_{s}_webp_q90.webp"]["color"]
+                check(digest(codecs.decode_image(b)[..., ::-1]) == want, (v, s))
+            else:
+                check(np.array_equal(codecs.decode_image(b), codecs.decode_image(baseline[s])), (v, s))
     for v, by_src in depth_blobs.items():
         for s, b in by_src.items():
             check(np.array_equal(codecs.decode_unchanged(b), codecs.decode_unchanged(baseline_depth[s])), (v, s))
@@ -2518,8 +2551,14 @@ def phase_codec_full_width(dev, tmp: str, tiled_root: str) -> dict:
                          "rgb_dir": os.path.join(root, "configs", "data", "maintenance", "rtabmap_extract")}
     base = runs["baseline"]
     check(base["b1"] > 0 and base["b2"] > 0, (base["b1"], base["b2"]))
+    report_held_to = {}
     for variant, r in runs.items():
-        check(r["csv"] == base["csv"], (variant, r["csv"], base["csv"]))
+        if variant in LOSSY_VARIANTS.values():
+            continue  # other pixels: held only as the twin of a lossy run
+        ref = LOSSY_VARIANTS.get(variant, "baseline")
+        check(r["csv"] == runs[ref]["csv"], (variant, ref, r["csv"], runs[ref]["csv"]))
+        report_held_to[variant] = ref
+    for variant, r in runs.items():
         check((r["b1"], r["b2"]) == (base["b1"], base["b2"]), (variant, r["b1"], r["b2"], base["b1"], base["b2"]))
 
     decode_samples: dict = {v: [] for v in blobs}
@@ -2552,9 +2591,12 @@ def phase_codec_full_width(dev, tmp: str, tiled_root: str) -> dict:
         "phase": "codec_full_width", "frames_per_scan": frames,
         "frame_hw": list(codecs.decode_image(baseline[1]).shape[:2]),
         "depth_hw_channels": list(codecs.decode_unchanged(baseline_depth[1]).shape),
-        "fixtures_checked": len(digests) + len(containers), "container_fixtures": len(containers),
-        "container_refusals_checked": refused, "fixtures_s": t_fixtures, "variants_written_s": write_s,
-        "variants": list(runs), "reports_identical": True, "report_rows": base["csv"].count(b"\n") - 1,
+        "fixtures_checked": len(digests) + len(containers) + len(webp), "container_fixtures": len(containers),
+        "container_refusals_checked": refused, "webp_fixtures": len(webp), "webp_refusals_checked": webp_refused,
+        "fixtures_s": t_fixtures, "variants_written_s": write_s,
+        "variants": list(runs), "reports_identical": True, "report_held_to": report_held_to,
+        "lossy_twin_report_equals_baseline": {t: runs[t]["csv"] == base["csv"] for t in LOSSY_VARIANTS.values()},
+        "report_rows": base["csv"].count(b"\n") - 1,
         "b1_launches_by_variant": {v: r["b1"] for v, r in runs.items()},
         "b2_launches_by_variant": {v: r["b2"] for v, r in runs.items()},
         "cli_s_by_variant": {v: r["cli_s"] for v, r in runs.items()},
@@ -5111,6 +5153,7 @@ def main() -> int:
             "launches_on_pipeline": pipe["b1_launches_cli_by_kernel"]["attention_bf16_tma"],
             "launches_on_pipeline_path": "pipeline_full_width: the CLI's gold and maintenance "
                                          "runs (128 frames a scan, BEiT-base bf16)",
+            "at_b256": {k: b1["b256"][k] for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
             "launches_on_codec": codec["b1_launches_by_variant"],
             "launches_on_codec_path": "codec_full_width: one maintenance run through the CLI per image or "
                                       "depth frame format (128 frames, BEiT-base bf16, the baseline's gold map)",

@@ -5,7 +5,10 @@ cv2 decodes (JPEG: ``imread(p, IMREAD_COLOR)``; PNG: ``imread`` with
 the other containers (``make_containers.fixtures()``: lossless JPEG, PNM,
 PAM, PFM, BMP, TIFF, Sun raster, Radiance HDR, GIF, OpenEXR) into
 ``containers/`` with ``containers/digests.json``: ``imread`` under both
-flags, ``null`` where cv2 returns None.
+flags, ``null`` where cv2 returns None. Last the WebP set: the capture's
+maintenance frames written by cv2 (``webp_capture``) beside what
+``make_webp.c`` wrote into ``webp/``, and ``webp/digests.json`` (``imread``
+under both flags, ``null`` for None).
 ``chip_smoke.py`` decodes every fixture with the port on a host without cv2
 and holds it to these digests; ``tests/test_torch_codecs_modes.py`` and
 ``tests/test_torch_codecs_containers.py`` hold the files to cv2. Run from
@@ -51,6 +54,24 @@ def png_fixtures() -> dict:
     }
 
 
+def webp_capture() -> dict:
+    """The committed capture's 5 maintenance frames as cv2 writes WebP: the
+    images lossless (quality 101) and lossy (quality 90), the depth blobs
+    (CV_8UC4) lossless."""
+    import sqlite3
+
+    conn = sqlite3.connect(os.path.join(TESTS, "fixtures", "torch_project", "data", "maintenance", "data.db"))
+    out = {}
+    for i, image, depth in conn.execute("SELECT id, image, depth FROM Data ORDER BY id"):
+        bgr = cv2.imdecode(np.frombuffer(image, np.uint8), cv2.IMREAD_COLOR)
+        bgra = cv2.imdecode(np.frombuffer(depth, np.uint8), cv2.IMREAD_UNCHANGED)
+        for suffix, img, q in (("webp_lossless", bgr, 101), ("webp_q90", bgr, 90), ("depth", bgra, 101)):
+            data = cv2.imencode(".webp", img, [cv2.IMWRITE_WEBP_QUALITY, q])[1].tobytes()
+            out[f"capture_maintenance_{i}_{suffix}.webp"] = data
+    conn.close()
+    return out
+
+
 def main() -> None:
     for name, data in png_fixtures().items():
         with open(os.path.join(HERE, name), "wb") as f:
@@ -76,6 +97,21 @@ def main() -> None:
         out[name] = {}
         for key, flag in (("color", cv2.IMREAD_COLOR), ("unchanged", cv2.IMREAD_UNCHANGED)):
             img = cv2.imread(path, flag)
+            out[name][key] = None if img is None else digest(img)
+    with open(os.path.join(sub, "digests.json"), "w") as f:
+        json.dump(out, f, indent=1, sort_keys=True)
+        f.write("\n")
+    sub = os.path.join(HERE, "webp")
+    for name, data in webp_capture().items():
+        with open(os.path.join(sub, name), "wb") as f:
+            f.write(data)
+    out = {}
+    for name in sorted(os.listdir(sub)):
+        if not name.endswith(".webp"):
+            continue
+        out[name] = {}
+        for key, flag in (("color", cv2.IMREAD_COLOR), ("unchanged", cv2.IMREAD_UNCHANGED)):
+            img = cv2.imread(os.path.join(sub, name), flag)
             out[name][key] = None if img is None else digest(img)
     with open(os.path.join(sub, "digests.json"), "w") as f:
         json.dump(out, f, indent=1, sort_keys=True)
