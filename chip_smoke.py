@@ -125,18 +125,23 @@ JSON line; any failure raises and the script exits non-zero without a result:
     JPEG, PNM/PAM/PFM, BMP (RLE too), TIFF (LZW, Deflate, PackBits, tiles,
     planes, predictors, palettes, alpha), Sun raster, Radiance HDR, GIF and
     the files cv2 refuses; ``codecs/webp``: WebP lossy and lossless under
-    libwebp's encoder settings, alpha, EXIF, animations, refusals) decoded on
-    this host under IMREAD_COLOR and IMREAD_UNCHANGED: sha256, shape and
-    dtype equal to cv2's (``digests.json``), a refusal where cv2 gave None.
+    libwebp's encoder settings, alpha, EXIF, animations, refusals;
+    ``codecs/jpeg2000``: JPEG 2000 from cv2, PIL and OpenJPEG's encoder, 5/3
+    and 9/7, RCT/ICT, orders, tiles, precincts, layers, code-block styles,
+    ROI, SOP/EPH, tile-parts, POC, PPM/PPT, JP2 box and SIZ edits, refusals) decoded on this host under IMREAD_COLOR and
+    IMREAD_UNCHANGED: sha256, shape and dtype equal to cv2's
+    (``digests.json``), a refusal where cv2 gave None.
     Then ``pipeline_full_width``'s capture with its maintenance image blobs
     replaced by progressive, arithmetic and progressive-arithmetic
     transcodes, RGB PNGs, baseline JPEGs with an EXIF orientation-1 APP1,
     lossless JPEG, Deflate TIFF, BMP and PPM written by this script,
     lossless and quality-90 WebP written by cv2 (committed) and PNGs of the
-    lossy WebP's pixels, then with its depth blobs replaced by 4-channel
-    TIFF, BMP and lossless WebP, each run as the maintenance scan through
-    the CLI on the baseline's gold map beside the baseline itself: every
-    report identical to the baseline's (the lossy WebP's to its PNG twin's),
+    lossy WebP's pixels, JPEG 2000 as cv2 writes it and 9/7 at rate 12 as
+    PIL writes it (committed) and PNGs of the latter's pixels, then with its
+    depth blobs replaced by 4-channel TIFF, BMP, lossless WebP and cv2's
+    JP2, each run as the maintenance scan through the CLI on the baseline's
+    gold map beside the baseline itself: every report identical to the
+    baseline's (the lossy WebP's and JPEG 2000's to their PNG twins'),
     B1's and B2's launches equal; host decode ms per frame of each image
     and depth variant, and ``load_scan`` frames/s with 8 workers on the
     progressive one.
@@ -2265,12 +2270,19 @@ def phase_pipeline_full_width(dev, tiled_root: str, fused: bool = True) -> dict:
 
 
 CODEC_VARIANTS = ("progressive", "arithmetic", "arithmetic_progressive", "png", "exif_orientation_1",
-                  "lossless_jpeg", "tiff_deflate", "bmp", "ppm", "webp_lossless", "webp_lossy", "png_of_webp_lossy")
-DEPTH_VARIANTS = ("tiff_rgba", "bmp_bgra", "webp_bgra")
+                  "lossless_jpeg", "tiff_deflate", "bmp", "ppm", "webp_lossless", "webp_lossy", "png_of_webp_lossy",
+                  "jp2_lossless", "jp2_lossy", "png_of_jp2_lossy")
+DEPTH_VARIANTS = ("tiff_rgba", "bmp_bgra", "webp_bgra", "jp2_bgra")
 # variants whose pixels are not the baseline's: each run's report must equal
 # that of the run named here (the same pixels in another container)
-LOSSY_VARIANTS = {"webp_lossy": "png_of_webp_lossy"}
+LOSSY_VARIANTS = {"webp_lossy": "png_of_webp_lossy", "jp2_lossy": "png_of_jp2_lossy"}
 WEBP_FIXTURES = FIXTURES / "codecs" / "webp"
+JP2_FIXTURES = FIXTURES / "codecs" / "jpeg2000"
+# the committed fixture each lossy variant's source frame is, in its table
+LOSSY_FIXTURE = {"webp_lossy": ("webp", "capture_maintenance_{}_webp_q90.webp"),
+                 "png_of_webp_lossy": ("webp", "capture_maintenance_{}_webp_q90.webp"),
+                 "jp2_lossy": ("jpeg2000", "capture_maintenance_{}_irreversible_q12.jp2"),
+                 "png_of_jp2_lossy": ("jpeg2000", "capture_maintenance_{}_irreversible_q12.jp2")}
 
 # minimal writers of the containers ``codec_full_width`` feeds the CLI: each
 # takes an array in cv2's layout ((H, W, 3) BGR or (H, W, 4) BGRA uint8) and
@@ -2388,10 +2400,13 @@ def codec_variant_blob(variant: str, source_frame: int, baseline: bytes) -> byte
     made by ``make_fixtures.c``), an RGB PNG of the decoded frame written
     by ``encode_png`` here, the baseline JPEG with an EXIF APP1 holding
     orientation 1 after its JFIF APP0, the decoded frame in a container
-    written by this script (lossless JPEG, Deflate TIFF, BMP, PPM), or WebP
+    written by this script (lossless JPEG, Deflate TIFF, BMP, PPM), WebP
     as cv2 wrote it (``tests/fixtures/codecs/webp``: lossless, and lossy at
-    quality 90, with a PNG of the lossy frame's decode written here). All but
-    the lossy WebP and its PNG decode to the baseline's pixels."""
+    quality 90, with a PNG of the lossy frame's decode written here), or
+    JPEG 2000 (``tests/fixtures/codecs/jpeg2000``: cv2's JP2, lossless on
+    these frames, and PIL's 9/7 with the ICT at rate 12, with a PNG of its
+    decode written here). All but the lossy WebP, the 9/7 JPEG 2000 and
+    their PNGs decode to the baseline's pixels."""
     from tpu3dlm_torch.data import codecs
 
     suffix = {"progressive": "prog", "arithmetic": "arith", "arithmetic_progressive": "arith_prog"}
@@ -2400,8 +2415,11 @@ def codec_variant_blob(variant: str, source_frame: int, baseline: bytes) -> byte
     webp = {"webp_lossless": "webp_lossless", "webp_lossy": "webp_q90"}
     if variant in webp:
         return (WEBP_FIXTURES / f"capture_maintenance_{source_frame}_{webp[variant]}.webp").read_bytes()
-    if variant == "png_of_webp_lossy":
-        lossy = codec_variant_blob("webp_lossy", source_frame, baseline)
+    jp2 = {"jp2_lossless": "lossless", "jp2_lossy": "irreversible_q12"}
+    if variant in jp2:
+        return (JP2_FIXTURES / f"capture_maintenance_{source_frame}_{jp2[variant]}.jp2").read_bytes()
+    if variant in ("png_of_webp_lossy", "png_of_jp2_lossy"):
+        lossy = codec_variant_blob(variant[len("png_of_"):], source_frame, baseline)
         return codecs.encode_png(codecs.decode_image(lossy)[..., ::-1])
     writers = {"png": codecs.encode_png, "lossless_jpeg": write_lossless_jpeg, "tiff_deflate": write_tiff,
                "bmp": write_bmp, "ppm": write_ppm}
@@ -2417,12 +2435,14 @@ def codec_variant_blob(variant: str, source_frame: int, baseline: bytes) -> byte
 def depth_variant_blob(variant: str, source_frame: int, baseline: bytes) -> bytes:
     """A maintenance depth blob (a CV_8UC4 PNG of float32 metres) as a
     4-channel TIFF or BMP of the same bytes written here, or as the
-    lossless 4-channel WebP cv2 wrote of it, each of which decodes to the
-    same (H, W, 4) array under IMREAD_UNCHANGED."""
+    lossless 4-channel WebP or the JP2 cv2 wrote of it, each of which
+    decodes to the same (H, W, 4) array under IMREAD_UNCHANGED."""
     from tpu3dlm_torch.data import codecs
 
     if variant == "webp_bgra":
         return (WEBP_FIXTURES / f"capture_maintenance_{source_frame}_depth.webp").read_bytes()
+    if variant == "jp2_bgra":
+        return (JP2_FIXTURES / f"capture_maintenance_{source_frame}_depth.jp2").read_bytes()
     bgra = codecs.decode_unchanged(baseline)
     return {"tiff_rgba": write_tiff, "bmp_bgra": write_bmp}[variant](bgra)
 
@@ -2435,7 +2455,9 @@ def phase_codec_full_width(dev, tmp: str, tiled_root: str) -> dict:
       codecs``: JPEG modes and PNG layouts; ``codecs/containers``: lossless
       JPEG, PNM/PAM/PFM, BMP, TIFF, Sun raster, Radiance HDR, GIF, and the
       files cv2 refuses; ``codecs/webp``: lossy and lossless WebP under every
-      encoder setting, alpha, EXIF, animations, refusals): sha256, shape and
+      encoder setting, alpha, EXIF, animations, refusals; ``codecs/jpeg2000``:
+      JPEG 2000 from cv2, PIL and OpenJPEG's encoder and the edits of
+      ``make_jpeg2000.py``, refusals): sha256, shape and
       dtype equal to what cv2 gave under IMREAD_COLOR and IMREAD_UNCHANGED
       where the fixtures were made (``digests.json``), and a ``ValueError``
       where cv2 gave None, so this host's compiler builds the same decoders;
@@ -2446,12 +2468,13 @@ def phase_codec_full_width(dev, tmp: str, tiled_root: str) -> dict:
       Deflate TIFF, BMP and PPM written here from the decoded frame; tiled
       frame k takes its source frame's), then its depth blobs (256x192
       CV_8UC4 PNGs) replaced by each of ``DEPTH_VARIANTS`` (4-channel TIFF
-      and BMP of the same bytes, and lossless WebP), on the baseline's gold
-      map. Each variant and the baseline run as the maintenance scan through
-      the CLI, the counts at 0 before each: every variant's report CSV
-      identical to the baseline's, but the lossy WebP's, which is identical
-      to that of a PNG of its decoded pixels (``LOSSY_VARIANTS``), and B1's
-      and B2's launches equal to the baseline's;
+      and BMP of the same bytes, lossless WebP, cv2's JP2), on the baseline's
+      gold map. Each variant and the baseline run as the maintenance scan
+      through the CLI, the counts at 0 before each: every variant's report
+      CSV identical to the baseline's, but the lossy WebP's and the 9/7 JPEG
+      2000's, each identical to that of a PNG of its decoded pixels
+      (``LOSSY_VARIANTS``), and B1's and B2's launches equal to the
+      baseline's;
     - host decode ms per 640x480 frame of each image variant and per depth
       frame of each depth variant beside the baseline (``decode_image`` /
       ``decode_unchanged`` of the blob, median over the 5 source frames x 5
@@ -2485,10 +2508,11 @@ def phase_codec_full_width(dev, tmp: str, tiled_root: str) -> dict:
         else:
             got = {"color": codecs.read_image(path)[..., ::-1], "unchanged": codecs.read_png(path)}
         check(got.keys() == want.keys() and all(digest(got[k]) == want[k] for k in want), name)
-    refused = 0
     webp = json.loads((WEBP_FIXTURES / "digests.json").read_text())
-    webp_refused = 0
-    for sub, table in (("containers", containers), ("webp", webp)):
+    jp2 = json.loads((JP2_FIXTURES / "digests.json").read_text())
+    tables = {"containers": containers, "webp": webp, "jpeg2000": jp2}
+    refusals = {sub: 0 for sub in tables}
+    for sub, table in tables.items():
         for name, want in table.items():
             path = str(fixdir / sub / name)
             for key, read in (("color", lambda p: codecs.read_image(p)[..., ::-1]),
@@ -2497,8 +2521,7 @@ def phase_codec_full_width(dev, tmp: str, tiled_root: str) -> dict:
                     got = digest(read(path))
                 except ValueError:
                     got = None
-                    refused += sub == "containers"
-                    webp_refused += sub == "webp"
+                    refusals[sub] += 1
                 check(got == want[key], (name, key, got, want[key]))
     t_fixtures = time.perf_counter() - t_phase
 
@@ -2516,11 +2539,11 @@ def phase_codec_full_width(dev, tmp: str, tiled_root: str) -> dict:
                    for v in DEPTH_VARIANTS}
     depth_blobs = {"baseline": {s: baseline_depth[s] for s in range(1, n_src + 1)}, **depth_blobs}
     write_s = time.perf_counter() - t_write
-    lossy = set(LOSSY_VARIANTS) | set(LOSSY_VARIANTS.values())
-    for v, by_src in blobs.items():  # the baseline's arrays, or cv2's decode of the lossy WebP
+    for v, by_src in blobs.items():  # the baseline's arrays, or cv2's decode of the lossy frame
         for s, b in by_src.items():
-            if v in lossy:
-                want = webp[f"capture_maintenance_{s}_webp_q90.webp"]["color"]
+            if v in LOSSY_FIXTURE:
+                sub, name = LOSSY_FIXTURE[v]
+                want = tables[sub][name.format(s)]["color"]
                 check(digest(codecs.decode_image(b)[..., ::-1]) == want, (v, s))
             else:
                 check(np.array_equal(codecs.decode_image(b), codecs.decode_image(baseline[s])), (v, s))
@@ -2531,8 +2554,12 @@ def phase_codec_full_width(dev, tmp: str, tiled_root: str) -> dict:
     runs = {}
     cases = [(v, "image", blobs[v]) for v in blobs] + [(f"depth_{v}", "depth", depth_blobs[v]) for v in DEPTH_VARIANTS]
     for variant, column, by_src in cases:
+        t_setup = time.perf_counter()
         root = os.path.join(tmp, f"codec_{variant}")
-        shutil.copytree(os.path.join(tiled_root, "configs"), os.path.join(root, "configs"))
+        # the frame files stay behind: the run extracts maintenance's anew from
+        # its data.db and reads gold's map from its pickle
+        shutil.copytree(os.path.join(tiled_root, "configs"), os.path.join(root, "configs"),
+                        ignore=shutil.ignore_patterns("data_rgb", "data_depth"))
         cfg = os.path.join(root, "configs", "variables.cfg")
         check(os.path.exists(ConfigLoader(cfg, "gold_std").pickle_path), "the baseline's gold map")
         if variant != "baseline":
@@ -2544,8 +2571,9 @@ def phase_codec_full_width(dev, tmp: str, tiled_root: str) -> dict:
         beit_attention_packed.launches = 0
         nearest_neighbors.launches = 0
         t0 = time.perf_counter()
+        setup_s = t0 - t_setup
         cli.main(["--data", "maintenance", "--config", cfg, "--device", str(dev)])
-        runs[variant] = {"cli_s": time.perf_counter() - t0, "b1": beit_attention_packed.launches,
+        runs[variant] = {"cli_s": time.perf_counter() - t0, "setup_s": setup_s, "b1": beit_attention_packed.launches,
                          "b2": nearest_neighbors.launches,
                          "csv": Path(ConfigLoader(cfg, "maintenance").csv_output).read_bytes(),
                          "rgb_dir": os.path.join(root, "configs", "data", "maintenance", "rtabmap_extract")}
@@ -2591,8 +2619,10 @@ def phase_codec_full_width(dev, tmp: str, tiled_root: str) -> dict:
         "phase": "codec_full_width", "frames_per_scan": frames,
         "frame_hw": list(codecs.decode_image(baseline[1]).shape[:2]),
         "depth_hw_channels": list(codecs.decode_unchanged(baseline_depth[1]).shape),
-        "fixtures_checked": len(digests) + len(containers) + len(webp), "container_fixtures": len(containers),
-        "container_refusals_checked": refused, "webp_fixtures": len(webp), "webp_refusals_checked": webp_refused,
+        "fixtures_checked": len(digests) + sum(map(len, tables.values())), "container_fixtures": len(containers),
+        "container_refusals_checked": refusals["containers"], "webp_fixtures": len(webp),
+        "webp_refusals_checked": refusals["webp"], "jpeg2000_fixtures": len(jp2),
+        "jpeg2000_refusals_checked": refusals["jpeg2000"],
         "fixtures_s": t_fixtures, "variants_written_s": write_s,
         "variants": list(runs), "reports_identical": True, "report_held_to": report_held_to,
         "lossy_twin_report_equals_baseline": {t: runs[t]["csv"] == base["csv"] for t in LOSSY_VARIANTS.values()},
@@ -2600,6 +2630,7 @@ def phase_codec_full_width(dev, tmp: str, tiled_root: str) -> dict:
         "b1_launches_by_variant": {v: r["b1"] for v, r in runs.items()},
         "b2_launches_by_variant": {v: r["b2"] for v, r in runs.items()},
         "cli_s_by_variant": {v: r["cli_s"] for v, r in runs.items()},
+        "setup_s_by_variant": {v: r["setup_s"] for v, r in runs.items()},
         "decode_ms_per_frame": decode_ms,
         "decode_ratio_to_baseline": {v: decode_ms[v] / decode_ms["baseline"] for v in blobs},
         "depth_decode_ms_per_frame": depth_ms,

@@ -8,7 +8,10 @@ PAM, PFM, BMP, TIFF, Sun raster, Radiance HDR, GIF, OpenEXR) into
 flags, ``null`` where cv2 returns None. Last the WebP set: the capture's
 maintenance frames written by cv2 (``webp_capture``) beside what
 ``make_webp.c`` wrote into ``webp/``, and ``webp/digests.json`` (``imread``
-under both flags, ``null`` for None).
+under both flags, ``null`` for None); then the JPEG 2000 set
+(``make_jpeg2000.capture()`` and ``fixtures()``, and
+``make_jpeg2000_opj.fixtures()`` from the system OpenJPEG) into
+``jpeg2000/`` with ``jpeg2000/digests.json``, the same way.
 ``chip_smoke.py`` decodes every fixture with the port on a host without cv2
 and holds it to these digests; ``tests/test_torch_codecs_modes.py`` and
 ``tests/test_torch_codecs_containers.py`` hold the files to cv2. Run from
@@ -29,6 +32,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 TESTS = os.path.dirname(os.path.dirname(HERE))
 sys.path[:0] = [HERE, TESTS, os.path.dirname(TESTS)]
 
+import make_jpeg2000  # noqa: E402
+import make_jpeg2000_opj  # noqa: E402
 from make_containers import fixtures as container_fixtures  # noqa: E402
 from test_torch_codecs_modes import png_bytes  # noqa: E402
 
@@ -112,6 +117,21 @@ def main() -> None:
         out[name] = {}
         for key, flag in (("color", cv2.IMREAD_COLOR), ("unchanged", cv2.IMREAD_UNCHANGED)):
             img = cv2.imread(os.path.join(sub, name), flag)
+            out[name][key] = None if img is None else digest(img)
+    with open(os.path.join(sub, "digests.json"), "w") as f:
+        json.dump(out, f, indent=1, sort_keys=True)
+        f.write("\n")
+    sub = os.path.join(HERE, "jpeg2000")
+    os.makedirs(sub, exist_ok=True)
+    out = {}
+    made = {**make_jpeg2000.capture(), **make_jpeg2000.fixtures(), **make_jpeg2000_opj.fixtures()}
+    for name, data in made.items():
+        path = os.path.join(sub, name)
+        with open(path, "wb") as f:
+            f.write(data)
+        out[name] = {}
+        for key, flag in (("color", cv2.IMREAD_COLOR), ("unchanged", cv2.IMREAD_UNCHANGED)):
+            img = cv2.imread(path, flag)
             out[name][key] = None if img is None else digest(img)
     with open(os.path.join(sub, "digests.json"), "w") as f:
         json.dump(out, f, indent=1, sort_keys=True)

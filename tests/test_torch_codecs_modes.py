@@ -403,11 +403,11 @@ def test_formats_are_told_apart_by_signature(tmp_path):
     with pytest.raises(ValueError) as got:
         load_depth_image(str(jpeg_as_png), 48, 64)
     assert str(got.value) == str(want.value) and "neither CV_8UC4 nor 16UC1" in str(got.value)
-    for ext in (".bmp", ".tiff", ".ppm", ".webp"):  # containers the port decodes since it reads them all
+    for ext in (".bmp", ".tiff", ".ppm", ".webp", ".jp2"):  # containers the port decodes since it reads them all
         path = tmp_path / f"frame{ext}.jpg"
         path.write_bytes(cv2.imencode(ext, img)[1].tobytes())
         assert_same(load_rgb_image(str(path)), jax_load_rgb(str(path)))
-    for ext, fmt in ((".jp2", "JPEG 2000"), (".avif", "AVIF")):
+    for ext, fmt in ((".avif", "AVIF"),):
         path = tmp_path / f"frame{ext}.jpg"
         path.write_bytes(cv2.imencode(ext, img)[1].tobytes())
         assert cv2.imread(str(path)) is not None

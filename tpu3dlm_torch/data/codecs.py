@@ -3,7 +3,7 @@
 The reference decodes frames with ``cv2.imread`` / ``cv2.imdecode`` and
 resizes them with ``cv2.resize``. The card host has no cv2, so the port
 carries its own, held to cv2 5.0's output (libjpeg-turbo 3.1, libpng 1.6,
-libtiff 4.7, libwebp and cv2's own decoders) byte for byte:
+libtiff 4.7, libwebp, OpenJPEG 2.5 and cv2's own decoders) byte for byte:
 
 - ``read_image`` / ``decode_image``: any frame → (H, W, 3) RGB uint8,
   ``cvtColor(imread(p, IMREAD_COLOR), COLOR_BGR2RGB)`` (``imdecode`` for
@@ -12,9 +12,10 @@ libtiff 4.7, libwebp and cv2's own decoders) byte for byte:
   under IMREAD_UNCHANGED (the depth path), in cv2's layout and dtype. JPEG
   and PNG are decoded here; TIFF, BMP, PNM/PAM/PFM, Sun raster, Radiance
   HDR and GIF in ``data/containers.py``; WebP (lossless, lossy, alpha,
-  EXIF, an animation's first frame) in ``data/webp.py``. JPEG 2000 and AVIF
-  raise ``ValueError`` naming the format as not yet ported, OpenEXR (cv2
-  here is built without it) and unknown data as undecodable. Where cv2's
+  EXIF, an animation's first frame) in ``data/webp.py``; JPEG 2000 (JP2
+  files and raw codestreams, 5/3 and 9/7, RCT/ICT) in ``data/jpeg2000.py``.
+  AVIF raises ``ValueError`` naming the format as not yet ported, OpenEXR
+  (cv2 here is built without it) and unknown data as undecodable. Where cv2's
   ``imread`` and ``imdecode`` differ, so do the file and bytes forms.
 - ``decode_jpeg`` / ``read_jpeg``: JPEG → RGB as IMREAD_COLOR gives it:
   sequential, progressive or lossless (SOF3), Huffman or arithmetic coded,
@@ -53,7 +54,7 @@ import zlib
 
 import numpy as np
 
-from tpu3dlm_torch.data import containers, webp
+from tpu3dlm_torch.data import containers, jpeg2000, webp
 from tpu3dlm_torch.kernels.build import load_host_library
 
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
@@ -289,10 +290,7 @@ def write_png(path: str, img: np.ndarray) -> None:
 # ---------------------------------------------------------------------------
 
 # containers cv2 decodes that the port does not yet
-_NOT_PORTED = (
-    (lambda d: d[:12] == b"\x00\x00\x00\x0cjP  \r\n\x87\n" or d[:4] == b"\xffO\xffQ", "JPEG 2000"),
-    (lambda d: d[4:12] in (b"ftypavif", b"ftypavis"), "AVIF"),
-)
+_NOT_PORTED = ((lambda d: d[4:12] in (b"ftypavif", b"ftypavis"), "AVIF"),)
 
 
 def _format(data: bytes, name: str) -> str:
@@ -309,6 +307,8 @@ def _format(data: bytes, name: str) -> str:
         return fmt
     if webp.sniff(data):
         return "webp"
+    if jpeg2000.sniff(data):
+        return "jpeg2000"
     for test, fmt in _NOT_PORTED:
         if test(data):
             raise ValueError(f"unsupported image {name}: {fmt} is not yet ported (cv2 decodes it)")
@@ -325,6 +325,8 @@ def _color(data: bytes, name: str, file: bool) -> np.ndarray:
         return _png(data, name, True)
     if fmt == "webp":
         return np.ascontiguousarray(webp.decode(data, name, True)[..., ::-1])
+    if fmt == "jpeg2000":
+        return np.ascontiguousarray(jpeg2000.decode(data, name, True)[..., ::-1])
     bgr = containers.decode(fmt, data, name, True, file)
     if bgr.ndim != 3:  # a gray PFM: cv2.cvtColor(BGR2RGB) refuses one channel
         raise ValueError(f"undecodable image {name}: {fmt} decodes to one channel under IMREAD_COLOR")
@@ -339,6 +341,8 @@ def _unchanged(data: bytes, name: str, file: bool) -> np.ndarray:
         return _png(data, name, False)
     if fmt == "webp":
         return webp.decode(data, name, False)
+    if fmt == "jpeg2000":
+        return jpeg2000.decode(data, name, False)
     return containers.decode(fmt, data, name, False, file)
 
 

@@ -10,10 +10,10 @@ collapse to the first), a node whose depth blob is NULL or undecodable is
 skipped and its ordinal left as a gap, so every later frame keeps its own
 poses.txt row. Blobs are decoded as ``cv2.imdecode`` decodes them, the
 format told apart by its signature (JPEG, PNG, TIFF, BMP, PNM/PAM/PFM, Sun
-raster, Radiance HDR, GIF; ``data/codecs.py``): depth under
-IMREAD_UNCHANGED, RGB under IMREAD_COLOR; a blob cv2 would return None for,
-or one in a format the port does not decode yet (WebP, JPEG 2000, AVIF),
-counts as undecodable. A depth array PNG cannot hold (float, signed or
+raster, Radiance HDR, GIF, WebP, JPEG 2000; ``data/codecs.py``): depth
+under IMREAD_UNCHANGED, RGB under IMREAD_COLOR; a blob cv2 would return
+None for, or one in a format the port does not decode yet (AVIF), counts as
+undecodable. A depth array PNG cannot hold (float, signed or
 32-bit samples) is written as ``cv2.imwrite`` writes it: cast to 8 bits.
 """
 

@@ -10,7 +10,7 @@ Host sources, ``csrc/host/<name>.cpp``, are compiled the same way by the
 system C++ compiler, so they build on a host without CUDA: ``codecs.cpp``
 (JPEG, PNG and the resizes), ``containers.cpp`` (the other image
 containers' bit-level decoding), ``webp.cpp`` (WebP's VP8L and VP8
-bitstreams), ``dbscan.cpp`` (the map stage's DBSCAN) and
+bitstreams), ``jpeg2000.cpp`` (JPEG 2000 codestreams), ``dbscan.cpp`` (the map stage's DBSCAN) and
 ``meshing.cpp`` (marching tetrahedra, the Poisson leakage cull and the
 trilinear splat); the last two are copies of the JAX package's
 ``native/src/dbscan.cpp`` and ``poisson.cpp``:
