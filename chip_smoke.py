@@ -6,7 +6,21 @@
 Builds every CUDA kernel of the port from ``tpu3dlm_torch/csrc`` (into
 ``tpu3dlm_torch/_build``, one ``nvcc`` per source and one ``c++`` for the
 host C++ sources, all at once), then runs thirty-nine phases, each printing one
-JSON line; any failure raises and the script exits non-zero without a result:
+JSON line; any failure raises and the script exits non-zero without a result.
+The CPU legs of the parity phases (``cpu_pipeline_legs``, ``cpu_vis_leg``,
+``cpu_anchor_index``) and the codec fixtures' digests and variant blobs run
+in one spawned worker process (``HostPool``) on 3 cores apart from the main
+process's, from the end of the build until they are done. Meanwhile the
+main process, pinned to the other cores, runs the phases that time nothing
+(``beit_past_old_limits``, ``slice_parity``, ``compare_parity``,
+``attention_grad``, ``finetune_parity``, ``train_parity``,
+``envelope_parity``, ``eval_parity``, ``dist_parity``,
+``plain_route_parity``); then it waits for the pool to drain (a
+``pool_drained`` line with the seconds it waited) and runs the rest, every
+timed section among them, with every core. A ``host_pool`` line gives the
+worker's busy seconds by job and the seconds the main process was pinned.
+On a host of fewer than 5 cores there is no pool and each phase runs its
+CPU leg itself. The phases:
 
 1. ``kernel_b1``: kernel B1 (BEiT attention) against its plain PyTorch twin
    at the production shape in bf16 (tolerance 1e-2 abs and rel: one bf16
@@ -128,7 +142,9 @@ JSON line; any failure raises and the script exits non-zero without a result:
     libwebp's encoder settings, alpha, EXIF, animations, refusals;
     ``codecs/jpeg2000``: JPEG 2000 from cv2, PIL and OpenJPEG's encoder, 5/3
     and 9/7, RCT/ICT, orders, tiles, precincts, layers, code-block styles,
-    ROI, SOP/EPH, tile-parts, POC, PPM/PPT, JP2 box and SIZ edits, refusals) decoded on this host under IMREAD_COLOR and
+    ROI, SOP/EPH, tile-parts, POC, PPM/PPT, JP2 box and SIZ edits, refusals;
+    ``codecs/tiff``: BigTIFF, CCITT, JPEG-in-TIFF, YCbCr, CIELab, 10/12/14-bit
+    samples, the compressions cv2's libtiff lacks) decoded on this host under IMREAD_COLOR and
     IMREAD_UNCHANGED: sha256, shape and dtype equal to cv2's
     (``digests.json``), a refusal where cv2 gave None.
     Then ``pipeline_full_width``'s capture with its maintenance image blobs
@@ -137,11 +153,14 @@ JSON line; any failure raises and the script exits non-zero without a result:
     lossless JPEG, Deflate TIFF, BMP and PPM written by this script,
     lossless and quality-90 WebP written by cv2 (committed) and PNGs of the
     lossy WebP's pixels, JPEG 2000 as cv2 writes it and 9/7 at rate 12 as
-    PIL writes it (committed) and PNGs of the latter's pixels, then with its
-    depth blobs replaced by 4-channel TIFF, BMP, lossless WebP and cv2's
-    JP2, each run as the maintenance scan through the CLI on the baseline's
+    PIL writes it (committed) and PNGs of the latter's pixels, JPEG-in-TIFF
+    tiles (YCbCr 2x2, JPEGTables) and PNGs of their pixels and LZW BigTIFF
+    written by this script, then with its depth blobs replaced by 4-channel
+    TIFF, BMP, lossless WebP, cv2's JP2 and 16-bit Deflate BigTIFF of their
+    millimetres, each run as the maintenance scan through the CLI on the baseline's
     gold map beside the baseline itself: every report identical to the
-    baseline's (the lossy WebP's and JPEG 2000's to their PNG twins'),
+    baseline's (the lossy WebP's, JPEG 2000's and JPEG-in-TIFF's to their
+    PNG twins'),
     B1's and B2's launches equal; host decode ms per frame of each image
     and depth variant, and ``load_scan`` frames/s with 8 workers on the
     progressive one.
@@ -345,6 +364,8 @@ fixed seeds. Without CUDA the script exits 1.
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -411,6 +432,183 @@ def host_ms(fn, runs: int = 5) -> tuple[float, list[float]]:
         torch.cuda.synchronize()
         samples.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(samples), samples
+
+
+POOL_CORES = 3  # host cores given to the pool's worker; the main process keeps the rest
+
+
+def _pool_init(cores: list[int], threads: int) -> None:
+    """A pool worker: pinned to its cores, with the main process's count of
+    torch threads (a CPU leg's float sums split as they do there), no card
+    (its legs name the CPU, and CUDA stays uninitialised)."""
+    import os
+
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    os.sched_setaffinity(0, cores)
+    torch.set_num_threads(threads)
+
+
+def _pool_run(fn, args: tuple, kw: dict):
+    t0 = time.perf_counter()
+    return fn(*args, **kw), time.perf_counter() - t0
+
+
+class HostPool:
+    """The CPU legs of the parity phases, run beside the card phases.
+
+    One worker process, spawned after the build (``start``) and pinned with
+    ``os.sched_setaffinity`` to the last ``cores`` of the host's cores.
+    While it has a job queued or running, every thread of the main process
+    is pinned to the other cores (and what the main process starts then
+    inherits them); when its queue drains they get every core back. The
+    schedule keeps every timed section out of that window: until ``drain``
+    has waited for every job and seen the main process on every core again,
+    the main process runs only phases that time nothing (``run_phases``).
+    Both processes keep the main process's count of torch threads
+    (``torch.set_num_threads`` in the worker): the CPU twins' float sums are
+    split by it, and a parity bar holds them as the unpooled script did (at
+    another count a box moves by 0.016 px against a 0.01 px bar). Jobs run
+    in the order they are submitted. ``busy_s`` holds each job's seconds in
+    the worker, ``waited_s`` the seconds ``drain`` blocked the main process,
+    ``main_pinned_s`` the seconds the main process was pinned. A host with
+    fewer than ``cores + 2`` cores gets no pool (``fits``): the phases then
+    run their CPU legs themselves."""
+
+    def __init__(self, cores: int = POOL_CORES):
+        import threading
+
+        have = sorted(os.sched_getaffinity(0))
+        check(self.fits(cores), ("too few cores for a pool", have))
+        self.all_cores, self.main_cores, self.pool_cores = have, have[:-cores], have[-cores:]
+        self.busy_s: dict[str, float] = {}
+        self.jobs: dict = {}
+        self.executor = None
+        self.main_pinned_s = self.waited_s = 0.0
+        self._idle = threading.Condition()
+        self._queued = 0
+        self._pinned_at = 0.0
+
+    @staticmethod
+    def fits(cores: int = POOL_CORES) -> bool:
+        return len(os.sched_getaffinity(0)) >= cores + 2
+
+    def start(self) -> None:
+        """Spawns the worker on the pool's cores (it imports torch there,
+        beside the main process, which does not wait for it)."""
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+
+        self.executor = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"),
+                                            initializer=_pool_init,
+                                            initargs=(self.pool_cores, torch.get_num_threads()))
+        # The worker is spawned by this thread in the first submit and takes
+        # this thread's cores and environment then: the pool's cores, and
+        # OpenMP threads that sleep when idle rather than spin (they
+        # outnumber its cores: on 3 cores of an 8-core Xeon host a spinning
+        # twin sweep took 21.5 s, a sleeping one 4.7 s, against 2.8 s at one
+        # thread a core). Both reach the worker alone.
+        cores = os.sched_getaffinity(0)
+        before = os.environ.get("OMP_WAIT_POLICY")
+        os.sched_setaffinity(0, self.pool_cores)
+        os.environ["OMP_WAIT_POLICY"] = "PASSIVE"
+        try:
+            self.executor.submit(int)
+        finally:
+            os.sched_setaffinity(0, cores)
+            if before is None:
+                del os.environ["OMP_WAIT_POLICY"]
+            else:
+                os.environ["OMP_WAIT_POLICY"] = before
+
+    @staticmethod
+    def _pin_main(cores: list[int]) -> None:
+        """Every thread of this process (the main thread, torch's and
+        CUDA's, decode pools) onto ``cores``."""
+        for tid in os.listdir("/proc/self/task"):
+            try:
+                os.sched_setaffinity(int(tid), cores)
+            except OSError:  # a thread that ended meanwhile
+                pass
+
+    def _job_done(self, _future) -> None:
+        with self._idle:
+            self._queued -= 1
+            if self._queued == 0:
+                self._pin_main(self.all_cores)
+                self.main_pinned_s += time.perf_counter() - self._pinned_at
+                self._idle.notify_all()
+
+    def submit(self, name: str, fn, *args, **kw) -> None:
+        check(name not in self.jobs, name)
+        with self._idle:
+            if self._queued == 0:
+                self._pin_main(self.main_cores)
+                self._pinned_at = time.perf_counter()
+            self._queued += 1
+        self.jobs[name] = self.executor.submit(_pool_run, fn, args, kw)
+        self.jobs[name].add_done_callback(self._job_done)
+
+    def drain(self) -> dict:
+        """Waits for every job and for the main process to have every core
+        again; returns {name: the job's result}."""
+        t0 = time.perf_counter()
+        out = {}
+        for name, job in self.jobs.items():
+            out[name], self.busy_s[name] = job.result()
+        with self._idle:
+            self._idle.wait_for(lambda: self._queued == 0)
+        self.jobs = {}
+        self.waited_s += time.perf_counter() - t0
+        check(sorted(os.sched_getaffinity(0)) == self.all_cores, "the main process has every core again")
+        return out
+
+    def close(self, kill: bool = False) -> dict:
+        """Ends the worker (at once with ``kill``, else after its running
+        job) and returns {"main_cores", "pool_cores", "busy_s" by job,
+        "busy_s_total", "waited_s", "main_pinned_s", "unclaimed" jobs}."""
+        if self.executor is not None:
+            if kill:
+                for proc in list(getattr(self.executor, "_processes", {}).values()):
+                    proc.kill()
+            self.executor.shutdown(wait=True, cancel_futures=True)
+            self.executor = None
+        return {"main_cores": self.main_cores, "pool_cores": self.pool_cores, "busy_s": self.busy_s,
+                "busy_s_total": sum(self.busy_s.values()), "waited_s": self.waited_s,
+                "main_pinned_s": self.main_pinned_s, "unclaimed": sorted(self.jobs)}
+
+
+class TwinMemo:
+    """While active, B2's CPU twin answers a repeated (queries, targets)
+    pair from memory: the parity phases' CPU legs run the same compare
+    (the same clouds, the same ICP walk) on every route, 92 sweeps each.
+    ``hits`` and ``misses`` count the calls."""
+
+    def __enter__(self):
+        import hashlib
+
+        from tpu3dlm_torch.ops.kernels import pairwise
+
+        self._mod, self._real = pairwise, pairwise.nearest_neighbors_reference
+        self.hits = self.misses = 0
+        memo: dict = {}
+        rec = self
+
+        def twin(a, b):
+            key = (tuple(a.shape), tuple(b.shape), hashlib.sha1(a.contiguous().numpy().tobytes()).hexdigest(),
+                   hashlib.sha1(b.contiguous().numpy().tobytes()).hexdigest())
+            if key in memo:
+                rec.hits += 1
+            else:
+                rec.misses += 1
+                memo[key] = rec._real(a, b)
+            return tuple(t.clone() for t in memo[key])
+
+        pairwise.nearest_neighbors_reference = twin
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.nearest_neighbors_reference = self._real
+        return False
 
 
 def attention_bound_ms(B, N, h, d, dtype, mem_rate) -> tuple[float, str]:
@@ -1142,7 +1340,43 @@ def hold_anchored(pi, pd, ci, cd, ei, ed) -> dict:
             "recall_vs_exact": recall, "worst_miss_excess": worst}
 
 
-def phase_ann_parity(dev, scene) -> dict:
+def ann_inputs(scene) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``ann_parity``'s inputs from the scene: (the padded gold target, its
+    262,144-row coarse sample, the 16384 maintenance queries moved onto the
+    gold cloud)."""
+    from tpu3dlm_torch.alignment.align import _subsample
+    from tpu3dlm_torch.ops.icp import pad_target_bucket
+
+    base, comp, _, _, Tw = scene
+    Ti = np.linalg.inv(Tw).astype(np.float32)
+    tgt = torch.from_numpy(pad_target_bucket(base)[0])
+    coarse = torch.from_numpy(base[np.random.default_rng(1).choice(base.shape[0], min(262144, base.shape[0]),
+                                                                    replace=False)])
+    q = _subsample(comp, 16384) @ Ti[:3, :3].T + Ti[:3, 3]
+    return tgt, coarse, torch.from_numpy(np.ascontiguousarray(q, np.float32))
+
+
+def anchor_index_leg(tgt: torch.Tensor, q: torch.Tensor) -> dict:
+    """``ann_parity``'s CPU side: the index over the padded gold target
+    ``tgt`` built on the CPU (the twin's sweep) and ``nn_anchored`` of the
+    queries ``q`` on it: {"index", "picks": (idx, d2), "cpu_build_s"}."""
+    from tpu3dlm_torch.ops import ann
+
+    c, b = ann.default_index_shape(tgt.shape[0])
+    t0 = time.perf_counter()
+    index = ann.build_anchor_index(tgt, c, b)
+    build_s = time.perf_counter() - t0
+    return {"index": index, "picks": ann.nn_anchored(q, index), "cpu_build_s": build_s}
+
+
+def cpu_anchor_index(n_target: int = 1_000_000, seed: int = SEED) -> dict:
+    """``anchor_index_leg`` on ``two_scan_scene(n_target, seed)`` (a pool
+    job)."""
+    tgt, _, q = ann_inputs(two_scan_scene(n_target, seed))
+    return anchor_index_leg(tgt, q)
+
+
+def phase_ann_parity(dev, scene, cpu: dict | None = None) -> dict:
     """``build_anchor_index`` on the 1M-point scene's padded gold target
     (1,048,576 rows, 8192 anchors, buckets of 512) on the card against the
     CPU with the same anchor ids (``hold_index``), and ``nn_anchored`` on
@@ -1151,20 +1385,14 @@ def phase_ann_parity(dev, scene) -> dict:
     times: the build (after a first one) and one anchored sweep at the
     final stage's 16384 queries and at the coarse stage's 4096 against the
     coarse target's index (262,144 rows, 2048 anchors), each beside exact
-    B2 at the same shape."""
-    from tpu3dlm_torch.alignment.align import _subsample
+    B2 at the same shape. ``cpu``: the CPU side when the pool built it
+    (``cpu_anchor_index`` on the same scene), else ``anchor_index_leg``
+    builds it here."""
     from tpu3dlm_torch.ops import ann
-    from tpu3dlm_torch.ops.icp import pad_target_bucket
     from tpu3dlm_torch.ops.kernels.pairwise import nearest_neighbors
 
-    base, comp, _, _, Tw = scene
-    Ti = np.linalg.inv(Tw).astype(np.float32)
-    tgt = torch.from_numpy(pad_target_bucket(base)[0])
-    coarse = torch.from_numpy(base[np.random.default_rng(1).choice(base.shape[0], min(262144, base.shape[0]),
-                                                                    replace=False)])
-    q = _subsample(comp, 16384) @ Ti[:3, :3].T + Ti[:3, 3]
-    q = torch.from_numpy(np.ascontiguousarray(q, np.float32))
-    out = {"phase": "ann_parity"}
+    tgt, coarse, q = ann_inputs(scene)
+    out = {"phase": "ann_parity", "cpu_side": "the pool" if cpu is not None else "this process"}
     for name, t, qq in (("full", tgt, q), ("coarse", coarse, q[:4096])):
         m = t.shape[0]
         c, b = ann.default_index_shape(m)
@@ -1180,12 +1408,10 @@ def phase_ann_parity(dev, scene) -> dict:
         pi, pd = ann.nn_anchored(q_g, idx_g)
         ei, ed = nearest_neighbors(q_g, t_g)
         if name == "full":  # the CPU side at the full target only (the twin's sweep takes ~30 s)
-            t0 = time.perf_counter()
-            idx_c = ann.build_anchor_index(t, c, b)
-            row["cpu_build_s"] = time.perf_counter() - t0
-            row["index"] = hold_index(idx_g, idx_c, t)
-            ci, cd = ann.nn_anchored(qq, idx_c)
-            row["anchored"] = hold_anchored(pi, pd, ci, cd, ei, ed)
+            cpu = cpu or anchor_index_leg(t, qq)
+            row["cpu_build_s"] = cpu["cpu_build_s"]
+            row["index"] = hold_index(idx_g, cpu["index"], t)
+            row["anchored"] = hold_anchored(pi, pd, *cpu["picks"], ei, ed)
         row["build_ms"] = cuda_ms(lambda: ann.build_anchor_index(t_g, c, b), iters=3, warmup=0)
         row["anchored_sweep_ms"] = cuda_ms(lambda: ann.nn_anchored(q_g, idx_g))
         row["exact_b2_ms"] = cuda_ms(lambda: nearest_neighbors(q_g, t_g))
@@ -2051,7 +2277,65 @@ def hold_pipelines(a: tuple, b: tuple) -> dict:
     return errs
 
 
-def phase_pipeline_parity(dev, tmp: str, fused: bool = True, stream: int = 0) -> dict:
+PARITY_PATCH = [("infer_dtype = bf16", "infer_dtype = f32"),
+                ("yolo_weights =", f"yolo_weights = {FIXTURES / 'yolo_synthetic.msgpack'}"),
+                ("beit_weights =", f"beit_weights = {FIXTURES / 'beit_synthetic.msgpack'}")]
+
+
+def parity_phase(fused: bool = True, stream: int = 0) -> str:
+    return "stream_parity" if stream else "pipeline_parity" if fused else "staged_parity"
+
+
+class RunRecord:
+    """What the parity bars read of a finished Pipeline, in a form that
+    crosses processes: its ``data_to_save``, ``stage_times`` and
+    ``cfg.csv_output``."""
+
+    def __init__(self, pipeline):
+        from types import SimpleNamespace
+
+        self.data_to_save = pipeline.data_to_save
+        self.stage_times = pipeline.stage_times
+        self.cfg = SimpleNamespace(csv_output=pipeline.cfg.csv_output)
+
+
+def pipeline_leg(root: str, device, fused: bool = True, chunk: int = 0) -> dict:
+    """One leg of a ``*_parity`` phase: the committed capture copied to
+    ``root``, gold and maintenance through ``run_two_scans`` on ``device``
+    at ``bench_e2e.py``'s configuration (fused, staged or streamed in
+    ``chunk`` frames): {"runs": (gold, maintenance) ``RunRecord``s,
+    "seconds", "streams" (``StreamRecorder``'s)}."""
+    copy_project(root)
+    more = [("streaming_chunk = 0", f"streaming_chunk = {chunk}")] if chunk else []
+    cfg = pipeline_config(root, PARITY_PATCH + more) if fused else write_config(root, PROJECT_PATCH + PARITY_PATCH)
+    t0 = time.perf_counter()
+    with StreamRecorder() as rec:
+        runs = run_two_scans(cfg, device)
+    return {"runs": tuple(RunRecord(p) for p in runs), "seconds": time.perf_counter() - t0, "streams": rec.streams}
+
+
+# the (fused, stream) of pipeline_parity, staged_parity and stream_parity
+PARITY_ROUTES = ((True, 0), (False, 0), (True, 2))
+
+
+def cpu_pipeline_legs(tmp: str) -> dict:
+    """The CPU legs of the three ``*_parity`` phases as one pool job
+    ({phase: ``pipeline_leg``'s record with "twin_memo"}): B2's twin answers
+    the sweeps an earlier leg ran from memory (``TwinMemo``: the three
+    routes run one compare)."""
+    import os
+
+    legs = {}
+    with TwinMemo() as memo:
+        for fused, stream in PARITY_ROUTES:
+            phase = parity_phase(fused, stream)
+            hits, misses = memo.hits, memo.misses
+            legs[phase] = pipeline_leg(os.path.join(tmp, f"{phase}_cpu"), "cpu", fused, stream)
+            legs[phase]["twin_memo"] = {"hits": memo.hits - hits, "misses": memo.misses - misses}
+    return legs
+
+
+def phase_pipeline_parity(dev, tmp: str, fused: bool = True, stream: int = 0, cpu: dict | None = None) -> dict:
     """``bench_e2e.py``'s flow on the committed capture (make_project's
     config, fixture checkpoints, f32), on the fused route
     (``pipeline_parity``), on the staged route under the default
@@ -2066,31 +2350,25 @@ def phase_pipeline_parity(dev, tmp: str, fused: bool = True, stream: int = 0) ->
     detections; streamed: one per chunk). Streamed, also the card's
     whole-scan fused run held to the streamed card run by the same bars,
     at most 2 chunks in flight, and the valid boxes per chunk, which show
-    that the per-chunk crop budget never binds."""
+    that the per-chunk crop budget never binds. ``cpu``: the CPU leg when
+    the pool ran it (``cpu_pipeline_legs``), else it runs here."""
     import os
 
     from tpu3dlm_torch.ops.kernels.attention import beit_attention_packed
     from tpu3dlm_torch.ops.kernels.pairwise import nearest_neighbors
 
-    phase = "stream_parity" if stream else "pipeline_parity" if fused else "staged_parity"
-    extra = [("infer_dtype = bf16", "infer_dtype = f32"),
-             ("yolo_weights =", f"yolo_weights = {FIXTURES / 'yolo_synthetic.msgpack'}"),
-             ("beit_weights =", f"beit_weights = {FIXTURES / 'beit_synthetic.msgpack'}")]
+    phase = parity_phase(fused, stream)
     legs = [("cpu", "cpu", stream), ("gpu", dev, stream)] + ([("gpu_whole", dev, 0)] if stream else [])
     runs, launches, streams = {}, {}, {}
     for name, device, chunk in legs:
-        root = os.path.join(tmp, f"{phase}_{name}")
-        copy_project(root)
-        more = [("streaming_chunk = 0", f"streaming_chunk = {chunk}")] if chunk else []
-        cfg = pipeline_config(root, extra + more) if fused else write_config(root, PROJECT_PATCH + extra)
-        b1, b2 = beit_attention_packed.launches, nearest_neighbors.launches
-        t0 = time.perf_counter()
-        with StreamRecorder() as rec:
-            runs[name] = run_two_scans(cfg, device)
-        runs[name + "_s"] = time.perf_counter() - t0
-        launches[name] = {"b1": beit_attention_packed.launches - b1, "b2": nearest_neighbors.launches - b2}
-        streams[name] = rec.streams
-        check(len(rec.streams) == (2 if chunk else 0), rec.streams)
+        if name == "cpu" and cpu is not None:  # the pool's leg
+            leg = cpu
+        else:
+            b1, b2 = beit_attention_packed.launches, nearest_neighbors.launches
+            leg = pipeline_leg(os.path.join(tmp, f"{phase}_{name}"), device, fused, chunk)
+            launches[name] = {"b1": beit_attention_packed.launches - b1, "b2": nearest_neighbors.launches - b2}
+        runs[name], runs[name + "_s"], streams[name] = leg["runs"], leg["seconds"], leg["streams"]
+        check(len(leg["streams"]) == (2 if chunk else 0), leg["streams"])
     detections = {s: sum(len(v) for v in runs["gpu"][i].data_to_save["predictions"].values())
                   for i, s in enumerate(FOLDERS)}
     layers = 2  # make_project's compact BEiT
@@ -2115,6 +2393,8 @@ def phase_pipeline_parity(dev, tmp: str, fused: bool = True, stream: int = 0) ->
               "rows": len(g["comparison_rows"]), "missing": sum(r["status"] == "missing" for r in g["comparison_rows"]),
               "verdict": g["alignment_verdict"],
               "wall_s": {k: runs[k + "_s"] for k, _, _ in legs},
+              "cpu_leg": "the pool" if cpu is not None else "this process",
+              "cpu_twin_sweeps_reused": cpu.get("twin_memo") if cpu is not None else None,
               "stage_s_gpu": {s: runs["gpu"][i].stage_times for i, s in enumerate(FOLDERS)}}
     if stream:
         # per chunk: k = min(crop_budget, chunk · max_det) crops are
@@ -2271,11 +2551,12 @@ def phase_pipeline_full_width(dev, tiled_root: str, fused: bool = True) -> dict:
 
 CODEC_VARIANTS = ("progressive", "arithmetic", "arithmetic_progressive", "png", "exif_orientation_1",
                   "lossless_jpeg", "tiff_deflate", "bmp", "ppm", "webp_lossless", "webp_lossy", "png_of_webp_lossy",
-                  "jp2_lossless", "jp2_lossy", "png_of_jp2_lossy")
-DEPTH_VARIANTS = ("tiff_rgba", "bmp_bgra", "webp_bgra", "jp2_bgra")
+                  "jp2_lossless", "jp2_lossy", "png_of_jp2_lossy", "tiff_jpeg", "png_of_tiff_jpeg", "bigtiff_lzw")
+DEPTH_VARIANTS = ("tiff_rgba", "bmp_bgra", "webp_bgra", "jp2_bgra", "bigtiff_u16")
 # variants whose pixels are not the baseline's: each run's report must equal
 # that of the run named here (the same pixels in another container)
-LOSSY_VARIANTS = {"webp_lossy": "png_of_webp_lossy", "jp2_lossy": "png_of_jp2_lossy"}
+LOSSY_VARIANTS = {"webp_lossy": "png_of_webp_lossy", "jp2_lossy": "png_of_jp2_lossy",
+                  "tiff_jpeg": "png_of_tiff_jpeg"}
 WEBP_FIXTURES = FIXTURES / "codecs" / "webp"
 JP2_FIXTURES = FIXTURES / "codecs" / "jpeg2000"
 # the committed fixture each lossy variant's source frame is, in its table
@@ -2310,43 +2591,136 @@ def write_bmp(img: np.ndarray) -> bytes:
     return b"BM" + struct.pack("<IHHI", offset + rows.size, 0, 0, offset) + info + masks + rows.tobytes()
 
 
-def write_tiff(img: np.ndarray) -> bytes:
-    """Little-endian TIFF of RGB (from BGR) or RGBA with associated alpha
-    (from BGRA), chunky, Deflate strips of 16 rows with the horizontal
-    predictor."""
-    import struct
-    import zlib
+def tiff_lzw(data: bytes) -> bytes:
+    """TIFF LZW (MSB-first codes of 9 to 12 bits, the width growing one code
+    early as libtiff writes it), a Clear code first and EOI last."""
+    out, acc, nacc = bytearray(), 0, 0
+    width = 9
 
-    h, w, c = img.shape
-    rgb = np.ascontiguousarray(img[..., [2, 1, 0, 3][:c]])
-    diff = rgb.copy()
-    diff[:, 1:] = rgb[:, 1:] - rgb[:, :-1]  # predictor 2, modulo 256
-    rows_per_strip = 16
-    strips = [zlib.compress(diff[y:y + rows_per_strip].tobytes()) for y in range(0, h, rows_per_strip)]
-    data = bytearray(b"II*\x00\x00\x00\x00\x00")
+    def put(code):
+        nonlocal acc, nacc
+        acc = (acc << width) | code
+        nacc += width
+        while nacc >= 8:
+            nacc -= 8
+            out.append((acc >> nacc) & 0xFF)
+        acc &= (1 << nacc) - 1
+
+    table = {bytes([i]): i for i in range(256)}
+    nxt = 258
+    put(256)
+    w = b""
+    for b in data:
+        wc = w + bytes([b])
+        if wc in table:
+            w = wc
+            continue
+        put(table[w])
+        table[wc] = nxt
+        nxt += 1
+        if nxt == 4094:  # the table is full: Clear, as libtiff's LZWEncode
+            put(256)
+            table = {bytes([i]): i for i in range(256)}
+            nxt, width = 258, 9
+        elif nxt > (1 << width) - 1:
+            width += 1
+        w = bytes([b])
+    if w:
+        put(table[w])
+    put(257)
+    if nacc:
+        out.append((acc << (8 - nacc)) & 0xFF)
+    return bytes(out)
+
+
+def _tiff_file(tags: dict, chunks: list, big: bool) -> bytes:
+    """A little-endian one-image TIFF (``big``: BigTIFF, version 43) of the
+    chunks, whose offsets and byte counts go in the two tags named by
+    ``tags["_chunks"]``, and the tags {tag: (type, values)} (3 SHORT, 4
+    LONG, 7 UNDEFINED; offsets LONG8 in a BigTIFF)."""
+    import struct
+
+    off_tag, cnt_tag = tags.pop("_chunks")
+    data = bytearray(b"II+\x00\x08\x00\x00\x00" + bytes(8) if big else b"II*\x00" + bytes(4))
     offsets = []
-    for st in strips:
+    for c in chunks:
         offsets.append(len(data))
-        data += st + b"\x00" * (len(st) % 2)
-    tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [8] * c), 259: (3, [8]), 262: (3, [2]), 273: (4, offsets),
-            277: (3, [c]), 278: (4, [rows_per_strip]), 279: (4, [len(st) for st in strips]), 284: (3, [1]),
-            317: (3, [2])}
-    if c == 4:
-        tags[338] = (3, [1])
+        data += c + b"\x00" * (len(c) % 2)
+    long_type = 16 if big else 4
+    tags[off_tag], tags[cnt_tag] = (long_type, offsets), (long_type, [len(c) for c in chunks])
+    head, count_fmt, inline = ("<HHQ", "<Q", 8) if big else ("<HHI", "<H", 4)
+    entry = struct.calcsize(head) + inline
     ifd_at = len(data)
-    values_at = ifd_at + 2 + 12 * len(tags) + 4
-    ifd, values = bytearray(struct.pack("<H", len(tags))), bytearray()
+    values_at = ifd_at + struct.calcsize(count_fmt) + entry * len(tags) + inline
+    ifd, values = bytearray(struct.pack(count_fmt, len(tags))), bytearray()
     for t in sorted(tags):
         typ, vals = tags[t]
-        blob = struct.pack("<" + {3: "H", 4: "I"}[typ] * len(vals), *vals)
-        if len(blob) <= 4:
-            ifd += struct.pack("<HHI", t, typ, len(vals)) + blob.ljust(4, b"\x00")
+        blob = bytes(vals) if typ == 7 else struct.pack("<" + {3: "H", 4: "I", 16: "Q"}[typ] * len(vals), *vals)
+        if len(blob) <= inline:
+            ifd += struct.pack(head, t, typ, len(vals)) + blob.ljust(inline, b"\x00")
         else:
-            ifd += struct.pack("<HHII", t, typ, len(vals), values_at + len(values))
-            values += blob
-    data += ifd + b"\x00" * 4 + values
-    data[4:8] = struct.pack("<I", ifd_at)
+            ifd += struct.pack(head, t, typ, len(vals)) + (values_at + len(values)).to_bytes(inline, "little")
+            values += blob + b"\x00" * (len(blob) % 2)
+    data += ifd + bytes(inline) + values
+    if big:
+        data[8:16] = struct.pack("<Q", ifd_at)
+    else:
+        data[4:8] = struct.pack("<I", ifd_at)
     return bytes(data)
+
+
+def write_tiff(img: np.ndarray, compression: int = 8, big: bool = False) -> bytes:
+    """Little-endian TIFF (``big``: BigTIFF) of (H, W) uint16 gray, RGB
+    (from BGR) or RGBA with associated alpha (from BGRA) uint8: chunky
+    strips of 16 rows with the horizontal predictor, Deflate (8) or LZW
+    (5)."""
+    import zlib
+
+    h, w = img.shape[:2]
+    c = 1 if img.ndim == 2 else img.shape[2]
+    s = np.ascontiguousarray(img if c == 1 else img[..., [2, 1, 0, 3][:c]]).reshape(h, w, c)
+    diff = s.copy()
+    diff[:, 1:] = s[:, 1:] - s[:, :-1]  # predictor 2, modulo the sample's range
+    raw = diff.astype(diff.dtype.newbyteorder("<"))
+    rows_per_strip = 16
+    pack = tiff_lzw if compression == 5 else zlib.compress
+    strips = [pack(raw[y:y + rows_per_strip].tobytes()) for y in range(0, h, rows_per_strip)]
+    tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [8 * img.dtype.itemsize] * c), 259: (3, [compression]),
+            262: (3, [2 if c >= 3 else 1]), 277: (3, [c]), 278: (4, [rows_per_strip]), 284: (3, [1]), 317: (3, [2]),
+            "_chunks": (273, 279)}
+    if c == 4:
+        tags[338] = (3, [1])
+    return _tiff_file(tags, strips, big)
+
+
+def write_tiff_jpeg(bgr: np.ndarray, tile: int = 256) -> bytes:
+    """TIFF of JPEG tiles as tif_jpeg.c lays them out: photometric YCbCr,
+    2x2 chroma subsampling, the quantisation and Huffman tables in
+    JPEGTables (tag 347) and each tile an abbreviated stream (SOI, SOF0,
+    SOS, data, EOI); the tiles encoded by the port's ``encode_jpeg`` (4:2:0,
+    quality 95), the part of an edge tile past the image black."""
+    from tpu3dlm_torch.data import codecs
+
+    h, w = bgr.shape[:2]
+    rgb = np.ascontiguousarray(bgr[..., ::-1])
+    tables, tiles = None, []
+    for ty in range(0, h, tile):
+        for tx in range(0, w, tile):
+            block = np.zeros((tile, tile, 3), np.uint8)
+            part = rgb[ty:ty + tile, tx:tx + tile]
+            block[:part.shape[0], :part.shape[1]] = part
+            jpg = codecs.encode_jpeg(block)
+            segments, pos = {}, 2
+            while jpg[pos + 1] != 0xDA:  # the segments up to SOS
+                n = int.from_bytes(jpg[pos + 2:pos + 4], "big")
+                segments.setdefault(jpg[pos + 1], []).append(jpg[pos:pos + 2 + n])
+                pos += 2 + n
+            tables = tables or b"\xff\xd8" + b"".join(segments[0xDB] + segments[0xC4]) + b"\xff\xd9"
+            tiles.append(b"\xff\xd8" + b"".join(segments[0xC0]) + jpg[pos:])
+    tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [8, 8, 8]), 259: (3, [7]), 262: (3, [6]), 277: (3, [3]),
+            284: (3, [1]), 322: (4, [tile]), 323: (4, [tile]), 347: (7, list(tables)), 530: (3, [2, 2]),
+            "_chunks": (324, 325)}
+    return _tiff_file(tags, tiles, big=False)
 
 
 def write_lossless_jpeg(bgr: np.ndarray) -> bytes:
@@ -2405,8 +2779,10 @@ def codec_variant_blob(variant: str, source_frame: int, baseline: bytes) -> byte
     quality 90, with a PNG of the lossy frame's decode written here), or
     JPEG 2000 (``tests/fixtures/codecs/jpeg2000``: cv2's JP2, lossless on
     these frames, and PIL's 9/7 with the ICT at rate 12, with a PNG of its
-    decode written here). All but the lossy WebP, the 9/7 JPEG 2000 and
-    their PNGs decode to the baseline's pixels."""
+    decode written here), or TIFF written by this script: JPEG tiles
+    (``write_tiff_jpeg``, with a PNG of its decode) and an LZW BigTIFF
+    (``write_tiff``). All but the lossy WebP, the 9/7 JPEG 2000, the
+    JPEG tiles and their PNGs decode to the baseline's pixels."""
     from tpu3dlm_torch.data import codecs
 
     suffix = {"progressive": "prog", "arithmetic": "arith", "arithmetic_progressive": "arith_prog"}
@@ -2418,11 +2794,12 @@ def codec_variant_blob(variant: str, source_frame: int, baseline: bytes) -> byte
     jp2 = {"jp2_lossless": "lossless", "jp2_lossy": "irreversible_q12"}
     if variant in jp2:
         return (JP2_FIXTURES / f"capture_maintenance_{source_frame}_{jp2[variant]}.jp2").read_bytes()
-    if variant in ("png_of_webp_lossy", "png_of_jp2_lossy"):
+    if variant in ("png_of_webp_lossy", "png_of_jp2_lossy", "png_of_tiff_jpeg"):
         lossy = codec_variant_blob(variant[len("png_of_"):], source_frame, baseline)
         return codecs.encode_png(codecs.decode_image(lossy)[..., ::-1])
     writers = {"png": codecs.encode_png, "lossless_jpeg": write_lossless_jpeg, "tiff_deflate": write_tiff,
-               "bmp": write_bmp, "ppm": write_ppm}
+               "bmp": write_bmp, "ppm": write_ppm, "tiff_jpeg": write_tiff_jpeg,
+               "bigtiff_lzw": lambda img: write_tiff(img, compression=5, big=True)}
     if variant in writers:
         return writers[variant](codecs.decode_jpeg(baseline)[..., ::-1])
     check(baseline[2:4] == b"\xff\xe0", "a JFIF APP0 follows SOI")
@@ -2436,18 +2813,105 @@ def depth_variant_blob(variant: str, source_frame: int, baseline: bytes) -> byte
     """A maintenance depth blob (a CV_8UC4 PNG of float32 metres) as a
     4-channel TIFF or BMP of the same bytes written here, or as the
     lossless 4-channel WebP or the JP2 cv2 wrote of it, each of which
-    decodes to the same (H, W, 4) array under IMREAD_UNCHANGED."""
+    decodes to the same (H, W, 4) array under IMREAD_UNCHANGED; or as a
+    16-bit gray Deflate BigTIFF of its millimetres (RTAB-Map's 16UC1, which
+    the capture's depths, whole millimetres, fill exactly)."""
     from tpu3dlm_torch.data import codecs
+    from tpu3dlm_torch.data.rtabmap_db import reinterpret_depth
 
     if variant == "webp_bgra":
         return (WEBP_FIXTURES / f"capture_maintenance_{source_frame}_depth.webp").read_bytes()
     if variant == "jp2_bgra":
         return (JP2_FIXTURES / f"capture_maintenance_{source_frame}_depth.jp2").read_bytes()
     bgra = codecs.decode_unchanged(baseline)
+    if variant == "bigtiff_u16":
+        metres = reinterpret_depth(bgra)
+        mm = np.rint(metres.astype(np.float64) * 1000).astype(np.uint16)
+        check(np.array_equal(mm.astype(np.float32) / 1000.0, metres), "the capture's depths are whole millimetres")
+        return write_tiff(mm, big=True)
     return {"tiff_rgba": write_tiff, "bmp_bgra": write_bmp}[variant](bgra)
 
 
-def phase_codec_full_width(dev, tmp: str, tiled_root: str) -> dict:
+def codec_variant_blobs(n_src: int = 5) -> dict:
+    """Every image and depth variant of the committed capture's first
+    ``n_src`` maintenance frames (``codec_variant_blob``,
+    ``depth_variant_blob``), as ``codec_full_width`` feeds them to the CLI
+    (a pool job: the writers are host work): {"image" | "depth": {variant:
+    {source frame: blob}}, "seconds"}."""
+    import sqlite3
+
+    t0 = time.perf_counter()
+    conn = sqlite3.connect(PROJECT / "data" / "maintenance" / "data.db")
+    rows = {i: (bytes(im), bytes(dp)) for i, im, dp in conn.execute("SELECT id, image, depth FROM Data")}
+    conn.close()
+    image = {"baseline": {s: rows[s][0] for s in range(1, n_src + 1)}}
+    image.update({v: {s: codec_variant_blob(v, s, rows[s][0]) for s in range(1, n_src + 1)} for v in CODEC_VARIANTS})
+    depth = {"baseline": {s: rows[s][1] for s in range(1, n_src + 1)}}
+    depth.update({v: {s: depth_variant_blob(v, s, rows[s][1]) for s in range(1, n_src + 1)} for v in DEPTH_VARIANTS})
+    return {"image": image, "depth": depth, "seconds": time.perf_counter() - t0}
+
+
+FIXTURE_SUBDIRS = ("containers", "webp", "jpeg2000", "tiff")  # under tests/fixtures/codecs, each with digests.json
+
+
+def fixture_digest(a) -> dict:
+    import hashlib
+
+    a = np.ascontiguousarray(a)
+    return {"sha256": hashlib.sha256(a.tobytes()).hexdigest(), "shape": list(a.shape), "dtype": str(a.dtype)}
+
+
+def check_fixture_digests() -> dict:
+    """Every committed codec fixture decoded by the port on this host
+    (``codec_full_width``'s first part; a pool job): the digest of each
+    decode equal to cv2's in ``digests.json``, a ``ValueError`` where cv2
+    gave None. Returns {"checked", "refusals" and "count" by subdirectory,
+    "tables" (the digests), "seconds"}."""
+    from tpu3dlm_torch.data import codecs
+
+    t0 = time.perf_counter()
+    fixdir = FIXTURES / "codecs"
+    digests = json.loads((fixdir / "digests.json").read_text())
+    for name, want in digests.items():
+        path = str(fixdir / name)
+        if name.endswith(".jpg"):
+            got = {"color": codecs.read_jpeg(path)[..., ::-1]}
+        else:
+            got = {"color": codecs.read_image(path)[..., ::-1], "unchanged": codecs.read_png(path)}
+        check(got.keys() == want.keys() and all(fixture_digest(got[k]) == want[k] for k in want), name)
+    tables = {sub: json.loads((fixdir / sub / "digests.json").read_text()) for sub in FIXTURE_SUBDIRS}
+    refusals = {sub: 0 for sub in tables}
+    for sub, table in tables.items():
+        for name, want in table.items():
+            path = str(fixdir / sub / name)
+            for key, read in (("color", lambda p: codecs.read_image(p)[..., ::-1]),
+                              ("unchanged", codecs.read_unchanged)):
+                try:
+                    got = fixture_digest(read(path))
+                except ValueError:
+                    got = None
+                    refusals[sub] += 1
+                check(got == want[key], (name, key, got, want[key]))
+    return {"checked": len(digests) + sum(map(len, tables.values())), "refusals": refusals,
+            "count": {sub: len(t) for sub, t in tables.items()}, "tables": tables,
+            "seconds": time.perf_counter() - t0}
+
+
+def _link_gold(src: str, dst: str) -> None:
+    """``copytree``'s copy function for a variant's capture: a hard link for
+    each file of ``gold_std`` (read, never written, by a maintenance run),
+    a copy of any other."""
+    import os
+    import shutil
+
+    if f"{os.sep}gold_std{os.sep}" in src:
+        os.link(src, dst)
+    else:
+        shutil.copy2(src, dst)
+
+
+def phase_codec_full_width(dev, tmp: str, tiled_root: str, fixtures: dict | None = None,
+                           variant_blobs: dict | None = None) -> dict:
     """Every frame format the port decodes, on this host (no cv2) and
     through the Pipeline on the card:
 
@@ -2465,22 +2929,26 @@ def phase_codec_full_width(dev, tmp: str, tiled_root: str) -> dict:
       route, bf16, YOLOv10-n, seeded BEiT-base): its maintenance data.db
       image blobs replaced by each of ``CODEC_VARIANTS``
       (``codec_variant_blob``: transcodes, PNG, EXIF, and lossless JPEG,
-      Deflate TIFF, BMP and PPM written here from the decoded frame; tiled
-      frame k takes its source frame's), then its depth blobs (256x192
-      CV_8UC4 PNGs) replaced by each of ``DEPTH_VARIANTS`` (4-channel TIFF
-      and BMP of the same bytes, lossless WebP, cv2's JP2), on the baseline's
+      Deflate TIFF, BMP, PPM, JPEG-in-TIFF tiles and LZW BigTIFF written
+      here from the decoded frame; tiled frame k takes its source frame's),
+      then its depth blobs (256x192 CV_8UC4 PNGs) replaced by each of
+      ``DEPTH_VARIANTS`` (4-channel TIFF and BMP of the same bytes, lossless
+      WebP, cv2's JP2, 16-bit BigTIFF of the millimetres), on the baseline's
       gold map. Each variant and the baseline run as the maintenance scan
       through the CLI, the counts at 0 before each: every variant's report
-      CSV identical to the baseline's, but the lossy WebP's and the 9/7 JPEG
-      2000's, each identical to that of a PNG of its decoded pixels
-      (``LOSSY_VARIANTS``), and B1's and B2's launches equal to the
-      baseline's;
+      CSV identical to the baseline's, but the lossy WebP's, the 9/7 JPEG
+      2000's and the JPEG-in-TIFF's, each identical to that of a PNG of its
+      decoded pixels (``LOSSY_VARIANTS``), and B1's and B2's launches equal
+      to the baseline's;
     - host decode ms per 640x480 frame of each image variant and per depth
       frame of each depth variant beside the baseline (``decode_image`` /
       ``decode_unchanged`` of the blob, median over the 5 source frames x 5
       passes, in turns), and ``load_scan`` frames/s at 640 with 8 workers
-      on the progressive variant's extracted scan."""
-    import hashlib
+      on the progressive variant's extracted scan.
+
+    ``fixtures`` and ``variant_blobs``: the digest check's result and the
+    variants' blobs when the pool made them (``check_fixture_digests``,
+    ``codec_variant_blobs``), else they are made here."""
     import os
     import shutil
     import sqlite3
@@ -2488,42 +2956,16 @@ def phase_codec_full_width(dev, tmp: str, tiled_root: str) -> dict:
     from tpu3dlm_torch import cli
     from tpu3dlm_torch.data import codecs
     from tpu3dlm_torch.data.dataset import load_scan
+    from tpu3dlm_torch.data.rtabmap_db import reinterpret_depth
     from tpu3dlm_torch.ops.kernels.attention import beit_attention_packed
     from tpu3dlm_torch.ops.kernels.pairwise import nearest_neighbors
     from tpu3dlm_torch.utils.config import ConfigLoader
 
     t_phase = time.perf_counter()
-    fixdir = FIXTURES / "codecs"
-    digests = json.loads((fixdir / "digests.json").read_text())
-    containers = json.loads((fixdir / "containers" / "digests.json").read_text())
-
-    def digest(a) -> dict:
-        a = np.ascontiguousarray(a)
-        return {"sha256": hashlib.sha256(a.tobytes()).hexdigest(), "shape": list(a.shape), "dtype": str(a.dtype)}
-
-    for name, want in digests.items():
-        path = str(fixdir / name)
-        if name.endswith(".jpg"):
-            got = {"color": codecs.read_jpeg(path)[..., ::-1]}
-        else:
-            got = {"color": codecs.read_image(path)[..., ::-1], "unchanged": codecs.read_png(path)}
-        check(got.keys() == want.keys() and all(digest(got[k]) == want[k] for k in want), name)
-    webp = json.loads((WEBP_FIXTURES / "digests.json").read_text())
-    jp2 = json.loads((JP2_FIXTURES / "digests.json").read_text())
-    tables = {"containers": containers, "webp": webp, "jpeg2000": jp2}
-    refusals = {sub: 0 for sub in tables}
-    for sub, table in tables.items():
-        for name, want in table.items():
-            path = str(fixdir / sub / name)
-            for key, read in (("color", lambda p: codecs.read_image(p)[..., ::-1]),
-                              ("unchanged", codecs.read_unchanged)):
-                try:
-                    got = digest(read(path))
-                except ValueError:
-                    got = None
-                    refusals[sub] += 1
-                check(got == want[key], (name, key, got, want[key]))
-    t_fixtures = time.perf_counter() - t_phase
+    fixtures_on = "the pool" if fixtures else "this process"
+    fixtures = fixtures or check_fixture_digests()
+    tables = fixtures["tables"]
+    digest = fixture_digest
 
     src_db = os.path.join(tiled_root, "configs", "data", "maintenance", "data.db")
     conn = sqlite3.connect(src_db)
@@ -2532,24 +2974,22 @@ def phase_codec_full_width(dev, tmp: str, tiled_root: str) -> dict:
     conn.close()
     frames = len(baseline)
     n_src = 5
-    t_write = time.perf_counter()
-    blobs = {v: {s: codec_variant_blob(v, s, baseline[s]) for s in range(1, n_src + 1)} for v in CODEC_VARIANTS}
-    blobs = {"baseline": {s: baseline[s] for s in range(1, n_src + 1)}, **blobs}
-    depth_blobs = {v: {s: depth_variant_blob(v, s, baseline_depth[s]) for s in range(1, n_src + 1)}
-                   for v in DEPTH_VARIANTS}
-    depth_blobs = {"baseline": {s: baseline_depth[s] for s in range(1, n_src + 1)}, **depth_blobs}
-    write_s = time.perf_counter() - t_write
+    variant_blobs = variant_blobs or codec_variant_blobs(n_src)
+    blobs, depth_blobs, write_s = variant_blobs["image"], variant_blobs["depth"], variant_blobs["seconds"]
+    check(all(blobs["baseline"][s] == baseline[s] and depth_blobs["baseline"][s] == baseline_depth[s]
+              for s in range(1, n_src + 1)), "the tiled capture's source frames")
     for v, by_src in blobs.items():  # the baseline's arrays, or cv2's decode of the lossy frame
         for s, b in by_src.items():
             if v in LOSSY_FIXTURE:
                 sub, name = LOSSY_FIXTURE[v]
                 want = tables[sub][name.format(s)]["color"]
                 check(digest(codecs.decode_image(b)[..., ::-1]) == want, (v, s))
-            else:
+            elif v not in ("tiff_jpeg", "png_of_tiff_jpeg"):  # written here: held by their runs' reports
                 check(np.array_equal(codecs.decode_image(b), codecs.decode_image(baseline[s])), (v, s))
-    for v, by_src in depth_blobs.items():
+    for v, by_src in depth_blobs.items():  # the same depth in metres (16UC1 in millimetres)
         for s, b in by_src.items():
-            check(np.array_equal(codecs.decode_unchanged(b), codecs.decode_unchanged(baseline_depth[s])), (v, s))
+            check(np.array_equal(reinterpret_depth(codecs.decode_unchanged(b)),
+                                 reinterpret_depth(codecs.decode_unchanged(baseline_depth[s]))), (v, s))
 
     runs = {}
     cases = [(v, "image", blobs[v]) for v in blobs] + [(f"depth_{v}", "depth", depth_blobs[v]) for v in DEPTH_VARIANTS]
@@ -2557,9 +2997,10 @@ def phase_codec_full_width(dev, tmp: str, tiled_root: str) -> dict:
         t_setup = time.perf_counter()
         root = os.path.join(tmp, f"codec_{variant}")
         # the frame files stay behind: the run extracts maintenance's anew from
-        # its data.db and reads gold's map from its pickle
+        # its data.db and reads gold's map from its pickle (gold's files, which
+        # a maintenance run only reads, are hard links)
         shutil.copytree(os.path.join(tiled_root, "configs"), os.path.join(root, "configs"),
-                        ignore=shutil.ignore_patterns("data_rgb", "data_depth"))
+                        ignore=shutil.ignore_patterns("data_rgb", "data_depth"), copy_function=_link_gold)
         cfg = os.path.join(root, "configs", "variables.cfg")
         check(os.path.exists(ConfigLoader(cfg, "gold_std").pickle_path), "the baseline's gold map")
         if variant != "baseline":
@@ -2619,11 +3060,10 @@ def phase_codec_full_width(dev, tmp: str, tiled_root: str) -> dict:
         "phase": "codec_full_width", "frames_per_scan": frames,
         "frame_hw": list(codecs.decode_image(baseline[1]).shape[:2]),
         "depth_hw_channels": list(codecs.decode_unchanged(baseline_depth[1]).shape),
-        "fixtures_checked": len(digests) + sum(map(len, tables.values())), "container_fixtures": len(containers),
-        "container_refusals_checked": refusals["containers"], "webp_fixtures": len(webp),
-        "webp_refusals_checked": refusals["webp"], "jpeg2000_fixtures": len(jp2),
-        "jpeg2000_refusals_checked": refusals["jpeg2000"],
-        "fixtures_s": t_fixtures, "variants_written_s": write_s,
+        "fixtures_checked": fixtures["checked"], "fixtures_by_subdirectory": fixtures["count"],
+        "refusals_checked_by_subdirectory": fixtures["refusals"],
+        "fixtures_s": fixtures["seconds"], "fixtures_on": fixtures_on,
+        "variants_written_s": write_s,
         "variants": list(runs), "reports_identical": True, "report_held_to": report_held_to,
         "lossy_twin_report_equals_baseline": {t: runs[t]["csv"] == base["csv"] for t in LOSSY_VARIANTS.values()},
         "report_rows": base["csv"].count(b"\n") - 1,
@@ -3902,7 +4342,50 @@ def hold_annotated_frames(gpu: dict, cpu: dict) -> dict:
     return out
 
 
-def phase_vis_parity(dev, tmp: str) -> dict:
+VIS_PATCH = PARITY_PATCH + VIS_CUT
+
+
+def vis_leg(tmp: str, name: str, device) -> dict:
+    """One leg of ``vis_parity``: the committed capture copied under
+    ``tmp``, gold and maintenance with the views on (``VIS_SWITCHES``) on
+    ``device`` under ``VisRecorder`` (on the card with the launch counts at
+    0 just before): {"runs", "seconds", "annotated", "animation" (the
+    maintenance run's ``VisualiseAlignment``), "frames", "video_s",
+    "launches", "cfg_on", "cfg_off"}."""
+    import os
+
+    root = os.path.join(tmp, f"vis_parity_{name}")
+    copy_project(root)
+    cfg_off = write_config(root, PROJECT_PATCH + VIS_PATCH)
+    text = Path(cfg_off).read_text()
+    for old, new in VIS_SWITCHES:
+        text = text.replace(old, new)
+    cfg_on = str(Path(cfg_off).with_name("switches_on.cfg"))
+    Path(cfg_on).write_text(text)
+    launches = None
+    t0 = time.perf_counter()
+    with VisRecorder() as rec:
+        if name == "gpu":
+            reset_launches()  # the counts at 0 just before the path
+        runs = run_two_scans(cfg_on, device)
+        if name == "gpu":
+            launches = read_launches()
+    seconds = time.perf_counter() - t0
+    (animation,) = rec.animations
+    return {"runs": runs, "seconds": seconds, "annotated": rec.annotated, "animation": animation,
+            "frames": animation.frames, "video_s": animation.video_s, "launches": launches, "cfg_on": cfg_on,
+            "cfg_off": cfg_off}
+
+
+def cpu_vis_leg(tmp: str) -> dict:
+    """``vis_parity``'s CPU leg, in a form that crosses processes (a pool
+    job, or run by the phase)."""
+    leg = vis_leg(tmp, "cpu", "cpu")
+    return {"runs": tuple(RunRecord(p) for p in leg["runs"]),
+            **{k: leg[k] for k in ("seconds", "annotated", "frames", "video_s")}}
+
+
+def phase_vis_parity(dev, tmp: str, cpu: dict | None = None) -> dict:
     """The views of a run on the card against the CPU on the committed
     capture at ``bench_e2e.py``'s configuration on the staged route (f32,
     fixture checkpoints), the ICP cut to one iteration a stage (``VIS_CUT``):
@@ -3915,7 +4398,8 @@ def phase_vis_parity(dev, tmp: str) -> dict:
     run's, its frames within 1% of the pixels on another surface
     (``hold_frames``; the card's ICP steps differ from the CPU's within
     1e-4); ``frame_view_geometry`` and ``scan_to_pointcloud`` of both scans
-    by ``hold_view_geometry``; B1 and B2 launched."""
+    by ``hold_view_geometry``; B1 and B2 launched. ``cpu``: the CPU leg
+    when the pool ran it (``cpu_vis_leg``), else ``cpu_vis_leg`` runs here."""
     import os
 
     from tpu3dlm_torch.data.scan import detections_from_frame_dict
@@ -3924,41 +4408,25 @@ def phase_vis_parity(dev, tmp: str) -> dict:
     from tpu3dlm_torch.utils.config import ConfigLoader
 
     t_phase = time.perf_counter()
-    extra = [("infer_dtype = bf16", "infer_dtype = f32"),
-             ("yolo_weights =", f"yolo_weights = {FIXTURES / 'yolo_synthetic.msgpack'}"),
-             ("beit_weights =", f"beit_weights = {FIXTURES / 'beit_synthetic.msgpack'}")] + VIS_CUT
-    runs, recs, legs_s = {}, {}, {}
-    for name, device in (("cpu", "cpu"), ("gpu", dev)):
-        root = os.path.join(tmp, f"vis_parity_{name}")
-        copy_project(root)
-        cfg_off = write_config(root, PROJECT_PATCH + extra)
-        text = Path(cfg_off).read_text()
-        for old, new in VIS_SWITCHES:
-            text = text.replace(old, new)
-        cfg_on = str(Path(cfg_off).with_name("switches_on.cfg"))
-        Path(cfg_on).write_text(text)
-        t0 = time.perf_counter()
-        with VisRecorder() as rec:
-            if name == "gpu":
-                reset_launches()  # the counts at 0 just before the path
-            runs[name] = run_two_scans(cfg_on, device)
-            if name == "gpu":
-                launches = read_launches()
-        legs_s[name] = time.perf_counter() - t0
-        recs[name] = rec
-        csv_on = Path(runs[name][1].cfg.csv_output).read_bytes()
-        if name == "gpu":  # the same maintenance capture with the switches off
-            cfg_gold = ConfigLoader(cfg_on, "gold_std")
-            off = task.setup_pipeline("maintenance", ConfigLoader(cfg_off, "maintenance"), cfg_gold,
-                                      task.load_gold_std(cfg_gold.pickle_path), device=dev)
-            check(Path(off.cfg.csv_output).read_bytes() == csv_on, "CSV with the switches off and on")
-            check(off.data_to_save["comparison_rows"] == runs[name][1].data_to_save["comparison_rows"], "rows")
+    cpu_leg = "the pool" if cpu else "this process"
+    cpu = cpu or cpu_vis_leg(tmp)
+    gpu = vis_leg(tmp, "gpu", dev)
+    runs = {"cpu": cpu["runs"], "gpu": gpu["runs"]}
+    legs_s = {"cpu": cpu["seconds"], "gpu": gpu["seconds"]}
+    launches = gpu["launches"]
+    csv_on = Path(runs["gpu"][1].cfg.csv_output).read_bytes()
+    # the same maintenance capture with the switches off
+    cfg_gold = ConfigLoader(gpu["cfg_on"], "gold_std")
+    off = task.setup_pipeline("maintenance", ConfigLoader(gpu["cfg_off"], "maintenance"), cfg_gold,
+                              task.load_gold_std(cfg_gold.pickle_path), device=dev)
+    check(Path(off.cfg.csv_output).read_bytes() == csv_on, "CSV with the switches off and on")
+    check(off.data_to_save["comparison_rows"] == runs["gpu"][1].data_to_save["comparison_rows"], "rows")
     errs = hold_pipelines(runs["cpu"], runs["gpu"])
     check(launches["b1"] > 0 and launches["b2"] > 0, launches)
-    png = hold_annotated_frames(recs["gpu"].annotated, recs["cpu"].annotated)
+    png = hold_annotated_frames(gpu["annotated"], cpu["annotated"])
     check(png["frames"] == 10, png)  # both 5-frame scans, every frame written
-    (g_vis,), (c_vis,) = recs["gpu"].animations, recs["cpu"].animations
-    frames = hold_frames(g_vis.frames, c_vis.frames, bar=0.01)
+    g_vis = gpu["animation"]
+    frames = hold_frames(g_vis.frames, cpu["frames"], bar=0.01)
     check(frames["frames"] == 20 * len(g_vis.moving_steps(runs["gpu"][1].data_to_save["transformations"])), frames)
     geometry = {}
     for folder, p in zip(FOLDERS, runs["gpu"]):
@@ -3973,8 +4441,10 @@ def phase_vis_parity(dev, tmp: str) -> dict:
               "annotated": png, "animation": {**frames, "file": written,
                                               "mesh_triangles": [len(g_vis.base_mesh[1]), len(g_vis.comp_mesh[1])]
                                               if g_vis.uses_mesh else None,
-                                              "video_s": {"gpu": g_vis.video_s, "cpu": c_vis.video_s}},
-              "view_geometry": geometry, "wall_s": legs_s, "seconds": time.perf_counter() - t_phase}
+                                              "video_s": {"gpu": g_vis.video_s, "cpu": cpu["video_s"]}},
+              "view_geometry": geometry, "wall_s": legs_s,
+              "cpu_leg": cpu_leg,
+              "seconds": time.perf_counter() - t_phase}
     emit(result)
     return result
 
@@ -4856,25 +5326,40 @@ def _watch_world_rank(mesh, config: str, watch_kw: dict) -> dict:
             "captures": out.processed if mesh.rank == 0 else out}
 
 
-def gloo_watch_legs(dev, tmp: str, patches: list) -> dict:
-    """Gold + 2 maintenance captures watched by two gloo ranks spawned on
-    ``dev`` and, beside them, by two spawned on the CPU (their worlds share
-    nothing): {"card" | "cpu": seconds, each rank's ``_watch_world_rank``
-    record, the reports}. Raises what either leg raised."""
+# gold + 2 maintenance captures at the parity configuration on two gloo ranks
+WATCH_WORLD_GLOO_PATCH = PROJECT_PATCH + [
+    ("fused_inference = false", "fused_inference = true"), ("infer_dtype = bf16", "infer_dtype = f32"),
+    ("mesh_devices = 1", "mesh_devices = 2"),
+    ("yolo_weights =", f"yolo_weights = {FIXTURES / 'yolo_synthetic.msgpack'}"),
+    ("beit_weights =", f"beit_weights = {FIXTURES / 'beit_synthetic.msgpack'}")] + WATCH_WORLD_ICP_CUT
+
+
+def gloo_watch_leg(tmp: str, where: str, device: str) -> dict:
+    """Gold + 2 maintenance captures (``WATCH_WORLD_GLOO_PATCH``) watched
+    by two gloo ranks spawned on ``device``: {"seconds", each rank's
+    ``_watch_world_rank`` record, the reports}."""
     import os
-    import threading
 
     from tpu3dlm_torch.parallel.mesh import spawn_world
+
+    cfg, data = watched_root(os.path.join(tmp, f"watch_world_gloo_{where}"), WATCH_WORLD_GLOO_PATCH, extra=1)
+    t0 = time.perf_counter()
+    ranks = spawn_world(_watch_world_rank, 2, device=device, backend="gloo",
+                        args=(cfg, dict(poll_interval=0.05, max_scans=3)))
+    return {"seconds": time.perf_counter() - t0, "ranks": ranks, "reports": watched_reports(data)}
+
+
+def gloo_watch_legs(dev, tmp: str) -> dict:
+    """``gloo_watch_leg`` on ``dev`` and, beside it, on the CPU (their
+    worlds share nothing): {"card" | "cpu": its record}. Raises what either
+    leg raised."""
+    import threading
 
     parity, errors = {}, []
 
     def leg(where: str, device: str) -> None:
         try:
-            cfg, data = watched_root(os.path.join(tmp, f"watch_world_gloo_{where}"), patches, extra=1)
-            t0 = time.perf_counter()
-            ranks = spawn_world(_watch_world_rank, 2, device=device, backend="gloo",
-                                args=(cfg, dict(poll_interval=0.05, max_scans=3)))
-            parity[where] = {"seconds": time.perf_counter() - t0, "ranks": ranks, "reports": watched_reports(data)}
+            parity[where] = gloo_watch_leg(tmp, where, device)
         except BaseException as e:  # noqa: BLE001 - handed to the caller's thread below
             errors.append(e)
 
@@ -5036,12 +5521,7 @@ def phase_watch_world(dev, tmp: str, frames: int = 128) -> dict:
         w1, o1 = full["world_1_rank_nccl"][turn], full["one_process"][turn]
         check(w1["b1"] == o1["b1"] > 0 and w1["b2"] == o1["b2"] > 0, (w1, o1))
 
-    patches = PROJECT_PATCH + [("fused_inference = false", "fused_inference = true"),
-                               ("infer_dtype = bf16", "infer_dtype = f32"), ("mesh_devices = 1", "mesh_devices = 2"),
-                               ("yolo_weights =", f"yolo_weights = {FIXTURES / 'yolo_synthetic.msgpack'}"),
-                               ("beit_weights =", f"beit_weights = {FIXTURES / 'beit_synthetic.msgpack'}")
-                               ] + WATCH_WORLD_ICP_CUT
-    parity = gloo_watch_legs(dev, tmp, patches)
+    parity = gloo_watch_legs(dev, tmp)
     card = parity["card"]["ranks"]
     check(card[0]["captures"] == ["gold_std", "maintenance", "maintenance_2"] and card[1]["captures"] == 3, card)
     check(all(r["b1"] > 0 and r["b2"] > 0 for r in card), card)
@@ -5081,7 +5561,6 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from tpu3dlm_torch.device import resolve_device
-    from tpu3dlm_torch.kernels.build import build_all
 
     dev = resolve_device("cuda")
     card = subprocess.run(
@@ -5090,63 +5569,126 @@ def main() -> int:
     ).stdout.strip()
     mem_rate = card_memory_rate(torch.cuda.get_device_name(0))
     t_script = t0 = time.perf_counter()
-    libs = build_all()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "libraries": sorted(str(p.name) for p in libs.values())})
+    pool = HostPool() if HostPool.fits() else None
+    pool_tmp = tempfile.mkdtemp(prefix="chip_smoke_pool_")
+    try:
+        return run_phases(dev, card, mem_rate, pool, pool_tmp, t_script, t0)
+    finally:
+        if pool is not None:
+            pool.close(kill=True)
+        shutil.rmtree(pool_tmp, ignore_errors=True)
 
-    b1 = phase_kernel_b1(dev, mem_rate)
+
+def build_and_start_pool(pool: HostPool | None, pool_tmp: str) -> dict:
+    """Every kernel and host library built at once (the CUDA sources on a
+    thread, every core the main process's); then the pool's worker starts
+    and the CPU legs are submitted to run beside the untimed phases."""
+    import threading
+
+    from tpu3dlm_torch.kernels.build import build_all
+
+    cuda, errors = {}, []
+
+    def build_cuda() -> None:
+        try:
+            cuda.update(build_all(host=[]))
+        except BaseException as e:  # noqa: BLE001 - raised by the caller below
+            errors.append(e)
+
+    thread = threading.Thread(target=build_cuda)
+    thread.start()
+    libs = build_all(names=[])
+    thread.join()
+    if errors:
+        raise errors[0]
+    if pool is not None:
+        pool.start()
+        pool.submit("ann_parity", cpu_anchor_index)
+        pool.submit("fixtures", check_fixture_digests)
+        pool.submit("codec_variants", codec_variant_blobs)
+        pool.submit("parity_cpu_legs", cpu_pipeline_legs, pool_tmp)
+        pool.submit("vis_parity", cpu_vis_leg, pool_tmp)
+    return {**libs, **cuda}
+
+
+def timed_seconds(fn, *args) -> tuple:
+    """(fn(*args), its seconds)."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return out, time.perf_counter() - t0
+
+
+def run_phases(dev, card: str, mem_rate: float, pool: HostPool | None, pool_tmp: str, t_script: float,
+               t0: float) -> int:
+    libs = build_and_start_pool(pool, pool_tmp)
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "libraries": sorted(str(p.name) for p in libs.values()),
+          "pool": {"main_cores": pool.main_cores, "pool_cores": pool.pool_cores} if pool else None})
+
+    # While the pool works, the main process (on the other cores) runs the
+    # phases that time nothing: checks whose only clock is their own wall
+    # seconds. Every phase after the drain has the host to itself.
     phase_beit_past_old_limits(dev)
     phase_slice_parity(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_compare_parity(dev, tmp)
+    phase_attention_grad(dev)
+    phase_finetune_parity(dev)
+    phase_train_parity(dev)
+    envelope = phase_envelope_parity(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        evals = phase_eval_parity(dev, tmp)
+    dist_parity, dist_parity_s = timed_seconds(phase_dist_parity, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        plain, plain_s = timed_seconds(phase_plain_route_parity, dev, tmp)
+    cpu = pool.drain() if pool else {}
+    emit({"phase": "pool_drained", "seconds": time.perf_counter() - t0,
+          "waited_s": pool.waited_s if pool else None})
+
+    b1 = phase_kernel_b1(dev, mem_rate)
     full = phase_fused_full_width(dev)
     scene = two_scan_scene(1_000_000, SEED)
     b2 = phase_kernel_b2(dev, mem_rate, scene)
     with tempfile.TemporaryDirectory() as tmp:
-        phase_compare_parity(dev, tmp)
         compare = phase_compare_full_width(dev, tmp, scene)
-        phase_ann_parity(dev, scene)
+        phase_ann_parity(dev, scene, cpu=cpu.get("ann_parity"))
         compare_ann = phase_compare_full_width_ann(dev, tmp, scene, compare["final_transform"])
     b3 = phase_kernel_b3(dev, mem_rate)
-    phase_attention_grad(dev)
-    phase_finetune_parity(dev)
     finetune = phase_finetune_full_width(dev)
     b4 = phase_kernel_b4(dev, mem_rate)
     with tempfile.TemporaryDirectory() as tmp:
         tiled_root = str(Path(tmp, "full"))
         copy_project(tiled_root, frames=128)
         phase_ingest_parity(tmp, tiled_root)
-        phase_pipeline_parity(dev, tmp)
         pipe = phase_pipeline_full_width(dev, tiled_root)
-        codec = phase_codec_full_width(dev, tmp, tiled_root)
-        phase_pipeline_parity(dev, tmp, fused=False)
+        codec = phase_codec_full_width(dev, tmp, tiled_root, fixtures=cpu.get("fixtures"),
+                                       variant_blobs=cpu.get("codec_variants"))
+        parity_cpu = cpu.get("parity_cpu_legs", {})
+        phase_pipeline_parity(dev, tmp, cpu=parity_cpu.get("pipeline_parity"))
         staged_root = str(Path(tmp, "staged"))
         copy_project(staged_root, frames=128)
         staged = phase_pipeline_full_width(dev, staged_root, fused=False)
-        phase_pipeline_parity(dev, tmp, stream=2)
+        phase_pipeline_parity(dev, tmp, fused=False, cpu=parity_cpu.get("staged_parity"))
         stream = phase_stream_full_width(dev, str(Path(tmp, "stream")), mem_rate)
+        phase_pipeline_parity(dev, tmp, stream=2, cpu=parity_cpu.get("stream_parity"))
         watch = phase_watch_full_width(dev, tmp)
         phase_mesh_parity(dev, tmp)
         phase_mesh_full_width(dev, tmp)
-        vis = phase_vis_parity(dev, tmp)
+        vis = phase_vis_parity(dev, tmp, cpu=cpu.get("vis_parity"))
         phase_vis_full_width(dev, staged_root, scene)
-    envelope = phase_envelope_parity(dev)
     int8 = phase_int8_full_width(dev)
     with tempfile.TemporaryDirectory() as tmp:
-        evals = phase_eval_parity(dev, tmp)
         phase_eval_full_width(dev, tmp, evals)
-    phase_train_parity(dev)
     with tempfile.TemporaryDirectory() as tmp:
         train = phase_train_full_width(dev, tmp)
-    t_dist = time.perf_counter()
-    dist = phase_dist_full_width(dev)
-    dist_parity = phase_dist_parity(dev)
-    emit({"phase": "dist_seconds", "seconds": time.perf_counter() - t_dist})
-    t_new = time.perf_counter()
-    benches = phase_bench_port(dev, scene)
-    with tempfile.TemporaryDirectory() as tmp:
-        plain = phase_plain_route_parity(dev, tmp)
-    emit({"phase": "bench_and_plain_route_seconds", "seconds": time.perf_counter() - t_new})
+    dist, dist_s = timed_seconds(phase_dist_full_width, dev)
+    emit({"phase": "dist_seconds", "seconds": dist_s + dist_parity_s})
+    benches, bench_s = timed_seconds(phase_bench_port, dev, scene)
+    emit({"phase": "bench_and_plain_route_seconds", "seconds": bench_s + plain_s})
     with tempfile.TemporaryDirectory() as tmp:
         watch_world = phase_watch_world(dev, tmp)
+    if pool is not None:
+        emit({"phase": "host_pool", **pool.close()})
     from tpu3dlm_torch.ops.kernels.nn_variants import VARIANTS
 
     b4_rows = []

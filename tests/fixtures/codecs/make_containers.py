@@ -396,27 +396,35 @@ def _predict_float(s: np.ndarray) -> np.ndarray:
 
 def tiff(samples: np.ndarray, photometric: int, compression: int = 1, predictor: int = 1, rows_per_strip=None,
          tile=None, planar: int = 1, order: str = "<", bits: int | None = None, sample_format: int | None = None,
-         extra=None, colormap=None, orientation: int | None = None, extra_tags=None) -> bytes:
-    """(H, W, spp) samples → a one-image TIFF (classic, byte order
-    ``order``): strips of ``rows_per_strip`` rows or ``tile`` = (tw, th)
+         extra=None, colormap=None, orientation: int | None = None, extra_tags=None, subsampling=None,
+         big: bool = False) -> bytes:
+    """(H, W, spp) samples → a one-image TIFF (classic, or BigTIFF with
+    ``big``; byte order ``order``): strips of ``rows_per_strip`` rows or ``tile`` = (tw, th)
     tiles, chunky (1) or planar (2), compression none (1), LZW (5), Deflate
-    (8 or 32946) or PackBits (32773), predictor 1, 2 or 3. Samples of fewer
-    than 8 bits (``bits`` 1, 2 or 4) are packed per row."""
+    (8 or 32946) or PackBits (32773), predictor 1, 2 or 3. Samples of
+    ``bits`` other than 8, 16, 32 and 64 (1, 2, 4, 10, 12, 14) are packed
+    per row, most significant bit first. With ``subsampling`` = (hs, vs),
+    YCbCr samples (photometric 6, chunky) are written as sampling units:
+    hs x vs luma samples, then the Cb and Cr of the unit's top left pixel,
+    the strip or tile padded to whole units by repeating its last row and
+    column."""
     s = samples if samples.ndim == 3 else samples[..., None]
     h, w, spp = s.shape
     bits = bits or s.dtype.itemsize * 8
     dt = s.dtype.newbyteorder(order) if s.dtype.itemsize > 1 else s.dtype
 
     def encode(block: np.ndarray) -> bytes:  # (rows, cols, n) samples of one strip / tile / plane
-        if bits < 8:
-            per = 8 // bits
-            v = block.astype(np.uint8)[..., 0]
-            pad = (-v.shape[1]) % per
-            v = np.concatenate([v, np.zeros((v.shape[0], pad), np.uint8)], 1).reshape(v.shape[0], -1, per)
-            raw = np.zeros(v.shape[:2], np.uint8)
-            for k in range(per):
-                raw |= v[..., k] << (8 - bits * (k + 1))
-            raw = raw.tobytes()
+        if subsampling:
+            hs, vs = subsampling
+            b = np.pad(block, ((0, -block.shape[0] % vs), (0, -block.shape[1] % hs), (0, 0)), mode="edge")
+            uy, ux = b.shape[0] // vs, b.shape[1] // hs
+            luma = b[..., 0].reshape(uy, vs, ux, hs).transpose(0, 2, 1, 3).reshape(uy, ux, vs * hs)
+            units = np.concatenate([luma, b[::vs, ::hs, 1:3]], -1).astype(np.uint8)
+            block = units.reshape(uy, 1, -1)
+        if bits % 8:  # every sample of a row packed MSB first, the row padded to a byte
+            v = block.reshape(block.shape[0], -1).astype(np.uint32)
+            b = ((v[..., None] >> np.arange(bits - 1, -1, -1, dtype=np.uint32)) & 1).astype(np.uint8)
+            raw = np.packbits(b.reshape(v.shape[0], -1), axis=1).tobytes()
         elif predictor == 3:
             raw = _predict_float(block).tobytes()
         else:
@@ -454,6 +462,8 @@ def tiff(samples: np.ndarray, photometric: int, compression: int = 1, predictor:
                277: (3, [spp]), 284: (3, [planar])}
     if predictor != 1:
         entries[317] = (3, [predictor])
+    if subsampling:
+        entries[530] = (3, list(subsampling))
     if tile:
         entries[322], entries[323] = (4, [tile[0]]), (4, [tile[1]])
     else:
@@ -469,31 +479,41 @@ def tiff(samples: np.ndarray, photometric: int, compression: int = 1, predictor:
     for k, v in (extra_tags or {}).items():
         entries[k] = v
     # layout: header, chunk data, then the IFD and its out-of-line values
-    data = bytearray(b"II*\x00" if order == "<" else b"MM\x00*") + b"\x00" * 4
+    if big:  # version 43: 8-byte offsets, 8-byte counts, 20-byte entries
+        data = bytearray((b"II+\x00" if order == "<" else b"MM\x00+") + struct.pack(order + "HHQ", 8, 0, 0))
+        head, count_fmt, inline, long_type = "HHQ", "Q", 8, 16
+    else:
+        data = bytearray(b"II*\x00" if order == "<" else b"MM\x00*") + b"\x00" * 4
+        head, count_fmt, inline, long_type = "HHI", "H", 4, 4
     offsets = []
     for c in chunks:
         offsets.append(len(data))
         data += c
         if len(data) % 2:
             data += b"\x00"
-    entries[324 if tile else 273] = (4, offsets)
-    entries[325 if tile else 279] = (4, [len(c) for c in chunks])
+    entries[324 if tile else 273] = (long_type, offsets)
+    entries[325 if tile else 279] = (long_type, [len(c) for c in chunks])
     ifd_at = len(data)
     tags = sorted(entries)
-    values_at = ifd_at + 2 + 12 * len(tags) + 4
-    ifd, values = bytearray(struct.pack(order + "H", len(tags))), bytearray()
+    entry = struct.calcsize(order + head) + inline
+    values_at = ifd_at + struct.calcsize(order + count_fmt) + entry * len(tags) + inline
+    ifd, values = bytearray(struct.pack(order + count_fmt, len(tags))), bytearray()
     for t in tags:
-        typ, vals = entries[t]
-        fmt = {3: "H", 4: "I"}[typ]
-        blob = struct.pack(order + fmt * len(vals), *vals)
-        if len(blob) <= 4:
-            ifd += struct.pack(order + "HHI", t, typ, len(vals)) + blob + b"\x00" * (4 - len(blob))
+        typ, vals = entries[t]  # RATIONAL (5) values as numerator, denominator pairs
+        blob = struct.pack(order + {1: "B", 2: "B", 3: "H", 4: "I", 5: "I", 7: "B", 16: "Q"}[typ] * len(vals), *vals)
+        count = len(vals) // 2 if typ == 5 else len(vals)
+        if len(blob) <= inline:
+            ifd += struct.pack(order + head, t, typ, count) + blob + b"\x00" * (inline - len(blob))
         else:
-            ifd += struct.pack(order + "HHII", t, typ, len(vals), values_at + len(values))
+            ifd += struct.pack(order + head, t, typ, count) + struct.pack(order + ("Q" if big else "I"),
+                                                                            values_at + len(values))
             values += blob + (b"\x00" if len(blob) % 2 else b"")
-    ifd += b"\x00" * 4
+    ifd += b"\x00" * inline
     data += ifd + values
-    data[4:8] = struct.pack(order + "I", ifd_at)
+    if big:
+        data[8:16] = struct.pack(order + "Q", ifd_at)
+    else:
+        data[4:8] = struct.pack(order + "I", ifd_at)
     return bytes(data)
 
 
@@ -806,4 +826,66 @@ def fixtures() -> dict:
     out["gif_cut.gif"] = out["gif_interlaced.gif"][:-60]
     # what cv2 here returns None for: OpenEXR (not built in)
     out["openexr_header.exr"] = b"v/1\x01\x02\x00\x00\x00channels\x00chlist\x00" + b"\x00" * 64
+    return out
+
+
+def tiff_fixtures() -> dict:
+    """The TIFF fixtures written here (``tests/fixtures/codecs/tiff``
+    beside ``make_tiff.c``'s from the system libtiff), name → bytes: PIL's
+    BigTIFF, CCITT (Modified Huffman, T.4, T.6), JPEG (YCbCr, RGB, gray,
+    CMYK), YCbCr and CIELab writes; this writer's subsampled YCbCr units,
+    CIELab of 16 bits and another white point, 10-, 12- and 14-bit samples,
+    BigTIFF layouts; and files cv2 returns None for: the compressions its
+    libtiff lacks, ICCLab and ITULab, YCbCr subsamplings libtiff's RGBA
+    reader has no routine for, a predictor on 12-bit samples."""
+    from PIL import Image
+
+    rng = np.random.default_rng(23)
+    h, w = 29, 37
+    y, x = np.mgrid[:h, :w]
+    c = ((x * 6 + y * 4)[..., None] + np.array([0, 70, 140]) + rng.integers(0, 16, (h, w, 3))).astype(np.uint8)
+    im = Image.fromarray(c)
+    bits = Image.fromarray(((x // 5 + y // 3) % 3 == 0) ^ (rng.random((h, w)) < 0.05))
+    out = {}
+    out["pil_bigtiff_rgb.tif"] = _pil(im, "TIFF", big_tiff=True)
+    out["pil_bigtiff_gray.tif"] = _pil(im.convert("L"), "TIFF", big_tiff=True)
+    for comp in ("tiff_ccitt", "group3", "group4"):
+        out[f"pil_{comp}.tif"] = _pil(bits, "TIFF", compression=comp)
+    for mode in ("RGB", "L", "CMYK"):
+        out[f"pil_jpeg_{mode.lower()}.tif"] = _pil(im.convert(mode), "TIFF", compression="jpeg", quality=80)
+    out["pil_ycbcr.tif"] = _pil(im.convert("YCbCr"), "TIFF")
+    out["pil_lab.tif"] = _pil(im.convert("LAB"), "TIFF")
+    out["pil_lab_lzw.tif"] = _pil(im.convert("LAB"), "TIFF", compression="tiff_lzw")
+    ycc = np.asarray(im.convert("YCbCr"))
+    for sub, comp, lay in (((2, 2), 8, {}), ((2, 1), 5, dict(rows_per_strip=6)), ((1, 2), 32773, {}),
+                           ((4, 2), 1, dict(tile=(16, 16))), ((4, 4), 5, dict(tile=(32, 16))), ((4, 1), 1, {}),
+                           ((1, 1), 8, dict(tile=(16, 16)))):
+        out[f"ycbcr_{sub[0]}{sub[1]}_{comp}.tif"] = tiff(ycc, 6, comp, subsampling=sub, **lay)
+    out["ycbcr_22_bt709_studio.tif"] = tiff(ycc, 6, 1, subsampling=(2, 2), extra_tags={
+        529: (5, [2126, 10000, 7152, 10000, 722, 10000]), 532: (5, [16, 1, 235, 1, 128, 1, 240, 1, 128, 1, 240, 1])})
+    out["ycbcr_planar_11.tif"] = tiff(ycc, 6, 8, planar=2, extra_tags={530: (3, [1, 1])})
+    lab = np.asarray(im.convert("LAB"))
+    out["cielab16.tif"] = tiff((lab.astype(np.uint16) * 257) ^ rng.integers(0, 256, lab.shape).astype(np.uint16), 8, 8)
+    out["cielab8_d65.tif"] = tiff(lab, 8, 5, extra_tags={318: (5, [3127, 10000, 3290, 10000])})
+    deep = [(rng.integers(0, 1 << b, (h, w, n)).astype(np.uint16), b, n) for b, n in ((10, 1), (12, 3), (14, 4))]
+    for s, b, n in deep:
+        out[f"deep{b}_{n}.tif"] = tiff(s, 1 if n == 1 else 2, 5, bits=b, extra=[2] if n == 4 else None)
+        out[f"deep{b}_{n}_deflate_be.tif"] = tiff(s, 1 if n == 1 else 2, 8, bits=b, order=">",
+                                                extra=[2] if n == 4 else None)
+    g16 = (c[..., 0].astype(np.uint16) * 251) ^ rng.integers(0, 256, (h, w)).astype(np.uint16)
+    out["bigtiff_lzw_pred2.tif"] = tiff(c, 2, 5, predictor=2, rows_per_strip=8, big=True)
+    out["bigtiff_gray16_deflate_tiles_be.tif"] = tiff(g16, 1, 8, tile=(16, 16), order=">", big=True)
+    out["bigtiff_planar_packbits.tif"] = tiff(c, 2, 32773, planar=2, big=True)
+    out["bigtiff_pal4.tif"] = tiff(c[..., 0] % 16, 3, 5, bits=4, colormap=rng.integers(0, 65536, (16, 3)), big=True)
+    out["bigtiff_ycbcr_42.tif"] = tiff(ycc, 6, 5, subsampling=(4, 2), big=True)
+    # what cv2 returns None for
+    for comp, name in ((34925, "lzma"), (50000, "zstd"), (50001, "webp"), (34887, "lerc"), (34661, "jbig"),
+                       (6, "old_jpeg"), (32909, "pixarlog")):
+        raw = bytearray(tiff(c, 2, 1))
+        raw = raw.replace(struct.pack("<HHIHH", 259, 3, 1, 1, 0), struct.pack("<HHIHH", 259, 3, 1, comp, 0))
+        out[f"refused_{name}.tif"] = bytes(raw)
+    out["refused_icclab.tif"] = tiff(lab, 9, 1)
+    out["refused_itulab.tif"] = tiff(lab, 10, 1)
+    out["refused_ycbcr_24.tif"] = tiff(ycc, 6, 1, subsampling=(2, 4))
+    out["refused_deep12_pred2.tif"] = tiff(deep[1][0], 2, 5, bits=12, predictor=2)
     return out

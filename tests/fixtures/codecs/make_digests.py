@@ -11,7 +11,10 @@ maintenance frames written by cv2 (``webp_capture``) beside what
 under both flags, ``null`` for None); then the JPEG 2000 set
 (``make_jpeg2000.capture()`` and ``fixtures()``, and
 ``make_jpeg2000_opj.fixtures()`` from the system OpenJPEG) into
-``jpeg2000/`` with ``jpeg2000/digests.json``, the same way.
+``jpeg2000/`` with ``jpeg2000/digests.json``, the same way; then the TIFF
+set: ``make_containers.tiff_fixtures()`` into ``tiff/`` beside what
+``make_tiff.c`` wrote there from the system libtiff, and
+``tiff/digests.json`` the same way.
 ``chip_smoke.py`` decodes every fixture with the port on a host without cv2
 and holds it to these digests; ``tests/test_torch_codecs_modes.py`` and
 ``tests/test_torch_codecs_containers.py`` hold the files to cv2. Run from
@@ -35,6 +38,7 @@ sys.path[:0] = [HERE, TESTS, os.path.dirname(TESTS)]
 import make_jpeg2000  # noqa: E402
 import make_jpeg2000_opj  # noqa: E402
 from make_containers import fixtures as container_fixtures  # noqa: E402
+from make_containers import tiff_fixtures  # noqa: E402
 from test_torch_codecs_modes import png_bytes  # noqa: E402
 
 
@@ -132,6 +136,22 @@ def main() -> None:
         out[name] = {}
         for key, flag in (("color", cv2.IMREAD_COLOR), ("unchanged", cv2.IMREAD_UNCHANGED)):
             img = cv2.imread(path, flag)
+            out[name][key] = None if img is None else digest(img)
+    with open(os.path.join(sub, "digests.json"), "w") as f:
+        json.dump(out, f, indent=1, sort_keys=True)
+        f.write("\n")
+    sub = os.path.join(HERE, "tiff")
+    os.makedirs(sub, exist_ok=True)
+    for name, data in tiff_fixtures().items():
+        with open(os.path.join(sub, name), "wb") as f:
+            f.write(data)
+    out = {}
+    for name in sorted(os.listdir(sub)):
+        if not name.endswith(".tif"):
+            continue
+        out[name] = {}
+        for key, flag in (("color", cv2.IMREAD_COLOR), ("unchanged", cv2.IMREAD_UNCHANGED)):
+            img = cv2.imread(os.path.join(sub, name), flag)
             out[name][key] = None if img is None else digest(img)
     with open(os.path.join(sub, "digests.json"), "w") as f:
         json.dump(out, f, indent=1, sort_keys=True)

@@ -15,7 +15,10 @@ shape, dtype and every byte, or the same refusal (cv2's None).
 - TIFF: none, LZW, Deflate and PackBits; strips, tiles, planes; the
   horizontal and floating point predictors; gray 1/8/16, RGB and RGBA 8/16
   with either alpha, palettes of 1, 4 and 8 bits, MinIsWhite, CMYK, signed
-  and float samples; the Orientation tag.
+  and float samples; the Orientation tag. BigTIFF, CCITT, JPEG, YCbCr,
+  CIELab and 10/12/14-bit samples are ``test_torch_codecs_tiff.py``'s, as
+  are the compressions cv2's libtiff is built without (LZMA, ZSTD, WebP,
+  LERC, JBIG, old JPEG, PixarLog), which both refuse.
 - Sun raster, Radiance HDR and GIF.
 - The committed fixtures (``tests/fixtures/codecs/containers``) and their
   digests, which ``chip_smoke.py`` holds the port to on the card host.
@@ -33,6 +36,7 @@ import json
 import os
 import shutil
 import sqlite3
+import struct
 import sys
 
 import cv2
@@ -534,23 +538,33 @@ def test_tiff_written_by_cv2_and_pil_match_cv2(tmp_path):
 
 
 def test_tiff_refusals_name_what_is_not_ported(tmp_path):
-    """The compressions and photometrics the port does not decode yet raise
-    naming them (cv2 decodes some of them: ROADMAP §A queues them); a cut
-    file fails as cv2 fails."""
+    """JPEG (7), YCbCr and 12-bit samples, once refused here, decode as cv2
+    decodes them (``test_torch_codecs_tiff.py`` holds each in full); what
+    cv2's libtiff is built without (LZMA, ZSTD) raises saying so, not that
+    it is not yet ported; what cv2 decodes and the port does not yet (NeXT)
+    raises naming it; a cut file fails as cv2 fails."""
     import io
 
     from PIL import Image
 
     c = rng_of(12).integers(0, 256, (20, 16, 3), dtype=np.uint8)
-    bio = io.BytesIO()
-    Image.fromarray(c).save(bio, "TIFF", compression="jpeg")
-    with pytest.raises(ValueError, match=r"JPEG compression \(7\) is not yet ported"):
-        codecs.decode_image(bio.getvalue())
-    ycc = mk.tiff(c, 6, 1)
-    with pytest.raises(ValueError, match="photometric YCbCr is not yet ported"):
-        codecs.decode_image(ycc)
-    with pytest.raises(ValueError, match="12-bit samples are not yet ported"):
-        codecs.decode_unchanged(mk.tiff(c[..., 0].astype(np.uint16), 1, 1, bits=12))
+    cases = []
+    for comp in ("jpeg", "lzma", "zstd"):
+        bio = io.BytesIO()
+        Image.fromarray(c).save(bio, "TIFF", compression=comp)
+        cases.append((comp, bio.getvalue()))
+    cases += [("ycbcr", mk.tiff(c, 6, 1)), ("12-bit", mk.tiff(c[..., 0].astype(np.uint16), 1, 1, bits=12))]
+    hold_all(cases, tmp_path)
+    jpeg, lzma, zstd, ycc, deep = (data for _, data in cases)
+    assert codecs.decode_image(jpeg).shape == (20, 16, 3) and codecs.decode_image(ycc).shape == (20, 16, 3)
+    assert codecs.decode_unchanged(deep).dtype == np.uint16
+    for data, codec in ((lzma, r"LZMA compression \(34925\)"), (zstd, r"ZSTD compression \(50000\)")):
+        with pytest.raises(ValueError, match=codec + ": cv2's libtiff is built without it"):
+            codecs.decode_image(data)
+    next_tiff = bytearray(mk.tiff(c, 2, 1))
+    next_tiff = next_tiff.replace(struct.pack("<HHIHH", 259, 3, 1, 1, 0), struct.pack("<HHIHH", 259, 3, 1, 32766, 0))
+    with pytest.raises(ValueError, match=r"NeXT compression \(32766\) is not yet ported"):
+        codecs.decode_image(bytes(next_tiff))
     whole = cv2.imencode(".tiff", c)[1].tobytes()
     hold_all([(n, whole[:n]) for n in (10, len(whole) // 2, len(whole) - 3)], tmp_path)
 

@@ -186,6 +186,7 @@ struct Jpeg {
     bool saw_jfif = false, saw_adobe = false, saw_app1 = false;
     int adobe_transform = -1;
     int orientation = 0;  // EXIF tag 0x0112 of the first APP1, 0 if none
+    int colour = -1;      // -1: libjpeg's guess from the markers; 0: the components; 1: YCbCr to RGB
     Component comp[4];
     uint16_t qt[4][64] = {};
     bool qt_defined[4] = {};
@@ -1606,9 +1607,17 @@ void render(Jpeg& j, uint8_t* out, int channels) {
         }
         return;
     }
+    if (j.colour == 0) {  // JCS_UNKNOWN: the components as they are (tif_jpeg.c)
+        if (channels != j.ncomp) fail("the components of a JPEG decode to one channel each");
+        for (size_t i = 0; i < n; i++) {
+            for (int c = 0; c < j.ncomp; c++) out[static_cast<size_t>(j.ncomp) * i + c] = full[c][i];
+        }
+        return;
+    }
     if (channels != 3) fail("a colour JPEG decodes to 3 channels");
     static const ColorTables t;
     const uint8_t *p0 = full[0].data(), *p1 = full[1].data(), *p2 = full[2].data();
+    if (j.colour == 1 && j.ncomp != 3) fail("YCbCr to RGB of a JPEG without 3 components");
     if (j.ncomp == 4) {
         // jdapimin.c: Adobe transform 0 is CMYK, any other YCCK, no Adobe
         // marker CMYK; libjpeg outputs CMYK and OpenCV's
@@ -1630,7 +1639,9 @@ void render(Jpeg& j, uint8_t* out, int channels) {
         return;
     }
     bool rgb;
-    if (j.saw_jfif) {
+    if (j.colour == 1) {
+        rgb = false;
+    } else if (j.saw_jfif) {
         rgb = false;
     } else if (j.saw_adobe) {
         rgb = j.adobe_transform == 0;
@@ -1795,6 +1806,33 @@ int tl_jpeg_decode(const uint8_t* data, size_t len, int file, uint8_t* out, int 
         parse(j, false);
         if (j.width != width || j.height != height) fail("image size changed between calls");
         render(j, out, channels);
+        return 0;
+    } catch (const DecodeError& e) {
+        copy_message(e.msg, err, errlen);
+        return -1;
+    } catch (const std::exception& e) {
+        copy_message(e.what(), err, errlen);
+        return -1;
+    }
+}
+
+// Decode a JPEG of a TIFF strip or tile (tif_jpeg.c) into out: colour 1
+// converts YCbCr to RGB (height*width*3), colour 0 leaves the components as
+// they are (height*width*components; JCS_UNKNOWN). 0 on success, else -1.
+int tl_jpeg_decode_colour(const uint8_t* data, size_t len, int file, uint8_t* out, int width, int height, int colour,
+                          char* err, int errlen) {
+    try {
+        Jpeg j(data, len, file != 0);
+        parse(j, false);
+        if (j.width != width || j.height != height) fail("image size changed between calls");
+        if (j.lossless) fail("a lossless JPEG in a TIFF");
+        if (j.ncomp > 1 && colour == 0) {
+            for (int c = 0; c < j.ncomp; c++) {
+                if (j.comp[c].h != 1 || j.comp[c].v != 1) fail("subsampled components left unconverted");
+            }
+        }
+        j.colour = colour;
+        render(j, out, colour == 1 ? 3 : j.ncomp);
         return 0;
     } catch (const DecodeError& e) {
         copy_message(e.msg, err, errlen);

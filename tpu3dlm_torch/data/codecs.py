@@ -10,8 +10,9 @@ libtiff 4.7, libwebp, OpenJPEG 2.5 and cv2's own decoders) byte for byte:
   bytes), the format told apart by its signature as cv2 does, whatever the
   file's extension; ``read_unchanged`` / ``decode_unchanged``: the same
   under IMREAD_UNCHANGED (the depth path), in cv2's layout and dtype. JPEG
-  and PNG are decoded here; TIFF, BMP, PNM/PAM/PFM, Sun raster, Radiance
-  HDR and GIF in ``data/containers.py``; WebP (lossless, lossy, alpha,
+  and PNG are decoded here; TIFF (BigTIFF, CCITT, JPEG, YCbCr and CIELab
+  too), BMP, PNM/PAM/PFM, Sun raster, Radiance HDR and GIF in
+  ``data/containers.py``; WebP (lossless, lossy, alpha,
   EXIF, an animation's first frame) in ``data/webp.py``; JPEG 2000 (JP2
   files and raw codestreams, 5/3 and 9/7, RCT/ICT) in ``data/jpeg2000.py``.
   AVIF raises ``ValueError`` naming the format as not yet ported, OpenEXR
@@ -67,12 +68,13 @@ def _lib() -> ctypes.CDLL:
         u8p, i, sz = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
         lib.tl_jpeg_info.argtypes = [u8p, sz, i, ctypes.POINTER(i), ctypes.c_char_p, i]
         lib.tl_jpeg_decode.argtypes = [u8p, sz, i, u8p, i, i, i, ctypes.c_char_p, i]
+        lib.tl_jpeg_decode_colour.argtypes = [u8p, sz, i, u8p, i, i, i, ctypes.c_char_p, i]
         lib.tl_exif_orientation.argtypes = [u8p, sz]
         lib.tl_png_samples.argtypes = [u8p, sz, i, i, i, i, i, u8p]
         lib.tl_resize_linear_u8.argtypes = [u8p, i, i, i, u8p, i, i]
         lib.tl_jpeg_encode.argtypes = [u8p, i, i, i, u8p, sz, ctypes.POINTER(sz), ctypes.c_char_p, i]
-        for fn in (lib.tl_jpeg_info, lib.tl_jpeg_decode, lib.tl_exif_orientation, lib.tl_png_samples,
-                   lib.tl_jpeg_encode):
+        for fn in (lib.tl_jpeg_info, lib.tl_jpeg_decode, lib.tl_jpeg_decode_colour, lib.tl_exif_orientation,
+                   lib.tl_png_samples, lib.tl_jpeg_encode):
             fn.restype = i
         lib.tl_resize_linear_u8.restype = None
         lib._typed = True

@@ -24,13 +24,21 @@ are cv2's own, including its odd ones:
   IMREAD_UNCHANGED), RLE4/RLE8, 15/16 bpp (555 or 565 bit fields), 24 bpp,
   32 bpp (BI_RGB: 3 channels; BI_BITFIELDS: BGRA under IMREAD_UNCHANGED),
   OS/2 headers, bottom-up or top-down.
-- TIFF (libtiff 4.7 as cv2's TiffDecoder drives it): strips or tiles,
-  chunky or planar, no compression, LZW, Deflate or PackBits, the
-  horizontal and floating point predictors (LZW and Deflate only, as in
-  libtiff). 8-bit results come through libtiff's RGBA reader (gray maps,
-  MinIsWhite, 16-bit gray by its high byte and colour by a rounded /257,
-  unassociated alpha premultiplied, palettes, CMYK); 16, 32 and 64-bit
-  results are the samples. The Orientation tag turns the image.
+- TIFF and BigTIFF (libtiff 4.7 as cv2's TiffDecoder drives it): strips
+  or tiles, chunky or planar; no compression, LZW, Deflate, PackBits, JPEG
+  (each strip or tile an abbreviated stream after the JPEGTables, decoded
+  by ``codecs.py``'s libjpeg-turbo decoder; YCbCr made RGB by it) and CCITT
+  (Modified Huffman, its word-aligned form, T.4 1-D and 2-D, T.6, either
+  FillOrder; ``csrc/host/tiff.cpp``); the horizontal and floating point
+  predictors (LZW and Deflate only, as in libtiff). 8-bit results come
+  through libtiff's RGBA reader (gray maps, MinIsWhite, 16-bit gray by its
+  high byte and colour by a rounded /257, unassociated alpha premultiplied,
+  palettes, CMYK, YCbCr sampling units through TIFFYCbCrToRGB, CIELab
+  through TIFFCIELabToRGB with the sRGB display); 10, 12, 14, 16, 32 and
+  64-bit results are the samples (10 to 14 bits moved to the top of 16).
+  The Orientation tag turns the image. What cv2's libtiff is built without
+  (old JPEG, PixarLog, JBIG, LZMA, ZSTD, WebP, LERC) is refused saying so;
+  NeXT, ThunderScan and SGILog are not yet ported.
 - Sun raster: 1/8/24/32 bits, colour maps; 24 and 32 bits as B, G, R.
   Radiance HDR: flat or new run-length RGBE scanlines → float32 BGR,
   ×255 and saturated under IMREAD_COLOR. GIF: the first image on its
@@ -444,30 +452,74 @@ def _gray_palette(bgr: np.ndarray) -> np.ndarray:
 
 _TIFF_TYPES = {1: "B", 2: "B", 3: "H", 4: "I", 5: "II", 6: "b", 7: "B", 8: "h", 9: "i", 10: "ii", 11: "f", 12: "d",
                13: "I"}
-_TIFF_COMPRESSIONS = {1: "none", 2: "CCITT RLE", 3: "CCITT G3", 4: "CCITT G4", 5: "LZW", 6: "old JPEG", 7: "JPEG",
-                      8: "Deflate", 32946: "Deflate", 32773: "PackBits", 34925: "LZMA", 50000: "ZSTD", 50001: "WebP",
-                      34887: "LERC", 32809: "ThunderScan", 32908: "PixarFilm", 32909: "PixarLog",
-                      34676: "SGILog", 34677: "SGILog24", 34712: "JPEG 2000"}
+_BIGTIFF_TYPES = {16: "Q", 17: "q", 18: "Q"}  # LONG8, SLONG8, IFD8: BigTIFF only
+# the compressions the port decodes: none, CCITT (RLE, T.4, T.6, RLEW), LZW,
+# JPEG, Deflate, PackBits
+_TIFF_DECODED = (1, 2, 3, 4, 5, 7, 8, 32771, 32773, 32946)
+# what cv2's libtiff is built without: it returns None ("... compression
+# support is not configured")
+_TIFF_CV2_LACKS = {6: "old JPEG", 32909: "PixarLog", 34661: "JBIG", 34925: "LZMA", 50000: "ZSTD", 50001: "WebP",
+                   34887: "LERC"}
+# what cv2's libtiff decodes and the port does not yet
+_TIFF_NOT_PORTED = {32766: "NeXT", 32809: "ThunderScan", 34676: "SGILog", 34677: "SGILog24"}
+_FAX = (2, 3, 4, 32771)
+
+
+def _tiff_codec(comp: int, name: str) -> None:
+    """Refuses a compression the port does not decode, saying why."""
+    if comp in _TIFF_DECODED:
+        return
+    if comp in _TIFF_CV2_LACKS:
+        _fail("TIFF", name, f"{_TIFF_CV2_LACKS[comp]} compression ({comp}): cv2's libtiff is built without it "
+                            "(cv2 returns None)")
+    if comp in _TIFF_NOT_PORTED:
+        _fail("TIFF", name, f"{_TIFF_NOT_PORTED[comp]} compression ({comp}) is not yet ported (cv2 decodes it)")
+    _fail("TIFF", name, f"compression {comp} has no decoder in libtiff (cv2 returns an image of undefined content)")
 
 
 def _tiff_ifd(data: bytes, name: str) -> tuple[str, dict]:
-    """The first IFD of a classic TIFF: (byte order, {tag: values})."""
+    """The first IFD of a classic TIFF or a BigTIFF: (byte order, {tag:
+    values}). BigTIFF (version 43) has 8-byte offsets and counts and 20-byte
+    entries whose values fit in 8 bytes inline."""
     bo = "<" if data[:2] == b"II" else ">"
     hdr = _need(data, 0, 8, "TIFF", name)
-    (off,) = struct.unpack(bo + "I", hdr[4:8])
-    (n,) = struct.unpack(bo + "H", _need(data, off, 2, "TIFF", name))
-    ents = _need(data, off + 2, 12 * n, "TIFF", name)
+    types = _TIFF_TYPES
+    if struct.unpack(bo + "H", hdr[2:4])[0] == 43:
+        bytesize, zero, off = struct.unpack(bo + "HHQ", _need(data, 4, 12, "TIFF", name))
+        if bytesize != 8 or zero != 0:
+            _fail("TIFF", name, f"BigTIFF header with offsets of {bytesize} bytes")
+        (n,) = struct.unpack(bo + "Q", _need(data, off, 8, "TIFF", name))
+        head, esize, inline, at, ofmt = "HHQ", 20, 8, off + 8, "Q"
+        types = {**_TIFF_TYPES, **_BIGTIFF_TYPES}
+    else:
+        (off,) = struct.unpack(bo + "I", hdr[4:8])
+        (n,) = struct.unpack(bo + "H", _need(data, off, 2, "TIFF", name))
+        head, esize, inline, at, ofmt = "HHI", 12, 4, off + 2, "I"
+    ents = _need(data, at, esize * n, "TIFF", name)
+    hsize = struct.calcsize(bo + head)
     tags = {}
     for i in range(n):
-        tag, typ, count = struct.unpack(bo + "HHI", ents[12 * i:12 * i + 8])
-        if typ not in _TIFF_TYPES:
+        e = ents[esize * i:esize * (i + 1)]
+        tag, typ, count = struct.unpack(bo + head, e[:hsize])
+        if typ not in types:
             continue
-        code = _TIFF_TYPES[typ]
+        code = types[typ]
         size = struct.calcsize(code) * count
-        raw = ents[12 * i + 8:12 * i + 12] if size <= 4 else _need(
-            data, struct.unpack(bo + "I", ents[12 * i + 8:12 * i + 12])[0], size, "TIFF", name)
+        raw = e[hsize:] if size <= inline else _need(
+            data, struct.unpack(bo + ofmt, e[hsize:])[0], size, "TIFF", name)
         tags[tag] = list(struct.unpack(bo + code * count, raw[:size]))
     return bo, tags
+
+
+def _tiff_floats(t: dict, tag: int, default) -> list[float]:
+    """A RATIONAL (or FLOAT) tag as libtiff reads it into floats."""
+    if tag not in t:
+        return list(default)
+    v = t[tag]
+    if all(isinstance(x, float) for x in v):
+        return [float(np.float32(x)) for x in v]
+    pairs = zip(v[0::2], v[1::2])
+    return [0.0 if d == 0 else float(np.float32(nu / d)) for nu, d in pairs]
 
 
 def _tiff_chunk(lib, comp: int, raw: bytes, n: int, name: str) -> np.ndarray:
@@ -496,13 +548,109 @@ def _tiff_chunk(lib, comp: int, raw: bytes, n: int, name: str) -> np.ndarray:
     return out
 
 
+def _tiff_fax(raw: bytes, comp: int, t: dict, tw: int, rows: int, runs: np.ndarray, name: str) -> np.ndarray:
+    """One strip or tile of CCITT data (tif_fax3.c through
+    ``csrc/host/tiff.cpp``, with ``runs``, the image's run array) → (rows,
+    tw, 1) bits, 1 black. Data that ends inside the strip leaves the rows
+    after it as libtiff leaves its buffer (not defined): the port refuses
+    them."""
+    out = np.zeros((rows, (tw + 7) // 8), np.uint8)
+    src = _u8(raw)
+    twod = comp == 3 and bool(t.get(292, [0])[0] & 1)
+    got = _tiff_lib().tl_tiff_fax(src.ctypes.data, src.size, comp, int(twod), int(t.get(266, [1])[0] == 2), tw, rows,
+                                  runs.ctypes.data, out.ctypes.data)
+    if got < 0:
+        _fail("TIFF", name, "CCITT row with more changes than libtiff's run buffer holds")
+    if got < rows:
+        _fail("TIFF", name, f"CCITT data ends before row {got + 1} of {rows} of a strip or tile is whole (the rows "
+                            "from there on are not defined in cv2)")
+    return np.unpackbits(out, axis=1)[:, :tw, None]
+
+
+def _tiff_jpeg(raw: bytes, t: dict, ph: int, tw: int, rows: int, name: str) -> np.ndarray:
+    """One strip or tile of JPEG-in-TIFF (tif_jpeg.c): an abbreviated stream
+    read after the JPEGTables (tag 347), decoded by the port's libjpeg-turbo
+    decoder as a file (a cut stream padded with libjpeg's fake EOI, as
+    tif_jpeg.c's source manager does), YCbCr converted to RGB by libjpeg
+    (JPEGCOLORMODE_RGB, fancy upsampling inside this strip or tile), any
+    other photometric left as its components → (rows, tw, components)."""
+    import ctypes as ct
+
+    from tpu3dlm_torch.data.codecs import _ERRLEN, _lib as codecs_lib
+
+    tables = bytes(t[347]) if 347 in t else b""
+    if tables[:2] == b"\xff\xd8" and tables[-2:] == b"\xff\xd9":
+        stream = tables[:-2] + raw[2:] if raw[:2] == b"\xff\xd8" else raw
+    else:
+        stream = raw
+    lib = codecs_lib()
+    src = _u8(stream)
+    err = ct.create_string_buffer(_ERRLEN)
+    info = (ct.c_int * 4)()
+    if lib.tl_jpeg_info(src.ctypes.data, src.size, 1, info, err, _ERRLEN) != 0:
+        _fail("TIFF", name, f"JPEG strip or tile: {err.value.decode()}")
+    w, h, ncomp = info[0], info[1], info[2]
+    if w > tw or h > rows:
+        _fail("TIFF", name, f"JPEG strip or tile of {w}x{h} exceeds the expected {tw}x{rows}")
+    if (w, h) != (tw, rows):
+        _fail("TIFF", name, f"JPEG strip or tile of {w}x{h}, short of the expected {tw}x{rows} (not defined in cv2)")
+    colour = 1 if ph == 6 else 0
+    channels = 3 if colour else ncomp
+    out = np.empty((h, w, channels), np.uint8)
+    if lib.tl_jpeg_decode_colour(src.ctypes.data, src.size, 1, out.ctypes.data, w, h, colour, err, _ERRLEN) != 0:
+        _fail("TIFF", name, f"JPEG strip or tile: {err.value.decode()}")
+    return out
+
+
+def _tiff_ycbcr_units(buf: np.ndarray, t: dict, rows: int, w: int, hs: int, vs: int, stride: int,
+                      name: str) -> np.ndarray:
+    """The first ``rows`` x ``w`` pixels of a strip or tile of 8-bit YCbCr
+    sampling units (a row of units every ``stride`` bytes) as RGB (rows, w,
+    3), as tif_getimage.c converts them (``csrc/host/tiff.cpp``)."""
+    luma = np.asarray(_tiff_floats(t, 529, (0.299, 0.587, 0.114)), np.float32)
+    rbw = np.asarray(_tiff_floats(t, 532, (0.0, 255.0, 128.0, 255.0, 128.0, 255.0)), np.float32)
+    if luma.size != 3 or rbw.size != 6 or np.isnan(luma).any() or luma[1] == 0:
+        _fail("TIFF", name, "invalid YCbCrCoefficients (libtiff's RGBA reader refuses them)")
+    if not ((rbw > np.float32(-0x7FFFFFFF + 128)) & (rbw < np.float32(0x7FFFFFFF))).all():
+        _fail("TIFF", name, "invalid ReferenceBlackWhite (libtiff's RGBA reader refuses it)")
+    out = np.empty((rows, w, 3), np.uint8)
+    buf = np.ascontiguousarray(buf)
+    _tiff_lib().tl_tiff_ycbcr(buf.ctypes.data, w, rows, hs, vs, stride, luma.ctypes.data, rbw.ctypes.data,
+                              out.ctypes.data)
+    return out
+
+
+def _tiff_lib() -> ctypes.CDLL:
+    lib = load_host_library("tiff")
+    if not getattr(lib, "_typed", False):
+        p, i, sz = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
+        lib.tl_tiff_fax.argtypes = [p, sz, i, i, i, i, i, p, p]
+        lib.tl_tiff_ycbcr.argtypes = [p, i, i, i, i, sz, p, p, p]
+        lib.tl_tiff_cielab.argtypes = [p, sz, i, i, ctypes.c_float, ctypes.c_float, p]
+        for fn in (lib.tl_tiff_fax, lib.tl_tiff_ycbcr, lib.tl_tiff_cielab):
+            fn.restype = i
+        lib._typed = True
+    return lib
+
+
+def _unpack_samples(buf: np.ndarray, rows: int, n: int, bps: int) -> np.ndarray:
+    """(rows, bytes) of samples of ``bps`` bits packed MSB first, each row
+    from a byte boundary → (rows, n) uint8 (bps < 8) or uint16."""
+    bits = np.unpackbits(buf.reshape(rows, -1), axis=1)[:, :n * bps].reshape(rows, n, bps)
+    weights = (1 << np.arange(bps - 1, -1, -1)).astype(np.uint32)
+    v = bits.astype(np.uint32) @ weights
+    return v.astype(np.uint8 if bps < 8 else np.uint16)
+
+
 def _tiff_samples(data: bytes, name: str, bo: str, t: dict, w: int, h: int, spp: int, bps: int, fmt: int):
-    """Every strip or tile decoded: (H, W, spp) samples in the file's sample
-    type (bytes of 1- and 4-bit samples unpacked to one a sample)."""
+    """Every strip or tile decoded: ((H, W, spp) samples in the file's sample
+    type (bytes of 1- and 4-bit samples unpacked to one a sample, 10-, 12-
+    and 14-bit ones to uint16; JPEG's decoded pixels; subsampled YCbCr's
+    RGB), the chunky tiles' bytes, the compression, whether the samples are
+    YCbCr converted to RGB)."""
     comp = t.get(259, [1])[0]
-    if comp not in (1, 5, 8, 32946, 32773):
-        _fail("TIFF", name, f"{_TIFF_COMPRESSIONS.get(comp, comp)} compression ({comp}) is not yet ported")
     planar = t.get(284, [1])[0]
+    ph = t[262][0]
     # libtiff runs the predictor in the LZW and Deflate codecs only
     pred = t.get(317, [1])[0] if comp in (5, 8, 32946) else 1
     per = spp if planar == 1 else 1
@@ -525,14 +673,25 @@ def _tiff_samples(data: bytes, name: str, bo: str, t: dict, w: int, h: int, spp:
         _fail("TIFF", name, "floating point predictor on integer samples")
     if pred not in (1, 2, 3):
         _fail("TIFF", name, f"predictor {pred}")
-    dtype = {8: np.uint8, 16: np.uint16, 32: np.uint32, 64: np.uint64}.get(bps, np.uint8)
+    if comp in _FAX and (bps != 1 or per != 1):
+        _fail("TIFF", name, f"CCITT compression of {bps}-bit samples ({per} a pixel)")
+    hs, vs = t.get(530, [2, 2])[:2] if ph == 6 else (1, 1)
+    units = ph == 6 and comp != 7 and planar == 1 and (hs, vs) != (1, 1)  # subsampled YCbCr sampling units
+    if units and pred != 1:
+        _fail("TIFF", name, "a predictor on subsampled YCbCr")
+    if comp == 7 and (planar != 1 or bps != 8):
+        _fail("TIFF", name, f"JPEG compression of {bps}-bit samples, planar {planar}")
+    dtype = {8: np.uint8, 16: np.uint16, 32: np.uint32, 64: np.uint64}.get(bps, np.uint8 if bps < 8 else np.uint16)
     if fmt == 3:
         dtype = {32: np.float32, 64: np.float64}[bps]
     elif fmt == 2:
         dtype = {8: np.int8, 16: np.int16, 32: np.int32, 64: np.int64}[bps]
     rowbytes = (tw * per * bps + 7) // 8
     lib = _lib()
-    out = np.zeros((h, w, spp), dtype)
+    if comp in _FAX:  # Fax3SetupState's run array, zeroed once for the image
+        refline = comp == 4 or (comp == 3 and t.get(292, [0])[0] & 1)
+        fax_runs = np.zeros(2 * (-(-(tw + 1) // 32) * 32 * (2 if refline else 1)) + 2, np.uint32)
+    out = None
     tiles = []  # (y0, x0, tile bytes in native order) of chunky tiles
     k = 0
     for plane in range(planes):
@@ -541,29 +700,59 @@ def _tiff_samples(data: bytes, name: str, bo: str, t: dict, w: int, h: int, spp:
                 rows = th if tiled else min(th, h - ty * th)
                 off, cnt = offsets[k], counts[k]
                 k += 1
-                buf = _tiff_chunk(lib, t.get(259, [1])[0], data[off:off + cnt], rows * rowbytes, name).reshape(rows, rowbytes)
-                if bps < 8:
-                    v = np.unpackbits(buf, axis=1).reshape(rows, -1, bps)
-                    v = (v * (1 << np.arange(bps - 1, -1, -1, dtype=np.uint8))).sum(-1).astype(np.uint8)
-                    v = v[:, :tw * per].reshape(rows, tw, per)
-                elif pred == 3:
-                    nb = bps // 8
-                    b = buf.reshape(rows, rowbytes)
-                    b = np.cumsum(b.reshape(rows, -1, per), axis=1, dtype=np.uint8).reshape(rows, rowbytes) if per > 1 \
-                        else np.cumsum(b, axis=1, dtype=np.uint8)
-                    b = b.reshape(rows, nb, tw * per).transpose(0, 2, 1)
-                    v = np.ascontiguousarray(b).view(np.dtype(dtype).newbyteorder(">")).reshape(rows, tw, per)
-                else:
-                    v = buf.view(np.dtype(dtype).newbyteorder(bo)).reshape(rows, tw, per)
-                    if pred == 2:
-                        u = v.view(np.dtype(f"u{v.dtype.itemsize}").newbyteorder(bo)).astype(f"u{v.dtype.itemsize}")
-                        v = np.cumsum(u, axis=1, dtype=u.dtype).view(dtype)
+                raw = data[off:off + cnt]
                 y0, x0 = ty * th, tx * tw
                 hh, ww = min(rows, h - y0), min(tw, w - x0)
-                out[y0:y0 + hh, x0:x0 + ww, plane:plane + per] = v[:hh, :ww]
-                if tiled and bps >= 8:
+                if comp in _FAX:
+                    v = _tiff_fax(raw, comp, t, tw, rows, fax_runs, name)
+                elif comp == 7:
+                    v = _tiff_jpeg(raw, t, ph, tw, rows, name)
+                elif units:
+                    unit, urow = hs * vs + 2, -(-tw // hs) * (hs * vs + 2)
+                    buf = _tiff_chunk(lib, comp, raw, -(-rows // vs) * urow, name)
+                    if not tiled:
+                        # gtStripContig reads (rows rounded up to vs) x TIFFScanlineSize
+                        # bytes of a strip, the scanline a unit row / vs rounded down
+                        # (4x4: 2 bytes short for an odd count of units), into a buffer
+                        # zeroed for each TIFFReadRGBAStrip cv2 makes
+                        buf[-(-rows // vs) * vs * (urow // vs):] = 0
+                    # tif_getimage.c skips a tile's columns past the image by
+                    # (skipped pixels / hs) units of hs * 2 + 2 bytes for 4x4
+                    # (putcontig8bitYCbCr44tile), of their own size otherwise
+                    skip = (tw - ww) // hs * (hs * 2 + 2 if (hs, vs) == (4, 4) else unit)
+                    stride = -(-ww // hs) * unit + skip
+                    if (-(-hh // vs) - 1) * stride + -(-ww // hs) * unit > buf.size:
+                        _fail("TIFF", name, "YCbCr tile rows past its data (not defined in cv2)")
+                    v = _tiff_ycbcr_units(buf, t, hh, ww, hs, vs, stride, name)
+                else:
+                    buf = _tiff_chunk(lib, comp, raw, rows * rowbytes, name).reshape(rows, rowbytes)
+                    if bps < 8 or bps in (10, 12, 14):
+                        v = _unpack_samples(buf, rows, tw * per, bps).reshape(rows, tw, per)
+                    elif pred == 3:
+                        nb = bps // 8
+                        b = buf.reshape(rows, rowbytes)
+                        b = np.cumsum(b.reshape(rows, -1, per), axis=1, dtype=np.uint8).reshape(rows, rowbytes) \
+                            if per > 1 else np.cumsum(b, axis=1, dtype=np.uint8)
+                        b = b.reshape(rows, nb, tw * per).transpose(0, 2, 1)
+                        v = np.ascontiguousarray(b).view(np.dtype(dtype).newbyteorder(">")).reshape(rows, tw, per)
+                    else:
+                        v = buf.view(np.dtype(dtype).newbyteorder(bo)).reshape(rows, tw, per)
+                        if pred == 2:
+                            u = v.view(np.dtype(f"u{v.dtype.itemsize}").newbyteorder(bo)).astype(f"u{v.dtype.itemsize}")
+                            v = np.cumsum(u, axis=1, dtype=u.dtype).view(dtype)
+                if out is None:
+                    out = np.zeros((h, w, v.shape[2] if planar == 1 else spp), v.dtype.newbyteorder("="))
+                out[y0:y0 + hh, x0:x0 + ww, plane:plane + v.shape[2]] = v[:hh, :ww]
+                if tiled and bps >= 8 and comp != 7 and not units:
                     tiles.append((y0, x0, np.ascontiguousarray(v).astype(v.dtype.newbyteorder("<")).view(np.uint8)))
-    return out, tiles, comp
+    return out, tiles, comp, units
+
+
+# YCbCrSubSampling pairs with a putcontig8bitYCbCr* routine in tif_getimage.c
+_YCBCR_SUBSAMPLINGS = ((1, 1), (1, 2), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4))
+# libtiff's default WhitePoint (tif_aux.c): D50's chromaticity, in float
+_D50 = np.float32(96.4250), np.float32(100.0), np.float32(82.4680)
+_D50_XY = (float(_D50[0] / (_D50[0] + _D50[1] + _D50[2])), float(_D50[1] / (_D50[0] + _D50[1] + _D50[2])))
 
 
 def _tiff(data: bytes, name: str, color: bool, file: bool = False) -> np.ndarray:
@@ -574,22 +763,24 @@ def _tiff(data: bytes, name: str, color: bool, file: bool = False) -> np.ndarray
     bps = t.get(258, [1])[0]
     spp = t.get(277, [1])[0]
     fmt = t.get(339, [1])[0]
+    comp = t.get(259, [1])[0]
     if w <= 0 or h <= 0:
         _fail("TIFF", name, "empty image")
     _size("TIFF", name, w, h, max(spp, 1))
     if spp > 4:
         _fail("TIFF", name, f"{spp} samples a pixel (cv2 takes 1 to 4)")
+    _tiff_codec(comp, name)
     # cv2's TiffDecoder::readHeader: the type IMREAD_UNCHANGED asks for
     if bps == 1 or (bps == 4 and ph == 3) or bps == 8:
         if fmt not in (1, 2):
             _fail("TIFF", name, f"{bps}-bit samples of format {fmt}")
         depth, nch = (np.int8 if fmt == 2 else np.uint8), (3 if ph == 3 else (spp if ph > 1 else 1)) if bps != 1 else 1
-    elif bps == 16:
+    elif bps in (10, 12, 14, 16):
         if fmt not in (1, 2):
-            _fail("TIFF", name, f"16-bit samples of format {fmt}")
+            _fail("TIFF", name, f"{bps}-bit samples of format {fmt}")
         depth, nch = (np.int16 if fmt == 2 else np.uint16), (spp if ph > 1 else 1)
-        if spp == 2 and ph <= 1:  # cv2 reads 16-bit gray + alpha as 8-bit gray
-            depth = np.uint8
+        if spp not in (1, 3, 4) or ph > 2:  # cv2 reads these through the RGBA interface, as 8 bits
+            depth, nch = np.uint8, (3 if ph > 1 else 1)
     elif bps in (32, 64):
         if bps == 64 and fmt != 3:
             _fail("TIFF", name, f"64-bit samples of format {fmt}")
@@ -597,24 +788,41 @@ def _tiff(data: bytes, name: str, color: bool, file: bool = False) -> np.ndarray
         if depth is None:
             _fail("TIFF", name, f"32-bit samples of format {fmt}")
         nch = spp
-    elif bps in (10, 12, 14):
-        _fail("TIFF", name, f"{bps}-bit samples are not yet ported")
     else:
-        _fail("TIFF", name, f"{bps}-bit samples (cv2 takes 1, 8, 16, 32 and 64, and 4 with a palette)")
+        _fail("TIFF", name, f"{bps}-bit samples (cv2 takes 1, 8, 10, 12, 14, 16, 32 and 64, and 4 with a palette)")
     if color:
         depth, nch = np.uint8, 3
-    samples, tiles, comp = _tiff_samples(data, name, bo, t, w, h, spp, bps, fmt)
-    tiled = 322 in t
+    rgba = np.dtype(depth).itemsize == 1  # libtiff's RGBA interface (TIFFReadRGBAStrip / Tile)
     planar = t.get(284, [1])[0] == 2 and spp > 1
-    if np.dtype(depth).itemsize == 1:  # libtiff's RGBA interface (TIFFReadRGBAStrip / Tile)
-        if bps not in (1, 4, 8, 16) or fmt == 3:
-            _fail("TIFF", name, f"{bps}-bit samples of format {fmt} have no 8-bit form in libtiff")
-        tile_bytes = t[322][0] * t[323][0] * (1 if planar else spp) * bps // 8 if tiled else 0
-        if tiled and comp == 1 and tile_bytes % 1024 and not file:  # as cv2.imdecode (not imread) refuses them
+    if rgba and (bps not in (1, 4, 8, 16) or fmt == 3):
+        _fail("TIFF", name, f"{bps}-bit samples of format {fmt} have no 8-bit form in libtiff")
+    if rgba:
+        _tiff_rgba_ok(t, ph, bps, spp, planar, comp, name)
+    tiled = 322 in t
+    if rgba and tiled and comp == 1 and not file:  # as cv2.imdecode (not imread) refuses them
+        if ph == 6 and not planar:
+            hs, vs = t.get(530, [2, 2])[:2]
+            tile_bytes = -(-t[322][0] // hs) * -(-t[323][0] // vs) * (hs * vs + 2)
+        else:
+            tile_bytes = t[322][0] * t[323][0] * (1 if planar else spp) * bps // 8
+        if tile_bytes % 1024:
             _fail("TIFF", name, "uncompressed tiles of a size libtiff's RGBA reader refuses from memory")
-        rgb, alpha = _tiff_rgba(samples, t, ph, bps, spp, planar, name)
-        if tiles and not planar and ph in (0, 1) and (bps == 16 or spp > 1):
-            _tiff_gray_tile_skew(rgb, tiles, t, bps, spp, ph)
+    samples, tiles, comp, as_rgb = _tiff_samples(data, name, bo, t, w, h, spp, bps, fmt)
+    if rgba:
+        if comp == 7 and samples.shape[2] != spp:
+            _fail("TIFF", name, f"JPEG of {samples.shape[2]} components in a TIFF of {spp} samples")
+        if as_rgb or (comp == 7 and ph == 6):  # YCbCr made RGB
+            rgb, alpha = samples, None
+        elif ph == 6:
+            units = np.ascontiguousarray(samples.reshape(h, w * 3))
+            rgb = _tiff_ycbcr_units(units, t, h, w, 1, 1, w * 3, name)
+            alpha = None
+        elif ph == 8:
+            rgb, alpha = _tiff_cielab(samples, t, bps, name), None
+        else:
+            rgb, alpha = _tiff_rgba(samples, t, ph, bps, spp, planar, name)
+            if tiles and not planar and ph in (0, 1) and (bps == 16 or spp > 1):
+                _tiff_gray_tile_skew(rgb, tiles, t, bps, spp, ph)
         if nch == 3:
             img = rgb[..., ::-1]
         elif nch == 4:
@@ -627,6 +835,8 @@ def _tiff(data: bytes, name: str, color: bool, file: bool = False) -> np.ndarray
         if ph == 3:
             _fail("TIFF", name, f"a {bps}-bit palette image")
         img = samples.astype(samples.dtype.newbyteorder("="))
+        if bps in (10, 12, 14):  # cv2 moves the samples to the top bits of its 16
+            img = (img.view(np.uint16) << np.uint16(16 - bps)).view(depth)
         if nch == 1:
             img = img[..., 0]
         elif nch >= 3:
@@ -635,6 +845,39 @@ def _tiff(data: bytes, name: str, color: bool, file: bool = False) -> np.ndarray
     if file and orientation in (5, 6, 7, 8) and h != w:  # cv2.imread's check that the decoder kept its buffer
         _fail("TIFF", name, f"orientation {orientation} transposes a non-square image, which cv2.imread refuses")
     return orient(img, orientation)
+
+
+def _tiff_rgba_ok(t: dict, ph: int, bps: int, spp: int, planar: bool, comp: int, name: str) -> None:
+    """What libtiff's RGBA interface (TIFFRGBAImageOK, PickContigCase,
+    PickSeparateCase) refuses for YCbCr, CIELab and the Lab variants, and
+    for CCITT and JPEG data of another shape; cv2 returns None for each."""
+    if ph == 6 and comp != 7:
+        sub = tuple(t.get(530, [2, 2])[:2])
+        if bps != 8 or spp != 3 or (planar and sub != (1, 1)) or sub not in _YCBCR_SUBSAMPLINGS:
+            _fail("TIFF", name, f"YCbCr of {bps}-bit samples, {spp} a pixel, subsampling {sub}, planar {planar}: "
+                                "libtiff's RGBA reader has no routine for it (cv2 returns None)")
+    if ph == 8 and (spp != 3 or bps not in (8, 16) or planar):
+        _fail("TIFF", name, f"CIELab of {spp} {bps}-bit samples a pixel, planar {planar}: libtiff's RGBA reader "
+                            "has no routine for it (cv2 returns None)")
+    if ph in (9, 10):
+        _fail("TIFF", name, f"photometric {'ICCLab' if ph == 9 else 'ITULab'} ({ph}): libtiff's RGBA reader "
+                            "refuses it (cv2 returns None)")
+    if comp == 7 and (ph not in (1, 2, 5, 6) or bps != 8 or planar):
+        _fail("TIFF", name, f"JPEG compression with photometric {ph}, {bps}-bit samples, planar {planar}")
+
+
+def _tiff_cielab(s: np.ndarray, t: dict, bps: int, name: str) -> np.ndarray:
+    """CIELab samples (8-bit L with signed a and b, or 16-bit) → RGB as
+    tif_getimage.c's putcontig8bitCIELab8 / 16 convert them, with the
+    WhitePoint tag (318; D50 by default) (``csrc/host/tiff.cpp``)."""
+    wx, wy = _tiff_floats(t, 318, _D50_XY)[:2]
+    if wy == 0:
+        _fail("TIFF", name, "WhitePoint with y 0 (libtiff's RGBA reader refuses it)")
+    h, w = s.shape[:2]
+    src = np.ascontiguousarray(s[..., :3].view(np.uint8 if bps == 8 else np.uint16))
+    out = np.empty((h, w, 3), np.uint8)
+    _tiff_lib().tl_tiff_cielab(src.ctypes.data, h * w, 3, bps, wx, wy, out.ctypes.data)
+    return out
 
 
 def _tiff_rgba(s: np.ndarray, t: dict, ph: int, bps: int, spp: int, planar: bool, name: str):
@@ -680,6 +923,8 @@ def _tiff_rgba(s: np.ndarray, t: dict, ph: int, bps: int, spp: int, planar: bool
             rgb = ((rgb.astype(np.uint32) * a[..., None].astype(np.uint32) + 127) // 255).astype(np.uint8)
         return rgb, a
     if ph == 3:
+        if bps > 8:
+            _fail("TIFF", name, f"a {bps}-bit palette image (libtiff's RGBA reader has no routine for it)")
         cmap = np.asarray(t.get(320, []), np.uint32)
         n = 1 << bps
         if cmap.size != 3 * n:
@@ -691,9 +936,12 @@ def _tiff_rgba(s: np.ndarray, t: dict, ph: int, bps: int, spp: int, planar: bool
     if ph == 5 and bps == 8 and t.get(332, [1])[0] == 1 and spp - len(extra) >= 4:  # putRGBcontig8bitCMYKtile
         k = 255 - s[..., 3:4].astype(np.uint32)
         return (k * (255 - s[..., :3].astype(np.uint32)) // 255).astype(np.uint8), None
-    names = {5: "separated (CMYK) at this layout", 6: "YCbCr", 8: "CIELab", 9: "ICCLab", 10: "ITULab",
-             32844: "LogL", 32845: "LogLuv"}
-    _fail("TIFF", name, f"photometric {names.get(ph, ph)} is not yet ported")
+    if ph == 5:  # TIFFRGBAImageOK: 8-bit CMYK (InkSet 1, four inks) only
+        _fail("TIFF", name, f"separated (CMYK) of {bps}-bit samples, {spp} a pixel: libtiff's RGBA reader has no "
+                            "routine for it (cv2 returns None)")
+    if ph in (32844, 32845):
+        _fail("TIFF", name, f"photometric {'LogL' if ph == 32844 else 'LogLuv'} is not yet ported")
+    _fail("TIFF", name, f"photometric {ph}: libtiff's RGBA reader refuses it (cv2 returns None)")
 
 
 def _tiff_gray_tile_skew(rgb: np.ndarray, tiles: list, t: dict, bps: int, spp: int, ph: int) -> None:
@@ -934,7 +1182,7 @@ DECODERS = {
     "PNM": (lambda d: len(d) > 2 and d[:1] == b"P" and d[1] in b"123456" and _isspace(d[2]), _pnm),
     "PAM": (lambda d: len(d) > 2 and d[:2] == b"P7" and _isspace(d[2]), _pam),
     "PFM": (lambda d: len(d) > 2 and d[:2] in (b"PF", b"Pf") and _isspace(d[2]), _pfm),
-    "TIFF": (lambda d: d[:4] in (b"II*\x00", b"MM\x00*"), _tiff),
+    "TIFF": (lambda d: d[:4] in (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+"), _tiff),
     "Sun raster": (lambda d: d[:4] == b"\x59\xa6\x6a\x95", _sun),
     "Radiance HDR": (lambda d: d[:10] == b"#?RADIANCE" or d[:6] == b"#?RGBE", _hdr),
     "GIF": (lambda d: d[:6] in (b"GIF87a", b"GIF89a"), _gif),
